@@ -1,0 +1,67 @@
+"""Algorithm 2 (sequential blocked MTTKRP) as a host-level einsum (PyTorch).
+
+Counterpart of ``repro.core.blocked.mttkrp_blocked``: the tensor is cut into
+``b x ... x b`` blocks whose coordinates become explicit contraction
+indices, so the contraction follows the paper's blocked loop order. The
+mid-level oracle for the kernels.
+"""
+
+from __future__ import annotations
+
+from typing import Sequence
+
+import torch
+import torch.nn.functional as F
+
+_L = "abcdefghijklmnop"
+
+
+def _pad_rows(x: torch.Tensor, block: int) -> torch.Tensor:
+    """Zero-pad every axis of ``x`` up to a multiple of ``block``."""
+    pads: list[int] = []
+    for d in reversed(x.shape):
+        pads += [0, (-d) % block]
+    return F.pad(x, pads) if any(pads) else x
+
+
+def mttkrp_blocked(
+    x: torch.Tensor,
+    factors: Sequence[torch.Tensor | None],
+    mode: int,
+    block: int,
+    f32_acc: bool = False,
+) -> torch.Tensor:
+    """Blocked MTTKRP with Algorithm 2's loop order, expressed as einsum:
+
+        B[n_blk, n_in, r] += X[blk..., in...] * prod_k A_k[k_blk, k_in, r]
+
+    ``f32_acc=True`` forces fp32 accumulation (the engine sets it whenever a
+    ``compute_dtype`` policy casts the operands to a narrow type): the
+    operands are widened to float32, which is exact, and the result is
+    float32.
+    """
+    n = x.ndim
+    dims = x.shape
+    rank = next(f.shape[1] for k, f in enumerate(factors) if k != mode)
+    if f32_acc:
+        x = x.float()
+    xp = _pad_rows(x, block)
+    newshape: list[int] = []
+    for d in xp.shape:
+        newshape += [d // block, block]
+    xb = xp.reshape(newshape)
+    t_sub = "".join(_L[2 * k] + _L[2 * k + 1] for k in range(n))
+    f_subs, f_ops = [], []
+    for k in range(n):
+        if k == mode:
+            continue
+        fk = factors[k]
+        if f32_acc:
+            fk = fk.float()
+        fp = F.pad(fk, (0, 0, 0, (-fk.shape[0]) % block))
+        f_ops.append(fp.reshape(fp.shape[0] // block, block, rank))
+        f_subs.append(_L[2 * k] + _L[2 * k + 1] + "z")
+    out_sub = _L[2 * mode] + _L[2 * mode + 1] + "z"
+    spec = ",".join([t_sub] + f_subs) + "->" + out_sub
+    out = torch.einsum(spec, xb, *f_ops).reshape(-1, rank)
+    return out[: dims[mode], :]

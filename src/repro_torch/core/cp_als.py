@@ -1,0 +1,128 @@
+"""CP-ALS on the per-mode Gauss-Seidel schedule (PyTorch). Counterpart of
+``repro.core.cp_als`` (``CPResult``, ``cp_als``).
+
+One sweep = for each mode n: B = MTTKRP(X, A, n) through the engine; solve
+the normal equations A_n Γ_n = B in float32 with a small ridge;
+column-normalize, keeping the scales λ only in ``weights``. The fit uses
+the inner-product identity
+
+    ||X - recon||^2 = ||X||^2 - 2<B^(N-1), A^(N-1)> + 1^T (Γ ∘ A_N^T A_N) 1
+
+so the full tensor is never rebuilt. The fused and dimension-tree
+schedules come with the fused-sweep slice (ROADMAP Queue 1 item 6).
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass, field
+from typing import Sequence
+
+import torch
+
+from ..engine import execute as engine_execute
+from ..engine.context import ExecutionContext
+from .tensor import frob_norm, random_factors, tensor_from_factors
+
+
+@dataclass
+class CPResult:
+    """A Kruskal-form decomposition: column-normalized ``factors`` plus the
+    column scales ``weights`` (λ), which live only here."""
+
+    factors: list[torch.Tensor]
+    weights: torch.Tensor
+    fits: list[float] = field(default_factory=list)
+
+    @property
+    def final_fit(self) -> float:
+        return self.fits[-1] if self.fits else float("nan")
+
+    def reconstruct(self) -> torch.Tensor:
+        return tensor_from_factors(self.factors, self.weights)
+
+
+def _grams(factors: Sequence[torch.Tensor]) -> list[torch.Tensor]:
+    return [f.T @ f for f in factors]
+
+
+def _hadamard_except(grams: Sequence[torch.Tensor], skip: int) -> torch.Tensor:
+    rank = grams[0].shape[0]
+    out = torch.ones((rank, rank), dtype=grams[0].dtype, device=grams[0].device)
+    for k, g in enumerate(grams):
+        if k != skip:
+            out = out * g
+    return out
+
+
+def _fit(normx: torch.Tensor, b_last: torch.Tensor, a_last: torch.Tensor,
+         gram_had_all: torch.Tensor) -> torch.Tensor:
+    """1 - ||X - recon|| / ||X|| via the inner-product identity."""
+    inner = torch.sum(b_last * a_last)
+    norm_recon_sq = torch.sum(gram_had_all)
+    err_sq = torch.clamp(normx ** 2 - 2 * inner + norm_recon_sq, min=0.0)
+    return 1.0 - torch.sqrt(err_sq) / torch.clamp(normx, min=1e-30)
+
+
+_LATER_SWEEPS = ("dimtree", "fused", "auto")
+
+
+def cp_als(
+    x: torch.Tensor,
+    rank: int,
+    n_iters: int = 20,
+    *,
+    init_factors: Sequence[torch.Tensor] | None = None,
+    generator: torch.Generator | None = None,
+    tol: float = 0.0,
+    sweep: str | None = None,
+    ctx: ExecutionContext | None = None,
+) -> CPResult:
+    """CP-ALS with every MTTKRP through the engine under ``ctx`` (default
+    ``ExecutionContext()``: the Hopper kernels on the card).
+
+    ``init_factors`` start the iteration (tests pass the reference's); else
+    the factors are drawn from ``generator`` (default: seed 0 on the
+    context's device). ``tol > 0`` stops once the fit changes by less.
+    ``sweep`` must be ``None`` or ``"per_mode"``."""
+    ctx = ctx if ctx is not None else ExecutionContext()
+    if sweep is not None and sweep != "per_mode":
+        if sweep in _LATER_SWEEPS:
+            raise ValueError(
+                f"sweep={sweep!r} comes with the fused-sweep slice (ROADMAP Queue 1 item 6); "
+                f"this port runs sweep='per_mode'"
+            )
+        raise ValueError(f"unknown sweep {sweep!r}; expected 'per_mode'")
+    ctx.check_tensor("repro_torch.cp_als", x, *(init_factors or ()))
+    n = x.ndim
+    if init_factors is not None:
+        factors = [f.to(x.dtype) for f in init_factors]
+    else:
+        if generator is None:
+            generator = torch.Generator(device=ctx.torch_device).manual_seed(0)
+        factors = random_factors(generator, x.shape, rank, x.dtype)
+    normx = frob_norm(x)
+    grams = _grams(factors)
+    fits: list[float] = []
+    weights = torch.ones((rank,), dtype=x.dtype, device=x.device)
+    solve_dtype = torch.float64 if x.dtype == torch.float64 else torch.float32
+    eye = torch.eye(rank, dtype=solve_dtype, device=x.device)
+    b_last = a_last = None
+
+    for it in range(n_iters):
+        for mode in range(n):
+            b = engine_execute.mttkrp(x, factors, mode, ctx=ctx)
+            gamma = _hadamard_except(grams, mode).to(solve_dtype)
+            # solve A_n Γ = B (Γ is PSD; the ridge guards rank deficiency)
+            ridge = 1e-5 * torch.trace(gamma) / rank + 1e-12
+            a_new = torch.linalg.solve(gamma + ridge * eye, b.to(solve_dtype).T).T.to(x.dtype)
+            lam = torch.clamp(torch.linalg.vector_norm(a_new, dim=0), min=1e-30)
+            a_new = a_new / lam
+            weights = lam.to(x.dtype)
+            grams[mode] = a_new.T @ a_new
+            factors[mode] = a_new
+            b_last, a_last = b, a_new * weights
+        gram_full = _hadamard_except(grams, -1) * torch.outer(weights, weights)
+        fits.append(float(_fit(normx, b_last, a_last, gram_full)))
+        if tol and it > 0 and abs(fits[-1] - fits[-2]) < tol:
+            break
+    return CPResult(factors, weights, fits)

@@ -1,0 +1,91 @@
+"""Dense tensor utilities shared by the MTTKRP/CP core (PyTorch).
+
+Counterpart of ``repro.core.tensor``; the same conventions hold:
+
+* An ``N``-way tensor is a ``torch.Tensor`` of shape ``(I_1, ..., I_N)``.
+* Factor matrices ``A^(k)`` have shape ``(I_k, R)``.
+* ``mode`` indices are 0-based (the paper is 1-based).
+* Matricization ``X_(n)`` follows the Kolda/Bader convention: the remaining
+  modes ``(0, ..., n-1, n+1, ..., N-1)`` vary earliest-fastest.
+
+The random constructors take an explicit ``torch.Generator``: JAX's PRNG
+cannot be reproduced, so tests that compare the two packages make their
+inputs with numpy and hand the same arrays to both.
+"""
+
+from __future__ import annotations
+
+import math
+from functools import reduce
+from typing import Sequence
+
+import torch
+
+_LETTERS = "abcdefghijklmnopqrstuvw"
+
+
+def matricize(x: torch.Tensor, mode: int) -> torch.Tensor:
+    """Mode-``mode`` matricization ``X_(n)`` of shape ``(I_n, I/I_n)``
+    (Kolda/Bader column order: the earliest remaining mode is fastest)."""
+    n = x.ndim
+    if not 0 <= mode < n:
+        raise ValueError(f"mode {mode} out of range for {n}-way tensor")
+    rest = tuple(k for k in range(n) if k != mode)
+    # Fortran order over the remaining axes == reversed axes, C-ravel.
+    return x.permute((mode,) + rest[::-1]).reshape(x.shape[mode], -1)
+
+
+def tensor_from_factors(
+    factors: Sequence[torch.Tensor], weights: torch.Tensor | None = None
+) -> torch.Tensor:
+    """The full tensor of a CP model: the sum of its rank-1 outer products.
+
+    ``factors[k]`` is ``(I_k, R)``; ``weights`` (λ, shape ``(R,)``) scales
+    each rank-1 term once."""
+    n = len(factors)
+    if n < 2:
+        raise ValueError("need at least 2 factors")
+    subs = [f"{_LETTERS[k]}z" for k in range(n)]
+    ops = list(factors)
+    if weights is not None:
+        subs.append("z")
+        ops.append(weights)
+    return torch.einsum(",".join(subs) + "->" + _LETTERS[:n], *ops)
+
+
+def frob_norm(x: torch.Tensor) -> torch.Tensor:
+    """Frobenius norm, accumulated in float32 (no float32 copy of ``x``)."""
+    return torch.linalg.vector_norm(x.reshape(-1), dtype=torch.float32)
+
+
+def total_size(dims: Sequence[int]) -> int:
+    """I = prod(I_k)."""
+    return int(reduce(lambda a, b: a * b, dims, 1))
+
+
+def random_factors(
+    generator: torch.Generator,
+    dims: Sequence[int],
+    rank: int,
+    dtype: torch.dtype = torch.float32,
+) -> list[torch.Tensor]:
+    """Standard-normal factors scaled by ``1/sqrt(rank)``, on the
+    generator's device."""
+    return [
+        torch.randn(
+            (d, rank), generator=generator, device=generator.device,
+            dtype=dtype,
+        ) / math.sqrt(rank)
+        for d in dims
+    ]
+
+
+def random_low_rank_tensor(
+    generator: torch.Generator,
+    dims: Sequence[int],
+    rank: int,
+    dtype: torch.dtype = torch.float32,
+) -> tuple[torch.Tensor, list[torch.Tensor]]:
+    """An exactly rank-``rank`` tensor together with its generating factors."""
+    factors = random_factors(generator, dims, rank, dtype)
+    return tensor_from_factors(factors), factors

@@ -1,0 +1,99 @@
+"""Build the Hopper kernels with ``nvcc`` at first use and bind them with
+``ctypes``.
+
+The sources under ``csrc/`` have a plain C interface, so one ``nvcc`` call
+per source builds a shared library in seconds (no PyTorch headers). The
+library goes into ``_build/`` beside this file (listed in ``.gitignore``),
+named by a hash of its source, so an edited source is rebuilt and an
+unchanged one is loaded as it is. A build that fails raises; nothing falls
+back to another implementation.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parent / "_build"
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+)
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_LL = ctypes.c_longlong
+_SIGNATURES = {
+    "repro_mttkrp_tile": (
+        _I, [_I, _I, _I, ctypes.POINTER(_LL), ctypes.POINTER(_I), _I, _I, _I,
+             _P, ctypes.POINTER(_LL), _P, _P],
+    ),
+    "repro_splitk_reduce": (_I, [_P, _P, _LL, _I, _P]),
+    "repro_mttkrp_smem_bytes": (_LL, [_I, _I, ctypes.POINTER(_I), _I, _I]),
+}
+
+
+class KernelBuildError(RuntimeError):
+    """nvcc is missing or refused a source."""
+
+
+def nvcc_path() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH") or "/usr/local/cuda"
+    cand = Path(home) / "bin" / "nvcc"
+    if cand.exists():
+        return str(cand)
+    raise KernelBuildError("nvcc not found (set CUDA_HOME or put nvcc on PATH)")
+
+
+def build(source: str = "mttkrp.cu") -> tuple[Path, str]:
+    """Compile ``csrc/<source>`` into ``_build/`` unless a library of the
+    same source hash is there already. Returns the library's path and the
+    compiler's report (``-Xptxas -v``: registers, shared memory, spills),
+    kept beside the library."""
+    src = CSRC / source
+    digest = hashlib.sha1(src.read_bytes()).hexdigest()[:12]
+    lib = BUILD_DIR / f"lib{src.stem}_{digest}.so"
+    report = lib.with_suffix(".log")
+    if lib.exists():
+        return lib, report.read_text() if report.exists() else ""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    os.close(fd)
+    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", tmp, str(src)]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        os.unlink(tmp)
+        raise KernelBuildError(
+            f"nvcc failed ({proc.returncode}) on {src.name}:\n{proc.stdout}\n{proc.stderr}"
+        )
+    report.write_text(proc.stdout + proc.stderr)
+    os.replace(tmp, lib)  # atomic: concurrent builders never see half a file
+    return lib, proc.stdout + proc.stderr
+
+
+@functools.cache
+def library() -> ctypes.CDLL:
+    """The MTTKRP kernel library, built on first use and loaded once."""
+    path, _ = build()
+    lib = ctypes.CDLL(str(path))
+    for name, (restype, argtypes) in _SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.restype = restype
+        fn.argtypes = argtypes
+    return lib
+
+
+def check(err: int, what: str) -> None:
+    """Raise if a C entry point returned a CUDA error code other than 0."""
+    if err != 0:
+        raise RuntimeError(f"{what}: CUDA error {err} at launch")

@@ -1,0 +1,79 @@
+"""Public wrappers for the MTTKRP kernels: mode canonicalization and the
+choice between the 3-way specialized and the N-way generic kernel.
+Counterpart of ``repro.kernels.ops`` (``mttkrp_canonical_pallas``,
+``mttkrp_pallas``).
+
+Unlike the reference, nothing here pads: the kernels take unpadded extents
+and mask their ragged edges, and the plain versions need no padding. The
+transpose that brings the output mode to axis 0 is a
+``permute(...).contiguous()`` copy (none for mode 0).
+"""
+
+from __future__ import annotations
+
+from typing import Sequence
+
+import torch
+
+from ..engine.plan import BlockPlan
+from .mttkrp3 import mttkrp3
+from .mttkrpn import mttkrpn
+
+
+def mttkrp_canonical(
+    xp: torch.Tensor,
+    fs: Sequence[torch.Tensor],
+    *,
+    plan: BlockPlan | None = None,
+    out_dtype: torch.dtype | None = None,
+    variant: str | None = None,
+) -> torch.Tensor:
+    """Mode-0-canonical MTTKRP through the blocked kernels.
+
+    ``xp`` has the output mode at axis 0; ``fs`` are the N-1 factors for
+    axes 1..N-1 in order, cast to ``xp``'s dtype. ``plan=None`` lets the
+    kernel wrapper plan against ``Memory.h100_smem()``. ``variant`` pins the
+    kernel for 3-way tensors: ``"specialized"`` (the default, ``mttkrp3``)
+    or ``"generic"`` (``mttkrpn``); N > 3 always takes the generic kernel.
+    The kernels return float32; ``out_dtype`` casts the result.
+    """
+    if variant not in (None, "specialized", "generic"):
+        raise ValueError(f"unknown kernel variant {variant!r}")
+    xp = xp.contiguous()
+    fs = [f.to(xp.dtype).contiguous() for f in fs]
+    if xp.ndim == 3 and variant != "generic":
+        out = mttkrp3(xp, fs[0], fs[1], plan=plan)
+    else:
+        out = mttkrpn(xp, fs, plan=plan)
+    return out.to(out_dtype) if out_dtype is not None else out
+
+
+def canonicalize(
+    x: torch.Tensor, factors: Sequence[torch.Tensor | None], mode: int
+) -> tuple[torch.Tensor, list[torch.Tensor]]:
+    """Bring ``mode`` to axis 0 (a contiguous copy unless ``mode == 0``) and
+    order the other factors by the remaining axes."""
+    perm = (mode,) + tuple(k for k in range(x.ndim) if k != mode)
+    xp = x.permute(perm).contiguous()
+    return xp, [factors[k] for k in perm[1:]]
+
+
+def mttkrp(
+    x: torch.Tensor,
+    factors: Sequence[torch.Tensor | None],
+    mode: int,
+    *,
+    plan: BlockPlan | None = None,
+    out_dtype: torch.dtype | None = None,
+    variant: str | None = None,
+) -> torch.Tensor:
+    """MTTKRP for any mode through the blocked kernels (float32
+    accumulation); the result has ``out_dtype``, by default ``x.dtype``."""
+    if x.ndim < 3:
+        raise ValueError("the MTTKRP kernels support N >= 3 (use core.mttkrp)")
+    if not 0 <= mode < x.ndim:
+        raise ValueError(f"mode {mode} out of range for {x.ndim}-way tensor")
+    xp, fs = canonicalize(x, factors, mode)
+    return mttkrp_canonical(
+        xp, fs, plan=plan, out_dtype=out_dtype or x.dtype, variant=variant
+    )

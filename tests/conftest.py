@@ -32,6 +32,10 @@ def pytest_configure(config):
         "subset (-m 'not slow'); pushes to main and the nightly schedule "
         "run everything",
     )
+    config.addinivalue_line(
+        "markers",
+        "cuda: needs a CUDA device (the Hopper kernels); skips without one",
+    )
 
 
 @pytest.fixture(scope="session")
