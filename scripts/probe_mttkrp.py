@@ -93,7 +93,7 @@ def main() -> int:
         subprocess.run([build.nvcc_path(), *build.NVCC_FLAGS, *flags, "-o", str(out), str(src)],
                        check=True, capture_output=True)
         lib = ctypes.CDLL(str(out))
-        for fn, (restype, argtypes) in build._SIGNATURES.items():
+        for fn, (restype, argtypes) in build.SIGNATURES["mttkrp.cu"].items():
             getattr(lib, fn).restype = restype
             getattr(lib, fn).argtypes = argtypes
         return name, lib

@@ -1,0 +1,113 @@
+#!/usr/bin/env python3
+"""Where a CP-ALS iteration spends its device time, for each sweep schedule.
+
+    python3 scripts/profile_sweeps.py [--seed N]
+
+Needs one CUDA card and nvcc. For the two main-path problems of
+``chip_smoke.py`` (a 1000^3 tensor of CP rank 64 plus noise, R=64, and a
+180^4 tensor of CP rank 32 plus noise, R=32) and each schedule
+(``per_mode``, ``fused``, ``dimtree``, all on ``backend="cuda"``) it runs
+one untimed CP-ALS iteration, then two iterations under ``torch.profiler``
+(CPU and CUDA activities), and prints one JSON line:
+
+* ``wall_ms``: host time per iteration, between two synchronizations;
+* ``busy_ms``: the device time per iteration of every kernel and copy the
+  profiler recorded (one stream, so they do not overlap), and
+  ``idle_share = 1 - busy_ms / wall_ms``;
+* ``groups_ms``: that device time per iteration by group: the port's kernels
+  by name, ``copy`` (the transposes and casts), and ``other`` (the solves,
+  Gram matrices and the fit);
+* ``top``: the ten most expensive device functions by name.
+
+The profiler adds host overhead, so ``wall_ms`` reads a little above
+``chip_smoke.py``'s ``iter_ms_cuda``.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import re
+import sys
+import time
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+GROUPS = (  # (group, pattern in the device function's name), first match wins
+    ("fused_pair", r"fused_pair_kernel"),
+    ("mttkrp_partial", r"partial_kernel"),
+    ("mttkrp3", r"mttkrp_tile_kernel<[^>]*, 2>"),  # the 3-way specialization
+    ("mttkrpn", r"mttkrp_tile_kernel<[^>]*, 0>"),  # the generic N-way kernel
+    ("splitk_reduce", r"splitk_reduce_kernel"),
+    ("copy", r"copy"),
+)
+
+
+def group_of(name: str) -> str:
+    for group, pattern in GROUPS:
+        if re.search(pattern, name):
+            return group
+    return "other"
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--seed", type=int, default=0)
+    args = ap.parse_args()
+
+    import torch
+
+    if not torch.cuda.is_available():
+        print("profile_sweeps: no CUDA device", file=sys.stderr)
+        return 2
+    sys.path.insert(0, os.path.join(ROOT, "src"))
+    sys.path.insert(0, ROOT)
+    from torch.profiler import ProfilerActivity, profile
+
+    import repro_torch
+    from chip_smoke import noisy_low_rank, nvidia_smi
+    from repro_torch.core.tensor import random_factors
+    from repro_torch.kernels import build
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gpu = nvidia_smi()
+    for source in build.build_all():
+        build.library(source)
+    ctx = repro_torch.ExecutionContext.create("cuda")
+    gen = torch.Generator(device="cuda").manual_seed(args.seed)
+    iters = 2
+    for dims, rank in [((1000, 1000, 1000), 64), ((180, 180, 180, 180), 32)]:
+        x = noisy_low_rank(gen, dims, rank)
+        init = random_factors(gen, dims, rank)
+        for sweep in ("per_mode", "fused", "dimtree"):
+            repro_torch.cp_als(x, rank, 1, init_factors=init, sweep=sweep, ctx=ctx)
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                repro_torch.cp_als(x, rank, iters, init_factors=init, sweep=sweep, ctx=ctx)
+                torch.cuda.synchronize()
+                wall = (time.perf_counter() - t0) * 1e3 / iters
+            groups: dict[str, float] = {}
+            by_name: dict[str, float] = {}
+            for evt in prof.events():
+                if evt.device_type != torch.autograd.DeviceType.CUDA:
+                    continue
+                ms = evt.time_range.elapsed_us() / 1e3 / iters
+                groups[group_of(evt.name)] = groups.get(group_of(evt.name), 0.0) + ms
+                by_name[evt.name] = by_name.get(evt.name, 0.0) + ms
+            busy = sum(groups.values())
+            if busy == 0.0:
+                raise RuntimeError("the profiler recorded no device time")
+            top = sorted(by_name.items(), key=lambda kv: -kv[1])[:10]
+            print(json.dumps({
+                "profile": list(dims), "rank": rank, "sweep": sweep, "wall_ms": wall,
+                "busy_ms": busy, "idle_share": 1.0 - busy / wall, "groups_ms": groups,
+                "top": [[name[:120], ms] for name, ms in top], "gpu": gpu,
+            }), flush=True)
+        del x, init
+        torch.cuda.empty_cache()
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,15 +1,17 @@
-"""CP-ALS on the per-mode Gauss-Seidel schedule (PyTorch). Counterpart of
-``repro.core.cp_als`` (``CPResult``, ``cp_als``).
+"""CP-ALS (PyTorch). Counterpart of ``repro.core.cp_als`` (``CPResult``,
+``cp_als``).
 
 One sweep = for each mode n: B = MTTKRP(X, A, n) through the engine; solve
 the normal equations A_n Γ_n = B in float32 with a small ridge;
-column-normalize, keeping the scales λ only in ``weights``. The fit uses
-the inner-product identity
+column-normalize, keeping the scales λ only in ``weights``. Three sweep
+schedules deliver the B's, all Gauss-Seidel exact: ``per_mode`` (N
+MTTKRPs), ``fused`` (the mode-reuse schedule, :mod:`..engine.sweep`) and
+``dimtree`` (the binary dimension tree, :mod:`..engine.tree`). The fit
+uses the inner-product identity
 
     ||X - recon||^2 = ||X||^2 - 2<B^(N-1), A^(N-1)> + 1^T (Γ ∘ A_N^T A_N) 1
 
-so the full tensor is never rebuilt. The fused and dimension-tree
-schedules come with the fused-sweep slice (ROADMAP Queue 1 item 6).
+so the full tensor is never rebuilt.
 """
 
 from __future__ import annotations
@@ -21,6 +23,8 @@ import torch
 
 from ..engine import execute as engine_execute
 from ..engine.context import ExecutionContext
+from ..engine.sweep import fused_als_sweep
+from ..engine.tree import dimtree_als_sweep
 from .tensor import frob_norm, random_factors, tensor_from_factors
 
 
@@ -63,7 +67,7 @@ def _fit(normx: torch.Tensor, b_last: torch.Tensor, a_last: torch.Tensor,
     return 1.0 - torch.sqrt(err_sq) / torch.clamp(normx, min=1e-30)
 
 
-_LATER_SWEEPS = ("dimtree", "fused", "auto")
+_SWEEPS = ("per_mode", "fused", "dimtree")
 
 
 def cp_als(
@@ -83,15 +87,18 @@ def cp_als(
     ``init_factors`` start the iteration (tests pass the reference's); else
     the factors are drawn from ``generator`` (default: seed 0 on the
     context's device). ``tol > 0`` stops once the fit changes by less.
-    ``sweep`` must be ``None`` or ``"per_mode"``."""
+    ``sweep`` picks the schedule: ``"per_mode"`` (the default, also for
+    ``None``), ``"fused"`` (two tensor passes a sweep; one fused pair kernel
+    launch on ``cuda``) or ``"dimtree"``."""
     ctx = ctx if ctx is not None else ExecutionContext()
-    if sweep is not None and sweep != "per_mode":
-        if sweep in _LATER_SWEEPS:
-            raise ValueError(
-                f"sweep={sweep!r} comes with the fused-sweep slice (ROADMAP Queue 1 item 6); "
-                f"this port runs sweep='per_mode'"
-            )
-        raise ValueError(f"unknown sweep {sweep!r}; expected 'per_mode'")
+    schedule = sweep if sweep is not None else "per_mode"
+    if schedule == "auto":
+        raise ValueError(
+            "sweep='auto' resolves through the autotuner, which comes with the tuning "
+            "slice (ROADMAP Queue 1 item 9)"
+        )
+    if schedule not in _SWEEPS:
+        raise ValueError(f"unknown sweep {sweep!r}; expected one of {_SWEEPS}")
     ctx.check_tensor("repro_torch.cp_als", x, *(init_factors or ()))
     n = x.ndim
     if init_factors is not None:
@@ -106,23 +113,31 @@ def cp_als(
     weights = torch.ones((rank,), dtype=x.dtype, device=x.device)
     solve_dtype = torch.float64 if x.dtype == torch.float64 else torch.float32
     eye = torch.eye(rank, dtype=solve_dtype, device=x.device)
-    b_last = a_last = None
+    last: dict[str, torch.Tensor] = {}
+
+    def update(mode: int, b: torch.Tensor) -> torch.Tensor:
+        nonlocal weights
+        gamma = _hadamard_except(grams, mode).to(solve_dtype)
+        # solve A_n Γ = B (Γ is PSD; the ridge guards rank deficiency)
+        ridge = 1e-5 * torch.trace(gamma) / rank + 1e-12
+        a_new = torch.linalg.solve(gamma + ridge * eye, b.to(solve_dtype).T).T.to(x.dtype)
+        lam = torch.clamp(torch.linalg.vector_norm(a_new, dim=0), min=1e-30)
+        a_new = a_new / lam
+        weights = lam.to(x.dtype)
+        grams[mode] = a_new.T @ a_new
+        last["b"], last["a"] = b, a_new * weights
+        return a_new
 
     for it in range(n_iters):
-        for mode in range(n):
-            b = engine_execute.mttkrp(x, factors, mode, ctx=ctx)
-            gamma = _hadamard_except(grams, mode).to(solve_dtype)
-            # solve A_n Γ = B (Γ is PSD; the ridge guards rank deficiency)
-            ridge = 1e-5 * torch.trace(gamma) / rank + 1e-12
-            a_new = torch.linalg.solve(gamma + ridge * eye, b.to(solve_dtype).T).T.to(x.dtype)
-            lam = torch.clamp(torch.linalg.vector_norm(a_new, dim=0), min=1e-30)
-            a_new = a_new / lam
-            weights = lam.to(x.dtype)
-            grams[mode] = a_new.T @ a_new
-            factors[mode] = a_new
-            b_last, a_last = b, a_new * weights
+        if schedule == "fused":
+            fused_als_sweep(x, factors, update, ctx=ctx)
+        elif schedule == "dimtree":
+            dimtree_als_sweep(x, factors, update, ctx=ctx)
+        else:
+            for mode in range(n):
+                factors[mode] = update(mode, engine_execute.mttkrp(x, factors, mode, ctx=ctx))
         gram_full = _hadamard_except(grams, -1) * torch.outer(weights, weights)
-        fits.append(float(_fit(normx, b_last, a_last, gram_full)))
+        fits.append(float(_fit(normx, last["b"], last["a"], gram_full)))
         if tol and it > 0 and abs(fits[-1] - fits[-2]) < tol:
             break
     return CPResult(factors, weights, fits)

@@ -1,5 +1,8 @@
-"""The dispatch layer: one ``mttkrp`` entry point over three backends.
-Counterpart of ``repro.engine.execute.mttkrp`` / ``_mttkrp_impl``.
+"""The dispatch layer: ``mttkrp`` and ``contract_partial`` over three
+backends, and the fused sweep's ``(B0, P)`` pair on ``cuda``. Counterpart
+of ``repro.engine.execute.mttkrp`` / ``_mttkrp_impl``,
+``contract_partial`` / ``_contract_partial_impl`` and the pallas branch of
+``repro.engine.sweep._fused_pair``.
 
 ``einsum``        — ``torch.einsum``.
 ``blocked_host``  — Algorithm 2's blocked schedule as a host-level einsum
@@ -11,11 +14,13 @@ Counterpart of ``repro.engine.execute.mttkrp`` / ``_mttkrp_impl``.
 Configuration comes in as one :class:`~.context.ExecutionContext`;
 ``plan``, ``block``, ``kernel_variant`` and ``out_dtype`` pin one
 contraction's details. Each kernel wrapper counts its own launches
-(``mttkrp3.launches``, ``mttkrpn.launches``, ``splitk_reduce.launches``).
+(``mttkrp3.launches``, ``mttkrpn.launches``, ``mttkrp_partial.launches``,
+``fused_pair.launches``, ``splitk_reduce.launches``).
 """
 
 from __future__ import annotations
 
+import math
 from typing import Sequence
 
 import torch
@@ -24,8 +29,9 @@ from ..core.blocked import mttkrp_blocked
 from ..core.mttkrp import mttkrp as _einsum_mttkrp
 from ..kernels import ops as kernel_ops
 from ..kernels.ref import mttkrp_ref
+from ..kernels.sweep import fused_pair_canonical
 from .context import ExecutionContext, torch_dtype
-from .plan import BlockPlan, Memory, best_uniform_block, choose_blocks
+from .plan import BlockPlan, Memory, best_uniform_block, choose_blocks, choose_sweep_blocks
 
 
 def _cast_compute(ctx: ExecutionContext, x, arrays, out_dtype):
@@ -41,6 +47,11 @@ def _cast_compute(ctx: ExecutionContext, x, arrays, out_dtype):
     x = x.to(cd)
     arrays = [a.to(cd) if a is not None else None for a in arrays]
     return x, arrays, out_dtype, True
+
+
+_L = "abcdefghijklmnopqrstuvw"
+_RANK = "z"
+_BATCH_SLICE = "a leading batch axis comes with the batched-engine slice, ROADMAP Queue 1 item 8"
 
 
 def _mode_first(shape: Sequence[int], mode: int) -> tuple[int, ...]:
@@ -68,8 +79,7 @@ def mttkrp(
     ctx.check_tensor("repro_torch.mttkrp", x, *factors)
     if x.ndim != len(factors):
         raise ValueError(
-            f"{x.ndim}-way tensor with {len(factors)} factors (a leading batch axis "
-            f"comes with the batched-engine slice, ROADMAP Queue 1 item 8)"
+            f"{x.ndim}-way tensor with {len(factors)} factors ({_BATCH_SLICE})"
         )
     return _mttkrp_impl(x, factors, mode, ctx, plan, block, out_dtype, kernel_variant)
 
@@ -101,3 +111,95 @@ def _mttkrp_impl(x, factors, mode, ctx, plan, block, out_dtype, kernel_variant):
     return kernel_ops.mttkrp(
         x, factors, mode, plan=plan, out_dtype=out_dtype, variant=kernel_variant
     )
+
+
+def contract_partial(
+    node: torch.Tensor,
+    factors: Sequence[torch.Tensor],
+    modes: Sequence[int],
+    drop: Sequence[int],
+    has_rank: bool,
+    *,
+    ctx: ExecutionContext | None = None,
+    plan: BlockPlan | None = None,
+) -> torch.Tensor:
+    """Contract the factors for ``drop`` out of a dimension-tree ``node``.
+
+    ``node`` carries tensor modes ``modes`` (in axis order) plus a trailing
+    rank axis when ``has_rank``; ``factors`` is the full factor list indexed
+    by mode, read at call time. Returns the node for
+    ``keep = modes - drop`` (rank axis last).
+
+    ``einsum`` and ``blocked_host`` take one ``torch.einsum``. ``cuda``
+    canonicalizes the node (kept modes first and flattened, dropped modes
+    next, rank last) and runs the rank-augmented partial kernel when the
+    node has a rank axis, the MTTKRP kernels when it has none. ``plan``
+    pins the kernel's blocks."""
+    ctx = ctx if ctx is not None else ExecutionContext()
+    ctx.check_tensor("repro_torch.contract_partial", node, *factors)
+    modes, drop = tuple(modes), tuple(drop)
+    if node.ndim != len(modes) + int(has_rank):
+        raise ValueError(
+            f"node of {node.ndim} axes for modes {modes} (has_rank={has_rank}); "
+            f"{_BATCH_SLICE}"
+        )
+    if not drop or any(m not in modes for m in drop):
+        raise ValueError(f"drop {drop} must be a non-empty subset of modes {modes}")
+    return _contract_partial_impl(node, factors, modes, drop, has_rank, ctx, plan)
+
+
+def _contract_partial_impl(node, factors, modes, drop, has_rank, ctx, plan):
+    out_dtype = torch_dtype(ctx.out_dtype) if ctx.out_dtype is not None else None
+    node, factors, out_dtype, mixed = _cast_compute(ctx, node, factors, out_dtype)
+    keep = tuple(m for m in modes if m not in drop)
+    if ctx.backend != "cuda":
+        # Algorithm 2's host blocking exists for the full MTTKRP only, so
+        # blocked_host partials are one einsum too, as in the reference
+        sub_in = "".join(_L[m] for m in modes) + (_RANK if has_rank else "")
+        subs = [sub_in] + [_L[m] + _RANK for m in drop]
+        ops = [node] + [factors[m] for m in drop]
+        if mixed:  # fp32 accumulation under a compute-dtype policy
+            ops = [o.float() for o in ops]
+        spec = ",".join(subs) + "->" + "".join(_L[m] for m in keep) + _RANK
+        out = torch.einsum(spec, *ops)
+        return out.to(out_dtype) if out_dtype is not None else out
+
+    rank = factors[drop[0]].shape[1]
+    pos = {m: i for i, m in enumerate(modes)}
+    keep_sizes = tuple(node.shape[pos[m]] for m in keep)
+    drop_sizes = tuple(node.shape[pos[m]] for m in drop)
+    # canonicalize: kept modes first (flattened), dropped modes next, rank last
+    perm = tuple(pos[m] for m in keep) + tuple(pos[m] for m in drop)
+    if has_rank:
+        perm = perm + (node.ndim - 1,)
+    i_rows = math.prod(keep_sizes)
+    xp = node.permute(perm).reshape((i_rows,) + drop_sizes + ((rank,) if has_rank else ()))
+    fs = [factors[m] for m in drop]
+    itemsize = node.element_size()
+    memory = ctx.memory
+    if mixed and memory is not None:
+        memory = memory.with_itemsize(itemsize)  # dtype-aware planning
+    if plan is None and memory is not None:
+        plan = choose_blocks((i_rows,) + drop_sizes, rank, itemsize, memory=memory,
+                             x_has_rank=has_rank)
+    kernel = kernel_ops.mttkrp_partial_canonical if has_rank else kernel_ops.mttkrp_canonical
+    out = kernel(xp, fs, plan=plan, out_dtype=out_dtype if mixed else node.dtype)
+    out = out.reshape(keep_sizes + (rank,))
+    return out.to(out_dtype) if out_dtype is not None else out
+
+
+def fused_pair(
+    x: torch.Tensor, factors: Sequence[torch.Tensor], ctx: ExecutionContext
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """The fused sweep's opening ``(B0, P)`` pair in one launch of the
+    fused pair kernel (the ``cuda`` backend): ``factors`` is the full
+    factor list; both outputs come back in ``x``'s dtype, as the reference
+    returns them. The plan comes from ``choose_sweep_blocks`` against
+    ``ctx.memory`` (at the compute dtype's itemsize), else from the kernel
+    wrapper against ``Memory.h100_smem()``."""
+    x, fs, out_dtype, _ = _cast_compute(ctx, x, list(factors[1:]), x.dtype)
+    plan = None
+    if ctx.memory is not None:
+        memory = ctx.memory.with_itemsize(x.element_size())
+        plan = choose_sweep_blocks(x.shape, fs[0].shape[1], x.element_size(), memory=memory)
+    return fused_pair_canonical(x, fs, plan=plan, out_dtype=out_dtype)

@@ -1,7 +1,7 @@
 """The planner: one source of truth for MTTKRP blocking and traffic models.
 
-Counterpart of ``repro.engine.plan`` (the MTTKRP part; the fused-sweep and
-Multi-TTM planners come with their slices):
+Counterpart of ``repro.engine.plan`` (the MTTKRP and fused-sweep parts;
+the Multi-TTM planner comes with its slice):
 
   * :class:`Memory` — an explicit two-level-memory descriptor (capacity,
     lane/sublane alignment, itemsize). ``Memory.h100_smem()`` is the shared
@@ -14,6 +14,8 @@ Multi-TTM planners come with their slices):
   * :func:`choose_blocks` — aligned block selection against a Memory
     budget, unchanged from the reference: under ``Memory.tpu_vmem()`` it
     returns exactly the reference's plans.
+  * :func:`choose_sweep_blocks` (with :func:`fused_pair_working_set_words`)
+    — the fused (B0, P) pair's plan, unchanged from the reference.
   * :func:`best_uniform_block` / :func:`uniform_block_feasible` /
     :func:`uniform_plan` — the paper's exact uniform-b selection (Eq 9).
 
@@ -274,6 +276,86 @@ def choose_blocks(
             break  # all-1 blocks; nothing fits this memory
         dims[j] //= 2
         plan = BlockPlan(dims[0], tuple(dims[1:-1]), dims[-1], x_has_rank)
+    return plan
+
+
+# ---------------------------------------------------------------------------
+# Fused-sweep planning (the arXiv:1708.08976 mode-reuse schedule)
+# ---------------------------------------------------------------------------
+
+def fused_pair_working_set_words(plan: BlockPlan) -> int:
+    """Eq-9 analogue for the fused (B^(0), P) pair kernel: the per-mode
+    working set plus the rank-augmented partial tile
+    ``bi * prod(bc[:-1]) * br`` of the second output."""
+    return fused_pair_kernel_block_words(plan) + plan.weight_scratch_words()
+
+
+def fused_pair_kernel_block_words(plan: BlockPlan) -> int:
+    """X tile + factor tiles + B^(0) tile + P tile (the operand share of
+    :func:`fused_pair_working_set_words`, without the KRP weight block)."""
+    prod_c = math.prod(plan.block_contract)
+    x_tile = plan.block_i * prod_c
+    f_tiles = sum(c * plan.block_r for c in plan.block_contract)
+    b0_tile = plan.block_i * plan.block_r
+    p_tile = plan.block_i * math.prod(plan.block_contract[:-1]) * plan.block_r
+    return x_tile + f_tiles + b0_tile + p_tile
+
+
+def choose_sweep_blocks(
+    shape: Sequence[int],
+    rank: int,
+    itemsize: int = 4,
+    vmem_budget: int = VMEM_BUDGET,
+    *,
+    memory: Memory | None = None,
+) -> BlockPlan:
+    """Block selection for the fused pair kernel (the reference's
+    algorithm, unchanged): start from the per-mode plan, then shrink in
+    :func:`choose_blocks`' order (rank, output rows, non-minor contraction
+    dims, the minor dim, then relaxed alignment) until the fused working
+    set :func:`fused_pair_working_set_words` fits too."""
+    if memory is None:
+        memory = Memory.tpu_vmem(vmem_budget, itemsize)
+    lane, sublane = memory.lane, memory.sublane
+    n = len(shape)
+    plan = choose_blocks(shape, rank, memory=memory)
+
+    def fused_fits(p: BlockPlan) -> bool:
+        return fused_pair_working_set_words(p) * memory.itemsize <= memory.budget_bytes
+
+    def floor(extent: int, unit: int) -> int:
+        return max(1, extent) if extent <= unit else unit
+
+    fi = floor(shape[0], sublane)
+    fr = floor(rank, lane)
+    fc = [floor(shape[d], lane if d == n - 1 else sublane) for d in range(1, n)]
+    while not fused_fits(plan):
+        bi, br = plan.block_i, plan.block_r
+        bc = list(plan.block_contract)
+        if br > fr:
+            br = max(fr, br // 2)
+        elif bi > fi:
+            bi = max(fi, bi // 2)
+        else:
+            shrunk = False
+            for d in range(len(bc) - 1):
+                if bc[d] > fc[d]:
+                    bc[d] = max(fc[d], bc[d] // 2)
+                    shrunk = True
+                    break
+            if not shrunk:
+                if bc and bc[-1] > fc[-1]:
+                    bc[-1] = max(fc[-1], bc[-1] // 2)
+                else:
+                    break
+        plan = BlockPlan(bi, tuple(bc), br)
+    while not fused_fits(plan):
+        dims = [plan.block_i, *plan.block_contract, plan.block_r]
+        j = max(range(len(dims)), key=lambda k: dims[k])
+        if dims[j] <= 1:
+            break
+        dims[j] //= 2
+        plan = BlockPlan(dims[0], tuple(dims[1:-1]), dims[-1])
     return plan
 
 

@@ -2,11 +2,14 @@
 ``ctypes``.
 
 The sources under ``csrc/`` have a plain C interface, so one ``nvcc`` call
-per source builds a shared library in seconds (no PyTorch headers). The
-library goes into ``_build/`` beside this file (listed in ``.gitignore``),
-named by a hash of its source, so an edited source is rebuilt and an
-unchanged one is loaded as it is. A build that fails raises; nothing falls
-back to another implementation.
+per source builds a shared library (no PyTorch headers): ``mttkrp.cu``
+holds the MTTKRP tile kernels and the split-K reduction, ``sweep.cu`` the
+fused-sweep pair and the rank-augmented partial contraction. Each library
+goes into ``_build/`` beside this file (listed in ``.gitignore``), named by
+a hash of its source and the shared headers, so an edited source is rebuilt
+and an unchanged one is loaded as it is. :func:`build_all` starts one
+``nvcc`` per source at once. A build that fails raises; nothing falls back
+to another implementation.
 """
 
 from __future__ import annotations
@@ -18,25 +21,34 @@ import os
 import shutil
 import subprocess
 import tempfile
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-I", str(CSRC),
 )
+SOURCES = ("mttkrp.cu", "sweep.cu")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _LL = ctypes.c_longlong
-_SIGNATURES = {
-    "repro_mttkrp_tile": (
-        _I, [_I, _I, _I, ctypes.POINTER(_LL), ctypes.POINTER(_I), _I, _I, _I,
-             _P, ctypes.POINTER(_LL), _P, _P],
-    ),
-    "repro_splitk_reduce": (_I, [_P, _P, _LL, _I, _P]),
-    "repro_mttkrp_smem_bytes": (_LL, [_I, _I, ctypes.POINTER(_I), _I, _I]),
+_PLL, _PI = ctypes.POINTER(_LL), ctypes.POINTER(_I)
+#: The C entry points of each source: name -> (restype, argtypes).
+SIGNATURES = {
+    "mttkrp.cu": {
+        "repro_mttkrp_tile": (_I, [_I, _I, _I, _PLL, _PI, _I, _I, _I, _P, _PLL, _P, _P]),
+        "repro_splitk_reduce": (_I, [_P, _P, _LL, _I, _P]),
+        "repro_mttkrp_smem_bytes": (_LL, [_I, _I, _PI, _I, _I]),
+    },
+    "sweep.cu": {
+        "repro_fused_pair": (_I, [_I, _I, _PLL, _PI, _I, _I, _I, _P, _PLL, _P, _P, _P]),
+        "repro_partial": (_I, [_I, _I, _PLL, _PI, _I, _I, _I, _P, _PLL, _P, _P]),
+        "repro_fused_pair_smem_bytes": (_LL, [_I, _I, _PI, _I, _I]),
+        "repro_partial_smem_bytes": (_LL, [_I, _PI, _I, _I]),
+    },
 }
 
 
@@ -61,7 +73,10 @@ def build(source: str = "mttkrp.cu") -> tuple[Path, str]:
     compiler's report (``-Xptxas -v``: registers, shared memory, spills),
     kept beside the library."""
     src = CSRC / source
-    digest = hashlib.sha1(src.read_bytes()).hexdigest()[:12]
+    h = hashlib.sha1(src.read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.read_bytes())
+    digest = h.hexdigest()[:12]
     lib = BUILD_DIR / f"lib{src.stem}_{digest}.so"
     report = lib.with_suffix(".log")
     if lib.exists():
@@ -81,12 +96,20 @@ def build(source: str = "mttkrp.cu") -> tuple[Path, str]:
     return lib, proc.stdout + proc.stderr
 
 
+def build_all() -> dict[str, tuple[Path, str]]:
+    """Build every source at once, one ``nvcc`` process each; returns
+    ``{source: (library path, compiler report)}``."""
+    with ThreadPoolExecutor(len(SOURCES)) as pool:
+        return dict(zip(SOURCES, pool.map(build, SOURCES)))
+
+
 @functools.cache
-def library() -> ctypes.CDLL:
-    """The MTTKRP kernel library, built on first use and loaded once."""
-    path, _ = build()
+def library(source: str = "mttkrp.cu") -> ctypes.CDLL:
+    """The kernel library of ``csrc/<source>``, built on first use and
+    loaded once."""
+    path, _ = build(source)
     lib = ctypes.CDLL(str(path))
-    for name, (restype, argtypes) in _SIGNATURES.items():
+    for name, (restype, argtypes) in SIGNATURES[source].items():
         fn = getattr(lib, name)
         fn.restype = restype
         fn.argtypes = argtypes

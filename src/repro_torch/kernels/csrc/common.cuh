@@ -1,0 +1,47 @@
+// Helpers shared by the Hopper kernels (mttkrp.cu, sweep.cu): launch shape,
+// factor pointers, index arithmetic, and fp32/bf16 loads.
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+#define MAX_CONTRACT 7
+#define NWARPS 8
+#define NTHREADS (NWARPS * 32)
+#define XLOADS 8  // global loads each thread keeps in flight when staging a tile
+
+struct Factors {
+  const void* ptr[MAX_CONTRACT];  // (C_d, R), row-major, dtype of the tensor
+};
+
+static __host__ __device__ __forceinline__ long long round_up(long long x, long long m) {
+  return (x + m - 1) / m * m;
+}
+static __host__ __device__ __forceinline__ long long ceil_div(long long x, long long m) {
+  return (x + m - 1) / m;
+}
+
+template <typename T> __device__ __forceinline__ T zero_val();
+template <> __device__ __forceinline__ float zero_val<float>() { return 0.f; }
+template <> __device__ __forceinline__ __nv_bfloat16 zero_val<__nv_bfloat16>() {
+  return __float2bfloat16(0.f);
+}
+
+__device__ __forceinline__ float to_float(float v) { return v; }
+__device__ __forceinline__ float to_float(__nv_bfloat16 v) { return __bfloat162float(v); }
+
+// Four consecutive elements as fp32; p is 16-byte (fp32) or 8-byte (bf16) aligned.
+__device__ __forceinline__ float4 load4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+__device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
+  const uint2 u = *reinterpret_cast<const uint2*>(p);
+  const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.x));
+  const float2 b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.y));
+  return make_float4(a.x, a.y, b.x, b.y);
+}
+
+__device__ __forceinline__ float4 mul4(float4 a, float4 b) {
+  return make_float4(a.x * b.x, a.y * b.y, a.z * b.z, a.w * b.w);
+}

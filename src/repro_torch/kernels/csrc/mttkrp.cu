@@ -42,15 +42,9 @@
 //     their partials in a fixed order.
 //   * Ragged edges (extents that are not multiples of the blocks) are masked
 //     in the loads: the tensor is never padded in device memory.
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "common.cuh"
 
-#define MAX_CONTRACT 7
-#define NWARPS 8
-#define NTHREADS (NWARPS * 32)
-#define MAXT 2     // register tiles per warp
-#define XLOADS 8   // X-tile global loads each thread keeps in flight
+#define MAXT 2  // register tiles per warp
 
 struct Problem {
   int ncontract;                      // N - 1
@@ -62,17 +56,6 @@ struct Problem {
   long long extent_c[MAX_CONTRACT];   // C_1 .. C_{N-1}
   int block_c[MAX_CONTRACT];          // bc_1 .. bc_{N-1}
 };
-
-struct Factors {
-  const void* ptr[MAX_CONTRACT];  // (C_d, R), row-major, dtype of X
-};
-
-static __host__ __device__ __forceinline__ long long round_up(long long x, long long m) {
-  return (x + m - 1) / m * m;
-}
-static __host__ __device__ __forceinline__ long long ceil_div(long long x, long long m) {
-  return (x + m - 1) / m;
-}
 
 // Column groups of 4 per warp tile: the smallest power of two covering br,
 // at most 32 (a warp tile is then 128 columns wide).
@@ -119,29 +102,6 @@ static __host__ __device__ Layout make_layout(int tsize, int nc, const int* bc, 
   const long long red = (long long)NWARPS * 8 * l.tw * 4;
   l.total = l.ws + (w > red ? w : red);
   return l;
-}
-
-template <typename T> __device__ __forceinline__ T zero_val();
-template <> __device__ __forceinline__ float zero_val<float>() { return 0.f; }
-template <> __device__ __forceinline__ __nv_bfloat16 zero_val<__nv_bfloat16>() {
-  return __float2bfloat16(0.f);
-}
-
-__device__ __forceinline__ float to_float(float v) { return v; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 v) { return __bfloat162float(v); }
-
-__device__ __forceinline__ float4 load4(const float* p) {
-  return *reinterpret_cast<const float4*>(p);
-}
-__device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
-  const uint2 u = *reinterpret_cast<const uint2*>(p);
-  const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.x));
-  const float2 b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.y));
-  return make_float4(a.x, a.y, b.x, b.y);
-}
-
-__device__ __forceinline__ float4 mul4(float4 a, float4 b) {
-  return make_float4(a.x * b.x, a.y * b.y, a.z * b.z, a.w * b.w);
 }
 
 // NC_STATIC > 0 fixes the number of contraction dims at compile time (the

@@ -5,8 +5,9 @@ Source: ``csrc/mttkrp.cu`` (``mttkrp_tile_kernel<T, RC, 0>``). It replaces
 the TPU kernel ``repro/kernels/mttkrpn.py:mttkrpn_pallas`` (``_kernel``):
 the canonical mode-0 contraction of an ``(I, C_1..C_{N-1})`` tensor with the
 chained Khatri-Rao weight W[(c_1..c_{N-1}), r] = prod_d A_d(c_d, r), built
-on chip with the last index fastest. It serves N >= 4 and the 3-way
-``variant="generic"``.
+on chip with the last index fastest. It serves N >= 4, the 3-way
+``variant="generic"``, and the dimension tree's 2-D edge (one contraction
+axis: X as an ``(I_1 I_2, I_0)`` matrix).
 
 What bounds it on an H100: at 180^4, R=32 (fp32) reading X once
 (4.2e9 B at 3.35 TB/s, 1.25 ms) outweighs the arithmetic (6.7e10 FLOP at
@@ -14,9 +15,8 @@ What bounds it on an H100: at 180^4, R=32 (fp32) reading X once
 loop inside the CTA, the outermost contraction axis split over CTAs and
 reduced in a fixed order, tiles staged in shared memory, fp32 FMAs, ragged
 edges masked in the kernel. W is built per step from one prefix product per
-leading index tuple times the last factor tile.
-The rank-augmented partial kernel (``mttkrp_partial_pallas``) comes with
-the fused-sweep slice.
+leading index tuple times the last factor tile. The rank-augmented partial
+kernel (``mttkrp_partial_pallas``) is :mod:`.partial`.
 """
 
 from __future__ import annotations

@@ -1,7 +1,8 @@
-"""Public wrappers for the MTTKRP kernels: mode canonicalization and the
-choice between the 3-way specialized and the N-way generic kernel.
-Counterpart of ``repro.kernels.ops`` (``mttkrp_canonical_pallas``,
-``mttkrp_pallas``).
+"""Public wrappers for the MTTKRP kernels: mode canonicalization, the
+choice between the 3-way specialized and the N-way generic kernel, and the
+rank-augmented partial contraction. Counterpart of ``repro.kernels.ops``
+(``mttkrp_canonical_pallas``, ``mttkrp_pallas``,
+``mttkrp_partial_canonical_pallas``).
 
 Unlike the reference, nothing here pads: the kernels take unpadded extents
 and mask their ragged edges, and the plain versions need no padding. The
@@ -18,6 +19,7 @@ import torch
 from ..engine.plan import BlockPlan
 from .mttkrp3 import mttkrp3
 from .mttkrpn import mttkrpn
+from .partial import mttkrp_partial
 
 
 def mttkrp_canonical(
@@ -34,7 +36,9 @@ def mttkrp_canonical(
     axes 1..N-1 in order, cast to ``xp``'s dtype. ``plan=None`` lets the
     kernel wrapper plan against ``Memory.h100_smem()``. ``variant`` pins the
     kernel for 3-way tensors: ``"specialized"`` (the default, ``mttkrp3``)
-    or ``"generic"`` (``mttkrpn``); N > 3 always takes the generic kernel.
+    or ``"generic"`` (``mttkrpn``); other orders, including a 2-D ``xp``
+    with one contraction axis (a dimension-tree edge), take the generic
+    kernel.
     The kernels return float32; ``out_dtype`` casts the result.
     """
     if variant not in (None, "specialized", "generic"):
@@ -77,3 +81,21 @@ def mttkrp(
     return mttkrp_canonical(
         xp, fs, plan=plan, out_dtype=out_dtype or x.dtype, variant=variant
     )
+
+
+def mttkrp_partial_canonical(
+    node: torch.Tensor,
+    fs: Sequence[torch.Tensor],
+    *,
+    plan: BlockPlan | None = None,
+    out_dtype: torch.dtype | None = None,
+) -> torch.Tensor:
+    """Rank-augmented partial contraction (a dimension-tree node): ``node``
+    is ``(I, C_1..C_k, R)``, kept modes flattened into axis 0, dropped modes
+    next, rank last; ``fs`` are the k dropped factors ``(C_d, R)``, cast to
+    the node's dtype. Nothing is padded (the kernel masks). The kernel
+    returns float32; ``out_dtype`` casts the result."""
+    node = node.contiguous()
+    fs = [f.to(node.dtype).contiguous() for f in fs]
+    out = mttkrp_partial(node, fs, plan=plan)
+    return out.to(out_dtype) if out_dtype is not None else out

@@ -1,4 +1,4 @@
-"""The split-contraction launch shared by the two MTTKRP kernels, and the
+"""The split-contraction launch shared by the Hopper kernels, and the
 deterministic reduction kernel that adds the splits.
 
 Source: ``csrc/mttkrp.cu`` (``splitk_reduce_kernel``). It replaces what the
@@ -73,6 +73,72 @@ def smem_bytes(plan: BlockPlan, dtype: torch.dtype) -> int:
     return int(library().repro_mttkrp_smem_bytes(itemsize, nc, bc, plan.block_i, plan.block_r))
 
 
+def check_operands(name: str, x: torch.Tensor, factors: Sequence[torch.Tensor],
+                   rank: int, plan: BlockPlan, *, x_has_rank: bool = False) -> None:
+    """Raise unless ``x`` is a contiguous fp32 or bf16 CUDA tensor whose axes
+    1..k match the k contiguous ``(C_d, R)`` factors of its dtype and device
+    (``x_has_rank``: a trailing rank axis follows them), and ``plan`` has
+    k contraction blocks of that kind."""
+    if x.device.type != "cuda":
+        raise ValueError(f"{name}: the kernel needs a CUDA tensor, got {x.device}")
+    if x.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"{name}: float32 or bfloat16 input, got {x.dtype}")
+    k = x.ndim - 1 - int(x_has_rank)
+    if len(factors) != k or not 1 <= k <= 7:
+        raise ValueError(f"{name}: operand of shape {tuple(x.shape)} with {len(factors)} factors")
+    if not x.is_contiguous():
+        raise ValueError(f"{name}: the tensor must be contiguous")
+    if x_has_rank and x.shape[-1] != rank:
+        raise ValueError(f"{name}: rank axis {x.shape[-1]}, factors of rank {rank}")
+    for d, f in enumerate(factors):
+        if f.device != x.device or f.dtype != x.dtype or not f.is_contiguous():
+            raise ValueError(
+                f"{name}: factor {d} must be a contiguous {x.dtype} tensor on {x.device}"
+            )
+        if tuple(f.shape) != (x.shape[1 + d], rank):
+            raise ValueError(f"{name}: factor {d} has shape {tuple(f.shape)}, "
+                             f"expected {(x.shape[1 + d], rank)}")
+    if len(plan.block_contract) != k or plan.x_has_rank != x_has_rank:
+        raise ValueError(f"{name}: plan {plan} does not fit operand {tuple(x.shape)}")
+
+
+def check_smem(name: str, plan: BlockPlan, smem: int) -> None:
+    """Raise if a plan needs more shared memory than one CTA has."""
+    if smem > SMEM_PER_CTA_MAX:
+        raise ValueError(
+            f"{name}: plan {plan} needs {smem} bytes of shared memory; a CTA has at most "
+            f"{SMEM_PER_CTA_MAX} (plan against Memory.h100_smem())"
+        )
+
+
+def split_output(x: torch.Tensor, rank: int, plan: BlockPlan
+                 ) -> tuple[torch.Tensor, torch.Tensor, int]:
+    """The fp32 ``(I, R)`` output, the workspace the kernel writes (the
+    output itself when the contraction is not split), and the split count
+    :func:`n_splits` gives for ``plan`` on this card."""
+    i_sz = x.shape[0]
+    gi = math.ceil(i_sz / plan.block_i)
+    gr = math.ceil(rank / plan.block_r)
+    outer = math.ceil(x.shape[1] / plan.block_contract[0])
+    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
+    splits = n_splits(gi * gr, outer, sms)
+    out = torch.empty((i_sz, rank), device=x.device, dtype=torch.float32)
+    ws = out if splits == 1 else torch.empty(
+        (splits, i_sz, rank), device=x.device, dtype=torch.float32
+    )
+    return out, ws, splits
+
+
+def c_args(x: torch.Tensor, factors: Sequence[torch.Tensor], plan: BlockPlan):
+    """The C entry points' shared arguments: extents (I, C_1..C_k), blocks
+    (bi, bc_1..bc_k), the factors' device pointers, and the dtype code."""
+    k = len(factors)
+    extents = (ctypes.c_longlong * (k + 1))(*x.shape[:k + 1])
+    blocks = (ctypes.c_int * (k + 1))(plan.block_i, *plan.block_contract)
+    ptrs = (ctypes.c_longlong * k)(*(f.data_ptr() for f in factors))
+    return extents, blocks, ptrs, 0 if x.dtype == torch.float32 else 1
+
+
 def launch_tile(
     x: torch.Tensor,
     factors: Sequence[torch.Tensor],
@@ -84,50 +150,16 @@ def launch_tile(
     """Launch the blocked tile kernel on mode-0-canonical CUDA operands and,
     when the contraction is split, the reduction kernel. Returns the fp32
     ``(I, R)`` output. Checks device, dtype, shape and contiguity first."""
-    n = x.ndim
-    if x.device.type != "cuda":
-        raise ValueError(f"{name}: the kernel needs a CUDA tensor, got {x.device}")
-    if x.dtype not in (torch.float32, torch.bfloat16):
-        raise TypeError(f"{name}: float32 or bfloat16 input, got {x.dtype}")
-    if len(factors) != n - 1 or n < 2 or n - 1 > 7:
-        raise ValueError(f"{name}: {n}-way tensor with {len(factors)} factors")
-    if not x.is_contiguous():
-        raise ValueError(f"{name}: the tensor must be contiguous")
-    rank = factors[0].shape[1]
-    for d, f in enumerate(factors):
-        if f.device != x.device or f.dtype != x.dtype or not f.is_contiguous():
-            raise ValueError(
-                f"{name}: factor {d} must be a contiguous {x.dtype} tensor on {x.device}"
-            )
-        if tuple(f.shape) != (x.shape[1 + d], rank):
-            raise ValueError(f"{name}: factor {d} has shape {tuple(f.shape)}, "
-                             f"expected {(x.shape[1 + d], rank)}")
-    if len(plan.block_contract) != n - 1 or plan.x_has_rank:
-        raise ValueError(f"{name}: plan {plan} does not fit a {n}-way MTTKRP")
+    rank = factors[0].shape[1] if factors else 0
+    check_operands(name, x, factors, rank, plan)
     lib = library()
-    smem = smem_bytes(plan, x.dtype)
-    if smem > SMEM_PER_CTA_MAX:
-        raise ValueError(
-            f"{name}: plan {plan} needs {smem} bytes of shared memory; a CTA has at most "
-            f"{SMEM_PER_CTA_MAX} (plan against Memory.h100_smem())"
-        )
-    i_sz = x.shape[0]
-    gi = math.ceil(i_sz / plan.block_i)
-    gr = math.ceil(rank / plan.block_r)
-    outer = math.ceil(x.shape[1] / plan.block_contract[0])
-    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
-    splits = n_splits(gi * gr, outer, sms)
-    out = torch.empty((i_sz, rank), device=x.device, dtype=torch.float32)
-    ws = out if splits == 1 else torch.empty(
-        (splits, i_sz, rank), device=x.device, dtype=torch.float32
-    )
-    extents = (ctypes.c_longlong * n)(*x.shape)
-    blocks = (ctypes.c_int * n)(plan.block_i, *plan.block_contract)
-    ptrs = (ctypes.c_longlong * (n - 1))(*(f.data_ptr() for f in factors))
+    check_smem(name, plan, smem_bytes(plan, x.dtype))
+    out, ws, splits = split_output(x, rank, plan)
+    extents, blocks, ptrs, dtype = c_args(x, factors, plan)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = lib.repro_mttkrp_tile(
-            int(specialized), 0 if x.dtype == torch.float32 else 1, n - 1, extents, blocks,
+            int(specialized), dtype, len(factors), extents, blocks,
             plan.block_r, rank, splits, x.data_ptr(), ptrs, ws.data_ptr(), stream,
         )
     check(err, name)

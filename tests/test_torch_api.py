@@ -29,7 +29,8 @@ ROOT = Path(__file__).resolve().parents[1]
 
 def test_public_surface():
     assert sorted(repro_torch.__all__) == sorted(
-        ["ExecutionContext", "Memory", "BlockPlan", "mttkrp", "cp_als", "CPResult"])
+        ["ExecutionContext", "Memory", "BlockPlan", "mttkrp", "contract_partial", "cp_als",
+         "CPResult"])
     for name in repro_torch.__all__:  # the reference's names for the same things
         assert name in repro.__all__
 

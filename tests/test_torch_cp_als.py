@@ -18,18 +18,8 @@ import repro
 import repro_torch
 from repro_torch.convert import factors_from_numpy
 
-FIT_TOL = 1e-5
-PARAM_TOL = 1e-4
-
-
-def _problem(dims, rank, seed):
-    rng = np.random.default_rng(seed)
-    true = [rng.standard_normal((d, rank), dtype=np.float32) for d in dims]
-    spec = ",".join(f"{'abcde'[k]}z" for k in range(len(dims))) + "->" + "abcde"[:len(dims)]
-    x = np.einsum(spec, *true).astype(np.float32)
-    x += 0.05 * rng.standard_normal(dims, dtype=np.float32)
-    init = [rng.standard_normal((d, rank), dtype=np.float32) for d in dims]
-    return x, init
+from _torch_parity import assert_same_cp as _assert_same
+from _torch_parity import problem as _problem
 
 
 def _ref(x, init, rank, iters, backend):
@@ -43,13 +33,6 @@ def _port(x, init, rank, iters, backend):
     ctx = repro_torch.ExecutionContext.create(backend, device="cpu")
     return repro_torch.cp_als(torch.from_numpy(x), rank, iters,
                               init_factors=factors_from_numpy(init, "cpu"), ctx=ctx)
-
-
-def _assert_same(port, ref):
-    np.testing.assert_allclose(port.fits, ref.fits, rtol=0, atol=FIT_TOL)
-    for a, b in zip(port.factors + [port.weights], list(ref.factors) + [ref.weights]):
-        b = np.asarray(b)
-        assert float(np.abs(a.numpy() - b).max()) <= PARAM_TOL * max(float(np.abs(b).max()), 1.0)
 
 
 @pytest.mark.parametrize("dims,rank,iters,seed", [
@@ -93,9 +76,9 @@ def test_cp_als_tol_stops_early_and_random_init_runs():
     assert a.fits == b.fits
 
 
-@pytest.mark.parametrize("sweep", ["fused", "dimtree", "auto", "nope"])
+@pytest.mark.parametrize("sweep", ["auto", "nope"])
 def test_later_sweeps_are_rejected_by_name(sweep):
     x, init = _problem((4, 4, 4), 2, 5)
     ctx = repro_torch.ExecutionContext.create("einsum", device="cpu")
-    with pytest.raises(ValueError, match="fused-sweep slice" if sweep != "nope" else "unknown"):
+    with pytest.raises(ValueError, match="tuning slice" if sweep != "nope" else "unknown"):
         repro_torch.cp_als(torch.from_numpy(x), 2, 1, sweep=sweep, ctx=ctx)

@@ -16,10 +16,14 @@ import pytest
 import torch
 
 import repro_torch
-from repro_torch.engine.plan import BlockPlan, Memory, choose_blocks
-from repro_torch.kernels import ops, splitk
+from repro_torch.engine.plan import BlockPlan, Memory, choose_blocks, choose_sweep_blocks
+from repro_torch.engine.sweep import fused_als_sweep
+from repro_torch.engine.tree import dimtree_als_sweep
+from repro_torch.kernels import ops, partial, splitk, sweep
 from repro_torch.kernels.mttkrp3 import mttkrp3, mttkrp3_plain
 from repro_torch.kernels.mttkrpn import mttkrpn, mttkrpn_plain
+from repro_torch.kernels.partial import mttkrp_partial, mttkrp_partial_plain
+from repro_torch.kernels.sweep import fused_pair, fused_pair_plain
 
 pytestmark = pytest.mark.cuda
 
@@ -141,3 +145,136 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(card):
         mttkrp3(x.double(), fs[1].double(), fs[2].double())
     with pytest.raises(ValueError):  # more shared memory than a CTA has
         mttkrp3(x, fs[1], fs[2], plan=BlockPlan(512, (8, 64), 512))
+
+
+# -- the fused-sweep slice: the pair kernel and the partial kernel -----------
+
+SHAPES_PAIR = [(5, 7, 9), (1, 3, 2), (33, 17, 70), (130, 9, 200), (6, 5, 4, 7), (9, 3, 3, 10),
+               (40, 21, 19, 35), (4, 5, 3, 2, 6)]
+
+
+def _close_pair(got, want):
+    _close(got[0], want[0])
+    _close(got[1], want[1])
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=["f32", "bf16"])
+@pytest.mark.parametrize("rank", [1, 5, 16, 33, 64])
+@pytest.mark.parametrize("dims", SHAPES_PAIR)
+def test_fused_pair_matches_plain(card, dims, rank, dtype):
+    x, fs = _data(dims, rank, dtype, card, seed=6)
+    _close_pair(fused_pair(x, fs[1:]), fused_pair_plain(x, fs[1:]))
+
+
+PAIR_PLANS = [
+    ((50, 40, 70), 32, BlockPlan(8, (8, 32), 32)),          # splits, threads share units
+    ((37, 29, 61), 7, BlockPlan(3, (5, 7), 7)),              # unaligned blocks
+    ((70, 33, 45), 64, BlockPlan(64, (8, 16), 32)),          # 512 units: two passes
+    ((20, 9, 11, 13), 12, BlockPlan(8, (4, 4, 8), 16)),
+    ((12, 7, 5, 6, 9), 10, BlockPlan(4, (3, 2, 2, 4), 8)),
+    ((300, 9, 7), 500, BlockPlan(8, (8, 8), 512)),           # 8 rank tiles
+]
+
+
+@pytest.mark.parametrize("dims,rank,plan", PAIR_PLANS)
+def test_fused_pair_pinned_plans_match_plain(card, dims, rank, plan):
+    x, fs = _data(dims, rank, torch.float32, card, seed=7)
+    _close_pair(fused_pair(x, fs[1:], plan=plan), fused_pair_plain(x, fs[1:]))
+
+
+NODES = [(5, 7, 3), (1, 2, 1), (33, 70, 17), (300, 130, 64), (6, 5, 4, 7), (9, 3, 10, 16),
+         (40, 21, 19, 35), (4, 5, 3, 2, 6)]
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=["f32", "bf16"])
+@pytest.mark.parametrize("shape", NODES)
+def test_partial_matches_plain(card, shape, dtype):
+    rng = np.random.default_rng(8)
+    node = torch.as_tensor(rng.standard_normal(shape, dtype=np.float32)).to(card, dtype)
+    fs = [torch.as_tensor(rng.standard_normal((c, shape[-1]), dtype=np.float32)).to(card, dtype)
+          for c in shape[1:-1]]
+    _close(mttkrp_partial(node, fs), mttkrp_partial_plain(node, fs))
+
+
+PARTIAL_PLANS = [
+    ((50, 70, 32), BlockPlan(8, (16,), 32, True)),            # k=1, splits
+    ((37, 61, 7), BlockPlan(3, (7,), 7, True)),               # unaligned blocks
+    ((20, 9, 11, 13), BlockPlan(8, (4, 8), 16, True)),        # k=2, groups share rows
+    ((12, 7, 5, 6, 9), BlockPlan(4, (3, 2, 4), 8, True)),     # k=3
+    ((9, 40, 300), BlockPlan(8, (8,), 512, True)),            # columns beyond 256 threads
+]
+
+
+@pytest.mark.parametrize("shape,plan", PARTIAL_PLANS)
+def test_partial_pinned_plans_match_plain(card, shape, plan):
+    rng = np.random.default_rng(9)
+    node = torch.as_tensor(rng.standard_normal(shape, dtype=np.float32)).to(card)
+    fs = [torch.as_tensor(rng.standard_normal((c, shape[-1]), dtype=np.float32)).to(card)
+          for c in shape[1:-1]]
+    _close(mttkrp_partial(node, fs, plan=plan), mttkrp_partial_plain(node, fs))
+
+
+def test_sweep_kernels_are_deterministic_and_counted(card):
+    x, fs = _data((300, 41, 257), 64, torch.float32, card, seed=10)
+    before = (fused_pair.launches, mttkrp_partial.launches)
+    a, b = fused_pair(x, fs[1:]), fused_pair(x, fs[1:])
+    assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+    p, q = mttkrp_partial(a[1], fs[1:2]), mttkrp_partial(a[1], fs[1:2])
+    assert torch.equal(p, q)
+    assert (fused_pair.launches, mttkrp_partial.launches) == (before[0] + 2, before[1] + 2)
+
+
+@pytest.mark.parametrize("dims,rank", [((333, 41), 64), ((1000, 70), 17), ((9, 5), 3)])
+def test_mttkrpn_with_one_contraction_axis(card, dims, rank):
+    x, fs = _data(dims, rank, torch.float32, card, seed=11)
+    _close(ops.mttkrp_canonical(x, fs[1:]), mttkrpn_plain(x, fs[1:]))
+
+
+def test_sweep_plans_fit_one_cta(card):
+    for shape in [(1000, 1000, 1000), (180, 180, 180, 180), (130, 6, 200), (9, 3, 3, 10),
+                  (3, 4, 2, 5, 3), (4096, 16, 2048)]:
+        for rank, dtype in [(1, torch.float32), (16, torch.float32), (64, torch.bfloat16),
+                            (200, torch.float32)]:
+            mem = Memory.h100_smem(itemsize=dtype.itemsize)
+            plan = choose_sweep_blocks(shape, rank, memory=mem)
+            assert sweep.smem_bytes(plan, dtype) <= 232_448, (shape, rank, plan)
+            node_plan = choose_blocks(shape[:-1], rank, memory=mem, x_has_rank=True)
+            assert partial.smem_bytes(node_plan) <= 232_448, (shape, rank, node_plan)
+
+
+def _update(factors, rank):
+    grams = [f.T @ f for f in factors]
+
+    def update(mode, b):
+        gamma = torch.ones((rank, rank), device=b.device)
+        for k, g in enumerate(grams):
+            if k != mode:
+                gamma = gamma * g
+        a = torch.linalg.solve(gamma + 1e-3 * torch.eye(rank, device=b.device), b.T).T
+        grams[mode] = a.T @ a
+        return a
+
+    return update
+
+
+@pytest.mark.parametrize("dims,counts", [
+    ((30, 25, 20), {"fused": (1, 1, 1, 0), "dimtree": (0, 2, 1, 1)}),
+    ((12, 10, 9, 11), {"fused": (1, 2, 0, 1), "dimtree": (0, 4, 2, 0)}),
+])
+def test_sweep_launch_counts_and_gauss_seidel(card, dims, counts):
+    """(fused_pair, mttkrp_partial, mttkrp3, mttkrpn) launches in one sweep,
+    and each schedule's factors equal the per-mode sweep's."""
+    x, fs = _data(dims, 4, torch.float32, card, seed=12)
+    ctx = repro_torch.ExecutionContext.create("cuda")
+    ref = [f.clone() for f in fs]
+    upd = _update(ref, 4)
+    for mode in range(len(dims)):
+        ref[mode] = upd(mode, repro_torch.mttkrp(x, ref, mode, ctx=ctx))
+    kernels = (fused_pair, mttkrp_partial, mttkrp3, mttkrpn)
+    for name, run in (("fused", fused_als_sweep), ("dimtree", dimtree_als_sweep)):
+        got = [f.clone() for f in fs]
+        before = [k.launches for k in kernels]
+        run(x, got, _update(got, 4), ctx=ctx)
+        assert tuple(k.launches - b for k, b in zip(kernels, before)) == counts[name]
+        for g, r in zip(got, ref):
+            _close(g, r, tol=1e-4)
