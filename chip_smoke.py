@@ -30,9 +30,29 @@ Phases (any failure raises, and the script exits non-zero):
    untimed one included); each run is held against the same schedule with
    ``backend="einsum"`` and against the cuda ``per_mode`` run, from the
    same initial factors: fits within 1e-4 at every iteration;
-7. one JSON line per kernel and shape (times from CUDA events), the
+7. ``multi_ttm_keep`` against its plain version on every kept mode (the
+   kept mode brought first as ``multi_ttm`` does) and on the full core
+   (``keep=None``, through ``repro_torch.multi_ttm``): 1000^3 with ranks
+   (32, 32, 32) in fp32 and bf16 inputs, 180^4 with ranks (16, 16, 16, 16)
+   in fp32;
+8. the Tucker path: ``tucker_hooi`` from HOSVD factors on a 1000^3 tensor
+   of multilinear rank (32, 32, 32) and a 180^4 tensor of multilinear rank
+   (16, 16, 16, 16), each plus 10 % noise: 5 sweeps on ``backend="cuda"``
+   and on ``backend="einsum"``, each after one untimed sweep, counts set to
+   0 before and read after (exactly N ``multi_ttm_keep`` launches a sweep,
+   at least one split-K reduction); fits finite, within 1e-4 of einsum's at
+   every sweep (``FIT_NOISE``) and, on both backends, never more than 3e-5
+   below the sweep before (``FIT_DROP``: fp32 rounding); factors
+   orthonormal within 1e-4; for each mode the smallest singular value of
+   ``A_cuda^T A_einsum`` at least 0.9999; one ``n_iters=0`` call, which
+   makes exactly one launch; then the same trajectory one sweep a call,
+   with float64 readings: ``||X||^2``, each core's fit from float64 sums,
+   and the fit of the factors' subspaces (QR in float64, X projected in
+   float64), which must not fall by more than 1e-9 from the HOSVD subspace
+   through every sweep and must agree within 1e-9 between the backends;
+9. one JSON line per kernel and shape (times from CUDA events), the
    ``nvidia-smi`` line, and one ``{"kernels": [...]}`` line;
-8. the last line, ``{"ok": true, "device": {...}}``.
+10. the last line, ``{"ok": true, "device": {...}}``.
 
 All data are made on the card from ``--seed`` with a ``torch.Generator``.
 Matmuls run in full fp32 (TF32 off), so the plain versions and the einsum
@@ -43,6 +63,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import math
 import os
 import subprocess
 import sys
@@ -56,15 +77,31 @@ PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}
 PEAK_BYTES = 3.35e12
 CSRC = "src/repro_torch/kernels/csrc/"
 SOURCE = {"mttkrp3": "mttkrp.cu", "mttkrpn": "mttkrp.cu", "splitk_reduce": "mttkrp.cu",
-          "fused_pair": "sweep.cu", "mttkrp_partial": "sweep.cu"}
+          "fused_pair": "sweep.cu", "mttkrp_partial": "sweep.cu",
+          "multi_ttm_keep": "multi_ttm.cu"}
 REPLACES = {
     "mttkrp3": "src/repro/kernels/mttkrp3.py:121",
     "mttkrpn": "src/repro/kernels/mttkrpn.py:208",
     "splitk_reduce": "src/repro/kernels/mttkrp3.py:67",
     "fused_pair": "src/repro/kernels/sweep.py:140",
     "mttkrp_partial": "src/repro/kernels/mttkrpn.py:148",
+    "multi_ttm_keep": "src/repro/kernels/multi_ttm.py:127",
 }
 TOL = {"float32": 1e-5, "bfloat16": 2e-2}
+#: HOOI fits as ``tucker_hooi`` reports them, in fp32: the limit on the gap
+#: between two summation orders (cuda against einsum), and on a fit's drop
+#: from one sweep to the next. The fit ``1 - sqrt(||X||^2 - ||G||^2) / ||X||``
+#: subtracts two fp32 numbers that agree to 1 %, and ``G`` carries the fp32
+#: eigenvectors' departure from orthonormality to first order, so converged
+#: fits move by up to 1.6e-5 at 180^4 on either backend; Y rounded to bf16
+#: makes them drop by 3.7e-5 (PERF.md, PR 13).
+FIT_NOISE = 1e-4
+FIT_DROP = 3e-5
+#: The same fits recomputed in float64 from the factors' subspaces
+#: (``subspace_fit``): non-decreasing from the HOSVD subspace through every
+#: sweep, and the same on both backends, to this limit. Sound runs stay
+#: within 6e-12; Y rounded to bf16 moves them by 2.2e-7 (PERF.md, PR 13).
+SUBSPACE_TOL = 1e-9
 #: Launches per CP-ALS iteration of each schedule, (3-way, 4-way), derived
 #: from engine/sweep.py:fused_als_sweep and engine/tree.py:_solve_tree.
 PER_ITER = {
@@ -74,7 +111,9 @@ PER_ITER = {
     "dimtree": ({"mttkrp3": 1, "mttkrpn": 1, "mttkrp_partial": 2},
                 {"mttkrp3": 2, "mttkrp_partial": 4}),
 }
-COUNTED = ("mttkrp3", "mttkrpn", "fused_pair", "mttkrp_partial")
+COUNTED = ("mttkrp3", "mttkrpn", "fused_pair", "mttkrp_partial", "multi_ttm_keep")
+KERNELS = ("mttkrp3", "mttkrpn", "splitk_reduce", "fused_pair", "mttkrp_partial",
+           "multi_ttm_keep")
 
 
 def nvidia_smi() -> str:
@@ -122,11 +161,13 @@ def counters() -> dict:
     from repro_torch.kernels import splitk
     from repro_torch.kernels.mttkrp3 import mttkrp3
     from repro_torch.kernels.mttkrpn import mttkrpn
+    from repro_torch.kernels.multi_ttm import multi_ttm_keep
     from repro_torch.kernels.partial import mttkrp_partial
     from repro_torch.kernels.sweep import fused_pair
 
     return {"mttkrp3": mttkrp3, "mttkrpn": mttkrpn, "splitk_reduce": splitk.splitk_reduce,
-            "fused_pair": fused_pair, "mttkrp_partial": mttkrp_partial}
+            "fused_pair": fused_pair, "mttkrp_partial": mttkrp_partial,
+            "multi_ttm_keep": multi_ttm_keep}
 
 
 def check(name: str, got, want, dtype: str) -> tuple[float, float]:
@@ -485,6 +526,268 @@ def cp_phase(gen) -> dict:
     return out
 
 
+def mode_by_mode_ops(shape, ranks) -> int:
+    """Operations of a kept-mode-first Multi-TTM contracted mode by mode,
+    the last axis first: ``sum_d 2 I prod(C[:d]) prod(R[d-1:])``."""
+    i, cs = shape[0], shape[1:]
+    return sum(2 * i * math.prod(cs[:d]) * math.prod(ranks[d - 1:])
+               for d in range(1, len(cs) + 1))
+
+
+def multi_ttm_phase(gen, smi: str, records: dict) -> None:
+    """Phase 7: ``multi_ttm_keep`` against its plain version on every kept
+    mode and on the full core, timed beside its bound and ``torch.einsum``
+    on the same canonical operands."""
+    import torch
+    import repro_torch
+    from repro_torch.engine.plan import choose_multi_ttm_kernel_blocks
+    from repro_torch.kernels import multi_ttm as multi_ttm_mod
+    from repro_torch.kernels.multi_ttm import multi_ttm_keep, multi_ttm_keep_plain
+
+    ctx = repro_torch.ExecutionContext.create("cuda")
+    letters, rank_letters = "abcdefg", "ABCDEFG"
+
+    def measure(x, mats, keep, dtype, plain_cache):
+        n = x.ndim
+        lead = 0 if keep is None else keep
+        perm = (lead,) + tuple(k for k in range(n) if k != lead)
+        xp = x.permute(perm).contiguous()
+        ms = [mats[k].contiguous() for k in perm[1:]]
+        ranks = tuple(m.shape[1] for m in ms)
+        ein = [f"{letters[d]}{rank_letters[d]}" for d in range(n)]
+        if keep is None:  # the engine's full core: the kernel, then A_0^T Z
+            r0 = mats[0].shape[1]
+
+            def run():
+                return repro_torch.multi_ttm(x, mats, None, ctx=ctx)
+
+            def plain():
+                z = multi_ttm_keep_plain(xp, ms)
+                return (mats[0].float().T @ z).reshape((r0,) + ranks)
+
+            spec = letters[:n] + "," + ",".join(ein) + "->" + rank_letters[:n]
+            ops_in = (x, *mats)
+            out_words = r0 * math.prod(ranks)
+            flops = mode_by_mode_ops(xp.shape, ranks) + 2 * x.shape[0] * out_words
+        else:
+            def run():
+                return multi_ttm_keep(xp, ms)
+
+            def plain():
+                return multi_ttm_keep_plain(xp, ms)
+
+            spec = letters[:n] + "," + ",".join(ein[1:]) + "->a" + rank_letters[1:n]
+            ops_in = (xp, *ms)
+            out_words = xp.shape[0] * math.prod(ranks)
+            flops = mode_by_mode_ops(xp.shape, ranks)
+        if keep not in plain_cache:
+            plain_cache[keep] = plain()
+        got = run()
+        rel, diff = check(f"multi_ttm_keep {tuple(x.shape)} keep={keep} {dtype}", got,
+                          plain_cache[keep].reshape(got.shape), dtype)
+        del got
+        b_ms, b_by = bound(x.numel(), x.element_size(), sum(m.numel() for m in mats
+                                                           if keep is None or m is not mats[keep]),
+                           out_words, flops, dtype)
+        plan = choose_multi_ttm_kernel_blocks(xp.shape, ranks, x.element_size())
+        rec = {
+            "kernel": "multi_ttm_keep", "shape": list(x.shape), "ranks": [m.shape[1] for m in mats],
+            "mode": "core" if keep is None else keep, "dtype": dtype,
+            "where": "repro_torch.multi_ttm(keep=None): kernel + A_0^T Z" if keep is None
+            else "kernel on the kept-mode-first copy",
+            "plan": [plan.block_i, list(plan.block_contract)],
+            "smem_bytes": multi_ttm_mod.smem_bytes(plan, x.dtype),
+            "max_rel_err": rel, "max_abs_err": diff,
+            "kernel_ms": cuda_ms(run),
+            "plain_ms": cuda_ms(plain, reps=3, warm=1),
+            "library": "torch.einsum", "library_ms": cuda_ms(
+                lambda: torch.einsum(spec, *ops_in), reps=3, warm=1),
+            "transpose_ms": cuda_ms(lambda: x.permute(perm).contiguous(), reps=3, warm=1)
+            if lead else 0.0,
+            "mode_by_mode_flops": flops,
+            "kronecker_flops": 2 * xp.numel() * math.prod(ranks) if keep is not None else None,
+            "bound_ms": b_ms, "bound_by": b_by, "gpu": smi,
+        }
+        emit(rec)
+        records.setdefault("multi_ttm_keep", []).append(rec)
+        del xp, ms
+        torch.cuda.empty_cache()
+
+    for dims, rank, dtypes in [((1000, 1000, 1000), 32, ("float32", "bfloat16")),
+                               ((180, 180, 180, 180), 16, ("float32",))]:
+        x = torch.randn(dims, generator=gen, device="cuda")
+        mats = [torch.randn((d, rank), generator=gen, device="cuda") / d ** 0.5 for d in dims]
+        plain_cache: dict = {}
+        for dtype in dtypes:
+            # bf16 inputs against the fp32 plain version of the fp32 data
+            xd = x if dtype == "float32" else x.to(torch.bfloat16)
+            md = mats if dtype == "float32" else [m.to(torch.bfloat16) for m in mats]
+            for keep in (*range(len(dims)), None):
+                measure(xd, md, keep, dtype, plain_cache)
+            del xd, md
+        del x, mats, plain_cache
+        torch.cuda.empty_cache()
+
+
+def noisy_tucker(gen, dims, ranks, noise=0.1):
+    """A multilinear-rank-``ranks`` tensor plus Gaussian noise, on the card."""
+    import torch
+    from repro_torch.core.tensor import random_tucker_tensor
+
+    x, _, _ = random_tucker_tensor(gen, dims, ranks)
+    x += noise * float(x.std()) * torch.randn(dims, generator=gen, device="cuda")
+    return x
+
+
+def subspace_fit(x64, nx2: float, factors) -> float:
+    """The fit of the factors' column spaces, in float64: each factor made
+    orthonormal by a float64 QR, X projected onto them in float64 (the
+    contiguous last mode first), ``1 - sqrt(||X||^2 - ||P X||^2) / ||X||``.
+    The fp32 fit's rounding (of ``||X||^2``, of ``G`` and of the factors'
+    orthonormality) drops out; what is left is the subspaces HOOI chose."""
+    import torch
+
+    g = x64
+    for k in range(len(factors) - 1, -1, -1):
+        q, _ = torch.linalg.qr(factors[k].double())
+        g = torch.tensordot(g, q, dims=([k], [0])).movedim(-1, k)
+    return 1.0 - math.sqrt(max(nx2 - float(g.pow(2).sum()), 0.0) / nx2)
+
+
+def col_norm_sq_excess(factors) -> list:
+    """Per factor, the mean of ``diag(A^T A) - 1``: how far the fp32
+    eigenvectors' squared column norms sit above 1."""
+    return [float((a.double().pow(2).sum(0) - 1.0).mean()) for a in factors]
+
+
+def core_fit64(nx2: float, core) -> float:
+    """The fit of a committed fp32 core with both squared norms summed in
+    float64 (``nx2`` is float64's ``||X||^2``)."""
+    return 1.0 - math.sqrt(max(nx2 - float(core.double().pow(2).sum()), 0.0) / nx2)
+
+
+def tucker_run(gen, dims, ranks, sweeps: int = 5) -> dict:
+    """One Tucker shape of phase 8, measured: HOOI on cuda and on einsum
+    from the same HOSVD factors (one untimed sweep, then ``sweeps`` timed,
+    launches counted from 0), one ``n_iters=0`` call, and the same
+    trajectory again one sweep a call, with each sweep's float64 fits."""
+    import torch
+    import repro_torch
+    from repro_torch.core.tensor import frob_norm
+    from repro_torch.core.tucker import hosvd_init
+
+    kernels = counters()
+    x = noisy_tucker(gen, dims, ranks)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    init = hosvd_init(x, ranks)
+    torch.cuda.synchronize()
+    hosvd_ms = (time.perf_counter() - t0) * 1e3
+    rec = {"tucker_hooi": list(dims), "ranks": list(ranks), "sweeps": sweeps,
+           "hosvd_init_ms": hosvd_ms}
+    for backend in ("cuda", "einsum"):
+        ctx = repro_torch.ExecutionContext.create(backend)
+        for k in kernels.values():
+            k.launches = 0
+        repro_torch.tucker_hooi(x, ranks, 1, init_factors=init, ctx=ctx)  # untimed
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = repro_torch.tucker_hooi(x, ranks, sweeps, init_factors=init, ctx=ctx)
+        torch.cuda.synchronize()
+        rec[f"sweep_ms_{backend}"] = (time.perf_counter() - t0) / sweeps * 1e3
+        rec[f"launches_{backend}"] = {name: k.launches for name, k in kernels.items()}
+        rec[f"fits_{backend}"] = res.fits
+        rec[f"factors_{backend}"] = res.factors
+    for k in kernels.values():
+        k.launches = 0
+    hosvd = repro_torch.tucker_hooi(x, ranks, 0, init_factors=init,
+                                    ctx=repro_torch.ExecutionContext.create("cuda"))
+    rec["launches_hosvd_only"] = {name: k.launches for name, k in kernels.items()}
+    rec["hosvd_only_core_shape"] = list(hosvd.core.shape)
+    # float64 readings: ||X||^2 both ways, then per sweep the fit of each
+    # committed core from float64 sums and the fit of the factors' subspaces
+    nx2 = float(torch.linalg.vector_norm(x, dtype=torch.float64)) ** 2
+    rec["norm_x_sq_rel_err_fp32"] = float(frob_norm(x)) ** 2 / nx2 - 1.0
+    x64 = x.double()
+    rec["hosvd_only_fit"] = hosvd.fits[0]
+    rec["hosvd_only_fit_core64"] = core_fit64(nx2, hosvd.core)
+    rec["hosvd_subspace_fit64"] = subspace_fit(x64, nx2, init)
+    rec["col_norm_sq_excess_hosvd"] = col_norm_sq_excess(init)
+    for backend in ("cuda", "einsum"):
+        ctx = repro_torch.ExecutionContext.create(backend)
+        factors, fits, core64, sub64 = init, [], [], []
+        for _ in range(sweeps):
+            step = repro_torch.tucker_hooi(x, ranks, 1, init_factors=factors, ctx=ctx)
+            factors = step.factors
+            fits.append(step.fits[0])
+            core64.append(core_fit64(nx2, step.core))
+            sub64.append(subspace_fit(x64, nx2, factors))
+        rec[f"stepwise_fits_{backend}"] = fits
+        rec[f"stepwise_same_as_timed_{backend}"] = fits == rec[f"fits_{backend}"]
+        rec[f"fits_core64_{backend}"] = core64
+        rec[f"subspace_fits64_{backend}"] = sub64
+    del x, x64, init, hosvd
+    torch.cuda.empty_cache()
+    return rec
+
+
+def check_tucker(rec: dict) -> dict:
+    """Phase 8's checks on one shape's readings; returns the line to print.
+
+    The fp32 fits (what ``tucker_hooi`` reports) are finite, within
+    ``FIT_NOISE`` of einsum's and fall by at most ``FIT_DROP`` a sweep. The
+    float64 fits of the factors' subspaces are held to ``SUBSPACE_TOL``:
+    non-decreasing from the HOSVD subspace through every sweep, and equal
+    on the two backends."""
+    import torch
+
+    n, sweeps = len(rec["ranks"]), rec["sweeps"]
+    want = n * (sweeps + 1)
+    for backend, n_launch in (("cuda", want), ("einsum", 0)):
+        got = rec[f"launches_{backend}"]
+        if got["multi_ttm_keep"] != n_launch or (backend == "cuda") != (
+                got["splitk_reduce"] > 0):
+            raise AssertionError(f"tucker_hooi {backend} {rec['tucker_hooi']}: launches {got}, "
+                                 f"expected {n_launch} multi_ttm_keep")
+    if (rec["launches_hosvd_only"]["multi_ttm_keep"] != 1
+            or rec["hosvd_only_core_shape"] != rec["ranks"]):
+        raise AssertionError(f"tucker_hooi n_iters=0 {rec['tucker_hooi']}: "
+                             f"{rec['launches_hosvd_only']} launches")
+    fits, ref = rec["fits_cuda"], rec["fits_einsum"]
+    a_cuda, a_ein = rec.pop("factors_cuda"), rec.pop("factors_einsum")
+    gap = max(abs(a - b) for a, b in zip(fits, ref))
+    drop = max([0.0] + [a - b for run in (fits, ref) for a, b in zip(run, run[1:])])
+    ortho = max(float((a.T @ a - torch.eye(a.shape[1], device="cuda")).abs().max())
+                for a in a_cuda)
+    cosines = [float(torch.linalg.svdvals(a.T @ b).min()) for a, b in zip(a_cuda, a_ein)]
+    sub = {b: [rec["hosvd_subspace_fit64"]] + rec[f"subspace_fits64_{b}"]
+           for b in ("cuda", "einsum")}
+    sub_drop = max([0.0] + [a - b for run in sub.values() for a, b in zip(run, run[1:])])
+    sub_gap = max(abs(a - b) for a, b in zip(sub["cuda"], sub["einsum"]))
+    rec.update({"max_fit_gap": gap, "max_fit_drop": drop, "max_orthonormality_err": ortho,
+                "col_norm_sq_excess_cuda": col_norm_sq_excess(a_cuda),
+                "min_subspace_cosine": min(cosines), "max_subspace_fit64_drop": sub_drop,
+                "max_subspace_fit64_gap": sub_gap})
+    if (len(fits) != sweeps or not all(math.isfinite(f) for f in fits + ref) or drop > FIT_DROP
+            or gap > FIT_NOISE or ortho > 1e-4 or min(cosines) < 0.9999
+            or sub_drop > SUBSPACE_TOL or sub_gap > SUBSPACE_TOL):
+        raise AssertionError(f"tucker_hooi {rec['tucker_hooi']}: {json.dumps(rec)}")
+    return rec
+
+
+def tucker_phase(gen) -> dict:
+    """Phase 8: the Tucker path at both shapes, measured and checked."""
+    out = {"launches": {k: 0 for k in KERNELS}, "tucker": []}
+    for dims, ranks in [((1000, 1000, 1000), (32, 32, 32)), ((180, 180, 180, 180), (16,) * 4)]:
+        rec = check_tucker(tucker_run(gen, dims, ranks))
+        for counted in (rec["launches_cuda"], rec["launches_hosvd_only"]):
+            for name, n in counted.items():
+                out["launches"][name] += n
+        emit(rec)
+        out["tucker"].append(rec)
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -520,11 +823,16 @@ def main() -> int:
     kernel_phases(gen, smi, records)  # phases 3 and 4
     sweep_kernel_phases(gen, smi, records)  # phase 5
     main_path = cp_phase(gen)  # phase 6
+    multi_ttm_phase(gen, smi, records)  # phase 7
+    tucker = tucker_phase(gen)  # phase 8
+    for name, n in tucker["launches"].items():
+        main_path["launches"][name] += n
 
     main_shape = {"mttkrp3": [1000, 1000, 1000], "mttkrpn": [180, 180, 180, 180],
-                  "fused_pair": [1000, 1000, 1000], "mttkrp_partial": [1000, 1000, 64]}
+                  "fused_pair": [1000, 1000, 1000], "mttkrp_partial": [1000, 1000, 64],
+                  "multi_ttm_keep": [1000, 1000, 1000]}
     kernels = []
-    for name in ("mttkrp3", "mttkrpn", "splitk_reduce", "fused_pair", "mttkrp_partial"):
+    for name in KERNELS:
         rows = [r for r in records[name] if r["dtype"] == "float32"]
         head = next(
             (r for r in rows if r["shape"] == main_shape.get(name) and r.get("mode", 0) == 0),
@@ -532,7 +840,8 @@ def main() -> int:
         )
         if main_path["launches"][name] == 0:
             raise AssertionError(f"{name} was never launched on the main paths")
-        kernels.append({  # launches: summed over the six main-path runs, each counted from 0
+        kernels.append({  # launches: summed over the main-path runs (CP-ALS and Tucker),
+            # each counted from 0
             "name": name, "route": "cuda", "source": CSRC + SOURCE[name],
             "replaces": REPLACES[name],
             "launches": main_path["launches"][name],

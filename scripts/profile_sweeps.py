@@ -1,14 +1,17 @@
 #!/usr/bin/env python3
-"""Where a CP-ALS iteration spends its device time, for each sweep schedule.
+"""Where a CP-ALS iteration and a Tucker/HOOI sweep spend their device time.
 
     python3 scripts/profile_sweeps.py [--seed N]
 
-Needs one CUDA card and nvcc. For the two main-path problems of
+Needs one CUDA card and nvcc. For the two CP-ALS problems of
 ``chip_smoke.py`` (a 1000^3 tensor of CP rank 64 plus noise, R=64, and a
 180^4 tensor of CP rank 32 plus noise, R=32) and each schedule
 (``per_mode``, ``fused``, ``dimtree``, all on ``backend="cuda"``) it runs
 one untimed CP-ALS iteration, then two iterations under ``torch.profiler``
-(CPU and CUDA activities), and prints one JSON line:
+(CPU and CUDA activities); for its two Tucker problems (1000^3 of
+multilinear rank (32, 32, 32) and 180^4 of rank (16, 16, 16, 16), each
+plus 10 % noise) one untimed HOOI sweep from HOSVD factors, then two
+profiled sweeps. Each prints one JSON line:
 
 * ``wall_ms``: host time per iteration, between two synchronizations;
 * ``busy_ms``: the device time per iteration of every kernel and copy the
@@ -16,7 +19,9 @@ one untimed CP-ALS iteration, then two iterations under ``torch.profiler``
   ``idle_share = 1 - busy_ms / wall_ms``;
 * ``groups_ms``: that device time per iteration by group: the port's kernels
   by name, ``copy`` (the transposes and casts), and ``other`` (the solves,
-  Gram matrices and the fit);
+  Gram matrices and the fit); for HOOI also ``gram_eigh``, the kernels
+  launched under the Gram and ``eigh`` of each mode update (attributed
+  through the profiler's CPU op tree, and taken out of ``copy``);
 * ``top``: the ten most expensive device functions by name.
 
 The profiler adds host overhead, so ``wall_ms`` reads a little above
@@ -35,6 +40,7 @@ import time
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 GROUPS = (  # (group, pattern in the device function's name), first match wins
     ("fused_pair", r"fused_pair_kernel"),
+    ("multi_ttm_keep", r"multi_ttm_kernel"),
     ("mttkrp_partial", r"partial_kernel"),
     ("mttkrp3", r"mttkrp_tile_kernel<[^>]*, 2>"),  # the 3-way specialization
     ("mttkrpn", r"mttkrp_tile_kernel<[^>]*, 0>"),  # the generic N-way kernel
@@ -50,6 +56,51 @@ def group_of(name: str) -> str:
     return "other"
 
 
+def profiled(fn, iters: int):
+    """Run ``fn`` under the profiler; returns (wall ms, busy ms, groups ms,
+    top) per iteration, and the profile."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3 / iters
+    groups: dict[str, float] = {}
+    by_name: dict[str, float] = {}
+    for evt in prof.events():
+        # a record_function range shows on the device timeline too: not work
+        if evt.device_type != torch.autograd.DeviceType.CUDA or evt.is_user_annotation:
+            continue
+        ms = evt.time_range.elapsed_us() / 1e3 / iters
+        groups[group_of(evt.name)] = groups.get(group_of(evt.name), 0.0) + ms
+        by_name[evt.name] = by_name.get(evt.name, 0.0) + ms
+    busy = sum(groups.values())
+    if busy == 0.0:
+        raise RuntimeError("the profiler recorded no device time")
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:10]
+    return wall, busy, groups, [[name[:120], ms] for name, ms in top], prof
+
+
+def under(prof, label: str, iters: int) -> dict[str, float]:
+    """Device ms per iteration, by group, of the kernels launched by CPU ops
+    inside a ``record_function(label)`` range."""
+    import torch
+
+    out: dict[str, float] = {}
+    for evt in prof.events():
+        if evt.device_type != torch.autograd.DeviceType.CPU or not evt.kernels:
+            continue
+        p = evt
+        while p is not None and p.name != label:
+            p = p.cpu_parent
+        if p is not None:
+            for k in evt.kernels:
+                out[group_of(k.name)] = out.get(group_of(k.name), 0.0) + k.duration / 1e3 / iters
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -62,10 +113,11 @@ def main() -> int:
         return 2
     sys.path.insert(0, os.path.join(ROOT, "src"))
     sys.path.insert(0, ROOT)
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import record_function
 
     import repro_torch
-    from chip_smoke import noisy_low_rank, nvidia_smi
+    import repro_torch.core.tucker as tucker_mod
+    from chip_smoke import noisy_low_rank, noisy_tucker, nvidia_smi
     from repro_torch.core.tensor import random_factors
     from repro_torch.kernels import build
 
@@ -82,30 +134,47 @@ def main() -> int:
         for sweep in ("per_mode", "fused", "dimtree"):
             repro_torch.cp_als(x, rank, 1, init_factors=init, sweep=sweep, ctx=ctx)
             torch.cuda.synchronize()
-            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-                t0 = time.perf_counter()
-                repro_torch.cp_als(x, rank, iters, init_factors=init, sweep=sweep, ctx=ctx)
-                torch.cuda.synchronize()
-                wall = (time.perf_counter() - t0) * 1e3 / iters
-            groups: dict[str, float] = {}
-            by_name: dict[str, float] = {}
-            for evt in prof.events():
-                if evt.device_type != torch.autograd.DeviceType.CUDA:
-                    continue
-                ms = evt.time_range.elapsed_us() / 1e3 / iters
-                groups[group_of(evt.name)] = groups.get(group_of(evt.name), 0.0) + ms
-                by_name[evt.name] = by_name.get(evt.name, 0.0) + ms
-            busy = sum(groups.values())
-            if busy == 0.0:
-                raise RuntimeError("the profiler recorded no device time")
-            top = sorted(by_name.items(), key=lambda kv: -kv[1])[:10]
+            wall, busy, groups, top, _ = profiled(lambda: repro_torch.cp_als(
+                x, rank, iters, init_factors=init, sweep=sweep, ctx=ctx), iters)
             print(json.dumps({
                 "profile": list(dims), "rank": rank, "sweep": sweep, "wall_ms": wall,
                 "busy_ms": busy, "idle_share": 1.0 - busy / wall, "groups_ms": groups,
-                "top": [[name[:120], ms] for name, ms in top], "gpu": gpu,
+                "top": top, "gpu": gpu,
             }), flush=True)
         del x, init
         torch.cuda.empty_cache()
+
+    # Tucker/HOOI: the Gram and eigh of each mode update run inside a
+    # record_function range, so their kernels can be told from the rest
+    gram_eigvecs = tucker_mod._gram_eigvecs
+
+    def annotated(m, r):
+        with record_function("gram_eigh"):
+            return gram_eigvecs(m, r)
+
+    tucker_mod._gram_eigvecs = annotated
+    for dims, ranks in [((1000, 1000, 1000), (32, 32, 32)), ((180, 180, 180, 180), (16,) * 4)]:
+        x = noisy_tucker(gen, dims, ranks)
+        init = tucker_mod.hosvd_init(x, ranks)
+        repro_torch.tucker_hooi(x, ranks, 1, init_factors=init, ctx=ctx)
+        torch.cuda.synchronize()
+        wall, busy, groups, top, prof = profiled(lambda: repro_torch.tucker_hooi(
+            x, ranks, iters, init_factors=init, ctx=ctx), iters)
+        inside = under(prof, "gram_eigh", iters)
+        if not inside:
+            raise RuntimeError("no kernel was attributed to the Gram and eigh")
+        groups["copy"] = groups.get("copy", 0.0) - inside.get("copy", 0.0)
+        groups["other"] = groups.get("other", 0.0) - sum(
+            v for g, v in inside.items() if g != "copy")
+        groups["gram_eigh"] = sum(inside.values())
+        print(json.dumps({
+            "profile_tucker": list(dims), "ranks": list(ranks), "wall_ms": wall,
+            "busy_ms": busy, "idle_share": 1.0 - busy / wall, "groups_ms": groups,
+            "gram_eigh_by_group_ms": inside, "top": top, "gpu": gpu,
+        }), flush=True)
+        del x, init
+        torch.cuda.empty_cache()
+    tucker_mod._gram_eigvecs = gram_eigvecs
     return 0
 
 

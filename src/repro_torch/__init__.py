@@ -1,9 +1,9 @@
 """repro_torch: the PyTorch/CUDA port of ``repro`` (communication-optimal
-MTTKRP and CP-ALS), for an NVIDIA H100.
+MTTKRP, CP-ALS and Tucker/HOOI), for an NVIDIA H100.
 
 It carries dense CP-ALS on the per-mode, fused (mode-reuse) and
-dimension-tree schedules, every contraction through the hand-written
-Hopper kernels (``backend="cuda"``)::
+dimension-tree schedules, and Multi-TTM with Tucker/HOOI, every contraction
+through the hand-written Hopper kernels (``backend="cuda"``)::
 
     import torch, repro_torch
 
@@ -11,14 +11,17 @@ Hopper kernels (``backend="cuda"``)::
     x = torch.randn(200, 180, 160, device="cuda")
     cp = repro_torch.cp_als(x, rank=16, n_iters=10, sweep="fused", ctx=ctx)
     b0 = repro_torch.mttkrp(x, cp.factors, 0, ctx=ctx)
+    tk = repro_torch.tucker_hooi(x, (16, 12, 8), n_iters=5, ctx=ctx)
+    y0 = repro_torch.multi_ttm(x, tk.factors, keep=0, ctx=ctx)
 
 The JAX package ``repro`` is the reference; this package never imports it.
 """
 
 from .core.cp_als import CPResult, cp_als
+from .core.tucker import TuckerResult, tucker_hooi
 from .engine.context import ExecutionContext
-from .engine.execute import contract_partial, mttkrp
-from .engine.plan import BlockPlan, Memory
+from .engine.execute import contract_partial, mttkrp, multi_ttm
+from .engine.plan import BlockPlan, Memory, MultiTTMPlan
 
 __all__ = [
     "ExecutionContext",
@@ -28,4 +31,8 @@ __all__ = [
     "contract_partial",
     "cp_als",
     "CPResult",
+    "multi_ttm",
+    "MultiTTMPlan",
+    "tucker_hooi",
+    "TuckerResult",
 ]

@@ -12,7 +12,8 @@ import numpy as np
 import torch
 
 from .core.cp_als import CPResult
-from .engine.plan import BlockPlan, Memory
+from .core.tucker import TuckerResult
+from .engine.plan import BlockPlan, Memory, MultiTTMPlan
 
 
 def tensor_from_numpy(
@@ -51,12 +52,40 @@ def block_plan_from_dict(d: Mapping) -> BlockPlan:
     """A :class:`BlockPlan` from the reference's plan dict
     (``repro.tune.cache.plan_to_dict``)."""
     if "ranks" in d:
-        raise ValueError("a Multi-TTM plan; the Multi-TTM slice has not been ported")
+        raise ValueError("a Multi-TTM plan: read it with multi_ttm_plan_from_dict")
     return BlockPlan(
         block_i=int(d["block_i"]),
         block_contract=tuple(int(c) for c in d["block_contract"]),
         block_r=int(d["block_r"]),
         x_has_rank=bool(d.get("x_has_rank", False)),
+    )
+
+
+def multi_ttm_plan_from_dict(d: Mapping) -> MultiTTMPlan:
+    """A :class:`MultiTTMPlan` from the reference's plan dict
+    (``repro.tune.cache.plan_to_dict`` of a ``MultiTTMPlan``)."""
+    if "ranks" not in d:
+        raise ValueError("an MTTKRP plan: read it with block_plan_from_dict")
+    return MultiTTMPlan(
+        block_i=int(d["block_i"]),
+        block_contract=tuple(int(c) for c in d["block_contract"]),
+        ranks=tuple(int(r) for r in d["ranks"]),
+    )
+
+
+def tucker_result_from_numpy(
+    core: np.ndarray,
+    factors: Sequence[np.ndarray],
+    fits: Sequence[float],
+    *,
+    device: str | torch.device = "cuda",
+    dtype: torch.dtype | None = None,
+) -> TuckerResult:
+    """A :class:`TuckerResult` from a reference result's core and factors."""
+    return TuckerResult(
+        tensor_from_numpy(core, device, dtype),
+        factors_from_numpy(factors, device, dtype),
+        [float(f) for f in fits],
     )
 
 

@@ -89,3 +89,25 @@ def random_low_rank_tensor(
     """An exactly rank-``rank`` tensor together with its generating factors."""
     factors = random_factors(generator, dims, rank, dtype)
     return tensor_from_factors(factors), factors
+
+
+def random_tucker_tensor(
+    generator: torch.Generator,
+    dims: Sequence[int],
+    ranks: Sequence[int],
+    dtype: torch.dtype = torch.float32,
+) -> tuple[torch.Tensor, torch.Tensor, list[torch.Tensor]]:
+    """An exact multilinear-rank-``ranks`` tensor ``G x_1 A_1 ... x_N A_N``
+    with a standard-normal core and orthonormal factors (``torch.linalg.qr``
+    of standard-normal matrices), on the generator's device; returns
+    ``(tensor, core, factors)``."""
+    dev = generator.device
+    core = torch.randn(tuple(ranks), generator=generator, device=dev, dtype=dtype)
+    factors = []
+    for d, r in zip(dims, ranks):
+        q, _ = torch.linalg.qr(torch.randn((d, r), generator=generator, device=dev, dtype=dtype))
+        factors.append(q)
+    out = core
+    for k, a in enumerate(factors):
+        out = torch.tensordot(out, a, dims=([k], [1])).movedim(-1, k)
+    return out, core, factors

@@ -1,7 +1,8 @@
-"""The dispatch layer: ``mttkrp`` and ``contract_partial`` over three
-backends, and the fused sweep's ``(B0, P)`` pair on ``cuda``. Counterpart
-of ``repro.engine.execute.mttkrp`` / ``_mttkrp_impl``,
-``contract_partial`` / ``_contract_partial_impl`` and the pallas branch of
+"""The dispatch layer: ``mttkrp``, ``contract_partial`` and ``multi_ttm``
+over three backends, and the fused sweep's ``(B0, P)`` pair on ``cuda``.
+Counterpart of ``repro.engine.execute.mttkrp`` / ``_mttkrp_impl``,
+``contract_partial`` / ``_contract_partial_impl``, ``multi_ttm`` /
+``_multi_ttm_impl`` and the pallas branch of
 ``repro.engine.sweep._fused_pair``.
 
 ``einsum``        — ``torch.einsum``.
@@ -15,7 +16,8 @@ Configuration comes in as one :class:`~.context.ExecutionContext`;
 ``plan``, ``block``, ``kernel_variant`` and ``out_dtype`` pin one
 contraction's details. Each kernel wrapper counts its own launches
 (``mttkrp3.launches``, ``mttkrpn.launches``, ``mttkrp_partial.launches``,
-``fused_pair.launches``, ``splitk_reduce.launches``).
+``fused_pair.launches``, ``multi_ttm_keep.launches``,
+``splitk_reduce.launches``).
 """
 
 from __future__ import annotations
@@ -25,13 +27,21 @@ from typing import Sequence
 
 import torch
 
-from ..core.blocked import mttkrp_blocked
+from ..core.blocked import mttkrp_blocked, multi_ttm_blocked
+from ..core.bounds import multi_ttm_best_block_size
 from ..core.mttkrp import mttkrp as _einsum_mttkrp
 from ..kernels import ops as kernel_ops
 from ..kernels.ref import mttkrp_ref
 from ..kernels.sweep import fused_pair_canonical
 from .context import ExecutionContext, torch_dtype
-from .plan import BlockPlan, Memory, best_uniform_block, choose_blocks, choose_sweep_blocks
+from .plan import (
+    BlockPlan,
+    Memory,
+    MultiTTMPlan,
+    best_uniform_block,
+    choose_blocks,
+    choose_sweep_blocks,
+)
 
 
 def _cast_compute(ctx: ExecutionContext, x, arrays, out_dtype):
@@ -51,6 +61,7 @@ def _cast_compute(ctx: ExecutionContext, x, arrays, out_dtype):
 
 _L = "abcdefghijklmnopqrstuvw"
 _RANK = "z"
+_RANKS = "ABCDEFGHIJ"  # per-mode Tucker rank letters (Multi-TTM einsum)
 _BATCH_SLICE = "a leading batch axis comes with the batched-engine slice, ROADMAP Queue 1 item 8"
 
 
@@ -203,3 +214,149 @@ def fused_pair(
         memory = ctx.memory.with_itemsize(x.element_size())
         plan = choose_sweep_blocks(x.shape, fs[0].shape[1], x.element_size(), memory=memory)
     return fused_pair_canonical(x, fs, plan=plan, out_dtype=out_dtype)
+
+
+# ---------------------------------------------------------------------------
+# Multi-TTM (the Tucker/HOSVD kernel, arXiv:2207.10437)
+# ---------------------------------------------------------------------------
+
+def _multi_ttm_einsum(x, matrices, keep, f32_acc=False):
+    subs, ops, out = [_L[: x.ndim]], [x], ""
+    for k in range(x.ndim):
+        if k == keep:
+            out += _L[k]
+            continue
+        ops.append(matrices[k])
+        subs.append(_L[k] + _RANKS[k])
+        out += _RANKS[k]
+    if f32_acc:  # fp32 accumulation under a compute-dtype policy
+        ops = [o.float() for o in ops]
+    return torch.einsum(",".join(subs) + "->" + out, *ops)
+
+
+def _keep_first(shape: Sequence[int], keep: int) -> tuple[int, ...]:
+    """Canonical Multi-TTM problem shape: kept mode first (mode 0 when the
+    full core is computed; every mode is contracted either way)."""
+    return (shape[keep],) + tuple(s for k, s in enumerate(shape) if k != keep)
+
+
+def _looks_batched_multi_ttm(x, matrices, keep) -> bool:
+    """The reference's test for ``multi_ttm(x_{N+1-way}, N matrices)``: a
+    batched call only when every matrix fits the element problem ``x[b]``
+    (``(B, I_k, R_k)``, ``(I_k, R_k)``, or ``None`` at the kept mode)."""
+    batch, elem_shape = int(x.shape[0]), tuple(x.shape[1:])
+    for k, m in enumerate(matrices):
+        if m is None:
+            if k != keep:
+                return False
+            continue
+        rows = (elem_shape[k],)
+        if not ((m.ndim == 3 and tuple(m.shape[:2]) == (batch,) + rows)
+                or (m.ndim == 2 and tuple(m.shape[:1]) == rows)):
+            return False
+    return True
+
+
+def multi_ttm(
+    x: torch.Tensor,
+    matrices: Sequence[torch.Tensor | None],
+    keep: int | None = None,
+    *,
+    ctx: ExecutionContext | None = None,
+    plan: MultiTTMPlan | None = None,
+    block: int | None = None,
+    out_dtype: torch.dtype | None = None,
+) -> torch.Tensor:
+    """Multi-TTM through the engine: contract every tensor mode (or every
+    mode but ``keep``) with its matrix, the Tucker/HOSVD workhorse
+    (arXiv:2207.10437).
+
+    ``matrices[k]`` is ``(I_k, R_k)``; ``matrices[keep]`` is ignored (may be
+    ``None``). ``keep=None`` computes the full core ``G = X x_1 A_1^T ...
+    x_N A_N^T`` of shape ``(R_1, ..., R_N)``; ``keep=k`` computes the HOOI
+    workhorse ``Y^(k) = X x_{j != k} A_j^T`` with the kept mode in place:
+    ``(R_1, ..., I_k, ..., R_N)``.
+
+    ``ctx`` (default ``ExecutionContext()``: the ``cuda`` backend on the
+    card) selects ``einsum``, ``blocked_host`` (the uniform-b blocked
+    schedule; ``block`` overrides the Eq-9 optimum) or ``cuda`` (the
+    Hopper Multi-TTM kernel; ``plan`` pins its blocks, else the kernel
+    wrapper plans against the kernel's own shared memory with
+    ``choose_multi_ttm_kernel_blocks``; ``ctx.memory`` is not used there,
+    since ``choose_multi_ttm_blocks`` budgets for the Kronecker weight that
+    the kernel never holds). The kernel needs a contracted mode beside the
+    kept one, so ``cuda`` takes tensors of two or more modes. A leading
+    batch axis waits for Queue 1 item 8 and raises."""
+    ctx = ctx if ctx is not None else ExecutionContext()
+    ctx.check_tensor("repro_torch.multi_ttm", x, *matrices)
+    if x.ndim == len(matrices) + 1 and _looks_batched_multi_ttm(x, matrices, keep):
+        raise ValueError(
+            f"multi_ttm: a {x.ndim}-way tensor with {len(matrices)} matrices is a batched "
+            f"call; {_BATCH_SLICE}"
+        )
+    n = x.ndim
+    if keep is not None and not 0 <= keep < n:
+        raise ValueError(f"keep mode {keep} out of range for {n}-way tensor")
+    if len(matrices) != n:
+        raise ValueError(
+            f"multi_ttm needs one matrix per tensor mode ({n}), got "
+            f"{len(matrices)} (pass None at the kept mode)"
+        )
+    for k, m in enumerate(matrices):
+        if k == keep:
+            continue
+        if m is None:
+            raise ValueError(
+                f"matrix {k} is None but mode {k} is contracted "
+                f"(only matrices[keep] may be None; keep={keep})"
+            )
+        if m.shape[0] != x.shape[k]:
+            raise ValueError(
+                f"matrix {k} has {m.shape[0]} rows but tensor mode {k} "
+                f"has extent {x.shape[k]}"
+            )
+    return _multi_ttm_impl(x, matrices, keep, ctx, plan, block, out_dtype)
+
+
+def _multi_ttm_impl(x, matrices, keep, ctx, plan, block, out_dtype):
+    n = x.ndim
+    if out_dtype is None and ctx.out_dtype is not None:
+        out_dtype = torch_dtype(ctx.out_dtype)
+    x, matrices, out_dtype, mixed = _cast_compute(ctx, x, matrices, out_dtype)
+    if ctx.backend == "einsum":
+        out = _multi_ttm_einsum(x, matrices, keep, f32_acc=mixed)
+        return out.to(out_dtype) if out_dtype is not None else out
+    if ctx.backend == "blocked_host":
+        if block is None:
+            # the oracle's convention is kept-mode-first; for the full core
+            # the lead mode plays the kept role (N-1 contracted ranks)
+            ranks = tuple(m.shape[1] for k, m in enumerate(matrices) if k != keep)
+            canon = _keep_first(x.shape, 0 if keep is None else keep)
+            mem = ctx.memory or Memory.abstract(2 ** 20)
+            block = multi_ttm_best_block_size(
+                canon, ranks[1:] if keep is None else ranks, mem.budget_words)
+        out = multi_ttm_blocked(x, matrices, keep, block, f32_acc=mixed)
+        return out.to(out_dtype) if out_dtype is not None else out
+    # cuda: kept mode first (mode 0 for the full core), the kernel, then
+    # the mode order restored
+    if n < 2:
+        raise ValueError(
+            f"multi_ttm: the cuda backend needs a tensor of at least 2 modes (the kernel "
+            f"contracts the modes beside the kept one), got {n}; use backend='einsum'"
+        )
+    lead = 0 if keep is None else keep
+    perm = (lead,) + tuple(k for k in range(n) if k != lead)
+    mats = [matrices[k] for k in perm[1:]]
+    out2d = kernel_ops.multi_ttm_canonical(x.permute(perm), mats, plan=plan)
+    rest_ranks = tuple(m.shape[1] for m in mats)
+    if keep is None:
+        # contract the lead mode too: one small matmul A_0^T @ Z
+        out2d = matrices[0].to(out2d.dtype).T @ out2d
+        out = out2d.reshape((matrices[0].shape[1],) + rest_ranks).to(x.dtype)
+        return out.to(out_dtype) if out_dtype is not None else out
+    out = out2d.reshape((x.shape[keep],) + rest_ranks)
+    inv = [0] * n
+    for pos, axis in enumerate(perm):
+        inv[axis] = pos
+    out = out.permute(inv).to(x.dtype)
+    return out.to(out_dtype) if out_dtype is not None else out

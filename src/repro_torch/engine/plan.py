@@ -1,7 +1,6 @@
 """The planner: one source of truth for MTTKRP blocking and traffic models.
 
-Counterpart of ``repro.engine.plan`` (the MTTKRP and fused-sweep parts;
-the Multi-TTM planner comes with its slice):
+Counterpart of ``repro.engine.plan``:
 
   * :class:`Memory` — an explicit two-level-memory descriptor (capacity,
     lane/sublane alignment, itemsize). ``Memory.h100_smem()`` is the shared
@@ -18,6 +17,11 @@ the Multi-TTM planner comes with its slice):
     — the fused (B0, P) pair's plan, unchanged from the reference.
   * :func:`best_uniform_block` / :func:`uniform_block_feasible` /
     :func:`uniform_plan` — the paper's exact uniform-b selection (Eq 9).
+  * :class:`MultiTTMPlan`, :func:`choose_multi_ttm_blocks`,
+    :func:`uniform_multi_ttm_plan` — the Multi-TTM (Tucker) planner,
+    unchanged from the reference; beside it the Hopper Multi-TTM kernel's
+    own shared-memory count (:func:`multi_ttm_kernel_smem_bytes`) and the
+    plan its wrapper takes by default (:func:`choose_multi_ttm_kernel_blocks`).
 
 Formula provenance stays in :mod:`repro_torch.core.bounds`.
 """
@@ -28,7 +32,13 @@ import math
 from dataclasses import dataclass
 from typing import Sequence
 
-from ..core.bounds import best_block_size, blocked_feasible_b, seq_blocked_cost
+from ..core.bounds import (
+    best_block_size,
+    blocked_feasible_b,
+    multi_ttm_best_block_size,
+    multi_ttm_blocked_cost,
+    seq_blocked_cost,
+)
 
 LANE = 128
 SUBLANE = 8
@@ -385,3 +395,254 @@ def uniform_plan(dims: Sequence[int], rank: int, memory: Memory | int) -> BlockP
     if int(plan.eq10_words(dims, rank)) != int(seq_blocked_cost(dims, rank, b)):
         raise AssertionError("uniform plan disagrees with Eq (10)")
     return plan
+
+
+# ---------------------------------------------------------------------------
+# Multi-TTM planning (the Tucker/HOSVD kernel, arXiv:2207.10437)
+# ---------------------------------------------------------------------------
+
+@dataclass(frozen=True)
+class MultiTTMPlan:
+    """Block sizes for one canonical Multi-TTM contraction: kept mode first
+    (``block_i`` rows), contracted tensor modes next (``block_contract``),
+    each contracted mode paired with its small Tucker rank ``ranks[d]``.
+
+    There is no rank tile: the R_d are the small dimensions of the problem,
+    so every tile keeps them whole. The reference's TPU kernel builds the
+    Kronecker weight block ``W[(c_1..c_k), (r_1..r_k)] = prod_d A_d(c_d,
+    r_d)`` in fast memory, and the working set below counts it; the Hopper
+    kernel contracts mode by mode instead and never forms it (its own
+    count is :func:`multi_ttm_kernel_smem_bytes`).
+    """
+
+    block_i: int
+    block_contract: tuple[int, ...]
+    ranks: tuple[int, ...]
+
+    # -- Eq 9 analog: working set -----------------------------------------
+    def kernel_block_words(self) -> int:
+        """Words of the operand tiles alone: tensor tile + matrix tiles +
+        output tile."""
+        prod_c = math.prod(self.block_contract)
+        prod_r = math.prod(self.ranks)
+        x_tile = self.block_i * prod_c
+        m_tiles = sum(c * r for c, r in zip(self.block_contract, self.ranks))
+        out = self.block_i * prod_r
+        return x_tile + m_tiles + out
+
+    def weight_scratch_words(self) -> int:
+        """Words of the Kronecker weight block ``prod(bc) * prod(R_d)``."""
+        return math.prod(self.block_contract) * math.prod(self.ranks)
+
+    def working_set_words(self) -> int:
+        """Fast-memory words per grid step: tensor tile + matrix tiles +
+        Kronecker weight block + output tile (the Multi-TTM Eq-9 analog;
+        uniform-b form in ``core.bounds.multi_ttm_blocked_feasible_b``)."""
+        return self.kernel_block_words() + self.weight_scratch_words()
+
+    def fits(self, memory: Memory) -> bool:
+        return self.working_set_words() * memory.itemsize <= memory.budget_bytes
+
+    # -- shapes ------------------------------------------------------------
+    def blocks_per_mode(self) -> tuple[int, ...]:
+        return (self.block_i,) + tuple(self.block_contract)
+
+    def padded_shape(self, shape: Sequence[int]) -> tuple[int, ...]:
+        blocks = self.blocks_per_mode()
+        return tuple(_round_up(s, b) for s, b in zip(shape, blocks))
+
+    def grid(self, shape: Sequence[int]) -> tuple[int, ...]:
+        """Tile grid (i, c_1..c_k) of the padded problem (no rank axis: the
+        R_d stay whole per tile)."""
+        padded = self.padded_shape(shape)
+        return (padded[0] // self.block_i,) + tuple(
+            padded[1 + d] // self.block_contract[d]
+            for d in range(len(self.block_contract))
+        )
+
+    # -- Eq 10 analog: traffic --------------------------------------------
+    def model_words(self, shape: Sequence[int]) -> int:
+        """The blocked Multi-TTM cost generalized to per-mode block sizes:
+        one pass over the tensor plus, per block, the matrix subblocks
+        (sum_d b_d R_d) and one load+store of the output subblock
+        (2 b_i prod R_d). With a uniform b this equals
+        ``core.bounds.multi_ttm_blocked_cost`` exactly."""
+        blocks = self.blocks_per_mode()
+        nblocks = math.prod(math.ceil(s / b) for s, b in zip(shape, blocks))
+        per_block = sum(
+            b * r for b, r in zip(self.block_contract, self.ranks)
+        ) + 2 * self.block_i * math.prod(self.ranks)
+        return math.prod(shape) + nblocks * per_block
+
+    def traffic_model(self, shape: Sequence[int], itemsize: int = 4) -> dict[str, int]:
+        """Modeled slow<->fast memory traffic (bytes) of the reference's
+        tile schedule: grid (i, c_1..c_k), c innermost; the tensor is
+        streamed once; matrix d is re-fetched when c_d changes; the output
+        tile is written once per i block. ``model_bytes`` is the
+        paper-ideal cost for the same per-mode blocks (:meth:`model_words`)."""
+        n = len(shape)
+        padded = self.padded_shape(shape)
+        gi = padded[0] // self.block_i
+        gc = [padded[1 + d] // self.block_contract[d] for d in range(n - 1)]
+        steps = gi * math.prod(gc)
+        x_bytes = steps * self.block_i * math.prod(self.block_contract) * itemsize
+        m_bytes = 0
+        run = gi
+        for d in range(n - 1):
+            run *= gc[d]
+            m_bytes += run * self.block_contract[d] * self.ranks[d] * itemsize
+        o_bytes = gi * self.block_i * math.prod(self.ranks) * itemsize
+        total = x_bytes + m_bytes + o_bytes
+        return {
+            "x_bytes": x_bytes,
+            "matrix_bytes": m_bytes,
+            "out_bytes": o_bytes,
+            "total_bytes": total,
+            "model_bytes": self.model_words(shape) * itemsize,
+            "steps": steps,
+            "working_set_bytes": self.working_set_words() * itemsize,
+        }
+
+
+def choose_multi_ttm_blocks(
+    shape: Sequence[int],
+    ranks: Sequence[int],
+    itemsize: int = 4,
+    *,
+    memory: Memory | None = None,
+) -> MultiTTMPlan:
+    """Blocks for a canonical Multi-TTM (kept mode first) against a memory
+    budget (the reference's algorithm, unchanged: under
+    ``Memory.tpu_vmem()`` and ``Memory.abstract(M)`` it returns exactly the
+    reference's plans). The Tucker ranks are never tiled; the kept-mode
+    and contraction blocks follow :func:`choose_blocks`' alignment-then-
+    shrink strategy. It budgets for the full Kronecker weight, which the
+    Hopper kernel never holds, so under ``Memory.h100_smem()`` its tiles
+    are tiny; the kernel wrapper plans with
+    :func:`choose_multi_ttm_kernel_blocks` instead."""
+    if memory is None:
+        memory = Memory.tpu_vmem(itemsize=itemsize)
+    lane, sublane = memory.lane, memory.sublane
+    n = len(shape)
+    ranks = tuple(int(r) for r in ranks)
+
+    def start(extent: int, unit: int, pref: int) -> int:
+        if extent <= unit:
+            return max(1, extent)
+        return min(_round_up(extent, unit), pref)
+
+    def floor(extent: int, unit: int) -> int:
+        return max(1, extent) if extent <= unit else unit
+
+    bi = start(shape[0], sublane, 128)
+    bc: list[int] = []
+    for d in range(1, n):
+        if d == n - 1:
+            bc.append(start(shape[d], lane, 128))
+        else:
+            bc.append(start(shape[d], sublane, max(sublane, 8)))
+    fi = floor(shape[0], sublane)
+    fc = [floor(shape[d], lane if d == n - 1 else sublane) for d in range(1, n)]
+    plan = MultiTTMPlan(bi, tuple(bc), ranks)
+    while not plan.fits(memory):
+        bi = plan.block_i
+        bc = list(plan.block_contract)
+        if bi > fi:
+            bi = max(fi, bi // 2)
+        else:
+            shrunk = False
+            for d in range(len(bc) - 1):
+                if bc[d] > fc[d]:
+                    bc[d] = max(fc[d], bc[d] // 2)
+                    shrunk = True
+                    break
+            if not shrunk:
+                if bc and bc[-1] > fc[-1]:
+                    bc[-1] = max(fc[-1], bc[-1] // 2)
+                else:
+                    break
+        plan = MultiTTMPlan(bi, tuple(bc), ranks)
+    while not plan.fits(memory):
+        dims = [plan.block_i, *plan.block_contract]
+        j = max(range(len(dims)), key=lambda k: dims[k])
+        if dims[j] <= 1:
+            break  # all-1 blocks: the ranks alone exceed this memory
+        dims[j] //= 2
+        plan = MultiTTMPlan(dims[0], tuple(dims[1:]), ranks)
+    return plan
+
+
+def uniform_multi_ttm_plan(
+    dims: Sequence[int], ranks: Sequence[int], memory: Memory | int
+) -> MultiTTMPlan:
+    """A :class:`MultiTTMPlan` with the paper's uniform b in every tensor
+    mode; ``plan.model_words(dims)`` then equals
+    ``core.bounds.multi_ttm_blocked_cost(dims, ranks, b)`` exactly."""
+    mem_words = memory.budget_words if isinstance(memory, Memory) else memory
+    b = multi_ttm_best_block_size(dims, ranks, mem_words)
+    plan = MultiTTMPlan(b, (b,) * (len(dims) - 1), tuple(int(r) for r in ranks))
+    if int(plan.model_words(dims)) != int(multi_ttm_blocked_cost(dims, ranks, b)):
+        raise AssertionError("uniform Multi-TTM plan disagrees with the blocked cost")
+    return plan
+
+
+def multi_ttm_kernel_smem_bytes(plan: MultiTTMPlan, itemsize: int) -> int:
+    """Dynamic shared memory of the Hopper Multi-TTM kernel under ``plan``
+    (``csrc/multi_ttm.cu:make_ttm_layout``, mirrored here so a plan can be
+    chosen on a host without the built library; the card tests hold the two
+    equal). It holds the X tile (input dtype, 16 bytes of row skew), its row
+    table, the last matrix's tile, the first-stage product
+    ``T (bi * prod(bc[:-1]), R_k)``, the leading matrices' tiles, one
+    partial fold per inner leading axis, and the fp32 output tile
+    ``bi x prod(R_d)``; never the Kronecker weight."""
+    bc, ranks, bi = plan.block_contract, plan.ranks, plan.block_i
+    k = len(bc)
+    lead = math.prod(bc[:-1])
+    bl4 = _round_up(bc[-1], 4)
+    ldx = bl4 + 16 // itemsize
+    rows = bi * lead
+    rows8 = _round_up(rows, 8)
+    ldw = _round_up(ranks[-1], 4)
+    tab = _round_up(rows8 * ldx * itemsize, 16)
+    a_last = _round_up(tab + 8 * rows, 16)
+    ps = a_last + 4 * bl4 * ldw
+    off = ps + 4 * rows8 * ldw + 4 * sum(c * r for c, r in zip(bc[:-1], ranks[:-1]))
+    for d in range(1, k - 1):
+        off += 4 * bi * math.prod(bc[:d]) * math.prod(ranks[d:])
+    return off + 4 * bi * math.prod(ranks)
+
+
+def choose_multi_ttm_kernel_blocks(
+    shape: Sequence[int], ranks: Sequence[int], itemsize: int = 4
+) -> MultiTTMPlan:
+    """The Hopper Multi-TTM kernel's default plan for a canonical
+    ``(I, C_1..C_k)`` problem, against its real shared memory
+    (:func:`multi_ttm_kernel_smem_bytes`). It starts from 8 rows, 8 on each
+    leading contraction axis and 256-byte runs along the contiguous last
+    axis (64 fp32 or 128 bf16 elements), then halves the rows, the largest
+    leading block, then the run, until the plan fits ``SMEM_BUDGET`` (two
+    CTAs per SM); where not even 1-wide blocks fit, it plans again against
+    one CTA's limit. Raises if they do not fit that either:
+    the output tile ``prod(R_d)`` of one row alone is then too large."""
+    ranks = tuple(int(r) for r in ranks)
+    for budget in (SMEM_BUDGET, SMEM_PER_CTA_MAX):
+        bi = max(1, min(int(shape[0]), 8))
+        lead = [max(1, min(int(c), 8)) for c in shape[1:-1]]
+        bl = max(1, min(int(shape[-1]), 256 // itemsize))
+        while True:
+            plan = MultiTTMPlan(bi, tuple(lead) + (bl,), ranks)
+            if multi_ttm_kernel_smem_bytes(plan, itemsize) <= budget:
+                return plan
+            if bi > 1:
+                bi //= 2
+            elif lead and max(lead) > 1:
+                j = max(range(len(lead)), key=lambda d: lead[d])
+                lead[j] //= 2
+            elif bl > 4:
+                bl //= 2
+            else:
+                break
+    raise ValueError(
+        f"Multi-TTM kernel: ranks {ranks} need more than {SMEM_PER_CTA_MAX} bytes of shared "
+        f"memory even with 1-wide blocks"
+    )

@@ -24,11 +24,9 @@
 // 1.28e11 operations on the CUDA cores (1.91 ms at 67 TFLOP/s) outweigh the
 // 4.26e9 bytes of X and P (1.27 ms at 3.35 TB/s); at 180^4, R=32 the bytes
 // (4.95e9, 1.48 ms) do. The design keeps the P product on fp32 FMAs fed from
-// shared memory: a thread owns an 8-row x 4-column unit of the P tile, and
-// one float4 of the A_{N-1} tile feeds 32 FMAs. With fewer units than
-// threads, threads also split each step's c_{N-1} range and add their
-// partials in a fixed order; with more, the CTA makes several passes over
-// c_{N-1}. Ragged edges are masked in the loads; nothing is padded.
+// shared memory (common.cuh:row_product: a thread owns an 8-row x 4-column
+// unit of the P tile, and one float4 of the A_{N-1} tile feeds 32 FMAs).
+// Ragged edges are masked in the loads; nothing is padded.
 //
 // partial_kernel<T> replaces src/repro/kernels/mttkrpn.py:
 // mttkrp_partial_pallas (_partial_kernel), the dimension tree's
@@ -64,16 +62,8 @@ struct SweepProblem {
 // device: xs (rows8 x ldx, input dtype) | tab_g, tab_p (rows x i64)
 // | as (bl4 x ldw) | ps (rows8 x ldw) | wl (L x ldw) | b0s (bi x ldw), fp32.
 struct PairLayout {
-  int lead;     // L = prod bc[:-1]: leading index tuples of one tile
-  int bl, bl4;  // last contraction block, rounded up to 4
-  int ldx;      // xs row stride in elements (16 bytes of bank skew)
-  int rows;     // bi * L: rows of the P tile
-  int rows8;    // rows rounded up to 8 (zero rows)
-  int ldw;      // br rounded up to 4
-  int units;    // 8-row x 4-column units of the P tile
-  int n_pass;   // passes over c_{N-1} (units per pass: NTHREADS)
-  int kparts;   // threads sharing one unit, each on a slice of a step's c_{N-1}
-  int kchunk;   // that slice, a multiple of 4
+  int lead;       // L = prod bc[:-1]: leading index tuples of one tile
+  RowProduct p;   // the P tile: bi * L rows x br, along c_{N-1} in chunks of bc[-1]
   long long tab_g, tab_p, as, ps, wl, b0s, total;  // byte offsets
 };
 
@@ -82,25 +72,15 @@ static __host__ __device__ PairLayout make_pair_layout(int tsize, int nc, const 
   PairLayout l;
   l.lead = 1;
   for (int d = 0; d < nc - 1; ++d) l.lead *= bc[d];
-  l.bl = bc[nc - 1];
-  l.bl4 = (int)round_up(l.bl, 4);
-  l.ldx = l.bl4 + 16 / tsize;
-  l.rows = bi * l.lead;
-  l.rows8 = (int)round_up(l.rows, 8);
-  l.ldw = (int)round_up(br, 4);
-  l.units = (l.rows8 / 8) * (l.ldw / 4);
-  l.n_pass = (int)ceil_div(l.units, NTHREADS);
-  const int kgroups = l.bl4 / 4;
-  int kp = l.units >= NTHREADS ? 1 : NTHREADS / l.units;
-  l.kparts = kp < kgroups ? kp : kgroups;
-  l.kchunk = 4 * (int)ceil_div(kgroups, l.kparts);
-  l.tab_g = round_up((long long)l.rows8 * l.ldx * tsize, 16);
-  l.tab_p = l.tab_g + 8LL * l.rows;
-  l.as = round_up(l.tab_p + 8LL * l.rows, 16);
-  l.ps = l.as + 4LL * l.bl4 * l.ldw;
-  l.wl = l.ps + 4LL * l.rows8 * l.ldw;
-  l.b0s = l.wl + 4LL * l.lead * l.ldw;
-  l.total = l.b0s + 4LL * bi * l.ldw;
+  l.p = make_row_product(tsize, bi * l.lead, bc[nc - 1], br);
+  const int ldw = l.p.ldw;
+  l.tab_g = round_up((long long)l.p.rows8 * l.p.ldx * tsize, 16);
+  l.tab_p = l.tab_g + 8LL * l.p.rows;
+  l.as = round_up(l.tab_p + 8LL * l.p.rows, 16);
+  l.ps = l.as + 4LL * l.p.bl4 * ldw;
+  l.wl = l.ps + 4LL * l.p.rows8 * ldw;
+  l.b0s = l.wl + 4LL * l.lead * ldw;
+  l.total = l.b0s + 4LL * bi * ldw;
   return l;
 }
 
@@ -111,7 +91,7 @@ fused_pair_kernel(SweepProblem p, const T* __restrict__ x, Factors f, float* __r
   const int nc = p.ncontract, nlead = nc - 1;
   const int bi = p.block_i, br = p.block_r, R = p.rank;
   const PairLayout l = make_pair_layout(sizeof(T), nc, p.block_c, bi, br);
-  const int L = l.lead, bl = l.bl, ldw = l.ldw;
+  const int L = l.lead, ldw = l.p.ldw, rows = l.p.rows;
 
   extern __shared__ __align__(16) unsigned char smem[];
   T* xs = reinterpret_cast<T*>(smem);
@@ -137,14 +117,8 @@ fused_pair_kernel(SweepProblem p, const T* __restrict__ x, Factors f, float* __r
   const long long c_last = p.extent_c[nc - 1];
   const T* fl = reinterpret_cast<const T*>(f.ptr[nc - 1]);
 
-  // thread -> unit (8 rows x 4 columns of the P tile) and slice of c_{N-1}
-  const int ncg = ldw / 4;
-  const int kpart = l.kparts > 1 ? t / l.units : 0;
-  const int k_begin = kpart * l.kchunk;
-  const int k_end = k_begin + l.kchunk < l.bl4 ? k_begin + l.kchunk : l.bl4;
-
   // pad rows and columns of xs stay zero for the whole run
-  for (int e = t; e < l.rows8 * l.ldx; e += NTHREADS) xs[e] = zero_val<T>();
+  for (int e = t; e < l.p.rows8 * l.p.ldx; e += NTHREADS) xs[e] = zero_val<T>();
   for (int e = t; e < bi * ldw; e += NTHREADS) b0s[e] = 0.f;
 
   for (long long step = o_begin * n_inner; step < o_end * n_inner; ++step) {
@@ -160,7 +134,7 @@ fused_pair_kernel(SweepProblem p, const T* __restrict__ x, Factors f, float* __r
     __syncthreads();  // the previous leading tile is done with the tables, wl and ps
     // per P-tile row (i, leading tuple): X's run at c_{N-1} = 0 and P's row,
     // -1 where the row or a leading index is out of range
-    for (int row = t; row < l.rows; row += NTHREADS) {
+    for (int row = t; row < rows; row += NTHREADS) {
       const int il = row / L;
       int rem = row - il * L;
       long long off = i0 + il;
@@ -196,104 +170,11 @@ fused_pair_kernel(SweepProblem p, const T* __restrict__ x, Factors f, float* __r
       wl[e] = in ? v : 0.f;
     }
 
-    for (int pass = 0; pass < l.n_pass; ++pass) {
-      const int unit = pass * NTHREADS + (l.kparts > 1 ? t % l.units : t);
-      const bool active = unit < l.units && kpart < l.kparts;
-      const int rg = active ? unit / ncg : 0, cg = active ? unit % ncg : 0;
-      float acc[8][4];
-#pragma unroll
-      for (int tt = 0; tt < 8; ++tt)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[tt][j] = 0.f;
-
-      for (long long cl = 0; cl < c_last; cl += bl) {
-        __syncthreads();  // the previous step is done with xs and as (and the tables are written)
-        // A_{N-1} tile (fp32), masked on C_{N-1}, br and R; pad rows k >= bl are zero
-        for (int e = t; e < l.bl4 * ldw; e += NTHREADS) {
-          const int k = e / ldw, rr = e - (e / ldw) * ldw;
-          const long long g = cl + k;
-          float v = 0.f;
-          if (k < bl && g < c_last && rr < br && r0 + rr < R) v = to_float(fl[g * R + r0 + rr]);
-          as[e] = v;
-        }
-        // X tile, masked on C_{N-1}: XLOADS loads in flight per thread
-        {
-          const long long lim = c_last - cl;
-          const int total = l.rows * bl;
-          for (int base = 0; base < total; base += NTHREADS * XLOADS) {
-            T v[XLOADS];
-#pragma unroll
-            for (int u = 0; u < XLOADS; ++u) {
-              const int e = base + u * NTHREADS + t;
-              v[u] = zero_val<T>();
-              if (e < total) {
-                const int row = e / bl, k = e - (e / bl) * bl;
-                const long long g = tab_g[row];
-                if (g >= 0 && k < lim) v[u] = x[g + cl + k];
-              }
-            }
-#pragma unroll
-            for (int u = 0; u < XLOADS; ++u) {
-              const int e = base + u * NTHREADS + t;
-              if (e < total) {
-                const int row = e / bl;
-                xs[row * l.ldx + (e - row * bl)] = v[u];
-              }
-            }
-          }
-        }
-        __syncthreads();
-        if (active) {
-          const T* xrow = xs + rg * 8 * l.ldx;
-          const float* acol = as + cg * 4;
-          for (int k = k_begin; k < k_end; k += 4) {
-            float4 a[4];
-#pragma unroll
-            for (int q = 0; q < 4; ++q) a[q] = *reinterpret_cast<const float4*>(acol + (k + q) * ldw);
-#pragma unroll
-            for (int tt = 0; tt < 8; ++tt) {
-              const float4 xv = load4(xrow + tt * l.ldx + k);
-              float* c = acc[tt];
-              c[0] = fmaf(xv.x, a[0].x, c[0]);
-              c[1] = fmaf(xv.x, a[0].y, c[1]);
-              c[2] = fmaf(xv.x, a[0].z, c[2]);
-              c[3] = fmaf(xv.x, a[0].w, c[3]);
-              c[0] = fmaf(xv.y, a[1].x, c[0]);
-              c[1] = fmaf(xv.y, a[1].y, c[1]);
-              c[2] = fmaf(xv.y, a[1].z, c[2]);
-              c[3] = fmaf(xv.y, a[1].w, c[3]);
-              c[0] = fmaf(xv.z, a[2].x, c[0]);
-              c[1] = fmaf(xv.z, a[2].y, c[1]);
-              c[2] = fmaf(xv.z, a[2].z, c[2]);
-              c[3] = fmaf(xv.z, a[2].w, c[3]);
-              c[0] = fmaf(xv.w, a[3].x, c[0]);
-              c[1] = fmaf(xv.w, a[3].y, c[1]);
-              c[2] = fmaf(xv.w, a[3].z, c[2]);
-              c[3] = fmaf(xv.w, a[3].w, c[3]);
-            }
-          }
-        }
-      }
-      // the finished units into ps, the c_{N-1} slices added in kpart order
-      for (int q = 0; q < l.kparts; ++q) {
-        if (active && kpart == q) {
-#pragma unroll
-          for (int tt = 0; tt < 8; ++tt) {
-            float4* d = reinterpret_cast<float4*>(ps + (rg * 8 + tt) * ldw + cg * 4);
-            float4 s = make_float4(acc[tt][0], acc[tt][1], acc[tt][2], acc[tt][3]);
-            if (q > 0) {
-              const float4 o = *d;
-              s = make_float4(o.x + s.x, o.y + s.y, o.z + s.z, o.w + s.w);
-            }
-            *d = s;
-          }
-        }
-        __syncthreads();
-      }
-    }
+    // the P tile: X(rows, c_{N-1}) A_{N-1}(c_{N-1}, r0 .. r0 + br)
+    row_product(l.p, x, tab_g, fl, R, r0, br, 0, c_last, xs, as, ps);
 
     // the finished P tile out to device memory (rows and r masked)
-    for (int e = t; e < l.rows * br; e += NTHREADS) {
+    for (int e = t; e < rows * br; e += NTHREADS) {
       const int row = e / br, rr = e - (e / br) * br;
       const long long g = tab_p[row];
       if (g >= 0 && r0 + rr < R) pout[g + r0 + rr] = ps[row * ldw + rr];

@@ -1,8 +1,9 @@
 """Public wrappers for the MTTKRP kernels: mode canonicalization, the
 choice between the 3-way specialized and the N-way generic kernel, and the
-rank-augmented partial contraction. Counterpart of ``repro.kernels.ops``
-(``mttkrp_canonical_pallas``, ``mttkrp_pallas``,
-``mttkrp_partial_canonical_pallas``).
+rank-augmented partial contraction, and the kept-mode Multi-TTM.
+Counterpart of ``repro.kernels.ops`` (``mttkrp_canonical_pallas``,
+``mttkrp_pallas``, ``mttkrp_partial_canonical_pallas``,
+``multi_ttm_canonical_pallas``).
 
 Unlike the reference, nothing here pads: the kernels take unpadded extents
 and mask their ragged edges, and the plain versions need no padding. The
@@ -16,9 +17,10 @@ from typing import Sequence
 
 import torch
 
-from ..engine.plan import BlockPlan
+from ..engine.plan import BlockPlan, MultiTTMPlan
 from .mttkrp3 import mttkrp3
 from .mttkrpn import mttkrpn
+from .multi_ttm import multi_ttm_keep
 from .partial import mttkrp_partial
 
 
@@ -98,4 +100,22 @@ def mttkrp_partial_canonical(
     node = node.contiguous()
     fs = [f.to(node.dtype).contiguous() for f in fs]
     out = mttkrp_partial(node, fs, plan=plan)
+    return out.to(out_dtype) if out_dtype is not None else out
+
+
+def multi_ttm_canonical(
+    xp: torch.Tensor,
+    mats: Sequence[torch.Tensor],
+    *,
+    plan: MultiTTMPlan | None = None,
+    out_dtype: torch.dtype | None = None,
+) -> torch.Tensor:
+    """Kept-mode-first Multi-TTM through the kernel: ``xp`` has the kept
+    mode at axis 0; ``mats`` are the k contracted-mode matrices ``(C_d,
+    R_d)`` for axes 1..k in order, cast to ``xp``'s dtype. Nothing is
+    padded (the kernel masks). Returns the flattened ``(I, prod R_d)``
+    result, float32 unless ``out_dtype`` casts it."""
+    xp = xp.contiguous()
+    mats = [m.to(xp.dtype).contiguous() for m in mats]
+    out = multi_ttm_keep(xp, mats, plan=plan)
     return out.to(out_dtype) if out_dtype is not None else out

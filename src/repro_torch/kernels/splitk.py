@@ -19,7 +19,7 @@ from typing import Sequence
 
 import torch
 
-from ..engine.plan import SMEM_PER_CTA_MAX, BlockPlan
+from ..engine.plan import SMEM_PER_CTA_MAX, BlockPlan, MultiTTMPlan
 from .build import check, library
 
 #: CTAs wanted in flight: two per SM (the planner's budget lets two share one).
@@ -102,7 +102,7 @@ def check_operands(name: str, x: torch.Tensor, factors: Sequence[torch.Tensor],
         raise ValueError(f"{name}: plan {plan} does not fit operand {tuple(x.shape)}")
 
 
-def check_smem(name: str, plan: BlockPlan, smem: int) -> None:
+def check_smem(name: str, plan: BlockPlan | MultiTTMPlan, smem: int) -> None:
     """Raise if a plan needs more shared memory than one CTA has."""
     if smem > SMEM_PER_CTA_MAX:
         raise ValueError(

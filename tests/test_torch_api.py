@@ -30,7 +30,7 @@ ROOT = Path(__file__).resolve().parents[1]
 def test_public_surface():
     assert sorted(repro_torch.__all__) == sorted(
         ["ExecutionContext", "Memory", "BlockPlan", "mttkrp", "contract_partial", "cp_als",
-         "CPResult"])
+         "CPResult", "multi_ttm", "MultiTTMPlan", "tucker_hooi", "TuckerResult"])
     for name in repro_torch.__all__:  # the reference's names for the same things
         assert name in repro.__all__
 
@@ -97,8 +97,12 @@ def test_convert_carries_plans_factors_and_results():
     jplan = repro.BlockPlan(16, (8, 64), 32)
     assert convert.block_plan_from_dict(plan_to_dict(jplan)) == repro_torch.BlockPlan(
         16, (8, 64), 32)
-    with pytest.raises(ValueError):
+    with pytest.raises(ValueError, match="multi_ttm_plan_from_dict"):
         convert.block_plan_from_dict(plan_to_dict(repro.MultiTTMPlan(8, (8,), (2,))))
+    assert convert.multi_ttm_plan_from_dict(plan_to_dict(repro.MultiTTMPlan(8, (8,), (2,)))) \
+        == repro_torch.MultiTTMPlan(8, (8,), (2,))
+    with pytest.raises(ValueError, match="block_plan_from_dict"):
+        convert.multi_ttm_plan_from_dict(plan_to_dict(jplan))
     rng = np.random.default_rng(0)
     fs = [rng.standard_normal((d, 3), dtype=np.float32) for d in (4, 5)]
     got = convert.factors_from_numpy(fs, "cpu", torch.float64)

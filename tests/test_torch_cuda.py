@@ -16,12 +16,24 @@ import pytest
 import torch
 
 import repro_torch
-from repro_torch.engine.plan import BlockPlan, Memory, choose_blocks, choose_sweep_blocks
+import repro_torch.core.tucker
+from repro_torch.core.tensor import random_tucker_tensor
+from repro_torch.engine.plan import (
+    BlockPlan,
+    Memory,
+    MultiTTMPlan,
+    choose_blocks,
+    choose_multi_ttm_kernel_blocks,
+    choose_sweep_blocks,
+    multi_ttm_kernel_smem_bytes,
+)
 from repro_torch.engine.sweep import fused_als_sweep
 from repro_torch.engine.tree import dimtree_als_sweep
+from repro_torch.kernels import multi_ttm as multi_ttm_mod
 from repro_torch.kernels import ops, partial, splitk, sweep
 from repro_torch.kernels.mttkrp3 import mttkrp3, mttkrp3_plain
 from repro_torch.kernels.mttkrpn import mttkrpn, mttkrpn_plain
+from repro_torch.kernels.multi_ttm import multi_ttm_keep, multi_ttm_keep_plain
 from repro_torch.kernels.partial import mttkrp_partial, mttkrp_partial_plain
 from repro_torch.kernels.sweep import fused_pair, fused_pair_plain
 
@@ -278,3 +290,147 @@ def test_sweep_launch_counts_and_gauss_seidel(card, dims, counts):
         assert tuple(k.launches - b for k, b in zip(kernels, before)) == counts[name]
         for g, r in zip(got, ref):
             _close(g, r, tol=1e-4)
+
+
+# -- the Tucker slice: the kept-mode Multi-TTM kernel ------------------------------
+
+SHAPES_TTM = [((5, 7, 9), (2, 3)), ((1, 3, 2), (1, 2)), ((33, 17, 70), (4, 5)),
+              ((130, 9, 200), (8, 3)), ((6, 5, 4, 7), (2, 3, 2)), ((9, 3, 3, 10), (3, 1, 4)),
+              ((40, 21, 19, 35), (5, 4, 6)), ((4, 5, 3, 2, 6), (2, 2, 1, 3)), ((300, 70), (9,)),
+              ((17, 200), (33,))]
+
+
+def _ttm_data(dims, ranks, dtype, device, seed):
+    rng = np.random.default_rng(seed)
+    x = torch.as_tensor(rng.standard_normal(dims, dtype=np.float32))
+    mats = [torch.as_tensor(rng.standard_normal((d, r), dtype=np.float32))
+            for d, r in zip(dims[1:], ranks)]
+    return x.to(device, dtype), [m.to(device, dtype) for m in mats]
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=["f32", "bf16"])
+@pytest.mark.parametrize("dims,ranks", SHAPES_TTM)
+def test_multi_ttm_keep_matches_plain(card, dims, ranks, dtype):
+    x, mats = _ttm_data(dims, ranks, dtype, card, seed=13)
+    _close(multi_ttm_keep(x, mats), multi_ttm_keep_plain(x, mats))
+
+
+TTM_PLANS = [
+    ((50, 40, 70), MultiTTMPlan(8, (8, 32), (4, 6))),            # splits, threads share units
+    ((37, 29, 61), MultiTTMPlan(3, (5, 7), (3, 2))),             # unaligned blocks
+    ((70, 33, 45), MultiTTMPlan(16, (8, 16), (5, 40))),          # R_k = 40: 160 units
+    ((20, 9, 11, 13), MultiTTMPlan(4, (4, 3, 8), (2, 3, 4))),    # two folds
+    ((12, 7, 5, 6, 9), MultiTTMPlan(2, (3, 2, 2, 4), (2, 2, 3, 2))),
+    ((60, 9, 300), MultiTTMPlan(8, (4, 16), (3, 130))),          # 1056 units: several passes
+    ((40, 500), MultiTTMPlan(8, (32,), (7,))),                   # k = 1: split along c_k
+    ((1000, 12, 12), MultiTTMPlan(4, (4, 4), (12, 12))),         # the reference's tiny tiles
+]
+
+
+@pytest.mark.parametrize("dims,plan", TTM_PLANS)
+def test_multi_ttm_keep_pinned_plans_match_plain(card, dims, plan):
+    x, mats = _ttm_data(dims, plan.ranks, torch.float32, card, seed=14)
+    _close(multi_ttm_keep(x, mats, plan=plan), multi_ttm_keep_plain(x, mats))
+
+
+def test_multi_ttm_keep_is_deterministic_and_counted(card):
+    x, mats = _ttm_data((300, 41, 257), (16, 16), torch.float32, card, seed=15)
+    before = (multi_ttm_keep.launches, splitk.splitk_reduce.launches)
+    a, b = multi_ttm_keep(x, mats), multi_ttm_keep(x, mats)
+    assert torch.equal(a, b)
+    assert multi_ttm_keep.launches == before[0] + 2
+    assert splitk.splitk_reduce.launches == before[1] + 2  # 38 row tiles: split c_1
+
+
+def test_multi_ttm_plans_fit_one_cta(card):
+    """The wrapper's plans fit one CTA by the library's own count, which the
+    planner's host-side mirror reproduces exactly."""
+    for shape, ranks in [((1000, 1000, 1000), (32, 32)), ((180, 180, 180, 180), (16, 16, 16)),
+                         ((130, 6, 200), (5, 4)), ((9, 3, 3, 10), (3, 3, 3)),
+                         ((3, 4, 2, 5, 3), (2, 2, 2, 2)), ((180, 180, 180, 180), (32, 33, 34))]:
+        for dtype in (torch.float32, torch.bfloat16):
+            plan = choose_multi_ttm_kernel_blocks(shape, ranks, dtype.itemsize)
+            smem = multi_ttm_mod.smem_bytes(plan, dtype)
+            assert smem == multi_ttm_kernel_smem_bytes(plan, dtype.itemsize), (shape, plan)
+            assert smem <= 232_448, (shape, ranks, plan)
+            pinned = MultiTTMPlan(3, (2,) * (len(shape) - 2) + (5,), ranks)
+            assert multi_ttm_mod.smem_bytes(pinned, dtype) == multi_ttm_kernel_smem_bytes(
+                pinned, dtype.itemsize)
+
+
+def test_multi_ttm_keep_rejects_what_the_kernel_does_not_take(card):
+    x, mats = _ttm_data((8, 8, 8), (2, 3), torch.float32, card, seed=16)
+    with pytest.raises(ValueError, match="contiguous"):
+        multi_ttm_keep(x.transpose(0, 1), mats)
+    with pytest.raises(ValueError, match="matrix 0"):
+        multi_ttm_keep(x, [mats[0].to(torch.bfloat16), mats[1]])
+    with pytest.raises(ValueError, match="matrix 1"):
+        multi_ttm_keep(x, [mats[0], mats[1].T.contiguous().T])
+    with pytest.raises(ValueError, match="matrix 1 has shape"):
+        multi_ttm_keep(x, [mats[0], mats[1][:5]])
+    with pytest.raises(ValueError, match="does not fit"):
+        multi_ttm_keep(x, mats, plan=MultiTTMPlan(8, (8, 8), (2, 4)))
+    with pytest.raises(TypeError):
+        multi_ttm_keep(x.double(), [m.double() for m in mats])
+    with pytest.raises(ValueError, match="shared memory"):
+        multi_ttm_keep(x, mats, plan=MultiTTMPlan(512, (8, 8), (2, 3)))
+
+
+def test_multi_ttm_engine_all_keeps(card):
+    x, mats = _ttm_data((1, 33, 17, 70), (3, 4, 5), torch.float32, card, seed=17)
+    x = x[0]
+    ctx = repro_torch.ExecutionContext.create("cuda")
+    ein = repro_torch.ExecutionContext.create("einsum")
+    for keep in (None, 0, 1, 2):
+        before = multi_ttm_keep.launches
+        got = repro_torch.multi_ttm(x, mats, keep, ctx=ctx)
+        assert multi_ttm_keep.launches == before + 1
+        _close(got, repro_torch.multi_ttm(x, mats, keep, ctx=ein))
+
+
+@pytest.mark.parametrize("keep", [None, 0, 1])
+@pytest.mark.parametrize("dims,ranks", [((300, 70), (9, 7)), ((17, 200), (5, 33)),
+                                        ((40, 500), (6, 7))])
+def test_multi_ttm_engine_two_way(card, dims, ranks, keep):
+    """A matrix goes through the kernel too (one contracted mode, split
+    along c_k); keep=None adds the small A_0^T Z."""
+    rng = np.random.default_rng(19)
+    x = torch.as_tensor(rng.standard_normal(dims, dtype=np.float32)).to(card)
+    mats = [torch.as_tensor(rng.standard_normal((d, r), dtype=np.float32)).to(card)
+            for d, r in zip(dims, ranks)]
+    before = multi_ttm_keep.launches
+    got = repro_torch.multi_ttm(x, mats, keep, ctx=repro_torch.ExecutionContext.create("cuda"))
+    assert multi_ttm_keep.launches == before + 1
+    _close(got, repro_torch.multi_ttm(x, mats, keep,
+                                      ctx=repro_torch.ExecutionContext.create("einsum")))
+
+
+def test_multi_ttm_context_memory_leaves_the_kernel_plan(card):
+    """``ctx.memory`` does not plan the Multi-TTM kernel: the result is the
+    wrapper's default plan's, bit for bit."""
+    x, mats = _ttm_data((1, 60, 45, 70), (4, 5, 6), torch.float32, card, seed=20)
+    x = x[0]
+    plain = repro_torch.ExecutionContext.create("cuda")
+    budget = repro_torch.ExecutionContext.create("cuda", memory=Memory.h100_smem())
+    for keep in (None, 0, 2):
+        assert torch.equal(repro_torch.multi_ttm(x, mats, keep, ctx=budget),
+                           repro_torch.multi_ttm(x, mats, keep, ctx=plain))
+
+
+def test_tucker_hooi_cuda_matches_einsum(card):
+    gen = torch.Generator(device=card).manual_seed(18)
+    x, _, _ = random_tucker_tensor(gen, (40, 35, 30), (5, 4, 3))
+    x += 0.1 * float(x.std()) * torch.randn(x.shape, generator=gen, device=card)
+    init = repro_torch.core.tucker.hosvd_init(x, (5, 4, 3))
+    ctx = repro_torch.ExecutionContext.create("cuda")
+    before = multi_ttm_keep.launches
+    res = repro_torch.tucker_hooi(x, (5, 4, 3), 4, init_factors=init, ctx=ctx)
+    assert multi_ttm_keep.launches == before + 12
+    ref = repro_torch.tucker_hooi(x, (5, 4, 3), 4, init_factors=init,
+                                  ctx=repro_torch.ExecutionContext.create("einsum"))
+    np.testing.assert_allclose(res.fits, ref.fits, rtol=0, atol=1e-5)
+    for a, b in zip(res.factors, ref.factors):
+        _close(a, b, tol=1e-4)
+    before = multi_ttm_keep.launches
+    repro_torch.tucker_hooi(x, (5, 4, 3), 0, init_factors=init, ctx=ctx)
+    assert multi_ttm_keep.launches == before + 1
