@@ -50,9 +50,21 @@ Phases (any failure raises, and the script exits non-zero):
    and the fit of the factors' subspaces (QR in float64, X projected in
    float64), which must not fall by more than 1e-9 from the HOSVD subspace
    through every sweep and must agree within 1e-9 between the backends;
-9. one JSON line per kernel and shape (times from CUDA events), the
-   ``nvidia-smi`` line, and one ``{"kernels": [...]}`` line;
-10. the last line, ``{"ok": true, "device": {...}}``.
+9. the Mamba2 path: (a) ``ssd_intra`` against its plain version at the
+   served shape (BC = 64 chunks of q = 256, N = 128, H = 80, P = 64), x in
+   bf16 with the rest fp32 (the model's mix, within 1e-2) and all fp32
+   (within 1e-5), timed beside its bound; (b) ``mamba2-2.7b`` at full width
+   and depth (64 layers, bf16, weights drawn on the card): prefill of 4
+   prompts x 4096 tokens (``forward(mode="prefill", logits_positions=
+   "last")``), timed after one untimed call, counts set to 0 before and read
+   after (exactly 64 ``ssd_intra`` launches, nothing else), finite logits;
+   then 32 greedy ``decode_step``s a prompt, timed per token (no kernel
+   launch); (c) the same model in fp32: prefill logits at every position of
+   one 512-token prompt (two chunks) against token-by-token ``decode_step``
+   logits, max |d| / max |prefill| within ``DUAL_TOL``;
+10. one JSON line per kernel and shape (times from CUDA events), the
+    ``nvidia-smi`` line, and one ``{"kernels": [...]}`` line;
+11. the last line, ``{"ok": true, "device": {...}}``.
 
 All data are made on the card from ``--seed`` with a ``torch.Generator``.
 Matmuls run in full fp32 (TF32 off), so the plain versions and the einsum
@@ -78,7 +90,7 @@ PEAK_BYTES = 3.35e12
 CSRC = "src/repro_torch/kernels/csrc/"
 SOURCE = {"mttkrp3": "mttkrp.cu", "mttkrpn": "mttkrp.cu", "splitk_reduce": "mttkrp.cu",
           "fused_pair": "sweep.cu", "mttkrp_partial": "sweep.cu",
-          "multi_ttm_keep": "multi_ttm.cu"}
+          "multi_ttm_keep": "multi_ttm.cu", "ssd_intra": "ssd_intra.cu"}
 REPLACES = {
     "mttkrp3": "src/repro/kernels/mttkrp3.py:121",
     "mttkrpn": "src/repro/kernels/mttkrpn.py:208",
@@ -86,6 +98,7 @@ REPLACES = {
     "fused_pair": "src/repro/kernels/sweep.py:140",
     "mttkrp_partial": "src/repro/kernels/mttkrpn.py:148",
     "multi_ttm_keep": "src/repro/kernels/multi_ttm.py:127",
+    "ssd_intra": "src/repro/kernels/ssd_intra.py:84",
 }
 TOL = {"float32": 1e-5, "bfloat16": 2e-2}
 #: HOOI fits as ``tucker_hooi`` reports them, in fp32: the limit on the gap
@@ -111,9 +124,21 @@ PER_ITER = {
     "dimtree": ({"mttkrp3": 1, "mttkrpn": 1, "mttkrp_partial": 2},
                 {"mttkrp3": 2, "mttkrp_partial": 4}),
 }
-COUNTED = ("mttkrp3", "mttkrpn", "fused_pair", "mttkrp_partial", "multi_ttm_keep")
+COUNTED = ("mttkrp3", "mttkrpn", "fused_pair", "mttkrp_partial", "multi_ttm_keep",
+           "ssd_intra")
 KERNELS = ("mttkrp3", "mttkrpn", "splitk_reduce", "fused_pair", "mttkrp_partial",
-           "multi_ttm_keep")
+           "multi_ttm_keep", "ssd_intra")
+#: Phase 9: Mamba2-2.7b's SSD shape at 4 prompts of 4096 tokens (BC = 4 x
+#: 4096 / 256 chunks), the prefill and decode it serves, and the duality check.
+SSD_SHAPE = {"bcn": 64, "q": 256, "n": 128, "h": 80, "p": 64}
+PREFILL = (4, 4096)
+DECODE_STEPS = 32
+DUAL_LEN = 512
+#: Max |prefill logits - decode logits| / max |prefill logits| of the fp32
+#: model over DUAL_LEN tokens (phase 9c). Sound runs read 1.13e-5; the
+#: kernel's dt weights scaled by 1.001 read 9.6e-4, its diagonal dropped
+#: 0.57 (PERF.md, section 6).
+DUAL_TOL = 1e-4
 
 
 def nvidia_smi() -> str:
@@ -163,11 +188,12 @@ def counters() -> dict:
     from repro_torch.kernels.mttkrpn import mttkrpn
     from repro_torch.kernels.multi_ttm import multi_ttm_keep
     from repro_torch.kernels.partial import mttkrp_partial
+    from repro_torch.kernels.ssd_intra import ssd_intra
     from repro_torch.kernels.sweep import fused_pair
 
     return {"mttkrp3": mttkrp3, "mttkrpn": mttkrpn, "splitk_reduce": splitk.splitk_reduce,
             "fused_pair": fused_pair, "mttkrp_partial": mttkrp_partial,
-            "multi_ttm_keep": multi_ttm_keep}
+            "multi_ttm_keep": multi_ttm_keep, "ssd_intra": ssd_intra}
 
 
 def check(name: str, got, want, dtype: str) -> tuple[float, float]:
@@ -788,6 +814,162 @@ def tucker_phase(gen) -> dict:
     return out
 
 
+def ssd_bound(bcn: int, q: int, n: int, h: int, p: int, x_itemsize: int) -> tuple[float, str]:
+    """Least time in ms of the intra-chunk SSD term: C, B, cum and dt (fp32)
+    read once, X read and Y written once in X's dtype, at the HBM rate; or
+    the causal half's operations, ``2 BC q(q+1)/2 (N + H P)``, at the fp32
+    rate (the kernel's weights are fp32)."""
+    t_bytes = (bcn * q * (2 * n + 2 * h) * 4 + 2 * bcn * q * h * p * x_itemsize) / PEAK_BYTES
+    t_ops = 2.0 * bcn * q * (q + 1) / 2 * (n + h * p) / PEAK_FLOPS["float32"]
+    return (max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations")
+
+
+def ssd_kernel_phase(gen, smi: str, records: dict) -> None:
+    """Phase 9a: ``ssd_intra`` against its plain version at the served shape,
+    in the model's dtype mix (x bf16, the rest fp32) and in fp32."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.ssd_intra import kernel_plan, smem_bytes, ssd_intra, ssd_intra_plain
+
+    bcn, q, n, h, p = (SSD_SHAPE[k] for k in ("bcn", "q", "n", "h", "p"))
+    cc = torch.randn((bcn, q, n), generator=gen, device="cuda")
+    bc = torch.randn((bcn, q, n), generator=gen, device="cuda")
+    cum = -torch.cumsum(F.softplus(torch.randn((bcn, q, h), generator=gen, device="cuda")), 1)
+    dt = F.softplus(torch.randn((bcn, q, h), generator=gen, device="cuda"))
+    x32 = torch.randn((bcn, q, h, p), generator=gen, device="cuda")
+    plan = kernel_plan(q, h, p)
+    for mix, x, tol in (("x_bf16", x32.to(torch.bfloat16), 1e-2), ("f32", x32, 1e-5)):
+        args = (cc, bc, cum, dt, x)
+        got, want = ssd_intra(*args), ssd_intra_plain(*args)
+        if got.shape != want.shape or got.dtype != x.dtype or not bool(torch.isfinite(got).all()):
+            raise AssertionError(f"ssd_intra {mix}: {tuple(got.shape)} {got.dtype}, or non-finite")
+        rel, diff = rel_err(got, want)
+        if rel > tol:
+            raise AssertionError(f"ssd_intra {mix}: max|d|/max|plain| = {rel:.3e} > {tol}")
+        b_ms, b_by = ssd_bound(bcn, q, n, h, p, x.element_size())
+        rec = {
+            "kernel": "ssd_intra", "shape": [bcn, q, n, h, p], "mix": mix,
+            "dtype": "bfloat16" if mix == "x_bf16" else "float32", "main": mix == "x_bf16",
+            "plan": list(plan), "smem_bytes": smem_bytes(q, p, plan.tile),
+            "max_rel_err": rel, "max_abs_err": diff, "tol": tol,
+            "kernel_ms": cuda_ms(lambda: ssd_intra(*args)),
+            "plain_ms": cuda_ms(lambda: ssd_intra_plain(*args), reps=3, warm=1),
+            "library": "none: no single PyTorch call computes this function",
+            "library_ms": None, "bound_ms": b_ms, "bound_by": b_by, "gpu": smi,
+        }
+        emit(rec)
+        records.setdefault("ssd_intra", []).append(rec)
+        del got, want
+    del cc, bc, cum, dt, x32
+    torch.cuda.empty_cache()
+
+
+def mamba_duality(gen, cfg, length: int = DUAL_LEN) -> dict:
+    """Phase 9c: the fp32 model's prefill logits at every position against
+    token-by-token ``decode_step`` logits, on one prompt of ``length``
+    tokens; returns the readings."""
+    import torch
+    from repro_torch.models import decode_step, forward, init_decode_state, init_params
+
+    model = init_params(cfg, generator=gen)
+    tokens = torch.randint(0, cfg.vocab_size, (1, length), generator=gen, device="cuda")
+    par, _ = forward(model, cfg, {"tokens": tokens}, mode="prefill")
+    state = init_decode_state(model, cfg, 1, length)
+    steps = []
+    for t in range(length):
+        lg, state = decode_step(model, cfg, state, tokens[:, t:t + 1])
+        steps.append(lg[:, 0])
+    seq = torch.stack(steps, dim=1)
+    v = cfg.vocab_size
+    rel, diff = rel_err(seq[..., :v], par[..., :v])
+    per_pos = ((seq[0, :, :v] - par[0, :, :v]).abs().amax(-1)
+               / par[0, :, :v].abs().amax()).tolist()
+    out = {"duality": cfg.name, "dtype": cfg.dtype, "tokens": length, "chunk": cfg.ssm_chunk,
+           "max_rel_err": rel, "max_abs_err": diff, "finite": bool(torch.isfinite(par).all()
+                                                               and torch.isfinite(seq).all()),
+           "max_rel_err_first_chunk": max(per_pos[:cfg.ssm_chunk]),
+           "max_rel_err_later_chunks": max(per_pos[cfg.ssm_chunk:] or [0.0])}
+    del model, par, seq, state
+    torch.cuda.empty_cache()
+    return out
+
+
+def mamba_phase(gen, smi: str) -> dict:
+    """Phase 9b and 9c: Mamba2-2.7b at full width and depth, prefill and
+    greedy decode in bf16, then the fp32 duality check."""
+    from dataclasses import replace
+
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import decode_step, forward, init_decode_state, init_params
+
+    cfg = get_config("mamba2-2.7b")
+    kernels = counters()
+    model = init_params(cfg, generator=gen)
+    n_params = sum(t.numel() for t in model.parameters())
+    batch, seq = PREFILL
+    tokens = torch.randint(0, cfg.vocab_size, PREFILL, generator=gen, device="cuda")
+    forward(model, cfg, {"tokens": tokens}, mode="prefill", logits_positions="last")  # untimed
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for k in kernels.values():
+        k.launches = 0
+    t0 = time.perf_counter()
+    logits, _ = forward(model, cfg, {"tokens": tokens}, mode="prefill", logits_positions="last")
+    torch.cuda.synchronize()
+    prefill_ms = (time.perf_counter() - t0) * 1e3
+    launches = {name: k.launches for name, k in kernels.items()}
+    if launches != {name: cfg.n_layers if name == "ssd_intra" else 0 for name in kernels}:
+        raise AssertionError(f"mamba2 prefill: launches {launches}, expected "
+                             f"{cfg.n_layers} ssd_intra and nothing else")
+    if logits.shape != (batch, 1, cfg.padded_vocab) or not bool(torch.isfinite(logits).all()):
+        raise AssertionError(f"mamba2 prefill: logits {tuple(logits.shape)} or non-finite")
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+
+    # greedy decode from the prefill's next tokens; the state starts from
+    # zeros (the reference hands no prefill state to decode)
+    first = logits[:, -1, :cfg.vocab_size].argmax(-1, keepdim=True)
+    warm = init_decode_state(model, cfg, batch, seq + DECODE_STEPS)
+    decode_step(model, cfg, warm, first)  # untimed
+    state = init_decode_state(model, cfg, batch, seq + DECODE_STEPS)
+    tok = first
+    for k in kernels.values():
+        k.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out_tokens = []
+    for _ in range(DECODE_STEPS):
+        lg, state = decode_step(model, cfg, state, tok)
+        tok = lg[:, -1, :cfg.vocab_size].argmax(-1, keepdim=True)
+        out_tokens.append(tok)
+    torch.cuda.synchronize()
+    decode_ms = (time.perf_counter() - t0) * 1e3 / DECODE_STEPS
+    dec_launches = {name: k.launches for name, k in kernels.items()}
+    if any(dec_launches.values()) or not bool(torch.isfinite(lg).all()):
+        raise AssertionError(f"mamba2 decode: launches {dec_launches} (expected none), "
+                             f"or non-finite logits")
+    rec = {
+        "mamba2_serve": cfg.name, "dtype": cfg.dtype, "layers": cfg.n_layers,
+        "params": n_params, "prompts": batch, "prompt_tokens": seq,
+        "prefill_ms": prefill_ms, "prefill_tokens_per_s": batch * seq / prefill_ms * 1e3,
+        "prefill_peak_gb": peak_gb, "prefill_launches": launches,
+        "decode_steps": DECODE_STEPS, "decode_ms_per_token": decode_ms,
+        "decode_tokens_per_s": batch / decode_ms * 1e3,
+        "decoded_sample": torch.cat(out_tokens, 1)[0, :8].tolist(), "gpu": smi,
+    }
+    emit(rec)
+    del model, logits, state, warm, lg
+    torch.cuda.empty_cache()
+
+    dual = mamba_duality(gen, replace(cfg, dtype="float32"))
+    dual["limit"] = DUAL_TOL
+    dual["gpu"] = smi
+    emit(dual)
+    if not dual["finite"] or dual["max_rel_err"] > DUAL_TOL:
+        raise AssertionError(f"mamba2 duality: {json.dumps(dual)}")
+    return {"launches": launches, "serve": rec, "duality": dual}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -825,23 +1007,27 @@ def main() -> int:
     main_path = cp_phase(gen)  # phase 6
     multi_ttm_phase(gen, smi, records)  # phase 7
     tucker = tucker_phase(gen)  # phase 8
-    for name, n in tucker["launches"].items():
-        main_path["launches"][name] += n
+    ssd_kernel_phase(gen, smi, records)  # phase 9a
+    mamba = mamba_phase(gen, smi)  # phases 9b, 9c
+    for counted in (tucker["launches"], mamba["launches"]):
+        for name, n in counted.items():
+            main_path["launches"][name] += n
 
     main_shape = {"mttkrp3": [1000, 1000, 1000], "mttkrpn": [180, 180, 180, 180],
                   "fused_pair": [1000, 1000, 1000], "mttkrp_partial": [1000, 1000, 64],
                   "multi_ttm_keep": [1000, 1000, 1000]}
     kernels = []
     for name in KERNELS:
-        rows = [r for r in records[name] if r["dtype"] == "float32"]
-        head = next(
+        # the fp32 rows, and the row of the main path's dtype where it is another
+        rows = [r for r in records[name] if r["dtype"] == "float32" or r.get("main")]
+        head = next((r for r in rows if r.get("main")), None) or next(
             (r for r in rows if r["shape"] == main_shape.get(name) and r.get("mode", 0) == 0),
             rows[0],
         )
         if main_path["launches"][name] == 0:
             raise AssertionError(f"{name} was never launched on the main paths")
-        kernels.append({  # launches: summed over the main-path runs (CP-ALS and Tucker),
-            # each counted from 0
+        kernels.append({  # launches: summed over the main-path runs (CP-ALS, Tucker and
+            # the Mamba2 prefill), each counted from 0
             "name": name, "route": "cuda", "source": CSRC + SOURCE[name],
             "replaces": REPLACES[name],
             "launches": main_path["launches"][name],

@@ -11,7 +11,9 @@ one untimed CP-ALS iteration, then two iterations under ``torch.profiler``
 (CPU and CUDA activities); for its two Tucker problems (1000^3 of
 multilinear rank (32, 32, 32) and 180^4 of rank (16, 16, 16, 16), each
 plus 10 % noise) one untimed HOOI sweep from HOSVD factors, then two
-profiled sweeps. Each prints one JSON line:
+profiled sweeps; for ``chip_smoke.py``'s Mamba2 serving cell
+(``mamba2-2.7b`` at full width and depth in bf16, 4 prompts x 4096 tokens)
+one untimed prefill, then two profiled. Each prints one JSON line:
 
 * ``wall_ms``: host time per iteration, between two synchronizations;
 * ``busy_ms``: the device time per iteration of every kernel and copy the
@@ -21,7 +23,9 @@ profiled sweeps. Each prints one JSON line:
   by name, ``copy`` (the transposes and casts), and ``other`` (the solves,
   Gram matrices and the fit); for HOOI also ``gram_eigh``, the kernels
   launched under the Gram and ``eigh`` of each mode update (attributed
-  through the profiler's CPU op tree, and taken out of ``copy``);
+  through the profiler's CPU op tree, and taken out of ``copy``); for the
+  prefill ``ssd_intra``, ``gemm`` (cuBLAS: the projections, the chunk
+  states, the inter-chunk output and the logits), ``copy`` and ``other``;
 * ``top``: the ten most expensive device functions by name.
 
 The profiler adds host overhead, so ``wall_ms`` reads a little above
@@ -49,14 +53,21 @@ GROUPS = (  # (group, pattern in the device function's name), first match wins
 )
 
 
-def group_of(name: str) -> str:
-    for group, pattern in GROUPS:
+PREFILL_GROUPS = (  # the Mamba2 prefill's groups
+    ("ssd_intra", r"ssd_intra_kernel"),
+    ("gemm", r"gemm|xmma|nvjet|cutlass|cublas"),
+    ("copy", r"copy"),
+)
+
+
+def group_of(name: str, groups=GROUPS) -> str:
+    for group, pattern in groups:
         if re.search(pattern, name):
             return group
     return "other"
 
 
-def profiled(fn, iters: int):
+def profiled(fn, iters: int, groups=GROUPS):
     """Run ``fn`` under the profiler; returns (wall ms, busy ms, groups ms,
     top) per iteration, and the profile."""
     import torch
@@ -67,20 +78,21 @@ def profiled(fn, iters: int):
         fn()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3 / iters
-    groups: dict[str, float] = {}
+    by_group: dict[str, float] = {}
     by_name: dict[str, float] = {}
     for evt in prof.events():
         # a record_function range shows on the device timeline too: not work
         if evt.device_type != torch.autograd.DeviceType.CUDA or evt.is_user_annotation:
             continue
         ms = evt.time_range.elapsed_us() / 1e3 / iters
-        groups[group_of(evt.name)] = groups.get(group_of(evt.name), 0.0) + ms
+        group = group_of(evt.name, groups)
+        by_group[group] = by_group.get(group, 0.0) + ms
         by_name[evt.name] = by_name.get(evt.name, 0.0) + ms
-    busy = sum(groups.values())
+    busy = sum(by_group.values())
     if busy == 0.0:
         raise RuntimeError("the profiler recorded no device time")
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:10]
-    return wall, busy, groups, [[name[:120], ms] for name, ms in top], prof
+    return wall, busy, by_group, [[name[:120], ms] for name, ms in top], prof
 
 
 def under(prof, label: str, iters: int) -> dict[str, float]:
@@ -117,7 +129,7 @@ def main() -> int:
 
     import repro_torch
     import repro_torch.core.tucker as tucker_mod
-    from chip_smoke import noisy_low_rank, noisy_tucker, nvidia_smi
+    from chip_smoke import PREFILL, noisy_low_rank, noisy_tucker, nvidia_smi
     from repro_torch.core.tensor import random_factors
     from repro_torch.kernels import build
 
@@ -175,6 +187,27 @@ def main() -> int:
         del x, init
         torch.cuda.empty_cache()
     tucker_mod._gram_eigvecs = gram_eigvecs
+
+    # the Mamba2 prefill that chip_smoke.py phase 9 serves
+    from repro_torch.configs import get_config
+    from repro_torch.models import forward, init_params
+
+    cfg = get_config("mamba2-2.7b")
+    model = init_params(cfg, generator=gen)
+    tokens = torch.randint(0, cfg.vocab_size, PREFILL, generator=gen, device="cuda")
+
+    def prefill():
+        for _ in range(iters):
+            forward(model, cfg, {"tokens": tokens}, mode="prefill", logits_positions="last")
+
+    forward(model, cfg, {"tokens": tokens}, mode="prefill", logits_positions="last")
+    torch.cuda.synchronize()
+    wall, busy, groups, top, _ = profiled(prefill, iters, PREFILL_GROUPS)
+    print(json.dumps({
+        "profile_prefill": cfg.name, "dtype": cfg.dtype, "prompts": PREFILL[0],
+        "prompt_tokens": PREFILL[1], "wall_ms": wall, "busy_ms": busy,
+        "idle_share": 1.0 - busy / wall, "groups_ms": groups, "top": top, "gpu": gpu,
+    }), flush=True)
     return 0
 
 

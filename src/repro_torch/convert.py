@@ -1,7 +1,8 @@
-"""The bridge that carries parameters into the port: numpy arrays, and the
+"""The bridge that carries parameters into the port: numpy arrays, the
 plan and memory dicts the reference writes (its tune cache's
-``plan_to_dict`` and its context's ``memory`` entry). With these a caller
-pins the same plan and the same initial factors on both sides.
+``plan_to_dict`` and its context's ``memory`` entry), and the language
+model's parameter pytree. With these a caller pins the same plan, the same
+initial factors and the same weights on both sides.
 """
 
 from __future__ import annotations
@@ -14,13 +15,24 @@ import torch
 from .core.cp_als import CPResult
 from .core.tucker import TuckerResult
 from .engine.plan import BlockPlan, Memory, MultiTTMPlan
+from .models.blocks import Layer, check_ported
+from .models.config import ArchConfig
+from .models.layers import Embedding, Norm
+from .models.model import LM
+from .models.ssm import SSM
 
 
 def tensor_from_numpy(
     array: np.ndarray, device: str | torch.device = "cuda", dtype: torch.dtype | None = None
 ) -> torch.Tensor:
-    """A copy of ``array`` on ``device`` (in ``dtype``, default its own)."""
-    return torch.from_numpy(np.array(array, copy=True)).to(device=device, dtype=dtype)
+    """A copy of ``array`` on ``device`` (in ``dtype``, default its own; a
+    bfloat16 array, which numpy holds as ``ml_dtypes.bfloat16``, stays
+    bfloat16, exactly)."""
+    a = np.asarray(array)
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.astype(np.float32)).to(device=device,
+                                                         dtype=dtype or torch.bfloat16)
+    return torch.from_numpy(np.array(a, copy=True)).to(device=device, dtype=dtype)
 
 
 def factors_from_numpy(
@@ -97,3 +109,38 @@ def memory_from_dict(d: Mapping) -> Memory:
         sublane=int(d.get("sublane", 1)),
         itemsize=int(d.get("itemsize", 4)),
     )
+
+
+def lm_from_numpy(
+    params: Mapping,
+    cfg: ArchConfig,
+    *,
+    device: str | torch.device = "cuda",
+    dtype: torch.dtype | None = None,
+) -> LM:
+    """The port's model from the reference's ``init_params`` pytree, given
+    as numpy arrays (``jax.tree.map(np.asarray, params)``). The reference
+    stacks each period position's leaves over the layer groups
+    (``params["blocks"][pos][...]`` has a leading ``n_groups`` axis); layer
+    ``g * period + pos`` takes slice ``g`` of position ``pos``."""
+    if "blocks" not in params:
+        raise NotImplementedError("only the decoder-only LM converts; the encoder-decoder "
+                                  "model waits for ROADMAP Queue 1 item 15")
+
+    def t(a) -> torch.Tensor:
+        return tensor_from_numpy(a, device, dtype)
+
+    period = len(params["blocks"])
+    n_groups = int(np.shape(params["blocks"][0]["norm1"]["scale"])[0])
+    if period * n_groups != cfg.n_layers:
+        raise ValueError(f"{period} positions x {n_groups} groups != {cfg.n_layers} layers")
+    layers = []
+    for layer in range(cfg.n_layers):
+        check_ported(cfg, layer)
+        g, pos = divmod(layer, period)
+        tree = params["blocks"][pos]
+        layers.append(Layer(Norm({k: t(v[g]) for k, v in tree["norm1"].items()}),
+                            SSM({k: t(v[g]) for k, v in tree["ssm"].items()})))
+    return LM(Embedding({k: t(v) for k, v in params["embed"].items()}),
+              Norm({k: t(v) for k, v in params["final_norm"].items()}),
+              torch.nn.ModuleList(layers))

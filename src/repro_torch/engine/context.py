@@ -63,6 +63,20 @@ def torch_dtype(name: str) -> torch.dtype:
     return getattr(torch, dtype_name(name))
 
 
+def check_device(device: str | torch.device, api: str) -> torch.device:
+    """The device an entry point runs on: 'cuda' (the default everywhere),
+    which raises on a host without CUDA, or 'cpu' when the caller asks."""
+    dev = torch.device(device)
+    if dev.type not in ("cuda", "cpu"):
+        raise ValueError(f"device must be 'cuda' or 'cpu', got {device!r}")
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"{api}(device='cuda'): this host has no CUDA device; "
+            "pass device='cpu' to run on the host"
+        )
+    return dev
+
+
 @dataclass(frozen=True)
 class ExecutionContext:
     """The execution environment, as one immutable, hashable value."""
@@ -90,15 +104,7 @@ class ExecutionContext:
                     f"accumulation stays fp32), got {name!r}"
                 )
             object.__setattr__(self, "compute_dtype", name)
-        dev = torch.device(self.device)
-        if dev.type not in ("cuda", "cpu"):
-            raise ValueError(f"device must be 'cuda' or 'cpu', got {self.device!r}")
-        if dev.type == "cuda" and not torch.cuda.is_available():
-            raise RuntimeError(
-                "ExecutionContext(device='cuda'): this host has no CUDA device; "
-                "pass device='cpu' to run on the host"
-            )
-        object.__setattr__(self, "device", str(dev))
+        object.__setattr__(self, "device", str(check_device(self.device, "ExecutionContext")))
 
     @classmethod
     def create(

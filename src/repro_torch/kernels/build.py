@@ -5,7 +5,8 @@ The sources under ``csrc/`` have a plain C interface, so one ``nvcc`` call
 per source builds a shared library (no PyTorch headers): ``mttkrp.cu``
 holds the MTTKRP tile kernels and the split-K reduction, ``sweep.cu`` the
 fused-sweep pair and the rank-augmented partial contraction,
-``multi_ttm.cu`` the kept-mode Multi-TTM of the Tucker path. Each library
+``multi_ttm.cu`` the kept-mode Multi-TTM of the Tucker path, ``ssd_intra.cu``
+the intra-chunk SSD term of the Mamba2 prefill. Each library
 goes into ``_build/`` beside this file (listed in ``.gitignore``), named by
 a hash of its source and the shared headers, so an edited source is rebuilt
 and an unchanged one is loaded as it is. :func:`build_all` starts one
@@ -31,7 +32,7 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-I", str(CSRC),
 )
-SOURCES = ("mttkrp.cu", "sweep.cu", "multi_ttm.cu")
+SOURCES = ("mttkrp.cu", "sweep.cu", "multi_ttm.cu", "ssd_intra.cu")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -53,6 +54,10 @@ SIGNATURES = {
     "multi_ttm.cu": {
         "repro_multi_ttm": (_I, [_I, _I, _PLL, _PI, _PI, _I, _P, _PLL, _P, _P]),
         "repro_multi_ttm_smem_bytes": (_LL, [_I, _I, _PI, _I, _PI]),
+    },
+    "ssd_intra.cu": {
+        "repro_ssd_intra": (_I, [_I, _LL, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P]),
+        "repro_ssd_intra_smem_bytes": (_LL, [_I, _I, _I]),
     },
 }
 

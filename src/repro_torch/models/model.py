@@ -1,0 +1,93 @@
+"""The decoder-only language model's entry points: initialization, the
+train/prefill forward, and the decode step. The port of
+``repro/models/model.py`` for the Mamba2 family.
+
+``init_params`` puts the model on the card unless the caller passes
+``device="cpu"``. Forward and decode run without autograd: the port
+serves; ``loss_fn`` waits for the training slice, ``param_specs`` and
+``cache_specs`` for the distributed slice, and the encoder-decoder branch
+for ROADMAP Queue 1 item 15. As in the reference, prefill hands no SSM
+state to decode: ``decode_step`` starts from ``init_decode_state``'s zeros.
+"""
+
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from ..engine.context import check_device
+from .blocks import apply_stack, apply_stack_decode, init_stack, init_stack_cache
+from .config import ArchConfig
+from .layers import Embedding, Norm, apply_norm, embed_tokens, init_embedding, init_norm
+from .layers import logits as lm_logits
+
+DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+MODES = ("train", "prefill")
+LOGITS_POSITIONS = ("all", "last")
+
+
+class LM(nn.Module):
+    """``embed`` (the token table, tied head), ``final_norm`` and
+    ``blocks`` (one layer each), named as the reference's pytree."""
+
+    def __init__(self, embed: Embedding, final_norm: Norm, blocks: nn.ModuleList):
+        super().__init__()
+        self.embed = embed
+        self.final_norm = final_norm
+        self.blocks = blocks
+
+
+def _check_encdec(cfg: ArchConfig) -> None:
+    if cfg.is_encdec:
+        raise NotImplementedError(f"{cfg.name}: the encoder-decoder model waits for "
+                                  f"ROADMAP Queue 1 item 15")
+
+
+def init_params(cfg: ArchConfig, *, generator: torch.Generator, device="cuda",
+                dtype: torch.dtype | None = None) -> LM:
+    """The model with weights drawn from ``generator`` (on ``device``) in
+    the reference's distributions, in ``dtype`` (default the config's)."""
+    dev = check_device(device, "init_params")
+    _check_encdec(cfg)
+    dtype = dtype or DTYPES[cfg.dtype]
+    return LM(init_embedding(generator, cfg, dtype, dev), init_norm(cfg, dtype, dev),
+              init_stack(generator, cfg, dtype, dev))
+
+
+@torch.no_grad()
+def forward(params: LM, cfg: ArchConfig, batch: dict, *, mode: str = "train",
+            logits_positions: str = "all") -> tuple[torch.Tensor, torch.Tensor]:
+    """-> (logits (B, S, V), moe_aux); ``logits_positions="last"`` (what a
+    prefill serves) gives (B, 1, V). ``batch`` carries 'tokens' (B, S). The
+    SSM layers compute the same in both modes; ``mode`` matters to
+    attention, which waits."""
+    _check_encdec(cfg)
+    if mode not in MODES:
+        raise ValueError(f"mode must be one of {MODES}, got {mode!r}")
+    if logits_positions not in LOGITS_POSITIONS:
+        raise ValueError(f"logits_positions must be one of {LOGITS_POSITIONS}, "
+                         f"got {logits_positions!r}")
+    x, aux = apply_stack(params.blocks, embed_tokens(params.embed, batch["tokens"]), cfg)
+    x = apply_norm(params.final_norm, x)
+    if logits_positions == "last":
+        x = x[:, -1:, :]
+    return lm_logits(params.embed, x, vocab_size=cfg.vocab_size), aux
+
+
+def init_decode_state(params: LM, cfg: ArchConfig, batch: int, max_len: int) -> dict:
+    """Zeroed caches for ``batch`` sequences; ``max_len`` sizes attention
+    caches, so the SSM layers do not read it."""
+    _check_encdec(cfg)
+    return {"caches": init_stack_cache(params.blocks, cfg, batch, params.embed.table.dtype)}
+
+
+@torch.no_grad()
+def decode_step(params: LM, cfg: ArchConfig, state: dict, tokens: torch.Tensor
+                ) -> tuple[torch.Tensor, dict]:
+    """One serving step: next-token logits (B, 1, V) + updated caches.
+    ``tokens``: (B, 1) integers."""
+    _check_encdec(cfg)
+    x = embed_tokens(params.embed, tokens)
+    x, caches = apply_stack_decode(params.blocks, state["caches"], x, cfg)
+    x = apply_norm(params.final_norm, x)
+    return lm_logits(params.embed, x, vocab_size=cfg.vocab_size), {"caches": caches}

@@ -1,0 +1,185 @@
+"""Mamba2 SSD (state-space duality) mixer: the chunked parallel form for
+prefill, the O(1)-state recurrent form for decode. The port of
+``repro/models/ssm.py`` (its default path; the ``REPRO_SSD_LEAN`` option
+waits, ROADMAP Queue 1 item 15).
+
+Math (per head, head_dim P, state N):
+    h_t = exp(Δ_t A) · h_{t-1} + Δ_t · B_t x_tᵀ      h ∈ R^{N×P}
+    y_t = C_tᵀ h_t + D · x_t
+Chunked SSD (chunk Q): the intra-chunk quadratic term (C Bᵀ ⊙ causal-decay
+mask) X is one :func:`repro_torch.kernels.ssd_intra.ssd_intra` call (the
+Hopper kernel on the card); the chunk states, the scan over chunks and the
+inter-chunk output are einsums, as the reference computes them outside any
+kernel. Casts follow the reference's one by one. The kernel keeps the
+intra-chunk weights in fp32 where the reference rounds them to the model's
+dtype (``ssm.py:145``).
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+import torch.nn.functional as F
+
+from ..kernels.ssd_intra import ssd_intra
+from .config import ArchConfig
+from .layers import Params, dense_init
+
+
+class SSMCache(NamedTuple):
+    conv: torch.Tensor   # (B, conv_w-1, conv_channels) rolling window
+    state: torch.Tensor  # (B, H, N, P) ssm state, fp32
+    length: torch.Tensor
+
+
+class SSM(Params):
+    names = ("wz", "wx", "wB", "wC", "wdt", "conv_w", "A_log", "D", "dt_bias", "norm_scale", "wo")
+
+
+def init_ssm(gen: torch.Generator, cfg: ArchConfig, dtype, device="cuda") -> SSM:
+    d, di, n = cfg.d_model, cfg.d_inner, cfg.ssm_state
+    h = cfg.ssm_heads
+    conv_ch = di + 2 * n
+    f32 = {"dtype": torch.float32, "device": device}
+    return SSM({
+        "wz": dense_init(gen, (d, di), dtype=dtype, device=device),
+        "wx": dense_init(gen, (d, di), dtype=dtype, device=device),
+        "wB": dense_init(gen, (d, n), dtype=dtype, device=device),
+        "wC": dense_init(gen, (d, n), dtype=dtype, device=device),
+        "wdt": dense_init(gen, (d, h), dtype=dtype, device=device),
+        "conv_w": (torch.randn((cfg.ssm_conv, conv_ch), generator=gen, **f32) * 0.1).to(dtype),
+        "A_log": torch.zeros((h,), **f32),
+        "D": torch.ones((h,), **f32),
+        "dt_bias": torch.zeros((h,), **f32),
+        "norm_scale": torch.ones((di,), dtype=dtype, device=device),
+        "wo": dense_init(gen, (di, d), dtype=dtype, device=device),
+    })
+
+
+def _causal_conv(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """Depthwise causal conv via shifted adds. x: (B, S, C); w: (W, C)."""
+    width = w.shape[0]
+    out = x * w[-1]
+    for i in range(1, width):
+        shifted = F.pad(x, (0, 0, i, 0))[:, : x.shape[1], :]
+        out = out + shifted * w[-1 - i]
+    return out
+
+
+def _gated_norm(y: torch.Tensor, z: torch.Tensor, scale: torch.Tensor,
+                eps: float = 1e-5) -> torch.Tensor:
+    dtype = y.dtype
+    yf = y.float() * F.silu(z.float())
+    ms = yf.square().mean(dim=-1, keepdim=True)
+    return (yf * torch.rsqrt(ms + eps) * scale.float()).to(dtype)
+
+
+def apply_ssm(p: SSM, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
+    """Chunked SSD forward. x: (B, S, D) -> (B, S, D). S % chunk == 0."""
+    b, s, d = x.shape
+    h, pd, n = cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state
+    q = min(cfg.ssm_chunk, s)
+    if s % q:
+        raise ValueError(f"apply_ssm: sequence length {s} is not a multiple of the chunk {q}")
+    nc = s // q
+
+    z = x @ p.wz
+    xin = x @ p.wx
+    bmat = x @ p.wB
+    cmat = x @ p.wC
+    dt = (x @ p.wdt).float()
+
+    # causal depthwise conv over (x, B, C)
+    conv_in = torch.cat([xin, bmat, cmat], dim=-1)
+    conv_out = F.silu(_causal_conv(conv_in, p.conv_w).float()).to(x.dtype)
+    xin = conv_out[..., : cfg.d_inner]
+    bmat = conv_out[..., cfg.d_inner: cfg.d_inner + n]
+    cmat = conv_out[..., cfg.d_inner + n:]
+
+    xh = xin.reshape(b, s, h, pd)
+    dt = F.softplus(dt + p.dt_bias)  # (B, S, H)
+    a = -torch.exp(p.A_log)  # (H,) negative
+    log_decay = dt * a  # (B, S, H) log a_t, <= 0
+
+    xc = xh.reshape(b, nc, q, h, pd)
+    bc = bmat.reshape(b, nc, q, n).float()
+    cc = cmat.reshape(b, nc, q, n).float()
+    dtc = dt.reshape(b, nc, q, h)
+    ld = log_decay.reshape(b, nc, q, h)
+    cum = torch.cumsum(ld, dim=2)  # within-chunk cumulative log decay
+
+    # ---- intra-chunk (quadratic in q): Y[i] += Σ_{j<=i} C_i·B_j decay Δ_j x_j
+    y_intra = ssd_intra(
+        cc.reshape(b * nc, q, n), bc.reshape(b * nc, q, n), cum.reshape(b * nc, q, h),
+        dtc.reshape(b * nc, q, h), xc.reshape(b * nc, q, h, pd),
+    ).reshape(b, nc, q, h, pd)
+
+    # ---- chunk states: S_c = Σ_j decay_to_end_j Δ_j B_j x_jᵀ  (B,nc,H,N,P)
+    decay_to_end = torch.exp(cum[:, :, -1:, :] - cum)  # (B,nc,q,H)
+    sb = bc[:, :, :, None, :] * (dtc * decay_to_end)[..., None]
+    s_c = torch.einsum("bcjhn,bcjhp->bchnp", sb.to(x.dtype), xc)
+
+    # ---- inter-chunk recurrence (a loop over chunks), carried in fp32
+    total = torch.exp(cum[:, :, -1, :])  # (B, nc, H) full-chunk decay
+    hprev = torch.zeros((b, h, n, pd), dtype=torch.float32, device=x.device)
+    before = []
+    for ci in range(nc):
+        before.append(hprev)
+        hprev = hprev * total[:, ci, :, None, None] + s_c[:, ci].float()
+    h_before = torch.stack(before, dim=1)  # (B,nc,H,N,P) state entering chunk
+
+    # ---- inter-chunk output: y += (C_i decay_from_start_i) · h_before
+    decay_from_start = torch.exp(cum)  # (B,nc,q,H)
+    cd = cc[:, :, :, None, :] * decay_from_start[..., None]
+    y_inter = torch.einsum("bcihn,bchnp->bcihp", cd.to(x.dtype), h_before.to(x.dtype))
+
+    y = (y_intra + y_inter).reshape(b, s, h, pd)
+    y = y + xh * p.D[None, None, :, None].to(x.dtype)
+    y = y.reshape(b, s, cfg.d_inner)
+    y = _gated_norm(y, z, p.norm_scale)
+    return y @ p.wo
+
+
+def init_ssm_cache(cfg: ArchConfig, batch: int, dtype, device="cuda") -> SSMCache:
+    conv_ch = cfg.d_inner + 2 * cfg.ssm_state
+    return SSMCache(
+        conv=torch.zeros((batch, cfg.ssm_conv - 1, conv_ch), dtype=dtype, device=device),
+        state=torch.zeros((batch, cfg.ssm_heads, cfg.ssm_state, cfg.ssm_head_dim),
+                          dtype=torch.float32, device=device),
+        length=torch.zeros((), dtype=torch.int32, device=device),
+    )
+
+
+def apply_ssm_decode(p: SSM, x: torch.Tensor, cache: SSMCache, cfg: ArchConfig
+                     ) -> tuple[torch.Tensor, SSMCache]:
+    """Single-token recurrent step. x: (B, 1, D)."""
+    b = x.shape[0]
+    h, pd, n = cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state
+    x0 = x[:, 0]
+    z = x0 @ p.wz
+    xin = x0 @ p.wx
+    bvec = x0 @ p.wB
+    cvec = x0 @ p.wC
+    dt = (x0 @ p.wdt).float()
+
+    conv_in = torch.cat([xin, bvec, cvec], dim=-1)  # (B, C)
+    window = torch.cat([cache.conv, conv_in[:, None, :]], dim=1)
+    conv_out = torch.einsum("bwc,wc->bc", window.float(), p.conv_w.float())
+    conv_out = F.silu(conv_out).to(x.dtype)
+    xin = conv_out[:, : cfg.d_inner]
+    bvec = conv_out[:, cfg.d_inner: cfg.d_inner + n].float()
+    cvec = conv_out[:, cfg.d_inner + n:].float()
+
+    xh = xin.reshape(b, h, pd).float()
+    dt = F.softplus(dt + p.dt_bias)  # (B, H)
+    decay = torch.exp(dt * -torch.exp(p.A_log))  # (B, H)
+    state = cache.state * decay[..., None, None] + (
+        bvec[:, None, :, None] * (dt[..., None] * xh)[:, :, None, :]
+    )  # (B,H,N,P)
+    y = torch.einsum("bn,bhnp->bhp", cvec, state)
+    y = y + xh * p.D[None, :, None]
+    y = y.reshape(b, cfg.d_inner).to(x.dtype)
+    y = _gated_norm(y, z, p.norm_scale)
+    out = (y @ p.wo)[:, None, :]
+    return out, SSMCache(window[:, 1:, :], state, cache.length + 1)

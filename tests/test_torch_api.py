@@ -135,7 +135,8 @@ def test_port_imports_neither_jax_nor_the_reference(path):
 
 def test_importing_the_port_loads_no_jax():
     env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
-    code = ("import sys, repro_torch, repro_torch.convert, repro_torch.kernels.ops;"
+    code = ("import sys, repro_torch, repro_torch.convert, repro_torch.kernels.ops,"
+            " repro_torch.models, repro_torch.configs, repro_torch.kernels.ssd_intra;"
             "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'repro')];"
             "print(bad); sys.exit(1 if bad else 0)")
     proc = subprocess.run([sys.executable, "-c", code], env=env, capture_output=True, text=True,

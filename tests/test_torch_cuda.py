@@ -8,7 +8,11 @@ pytest worker collects the same tests. Run them on the card with
 
 Matmuls run in full fp32 (TF32 off). Tolerances: the kernel and the plain
 version see the same inputs and both accumulate in fp32, in different
-orders, so they agree to 1e-5 of the output's largest magnitude.
+orders, so they agree to 1e-5 of the output's largest magnitude; an output
+rounded to bf16 (the SSD kernel's, for bf16 x) within 1e-2 (a bf16 ulp is
+2^-8 of the value). The Mamba2 mixer on the card against the same call on
+CPU copies: 1e-4 in fp32, 5e-2 in bf16 (cuBLAS and the CPU round bf16
+products at other places).
 """
 
 import numpy as np
@@ -35,7 +39,17 @@ from repro_torch.kernels.mttkrp3 import mttkrp3, mttkrp3_plain
 from repro_torch.kernels.mttkrpn import mttkrpn, mttkrpn_plain
 from repro_torch.kernels.multi_ttm import multi_ttm_keep, multi_ttm_keep_plain
 from repro_torch.kernels.partial import mttkrp_partial, mttkrp_partial_plain
+from repro_torch.kernels.ssd_intra import (
+    SsdPlan,
+    kernel_plan,
+    kernel_smem_bytes,
+    ssd_intra,
+    ssd_intra_plain,
+)
 from repro_torch.kernels.sweep import fused_pair, fused_pair_plain
+from repro_torch.models import decode_step, forward, init_decode_state, init_params
+from repro_torch.models import ssm as ssm_mod
+from repro_torch.models.config import ArchConfig
 
 pytestmark = pytest.mark.cuda
 
@@ -434,3 +448,119 @@ def test_tucker_hooi_cuda_matches_einsum(card):
     before = multi_ttm_keep.launches
     repro_torch.tucker_hooi(x, (5, 4, 3), 0, init_factors=init, ctx=ctx)
     assert multi_ttm_keep.launches == before + 1
+
+
+# --------------------------------------------------------------------------
+# the intra-chunk SSD kernel and the Mamba2 path
+# --------------------------------------------------------------------------
+
+SSD_MIX = {  # x's dtype, the small operands' dtype
+    "x_bf16": (torch.bfloat16, torch.float32),
+    "f32": (torch.float32, torch.float32),
+    "bf16": (torch.bfloat16, torch.bfloat16),
+}
+
+
+def _ssd_data(bcn, q, n, h, p, mix, device, seed=0):
+    rng = np.random.default_rng(seed)
+    xt, st = SSD_MIX[mix]
+    cc = torch.as_tensor(rng.standard_normal((bcn, q, n), dtype=np.float32))
+    bc = torch.as_tensor(rng.standard_normal((bcn, q, n), dtype=np.float32))
+    steps = np.log1p(np.exp(rng.standard_normal((bcn, q, h)))).astype(np.float32)
+    cum = torch.as_tensor(-np.cumsum(steps, axis=1, dtype=np.float32))
+    dt = torch.as_tensor(np.log1p(np.exp(rng.standard_normal((bcn, q, h)))).astype(np.float32))
+    x = torch.as_tensor(rng.standard_normal((bcn, q, h, p), dtype=np.float32))
+    return [t.to(device, st) for t in (cc, bc, cum, dt)] + [x.to(device, xt)]
+
+
+def _ssd_close(got, want):
+    _close(got, want, tol=1e-2 if want.dtype == torch.bfloat16 else TOL)
+
+
+@pytest.mark.parametrize("mix", list(SSD_MIX))
+@pytest.mark.parametrize("h,hb", [(4, 2), (8, 4), (80, 8)])
+@pytest.mark.parametrize("q", [8, 16, 64, 200, 256])
+def test_ssd_intra_matches_plain(card, q, h, hb, mix):
+    args = _ssd_data(2, q, 32, h, 64, mix, card, seed=q + h)
+    got = ssd_intra(*args, head_block=hb)
+    assert got.dtype == args[4].dtype
+    _ssd_close(got, ssd_intra_plain(*args))
+
+
+@pytest.mark.parametrize("bcn,q,n,h,p", [(3, 37, 20, 6, 6), (1, 129, 128, 3, 24),
+                                         (5, 65, 7, 2, 130), (2, 256, 128, 80, 64)])
+def test_ssd_intra_ragged_shapes(card, bcn, q, n, h, p):
+    """q, N and P off every tile (P=130: 16-row tiles), and the served shape."""
+    args = _ssd_data(bcn, q, n, h, p, "f32", card, seed=q)
+    _ssd_close(ssd_intra(*args, head_block=1), ssd_intra_plain(*args))
+
+
+@pytest.mark.parametrize("plan", [SsdPlan(16, 1), SsdPlan(32, 2), SsdPlan(64, 3), SsdPlan(64, 6)])
+def test_ssd_intra_pinned_plans_match_plain(card, plan):
+    args = _ssd_data(2, 100, 48, 6, 32, "x_bf16", card, seed=3)
+    _ssd_close(ssd_intra(*args, plan=plan), ssd_intra_plain(*args))
+
+
+def test_ssd_intra_is_deterministic_and_counted(card):
+    args = _ssd_data(4, 256, 128, 16, 64, "x_bf16", card, seed=4)
+    before = ssd_intra.launches
+    a, b = ssd_intra(*args), ssd_intra(*args)
+    assert ssd_intra.launches == before + 2
+    assert torch.equal(a, b)
+
+
+def test_ssd_intra_no_nan_above_the_diagonal(card):
+    """Steep decay: exp(cum_i - cum_j) overflows for j > i; the kernel
+    selects j <= i before the exp."""
+    cc, bc, cum, dt, x = _ssd_data(2, 64, 16, 4, 16, "f32", card, seed=5)
+    cum = cum * 40.0
+    got = ssd_intra(cc, bc, cum, dt, x)
+    assert bool(torch.isfinite(got).all())
+    _ssd_close(got, ssd_intra_plain(cc, bc, cum, dt, x))
+
+
+def test_ssd_intra_shared_memory_count(card):
+    from repro_torch.kernels import ssd_intra as ssd_mod
+
+    for q in (8, 100, 256, 1000):
+        for p in (6, 64, 128):
+            for tile in (16, 32, 64):
+                assert ssd_mod.smem_bytes(q, p, tile) == kernel_smem_bytes(q, p, tile)
+    plan = kernel_plan(256, 80, 64)
+    props = torch.cuda.get_device_properties(card)
+    per_sm = getattr(props, "shared_memory_per_multiprocessor", 233472)
+    assert 2 * ssd_mod.smem_bytes(256, 64, plan.tile) <= per_sm  # two CTAs an SM
+
+
+def _mamba_cfg(dtype):
+    """A narrow Mamba2 (d_model 128, 4 heads of 64, state 32, chunk 64)."""
+    return ArchConfig(name="mamba2-test", family="ssm", n_layers=3, d_model=128, n_heads=0,
+                      n_kv_heads=0, d_ff=0, vocab_size=300, ssm_state=32, ssm_head_dim=64,
+                      ssm_chunk=64, tie_embeddings=True, dtype=dtype)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_apply_ssm_on_the_card_matches_cpu(card, dtype):
+    cfg = _mamba_cfg(dtype)
+    gen = torch.Generator().manual_seed(6)
+    p = ssm_mod.init_ssm(gen, cfg, getattr(torch, dtype), "cpu")
+    x = torch.randn((2, 192, cfg.d_model), generator=gen).to(getattr(torch, dtype))
+    want = ssm_mod.apply_ssm(p, x, cfg)
+    before = ssd_intra.launches
+    got = ssm_mod.apply_ssm(p.to(card), x.to(card), cfg)
+    assert ssd_intra.launches == before + 1
+    _close(got.cpu(), want, tol=1e-4 if dtype == "float32" else 5e-2)
+
+
+def test_forward_launches_once_a_layer_and_decode_never(card):
+    cfg = _mamba_cfg("bfloat16")
+    model = init_params(cfg, generator=torch.Generator(device=card).manual_seed(7))
+    tokens = torch.randint(0, cfg.vocab_size, (2, 128), device=card)
+    before = ssd_intra.launches
+    lg, _ = forward(model, cfg, {"tokens": tokens}, mode="prefill", logits_positions="last")
+    assert ssd_intra.launches == before + cfg.n_layers
+    assert lg.shape == (2, 1, cfg.padded_vocab) and bool(torch.isfinite(lg).all())
+    state = init_decode_state(model, cfg, 2, 16)
+    for t in range(3):
+        lg, state = decode_step(model, cfg, state, tokens[:, t:t + 1])
+    assert ssd_intra.launches == before + cfg.n_layers
