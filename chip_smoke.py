@@ -77,16 +77,21 @@ import argparse
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
-# Published H100 SXM peaks (dense): fp32 outside the tensor cores, bf16 on
-# them, and HBM3 bandwidth.
-PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}
+# Published H100 SXM peaks (dense): fp32 outside the tensor cores, tf32 and
+# bf16 on them, and HBM3 bandwidth.
+PEAK_FLOPS = {"float32": 67e12, "tf32": 495e12, "bfloat16": 989e12}
 PEAK_BYTES = 3.35e12
+#: The MTTKRP kernel's products run on the tensor cores: fp32 as 3xTF32
+#: (three tf32 products each), bf16 as one bf16 product. By input dtype:
+#: (products the kernel does for each, the type whose peak rate they run at).
+MMA_OPS = {"float32": (3, "tf32"), "bfloat16": (1, "bfloat16")}
 CSRC = "src/repro_torch/kernels/csrc/"
 SOURCE = {"mttkrp3": "mttkrp.cu", "mttkrpn": "mttkrp.cu", "splitk_reduce": "mttkrp.cu",
           "fused_pair": "sweep.cu", "mttkrp_partial": "sweep.cu",
@@ -175,10 +180,67 @@ def bound(n_x: int, itemsize: int, factor_words: int, out_words: int,
     return (max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations")
 
 
+def mma_bound(n_x: int, itemsize: int, factor_words: int, out_words: int,
+              flops: float, dtype: str) -> tuple[float, str]:
+    """:func:`bound` for the MTTKRP kernel: ``flops`` counted as the tensor
+    cores run them for ``dtype`` inputs (``MMA_OPS``)."""
+    times, rate = MMA_OPS[dtype]
+    return bound(n_x, itemsize, factor_words, out_words, times * flops, rate)
+
+
 def rel_err(got, want) -> tuple[float, float]:
     """(max |got - want| / max |want|, max |got - want|)."""
     diff = float((got.float() - want.float()).abs().max())
     return diff / max(float(want.abs().max()), 1e-30), diff
+
+
+#: Registers and spill bytes of each MTTKRP kernel instantiation, by
+#: (dtype, NC, block_i, block_r), from ``-Xptxas -v``; NC is 2 for the 3-way
+#: specialization, 0 for the generic kernel.
+MMA_REGS: dict = {}
+
+
+def parse_mma_registers(log: str) -> dict:
+    """``{(dtype, NC, block_i, block_r): (registers, spill bytes)}`` of
+    ``mttkrp_mma_kernel<T, NC, MT, NT>`` from the compiler's report."""
+    found, key = {}, None
+    pat = re.compile(r"_Z17mttkrp_mma_kernelI(f|13__nv_bfloat16)Li(\d+)ELi(\d+)ELi(\d+)E")
+    for line in log.splitlines():
+        m = pat.search(line)
+        if m:
+            key = ("float32" if m.group(1) == "f" else "bfloat16", int(m.group(2)),
+                   64 * int(m.group(3)), 16 * int(m.group(4)))
+            continue
+        spill = re.search(r"(\d+) bytes spill stores", line)
+        if key and spill:
+            found[key] = [None, int(spill.group(1))]
+        regs = re.search(r"Used (\d+) registers", line)
+        if key and regs:
+            found.setdefault(key, [None, 0])[0] = int(regs.group(1))
+            key = None
+    return {k: tuple(v) for k, v in found.items()}
+
+
+def mttkrp_launch(x, rank: int, specialized: bool) -> dict:
+    """The MTTKRP kernel's launch for a canonical operand: its plan, shared
+    memory, splits on this card, and registers and spills of the
+    instantiation it runs."""
+    import torch
+    from repro_torch.engine.plan import (
+        choose_mttkrp_kernel_blocks,
+        mttkrp_kernel_grid,
+        mttkrp_kernel_smem_bytes,
+    )
+
+    plan = choose_mttkrp_kernel_blocks(x.shape, rank, x.element_size())
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    dtype = str(x.dtype).split(".")[-1]
+    regs, spills = MMA_REGS.get((dtype, 2 if specialized else 0, plan.block_i, plan.block_r),
+                                (None, None))
+    return {"plan": [plan.block_i, plan.block_k, plan.block_r, plan.stages],
+            "smem_bytes": mttkrp_kernel_smem_bytes(plan, x.element_size(), x.ndim - 1),
+            "splits": mttkrp_kernel_grid(x.shape, rank, plan, sms)[2],
+            "registers": regs, "spill_bytes": spills}
 
 
 def counters() -> dict:
@@ -215,7 +277,6 @@ def kernel_phases(gen, smi: str, records: dict) -> None:
     """Phases 3 and 4: every kernel against its plain version, timed."""
     import torch
     from repro_torch.core.mttkrp import einsum_spec
-    from repro_torch.engine.plan import Memory, choose_blocks
     from repro_torch.kernels import ops, splitk
     from repro_torch.kernels.mttkrp3 import mttkrp3, mttkrp3_plain
     from repro_torch.kernels.mttkrpn import mttkrpn, mttkrpn_plain
@@ -228,11 +289,12 @@ def kernel_phases(gen, smi: str, records: dict) -> None:
         ins = [f for k, f in enumerate(fs) if k != mode]
         spec = einsum_spec(x.ndim, mode)
         rank = fs[0].shape[1]
-        b_ms, b_by = bound(x.numel(), x.element_size(), sum(f.numel() for f in ins),
-                           x.shape[mode] * rank, 2.0 * x.numel() * rank, dtype)
+        b_ms, b_by = mma_bound(x.numel(), x.element_size(), sum(f.numel() for f in ins),
+                               x.shape[mode] * rank, 2.0 * x.numel() * rank, dtype)
         rec = {
             "kernel": kname, "shape": list(x.shape), "rank": rank, "mode": mode,
-            "dtype": dtype, "max_rel_err": rel, "max_abs_err": diff,
+            "dtype": dtype, **mttkrp_launch(xp, rank, kname == "mttkrp3"),
+            "max_rel_err": rel, "max_abs_err": diff,
             "kernel_ms": cuda_ms(lambda: run_kernel(xp, fsp)),
             "plain_ms": cuda_ms(lambda: run_plain(xp, fsp), reps=3, warm=1),
             "library_ms": cuda_ms(lambda: torch.einsum(spec, x, *ins), reps=3, warm=1),
@@ -274,11 +336,9 @@ def kernel_phases(gen, smi: str, records: dict) -> None:
         got = ops.mttkrp(xb, fsb, mode, out_dtype=torch.float32)
         check(f"ops.mttkrp bf16 mode {mode}", got, plain_cache[mode], "bfloat16")
 
-    # the split-K reduction at the main shape's workspace
-    plan = choose_blocks(dims, rank, memory=Memory.h100_smem())
-    gi, gr = -(-dims[0] // plan.block_i), -(-rank // plan.block_r)
-    sms = torch.cuda.get_device_properties(0).multi_processor_count
-    s = max(2, splitk.n_splits(gi * gr, -(-dims[1] // plan.block_contract[0]), sms))
+    # the split-K reduction at the main shape's workspace: the MTTKRP kernel's
+    # split count there
+    s = max(2, records["mttkrp3"][0]["splits"])
     ws = torch.randn((s, dims[0], rank), generator=gen, device="cuda")
     out = torch.empty((dims[0], rank), device="cuda")
     rel, diff = check("splitk_reduce", splitk.splitk_reduce(ws, out).clone(),
@@ -409,11 +469,12 @@ def sweep_kernel_phases(gen, smi: str, records: dict) -> None:
     x2 = x.permute(1, 2, 0).reshape(-1, dims[0]).contiguous()
     got = mttkrpn(x2, fs[:1])
     rel, diff = check("mttkrpn 2-D edge", got, mttkrpn_plain(x2, fs[:1]), "float32")
-    b_ms, b_by = bound(x.numel(), 4, fs[0].numel(), x2.shape[0] * rank,
-                       2.0 * x.numel() * rank, "float32")
+    b_ms, b_by = mma_bound(x.numel(), 4, fs[0].numel(), x2.shape[0] * rank,
+                           2.0 * x.numel() * rank, "float32")
     rec = {
         "kernel": "mttkrpn", "where": "dimtree 3-way root right edge, one contraction axis",
-        "shape": list(x2.shape), "rank": rank, "dtype": "float32", "max_rel_err": rel,
+        "shape": list(x2.shape), "rank": rank, "dtype": "float32",
+        **mttkrp_launch(x2, rank, False), "max_rel_err": rel,
         "max_abs_err": diff, "kernel_ms": cuda_ms(lambda: mttkrpn(x2, fs[:1])),
         "plain_ms": cuda_ms(lambda: mttkrpn_plain(x2, fs[:1]), reps=3, warm=1),
         "library_ms": cuda_ms(lambda: torch.einsum("abc,az->bcz", x, fs[0]), reps=3, warm=1),
@@ -446,13 +507,12 @@ def sweep_kernel_phases(gen, smi: str, records: dict) -> None:
         a, b = fs[perm[2]], fs[perm[3]]
         got = mttkrp3(xe, a, b)
         rel, diff = check(f"mttkrp3 {where}", got, mttkrp3_plain(xe, a, b), "float32")
-        b_ms, b_by = bound(x.numel(), 4, a.numel() + b.numel(), rows * rank,
-                           2.0 * x.numel() * rank, "float32")
-        plan = choose_blocks(xe.shape, rank, memory=Memory.h100_smem())
+        b_ms, b_by = mma_bound(x.numel(), 4, a.numel() + b.numel(), rows * rank,
+                               2.0 * x.numel() * rank, "float32")
         rec = {
             "kernel": "mttkrp3", "where": where, "shape": list(xe.shape), "rank": rank,
             "dtype": "float32", "max_rel_err": rel, "max_abs_err": diff,
-            "plan": [plan.block_i, list(plan.block_contract), plan.block_r],
+            **mttkrp_launch(xe, rank, True),
             "kernel_ms": cuda_ms(lambda: mttkrp3(xe, a, b)),
             "plain_ms": cuda_ms(lambda: mttkrp3_plain(xe, a, b), reps=3, warm=1),
             "library_ms": cuda_ms(lambda: torch.einsum(spec, x, a, b), reps=3, warm=1),
@@ -999,6 +1059,7 @@ def main() -> int:
         print(f"built {os.path.relpath(path, ROOT)}", flush=True)
         for line in log.splitlines():
             print(f"nvcc {source}: {line}", flush=True)
+    MMA_REGS.update(parse_mma_registers(built["mttkrp.cu"][1]))
 
     gen = torch.Generator(device="cuda").manual_seed(args.seed)
     records: dict = {}

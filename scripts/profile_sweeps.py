@@ -46,8 +46,8 @@ GROUPS = (  # (group, pattern in the device function's name), first match wins
     ("fused_pair", r"fused_pair_kernel"),
     ("multi_ttm_keep", r"multi_ttm_kernel"),
     ("mttkrp_partial", r"partial_kernel"),
-    ("mttkrp3", r"mttkrp_tile_kernel<[^>]*, 2>"),  # the 3-way specialization
-    ("mttkrpn", r"mttkrp_tile_kernel<[^>]*, 0>"),  # the generic N-way kernel
+    ("mttkrp3", r"mttkrp_mma_kernel<[^,]+, 2,"),  # the 3-way specialization
+    ("mttkrpn", r"mttkrp_mma_kernel<[^,]+, 0,"),  # the generic kernel
     ("splitk_reduce", r"splitk_reduce_kernel"),
     ("copy", r"copy"),
 )

@@ -37,6 +37,7 @@ from .context import ExecutionContext, torch_dtype
 from .plan import (
     BlockPlan,
     Memory,
+    MTTKRPKernelPlan,
     MultiTTMPlan,
     best_uniform_block,
     choose_blocks,
@@ -65,17 +66,13 @@ _RANKS = "ABCDEFGHIJ"  # per-mode Tucker rank letters (Multi-TTM einsum)
 _BATCH_SLICE = "a leading batch axis comes with the batched-engine slice, ROADMAP Queue 1 item 8"
 
 
-def _mode_first(shape: Sequence[int], mode: int) -> tuple[int, ...]:
-    return (shape[mode],) + tuple(s for k, s in enumerate(shape) if k != mode)
-
-
 def mttkrp(
     x: torch.Tensor,
     factors: Sequence[torch.Tensor | None],
     mode: int,
     *,
     ctx: ExecutionContext | None = None,
-    plan: BlockPlan | None = None,
+    plan: MTTKRPKernelPlan | None = None,
     block: int | None = None,
     out_dtype: torch.dtype | None = None,
     kernel_variant: str | None = None,
@@ -110,15 +107,8 @@ def _mttkrp_impl(x, factors, mode, ctx, plan, block, out_dtype, kernel_variant):
             block = best_uniform_block(x.shape, memory or Memory.abstract(2 ** 20))
         out = mttkrp_blocked(x, factors, mode, block, f32_acc=mixed)
         return out.to(out_dtype) if out_dtype is not None else out
-    # cuda
-    if plan is None and memory is not None:
-        rank = next(f.shape[1] for k, f in enumerate(factors) if k != mode)
-        if mixed:
-            # dtype-aware planning: same physical budget, narrower items
-            memory = memory.with_itemsize(x.element_size())
-        plan = choose_blocks(
-            _mode_first(x.shape, mode), rank, x.element_size(), memory=memory
-        )
+    # cuda: the kernel plans itself against its own shared memory
+    # (choose_mttkrp_kernel_blocks); ctx.memory does not pick its plan
     return kernel_ops.mttkrp(
         x, factors, mode, plan=plan, out_dtype=out_dtype, variant=kernel_variant
     )
@@ -132,7 +122,7 @@ def contract_partial(
     has_rank: bool,
     *,
     ctx: ExecutionContext | None = None,
-    plan: BlockPlan | None = None,
+    plan: BlockPlan | MTTKRPKernelPlan | None = None,
 ) -> torch.Tensor:
     """Contract the factors for ``drop`` out of a dimension-tree ``node``.
 
@@ -145,7 +135,8 @@ def contract_partial(
     canonicalizes the node (kept modes first and flattened, dropped modes
     next, rank last) and runs the rank-augmented partial kernel when the
     node has a rank axis, the MTTKRP kernels when it has none. ``plan``
-    pins the kernel's blocks."""
+    pins the kernel's blocks: a ``BlockPlan`` for the partial kernel, an
+    ``MTTKRPKernelPlan`` for the MTTKRP kernels."""
     ctx = ctx if ctx is not None else ExecutionContext()
     ctx.check_tensor("repro_torch.contract_partial", node, *factors)
     modes, drop = tuple(modes), tuple(drop)
@@ -186,13 +177,15 @@ def _contract_partial_impl(node, factors, modes, drop, has_rank, ctx, plan):
     i_rows = math.prod(keep_sizes)
     xp = node.permute(perm).reshape((i_rows,) + drop_sizes + ((rank,) if has_rank else ()))
     fs = [factors[m] for m in drop]
-    itemsize = node.element_size()
     memory = ctx.memory
-    if mixed and memory is not None:
-        memory = memory.with_itemsize(itemsize)  # dtype-aware planning
-    if plan is None and memory is not None:
+    if has_rank and plan is None and memory is not None:
+        # the partial kernel plans against ctx.memory (dtype-aware); the
+        # MTTKRP kernel of the no-rank edge plans itself
+        itemsize = node.element_size()
+        if mixed:
+            memory = memory.with_itemsize(itemsize)
         plan = choose_blocks((i_rows,) + drop_sizes, rank, itemsize, memory=memory,
-                             x_has_rank=has_rank)
+                             x_has_rank=True)
     kernel = kernel_ops.mttkrp_partial_canonical if has_rank else kernel_ops.mttkrp_canonical
     out = kernel(xp, fs, plan=plan, out_dtype=out_dtype if mixed else node.dtype)
     out = out.reshape(keep_sizes + (rank,))

@@ -646,3 +646,100 @@ def choose_multi_ttm_kernel_blocks(
         f"Multi-TTM kernel: ranks {ranks} need more than {SMEM_PER_CTA_MAX} bytes of shared "
         f"memory even with 1-wide blocks"
     )
+
+
+#: CTAs the split rules want in flight on each SM, and the H100's SM count.
+CTAS_PER_SM = 2
+H100_SMS = 132
+#: The Hopper MTTKRP kernel's tiles (``csrc/mttkrp.cu``): rows a CTA (4 warps
+#: of 16 MT rows) and rank columns a CTA (2 warps of 8 NT columns).
+MTTKRP_BLOCK_I = (64, 128)
+MTTKRP_BLOCK_R = (16, 32, 64, 128)
+#: Bytes of each X row a chunk of ``block_k`` flat contraction indices spans.
+MTTKRP_CHUNK_BYTES = (32, 64, 128, 256)
+
+
+@dataclass(frozen=True)
+class MTTKRPKernelPlan:
+    """The Hopper MTTKRP kernel's plan for a canonical ``(I, C_1..C_k)``
+    problem, seen as an ``(I, K)`` matrix, K = prod C_d: ``block_i`` rows and
+    ``block_r`` rank columns a CTA, chunks of ``block_k`` flat contraction
+    indices (32, 64, 128 or 256 bytes of each row), and a ring of ``stages``
+    (2 to 4) chunk buffers in shared memory."""
+
+    block_i: int
+    block_k: int
+    block_r: int
+    stages: int
+
+    def check(self, itemsize: int) -> None:
+        """Raise ``ValueError`` unless the kernel takes these blocks."""
+        if (self.block_i not in MTTKRP_BLOCK_I or self.block_r not in MTTKRP_BLOCK_R
+                or self.block_k * itemsize not in MTTKRP_CHUNK_BYTES
+                or not 2 <= self.stages <= 4):
+            raise ValueError(
+                f"{self}: the MTTKRP kernel takes block_i in {MTTKRP_BLOCK_I}, block_r in "
+                f"{MTTKRP_BLOCK_R}, block_k of {MTTKRP_CHUNK_BYTES} bytes, 2 to 4 stages"
+            )
+
+
+def mttkrp_kernel_smem_bytes(plan: MTTKRPKernelPlan, itemsize: int, ncontract: int = 2) -> int:
+    """Dynamic shared memory of the Hopper MTTKRP kernel under ``plan`` with
+    ``ncontract`` contraction axes (``csrc/mttkrp.cu:make_tile_layout``,
+    mirrored here so a plan can be chosen on a host without the built
+    library; the card tests hold the two equal): ``stages`` chunk buffers,
+    each ``block_i`` rows of ``block_k`` X elements (16 bytes of skew a
+    row), ``block_k`` rows of the last factor (``block_r`` elements and 32
+    bytes of skew in fp32, 16 in bf16) and one ``block_r`` row of each of the
+    ``ncontract - 1`` leading factors."""
+    plan.check(itemsize)
+    row_bytes = plan.block_k * itemsize + 16
+    frow_bytes = plan.block_r * itemsize + (32 if itemsize == 4 else 16)
+    stage = (plan.block_i * row_bytes + plan.block_k * frow_bytes
+             + (ncontract - 1) * plan.block_r * itemsize)
+    return plan.stages * stage
+
+
+def n_splits(ctas: int, outer_tiles: int, sms: int) -> int:
+    """Splits of a contraction over CTAs: enough that
+    ``ctas * S >= CTAS_PER_SM * sms``, never more than its tiles."""
+    return max(1, min(outer_tiles, math.ceil(CTAS_PER_SM * sms / max(ctas, 1))))
+
+
+def mttkrp_kernel_grid(shape: Sequence[int], rank: int, plan: MTTKRPKernelPlan,
+                       sms: int = H100_SMS) -> tuple[int, int, int]:
+    """(row tiles, rank tiles, splits) of the kernel's launch. K is walked in
+    chunks of ``block_k`` last-axis indices under one leading index tuple
+    each; enough splits of the chunks that ``CTAS_PER_SM`` CTAs per SM are in
+    flight, never more than there are chunks."""
+    rows = math.ceil(shape[0] / plan.block_i)
+    rtiles = math.ceil(rank / plan.block_r)
+    chunks = math.prod(shape[1:-1]) * math.ceil(shape[-1] / plan.block_k)
+    return rows, rtiles, n_splits(rows * rtiles, chunks, sms)
+
+
+def choose_mttkrp_kernel_blocks(shape: Sequence[int], rank: int,
+                                itemsize: int = 4) -> MTTKRPKernelPlan:
+    """The Hopper MTTKRP kernel's default plan for a canonical
+    ``(I, C_1..C_k)`` problem, against its real shared memory
+    (:func:`mttkrp_kernel_smem_bytes`). ``block_r`` is R rounded up to a power
+    of two from 16 to 128, so X is read once for R <= 128; ``block_i`` is 128
+    (64 for I <= 64); a chunk spans 256 bytes of the last axis, or the
+    fewest bytes in ``MTTKRP_CHUNK_BYTES`` that hold a shorter one. The ring
+    takes as many of 4, 3, 2 stages as fit ``SMEM_BUDGET`` (two CTAs per SM);
+    failing that, the chunk narrows, then the rows, then the plan is made
+    against one CTA's limit. (On the H100, wide chunks and two CTAs an SM
+    beat deeper rings: ``scripts/probe_mttkrp.py``, PERF.md.)"""
+    i, c_last = int(shape[0]), int(shape[-1])
+    bi = 128 if i > 64 else 64
+    br = min(128, max(16, 1 << (max(rank, 1) - 1).bit_length()))
+    kb = next(b for b in MTTKRP_CHUNK_BYTES if b >= min(256, c_last * itemsize))
+    for budget in (SMEM_BUDGET, SMEM_PER_CTA_MAX):
+        for rows in sorted({bi, 64}, reverse=True):
+            for width in [b for b in reversed(MTTKRP_CHUNK_BYTES) if b <= kb]:
+                for stages in (4, 3, 2):
+                    plan = MTTKRPKernelPlan(rows, width // itemsize, br, stages)
+                    if mttkrp_kernel_smem_bytes(plan, itemsize, len(shape) - 1) <= budget:
+                        return plan
+    raise ValueError(f"MTTKRP kernel: no plan for shape {tuple(shape)}, rank {rank} fits "
+                     f"{SMEM_PER_CTA_MAX} bytes of shared memory")

@@ -3,7 +3,7 @@
 
 The sources under ``csrc/`` have a plain C interface, so one ``nvcc`` call
 per source builds a shared library (no PyTorch headers): ``mttkrp.cu``
-holds the MTTKRP tile kernels and the split-K reduction, ``sweep.cu`` the
+holds the MTTKRP tensor-core kernels and the split-K reduction, ``sweep.cu`` the
 fused-sweep pair and the rank-augmented partial contraction,
 ``multi_ttm.cu`` the kept-mode Multi-TTM of the Tucker path, ``ssd_intra.cu``
 the intra-chunk SSD term of the Mamba2 prefill. Each library
@@ -41,9 +41,10 @@ _PLL, _PI = ctypes.POINTER(_LL), ctypes.POINTER(_I)
 #: The C entry points of each source: name -> (restype, argtypes).
 SIGNATURES = {
     "mttkrp.cu": {
-        "repro_mttkrp_tile": (_I, [_I, _I, _I, _PLL, _PI, _I, _I, _I, _P, _PLL, _P, _P]),
+        "repro_mttkrp_tile": (_I, [_I, _I, _I, _PLL, _I, _I, _I, _I, _I, _I, _I, _I, _P, _PLL,
+                                   _P, _P]),
         "repro_splitk_reduce": (_I, [_P, _P, _LL, _I, _P]),
-        "repro_mttkrp_smem_bytes": (_LL, [_I, _I, _PI, _I, _I]),
+        "repro_mttkrp_smem_bytes": (_LL, [_I, _I, _I, _I, _I, _I]),
     },
     "sweep.cu": {
         "repro_fused_pair": (_I, [_I, _I, _PLL, _PI, _I, _I, _I, _P, _PLL, _P, _P, _P]),

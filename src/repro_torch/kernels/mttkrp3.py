@@ -1,21 +1,27 @@
-"""Blocked 3-way MTTKRP on Hopper: the wrapper, its plain version, and its
-launch count.
+"""3-way MTTKRP on Hopper: the wrapper, its plain version, and its launch
+count.
 
-Source: ``csrc/mttkrp.cu`` (``mttkrp_tile_kernel<T, RC, 2>``). It replaces
-the TPU kernel ``repro/kernels/mttkrp3.py:mttkrp3_pallas``
+Source: ``csrc/mttkrp.cu`` (``mttkrp_mma_kernel<T, 2, MT, NT>``). It
+replaces the TPU kernel ``repro/kernels/mttkrp3.py:mttkrp3_pallas``
 (``_mttkrp3_kernel``): the canonical mode-0 contraction
-O(i, r) = sum_jk X(i, j, k) A(j, r) B(k, r), with the Khatri-Rao block
-W[(j, k), r] = A(j, r) B(k, r) built on chip (k fastest) and never in
+O(i, r) = sum_jk X(i, j, k) A(j, r) B(k, r) against the Khatri-Rao
+product W[(j, k), r] = A(j, r) B(k, r) (k fastest), which never exists in
 device memory.
 
-What bounds it on an H100: at 1000^3, R=64 the fp32 arithmetic
-(2 I R = 1.28e11 FLOP at 67 TFLOP/s, 1.91 ms) outweighs reading X once
-(4.0e9 B at 3.35 TB/s, 1.19 ms); bf16 X is bound by its bytes (0.60 ms).
-The design answers with fp32 FMAs from shared memory: each staged X element
-feeds the CTA's br rank columns, each W element its bi rows; the contraction
-loop runs inside the CTA, the outermost contraction axis is split over CTAs
-to fill the SMs, and ``splitk.splitk_reduce`` adds the splits in a fixed
-order. Ragged edges are masked in the kernel, so X is never padded.
+What bounds it on an H100: reading X once. At 1000^3, R=64 that is
+4.0e9 B at 3.35 TB/s (1.19 ms) for fp32 X and half that for bf16 X; the
+2 I J K R = 1.28e11 FLOP run on the tensor cores, as three TF32 products
+each for fp32 X (0.78 ms at 495 TFLOP/s). The design treats X as an
+(I, J K) matrix streamed once through a ``cp.async`` ring in shared
+memory, in chunks of consecutive k under one j. Within such a chunk
+W(j, k, r) = A(j, r) B(k, r), so no Khatri-Rao block is built: ``mma.sync``
+multiplies the chunk of X by B's rows (3xTF32 for fp32 X; bf16 against the
+exact bf16 factor for bf16 X) into an fp32 partial, which is scaled by
+A(j, r) as it is added to the fp32 accumulators. K is split over CTAs to
+fill the SMs and ``splitk.splitk_reduce`` adds the splits in a fixed order.
+Ragged edges are zero-filled by the copies, so X is never padded. The
+header of ``csrc/mttkrp.cu`` gives the details; the plan is the kernel's
+own (:class:`~..engine.plan.MTTKRPKernelPlan`).
 """
 
 from __future__ import annotations
@@ -23,7 +29,7 @@ from __future__ import annotations
 import torch
 
 from ..core.krp import khatri_rao
-from ..engine.plan import BlockPlan, Memory, choose_blocks
+from ..engine.plan import MTTKRPKernelPlan
 from .splitk import launch_tile
 
 
@@ -38,21 +44,19 @@ def mttkrp3(
     a: torch.Tensor,
     b: torch.Tensor,
     *,
-    plan: BlockPlan | None = None,
+    plan: MTTKRPKernelPlan | None = None,
 ) -> torch.Tensor:
     """Canonical mode-0 3-way MTTKRP: O(i,r) = sum_jk X(i,j,k) A(j,r) B(k,r).
 
     Unpadded inputs of any extent; returns float32 ``(I, R)``. A CUDA tensor
-    launches the kernel under ``plan`` (default: planned against
-    ``Memory.h100_smem()``); a CPU tensor takes :func:`mttkrp3_plain`."""
+    launches the kernel under ``plan`` (default:
+    ``choose_mttkrp_kernel_blocks``; any other plan type raises
+    ``TypeError``); a CPU tensor ignores ``plan`` and takes
+    :func:`mttkrp3_plain`."""
     if x.ndim != 3:
         raise ValueError(f"mttkrp3: a 3-way tensor, got {x.ndim}-way")
     if x.device.type == "cpu":
         return mttkrp3_plain(x, a, b)
-    if plan is None:
-        plan = choose_blocks(
-            x.shape, a.shape[1], memory=Memory.h100_smem(itemsize=x.element_size())
-        )
     out = launch_tile(x, [a, b], plan, specialized=True, name="mttkrp3")
     mttkrp3.launches += 1
     return out

@@ -1,22 +1,26 @@
-"""Blocked N-way MTTKRP on Hopper: the wrapper, its plain version, and its
-launch count.
+"""N-way MTTKRP on Hopper: the wrapper, its plain version, and its launch
+count.
 
-Source: ``csrc/mttkrp.cu`` (``mttkrp_tile_kernel<T, RC, 0>``). It replaces
-the TPU kernel ``repro/kernels/mttkrpn.py:mttkrpn_pallas`` (``_kernel``):
-the canonical mode-0 contraction of an ``(I, C_1..C_{N-1})`` tensor with the
-chained Khatri-Rao weight W[(c_1..c_{N-1}), r] = prod_d A_d(c_d, r), built
-on chip with the last index fastest. It serves N >= 4, the 3-way
-``variant="generic"``, and the dimension tree's 2-D edge (one contraction
-axis: X as an ``(I_1 I_2, I_0)`` matrix).
+Source: ``csrc/mttkrp.cu`` (``mttkrp_mma_kernel<T, 0, MT, NT>``). It
+replaces the TPU kernel ``repro/kernels/mttkrpn.py:mttkrpn_pallas``
+(``_kernel``): the canonical mode-0 contraction of an ``(I, C_1..C_{N-1})``
+tensor with the chained Khatri-Rao weight W[(c_1..c_{N-1}), r] =
+prod_d A_d(c_d, r) (the last index fastest), which never exists in device
+memory. It serves N >= 4, the 3-way ``variant="generic"``, and the
+dimension tree's 2-D edge (one contraction axis: X as an ``(I_1 I_2, I_0)``
+matrix).
 
-What bounds it on an H100: at 180^4, R=32 (fp32) reading X once
-(4.2e9 B at 3.35 TB/s, 1.25 ms) outweighs the arithmetic (6.7e10 FLOP at
-67 TFLOP/s, 1.00 ms). The design is that of ``mttkrp3``: the contraction
-loop inside the CTA, the outermost contraction axis split over CTAs and
-reduced in a fixed order, tiles staged in shared memory, fp32 FMAs, ragged
-edges masked in the kernel. W is built per step from one prefix product per
-leading index tuple times the last factor tile. The rank-augmented partial
-kernel (``mttkrp_partial_pallas``) is :mod:`.partial`.
+What bounds it on an H100: reading X once. At 180^4, R=32 (fp32) that is
+4.2e9 B at 3.35 TB/s (1.25 ms), against 6.7e10 FLOP on the tensor cores
+(three TF32 products each: 0.41 ms at 495 TFLOP/s). The kernel body is
+``mttkrp3``'s with the number of contraction axes read at run time: X as
+an (I, prod C) matrix through a ``cp.async`` ring, in chunks of the last
+axis under one tuple of the leading indices; ``mma.sync`` multiplies each
+chunk by the last factor's rows into an fp32 partial, which is scaled by
+the product of the leading factors' rows of that tuple as it is added to
+the accumulators; flat K is split over CTAs and reduced in a fixed order.
+The rank-augmented partial kernel (``mttkrp_partial_pallas``) is
+:mod:`.partial`.
 """
 
 from __future__ import annotations
@@ -26,7 +30,7 @@ from typing import Sequence
 import torch
 
 from ..core.krp import khatri_rao
-from ..engine.plan import BlockPlan, Memory, choose_blocks
+from ..engine.plan import MTTKRPKernelPlan
 from .splitk import launch_tile
 
 
@@ -41,21 +45,18 @@ def mttkrpn(
     x: torch.Tensor,
     factors: Sequence[torch.Tensor],
     *,
-    plan: BlockPlan | None = None,
+    plan: MTTKRPKernelPlan | None = None,
 ) -> torch.Tensor:
     """Canonical mode-0 N-way MTTKRP. ``factors`` are the N-1 non-output
     factors in tensor-axis order (axes 1..N-1). Unpadded inputs; returns
     float32 ``(I, R)``. A CUDA tensor launches the kernel under ``plan``
-    (default: planned against ``Memory.h100_smem()``); a CPU tensor takes
+    (default: ``choose_mttkrp_kernel_blocks``; any other plan type raises
+    ``TypeError``); a CPU tensor ignores ``plan`` and takes
     :func:`mttkrpn_plain`."""
     if len(factors) != x.ndim - 1:
         raise ValueError(f"mttkrpn: {x.ndim}-way tensor with {len(factors)} factors")
     if x.device.type == "cpu":
         return mttkrpn_plain(x, factors)
-    if plan is None:
-        plan = choose_blocks(
-            x.shape, factors[0].shape[1], memory=Memory.h100_smem(itemsize=x.element_size())
-        )
     out = launch_tile(x, factors, plan, specialized=False, name="mttkrpn")
     mttkrpn.launches += 1
     return out

@@ -17,7 +17,7 @@ from typing import Sequence
 
 import torch
 
-from ..engine.plan import BlockPlan, MultiTTMPlan
+from ..engine.plan import BlockPlan, MTTKRPKernelPlan, MultiTTMPlan
 from .mttkrp3 import mttkrp3
 from .mttkrpn import mttkrpn
 from .multi_ttm import multi_ttm_keep
@@ -28,7 +28,7 @@ def mttkrp_canonical(
     xp: torch.Tensor,
     fs: Sequence[torch.Tensor],
     *,
-    plan: BlockPlan | None = None,
+    plan: MTTKRPKernelPlan | None = None,
     out_dtype: torch.dtype | None = None,
     variant: str | None = None,
 ) -> torch.Tensor:
@@ -36,7 +36,7 @@ def mttkrp_canonical(
 
     ``xp`` has the output mode at axis 0; ``fs`` are the N-1 factors for
     axes 1..N-1 in order, cast to ``xp``'s dtype. ``plan=None`` lets the
-    kernel wrapper plan against ``Memory.h100_smem()``. ``variant`` pins the
+    kernel wrapper plan (``choose_mttkrp_kernel_blocks``). ``variant`` pins the
     kernel for 3-way tensors: ``"specialized"`` (the default, ``mttkrp3``)
     or ``"generic"`` (``mttkrpn``); other orders, including a 2-D ``xp``
     with one contraction axis (a dimension-tree edge), take the generic
@@ -69,7 +69,7 @@ def mttkrp(
     factors: Sequence[torch.Tensor | None],
     mode: int,
     *,
-    plan: BlockPlan | None = None,
+    plan: MTTKRPKernelPlan | None = None,
     out_dtype: torch.dtype | None = None,
     variant: str | None = None,
 ) -> torch.Tensor:

@@ -4,8 +4,9 @@ deterministic reduction kernel that adds the splits.
 Source: ``csrc/mttkrp.cu`` (``splitk_reduce_kernel``). It replaces what the
 TPU kernels get from their sequential grid: the output tile stays resident
 across the contraction steps (``repro/kernels/mttkrp3.py:67-69``). On
-Hopper the CTAs run in parallel and in no order, so the outermost
-contraction axis is split over ``S`` CTAs, each writing an fp32 slab of an
+Hopper the CTAs run in parallel and in no order, so the contraction is split
+over ``S`` CTAs (flat K for the MTTKRP kernel, the outermost contraction
+axis for the sweep and Multi-TTM kernels), each writing an fp32 slab of an
 ``(S, I, R)`` workspace, and this kernel sums the slabs in slab order: no
 atomics, the same bits on every run. It moves ``(S + 1) * I * R * 4``
 bytes and is bound by memory bandwidth.
@@ -19,11 +20,18 @@ from typing import Sequence
 
 import torch
 
-from ..engine.plan import SMEM_PER_CTA_MAX, BlockPlan, MultiTTMPlan
+from ..engine.plan import CTAS_PER_SM as CTAS_PER_SM  # re-exported beside n_splits
+from ..engine.plan import (
+    SMEM_PER_CTA_MAX,
+    BlockPlan,
+    MTTKRPKernelPlan,
+    MultiTTMPlan,
+    choose_mttkrp_kernel_blocks,
+    mttkrp_kernel_grid,
+    mttkrp_kernel_smem_bytes,
+    n_splits,
+)
 from .build import check, library
-
-#: CTAs wanted in flight: two per SM (the planner's budget lets two share one).
-CTAS_PER_SM = 2
 
 
 def splitk_reduce_plain(ws: torch.Tensor) -> torch.Tensor:
@@ -59,26 +67,21 @@ def splitk_reduce(ws: torch.Tensor, out: torch.Tensor) -> torch.Tensor:
 splitk_reduce.launches = 0  # type: ignore[attr-defined]
 
 
-def n_splits(ctas: int, outer_tiles: int, sms: int) -> int:
-    """Splits of the outermost contraction axis: enough that
-    ``ctas * S >= CTAS_PER_SM * sms``, never more than its tiles."""
-    return max(1, min(outer_tiles, math.ceil(CTAS_PER_SM * sms / max(ctas, 1))))
-
-
-def smem_bytes(plan: BlockPlan, dtype: torch.dtype) -> int:
-    """Dynamic shared memory the tile kernel takes under ``plan``."""
-    nc = len(plan.block_contract)
-    bc = (ctypes.c_int * nc)(*plan.block_contract)
+def smem_bytes(plan: MTTKRPKernelPlan, dtype: torch.dtype, ncontract: int) -> int:
+    """The library's own count of the MTTKRP kernel's dynamic shared memory
+    under ``plan`` with ``ncontract`` contraction axes (-1 for blocks it does
+    not take); :func:`~..engine.plan.mttkrp_kernel_smem_bytes` mirrors it."""
     itemsize = torch.tensor([], dtype=dtype).element_size()
-    return int(library().repro_mttkrp_smem_bytes(itemsize, nc, bc, plan.block_i, plan.block_r))
+    return int(library().repro_mttkrp_smem_bytes(
+        itemsize, ncontract, plan.block_i, plan.block_k, plan.block_r, plan.stages))
 
 
 def check_operands(name: str, x: torch.Tensor, factors: Sequence[torch.Tensor],
-                   rank: int, plan: BlockPlan, *, x_has_rank: bool = False) -> None:
+                   rank: int, plan: BlockPlan | None, *, x_has_rank: bool = False) -> None:
     """Raise unless ``x`` is a contiguous fp32 or bf16 CUDA tensor whose axes
     1..k match the k contiguous ``(C_d, R)`` factors of its dtype and device
-    (``x_has_rank``: a trailing rank axis follows them), and ``plan`` has
-    k contraction blocks of that kind."""
+    (``x_has_rank``: a trailing rank axis follows them), and ``plan``, where
+    given, has k contraction blocks of that kind."""
     if x.device.type != "cuda":
         raise ValueError(f"{name}: the kernel needs a CUDA tensor, got {x.device}")
     if x.dtype not in (torch.float32, torch.bfloat16):
@@ -98,11 +101,11 @@ def check_operands(name: str, x: torch.Tensor, factors: Sequence[torch.Tensor],
         if tuple(f.shape) != (x.shape[1 + d], rank):
             raise ValueError(f"{name}: factor {d} has shape {tuple(f.shape)}, "
                              f"expected {(x.shape[1 + d], rank)}")
-    if len(plan.block_contract) != k or plan.x_has_rank != x_has_rank:
+    if plan is not None and (len(plan.block_contract) != k or plan.x_has_rank != x_has_rank):
         raise ValueError(f"{name}: plan {plan} does not fit operand {tuple(x.shape)}")
 
 
-def check_smem(name: str, plan: BlockPlan | MultiTTMPlan, smem: int) -> None:
+def check_smem(name: str, plan: BlockPlan | MultiTTMPlan | MTTKRPKernelPlan, smem: int) -> None:
     """Raise if a plan needs more shared memory than one CTA has."""
     if smem > SMEM_PER_CTA_MAX:
         raise ValueError(
@@ -139,28 +142,66 @@ def c_args(x: torch.Tensor, factors: Sequence[torch.Tensor], plan: BlockPlan):
     return extents, blocks, ptrs, 0 if x.dtype == torch.float32 else 1
 
 
+def copy_width(run_bytes: int, ptrs: Sequence[int]) -> int:
+    """The widest ``cp.async`` (16, 8 or 4 bytes) that every run start can
+    take: runs of ``run_bytes`` bytes (X's last axis, a factor's row) from
+    pointers ``ptrs``; 0 (element loads) where not even 4 bytes can."""
+    for v in (16, 8, 4):
+        if run_bytes % v == 0 and all(p % v == 0 for p in ptrs):
+            return v
+    return 0
+
+
+def kernel_plan(name: str, x: torch.Tensor, rank: int,
+                plan: MTTKRPKernelPlan | None) -> MTTKRPKernelPlan:
+    """``plan``, or the kernel's own default for ``x``; raises ``TypeError``
+    for a plan of another type (a ``BlockPlan`` budgets the reference's tile
+    schedule, which this kernel does not run)."""
+    if plan is None:
+        return choose_mttkrp_kernel_blocks(x.shape, rank, x.element_size())
+    if not isinstance(plan, MTTKRPKernelPlan):
+        raise TypeError(f"{name}: on a CUDA tensor the plan is an MTTKRPKernelPlan, "
+                        f"got {type(plan).__name__}")
+    return plan
+
+
 def launch_tile(
     x: torch.Tensor,
     factors: Sequence[torch.Tensor],
-    plan: BlockPlan,
+    plan: MTTKRPKernelPlan | None,
     *,
     specialized: bool,
     name: str,
 ) -> torch.Tensor:
-    """Launch the blocked tile kernel on mode-0-canonical CUDA operands and,
-    when the contraction is split, the reduction kernel. Returns the fp32
-    ``(I, R)`` output. Checks device, dtype, shape and contiguity first."""
+    """Launch the MTTKRP kernel on mode-0-canonical CUDA operands and, when
+    K is split, the reduction kernel. Returns the fp32 ``(I, R)`` output.
+    Checks device, dtype, shape and contiguity first, then the plan's type,
+    blocks and shared memory."""
     rank = factors[0].shape[1] if factors else 0
-    check_operands(name, x, factors, rank, plan)
+    check_operands(name, x, factors, rank, None)
+    if x.shape[0] >= 2 ** 31 or math.prod(x.shape[1:]) >= 2 ** 31:
+        raise ValueError(f"{name}: I and prod(C) must stay below 2^31, got {tuple(x.shape)}")
+    plan = kernel_plan(name, x, rank, plan)
+    itemsize = x.element_size()
+    check_smem(name, plan, mttkrp_kernel_smem_bytes(plan, itemsize, x.ndim - 1))
     lib = library()
-    check_smem(name, plan, smem_bytes(plan, x.dtype))
-    out, ws, splits = split_output(x, rank, plan)
-    extents, blocks, ptrs, dtype = c_args(x, factors, plan)
+    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
+    _, _, splits = mttkrp_kernel_grid(x.shape, rank, plan, sms)
+    i_sz = x.shape[0]
+    out = torch.empty((i_sz, rank), device=x.device, dtype=torch.float32)
+    ws = out if splits == 1 else torch.empty(
+        (splits, i_sz, rank), device=x.device, dtype=torch.float32)
+    k = len(factors)
+    extents = (ctypes.c_longlong * (k + 1))(*x.shape)
+    ptrs = [f.data_ptr() for f in factors]
+    copy_x = copy_width(x.shape[-1] * itemsize, [x.data_ptr()])
+    copy_f = copy_width(rank * itemsize, ptrs)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = lib.repro_mttkrp_tile(
-            int(specialized), dtype, len(factors), extents, blocks,
-            plan.block_r, rank, splits, x.data_ptr(), ptrs, ws.data_ptr(), stream,
+            int(specialized), 0 if x.dtype == torch.float32 else 1, k, extents,
+            plan.block_i, plan.block_k, plan.block_r, plan.stages, rank, splits,
+            copy_x, copy_f, x.data_ptr(), (ctypes.c_longlong * k)(*ptrs), ws.data_ptr(), stream,
         )
     check(err, name)
     if splits > 1:

@@ -25,10 +25,14 @@ from repro_torch.core.tensor import random_tucker_tensor
 from repro_torch.engine.plan import (
     BlockPlan,
     Memory,
+    MTTKRPKernelPlan,
     MultiTTMPlan,
     choose_blocks,
     choose_multi_ttm_kernel_blocks,
+    choose_mttkrp_kernel_blocks,
     choose_sweep_blocks,
+    mttkrp_kernel_grid,
+    mttkrp_kernel_smem_bytes,
     multi_ttm_kernel_smem_bytes,
 )
 from repro_torch.engine.sweep import fused_als_sweep
@@ -103,12 +107,12 @@ def test_mttkrpn_matches_plain(card, dims, rank, dtype):
 
 
 PLANS = [
-    ((50, 40, 70), 32, BlockPlan(8, (8, 32), 32)),      # many steps and splits
-    ((50, 40, 70), 40, BlockPlan(16, (8, 32), 8)),       # 5 rank tiles of 8
-    ((37, 29, 61), 7, BlockPlan(3, (5, 7), 7)),          # unaligned blocks
-    ((70, 33, 45), 64, BlockPlan(128, (8, 16), 64)),     # more tiles than warps
-    ((20, 9, 11, 13), 12, BlockPlan(8, (4, 4, 8), 16)),
-    ((300, 9, 7), 500, BlockPlan(128, (8, 8), 512)),     # 64 tiles: several passes
+    ((50, 40, 70), 32, MTTKRPKernelPlan(64, 16, 32, 2)),    # two stages, many chunks and splits
+    ((50, 40, 70), 40, MTTKRPKernelPlan(128, 32, 16, 4)),   # 3 rank tiles of 16
+    ((37, 29, 61), 7, MTTKRPKernelPlan(64, 8, 16, 3)),      # 32-byte chunks, all ragged
+    ((70, 33, 45), 64, MTTKRPKernelPlan(128, 64, 64, 2)),   # 256-byte chunks
+    ((20, 9, 11, 13), 12, MTTKRPKernelPlan(64, 32, 16, 4)),
+    ((300, 9, 7), 500, MTTKRPKernelPlan(128, 8, 128, 2)),   # 4 rank tiles of 128
 ]
 
 
@@ -119,6 +123,75 @@ def test_pinned_plans_match_plain(card, dims, rank, plan):
     _close(mttkrpn(x, fs[1:], plan=plan), want)
     if len(dims) == 3:
         _close(mttkrp3(x, fs[1], fs[2], plan=plan), want)
+
+
+def _misaligned(x):
+    """The same values one element past a 16-byte boundary."""
+    buf = torch.empty(x.numel() + 1, device=x.device, dtype=x.dtype)
+    y = buf[1:].view(x.shape)
+    y.copy_(x)
+    return y
+
+
+# (dims, rank, dtype, plan or None, misaligned): the copy widths, the row and
+# rank edges, N = 5, one contraction axis, one split and many
+RAGGED = [
+    ((33, 17, 7), 7, torch.float32, None, False),       # C_last * 4 = 28 bytes: 4-byte copies
+    ((33, 17, 7), 7, torch.bfloat16, None, False),      # 14 bytes, R * 2 = 14: element loads
+    ((33, 17, 6), 5, torch.bfloat16, None, False),      # 12 bytes: 4-byte copies
+    ((70, 9, 36), 64, torch.bfloat16, None, False),     # 72 bytes: 8-byte copies
+    ((100, 9, 20), 1, torch.float32, MTTKRPKernelPlan(128, 16, 16, 2), False),  # I < block_i
+    ((200, 9, 20), 130, torch.float32, MTTKRPKernelPlan(128, 32, 128, 2), False),  # I > 128
+    ((65, 8, 24), 64, torch.bfloat16, MTTKRPKernelPlan(64, 32, 64, 3), False),  # 2 row tiles
+    ((4, 5, 3, 2, 6), 7, torch.float32, None, False),   # N = 5
+    ((7, 4, 3, 2, 6), 64, torch.bfloat16, None, False),
+    ((333, 41), 64, torch.float32, None, False),        # one contraction axis
+    ((333, 41), 7, torch.bfloat16, None, False),
+    ((40000, 7, 8), 16, torch.float32, None, False),    # 313 row tiles: one split
+    ((40000, 7, 8), 16, torch.bfloat16, None, False),
+    ((50, 40, 70), 32, torch.float32, MTTKRPKernelPlan(64, 16, 32, 2), True),  # 4-byte copies
+    ((50, 40, 70), 32, torch.bfloat16, MTTKRPKernelPlan(64, 16, 32, 2), True),  # elements
+    ((9, 3, 3, 10), 130, torch.float32, None, True),
+]
+
+
+@pytest.mark.parametrize("dims,rank,dtype,plan,misaligned", RAGGED)
+def test_ragged_cases_match_plain(card, dims, rank, dtype, plan, misaligned):
+    x, fs = _data(dims, rank, dtype, card, seed=14)
+    if misaligned:
+        x = _misaligned(x)
+        assert x.data_ptr() % 16 != 0
+    want = mttkrpn_plain(x, fs[1:])
+    _close(mttkrpn(x, fs[1:], plan=plan), want)
+    if len(dims) == 3:
+        _close(mttkrp3(x, fs[1], fs[2], plan=plan), want)
+
+
+@pytest.mark.parametrize("dims,rank,want_one",
+                         [((40000, 7, 8), 16, True), ((50, 40, 70), 32, False)])
+def test_split_counts_on_this_card(card, dims, rank, want_one):
+    plan = choose_mttkrp_kernel_blocks(dims, rank, 4)
+    sms = torch.cuda.get_device_properties(card).multi_processor_count
+    splits = mttkrp_kernel_grid(dims, rank, plan, sms)[2]
+    assert (splits == 1) == want_one
+    before = splitk.splitk_reduce.launches
+    x, fs = _data(dims, rank, torch.float32, card, seed=15)
+    _close(mttkrpn(x, fs[1:]), mttkrpn_plain(x, fs[1:]))
+    assert splitk.splitk_reduce.launches == before + (0 if want_one else 1)
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=["f32", "bf16"])
+@pytest.mark.parametrize("nc", [1, 2, 4, 7])
+def test_smem_count_matches_its_mirror(card, nc, dtype):
+    size = dtype.itemsize
+    for bi in (64, 128):
+        for width in (32, 64, 128, 256):
+            for br in (16, 32, 64, 128):
+                for stages in (2, 3, 4):
+                    plan = MTTKRPKernelPlan(bi, width // size, br, stages)
+                    assert splitk.smem_bytes(plan, dtype, nc) == mttkrp_kernel_smem_bytes(
+                        plan, size, nc)
+    assert splitk.smem_bytes(MTTKRPKernelPlan(96, 8, 16, 2), dtype, nc) == -1
 
 
 @pytest.mark.parametrize("variant", ["specialized", "generic"])
@@ -134,13 +207,36 @@ def test_ops_all_modes(card, dims, variant):
 
 def test_kernel_is_deterministic_and_counted(card):
     x, fs = _data((300, 41, 257), 64, torch.float32, card, seed=2)
-    plan = choose_blocks(x.shape, 64, memory=Memory.h100_smem())
+    plan = choose_mttkrp_kernel_blocks(x.shape, 64, 4)
     before = (mttkrp3.launches, splitk.splitk_reduce.launches)
     a = mttkrp3(x, fs[1], fs[2], plan=plan)
     b = mttkrp3(x, fs[1], fs[2], plan=plan)
     assert torch.equal(a, b)
     assert mttkrp3.launches == before[0] + 2
     assert splitk.splitk_reduce.launches in (before[1], before[1] + 2)
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=["f32", "bf16"])
+@pytest.mark.parametrize("dims", [(300, 41, 257), (40, 21, 19, 35), (9000, 300)])
+def test_mttkrpn_is_deterministic_and_counted(card, dims, dtype):
+    x, fs = _data(dims, 33, dtype, card, seed=16)
+    before = (mttkrpn.launches, mttkrp3.launches)
+    runs = [mttkrpn(x, fs[1:]) for _ in range(3)]
+    assert all(torch.equal(runs[0], r) for r in runs[1:])
+    assert (mttkrpn.launches, mttkrp3.launches) == (before[0] + 3, before[1])
+
+
+def test_a_block_plan_on_a_cuda_tensor_is_refused(card):
+    x, fs = _data((8, 8, 8), 4, torch.float32, card)
+    before = (mttkrp3.launches, mttkrpn.launches)
+    with pytest.raises(TypeError, match="MTTKRPKernelPlan"):
+        mttkrp3(x, fs[1], fs[2], plan=BlockPlan(8, (8, 8), 16))
+    with pytest.raises(TypeError, match="MTTKRPKernelPlan"):
+        mttkrpn(x, fs[1:], plan=BlockPlan(8, (8, 8), 16))
+    with pytest.raises(TypeError, match="MTTKRPKernelPlan"):
+        repro_torch.mttkrp(x, fs, 1, ctx=repro_torch.ExecutionContext.create("cuda"),
+                           plan=BlockPlan(8, (8, 8), 16))
+    assert (mttkrp3.launches, mttkrpn.launches) == before
 
 
 def test_splitk_reduce_matches_plain(card):
@@ -170,7 +266,9 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(card):
     with pytest.raises(TypeError):
         mttkrp3(x.double(), fs[1].double(), fs[2].double())
     with pytest.raises(ValueError):  # more shared memory than a CTA has
-        mttkrp3(x, fs[1], fs[2], plan=BlockPlan(512, (8, 64), 512))
+        mttkrp3(x, fs[1], fs[2], plan=MTTKRPKernelPlan(128, 64, 128, 4))
+    with pytest.raises(ValueError):  # blocks the kernel does not take
+        mttkrp3(x, fs[1], fs[2], plan=MTTKRPKernelPlan(96, 32, 64, 2))
 
 
 # -- the fused-sweep slice: the pair kernel and the partial kernel -----------
