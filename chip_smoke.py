@@ -15,7 +15,9 @@ Phases (any failure raises, and the script exits non-zero):
 4. ``mttkrpn`` at 180^4, R=32, fp32, all four modes;
 5. the fused-sweep kernels against their plain versions, in every position
    the sweeps use them: ``fused_pair`` at 1000^3, R=64 (fp32, bf16) and
-   180^4, R=32; ``mttkrp_partial`` with one contraction axis on 1000^3's
+   180^4, R=32, each record with its ``MTTKRPKernelPlan``, shared memory,
+   split count and registers, its bound counted as the tensor cores run its
+   products (``mma_bound``); ``mttkrp_partial`` with one contraction axis on 1000^3's
    rank-augmented nodes and with two on 180^4's P; ``mttkrpn`` on the
    dimension tree's 2-D edge at 1000^3; at 180^4 the 4-way tree's two root
    edges (``mttkrp3`` on X as (32400, 180, 180), once after a permute) and
@@ -30,21 +32,28 @@ Phases (any failure raises, and the script exits non-zero):
    untimed one included); each run is held against the same schedule with
    ``backend="einsum"`` and against the cuda ``per_mode`` run, from the
    same initial factors: fits within 1e-4 at every iteration;
+   6b. CP-ALS on a 10000 x 10000 matrix of CP rank 64 plus noise (5
+   iterations, ``per_mode``): exactly two ``mttkrpn`` launches an iteration
+   (one contraction axis each) and no other counted kernel; fits within 1e-4
+   of einsum's;
 7. ``multi_ttm_keep`` against its plain version on every kept mode (the
    kept mode brought first as ``multi_ttm`` does) and on the full core
    (``keep=None``, through ``repro_torch.multi_ttm``): 1000^3 with ranks
    (32, 32, 32) in fp32 and bf16 inputs, 180^4 with ranks (16, 16, 16, 16)
-   in fp32;
+   in fp32, each record with its ``MultiTTMKernelPlan``, shared memory,
+   split count and registers, its bound counted as the tensor cores run the
+   mode-by-mode operations (``mma_bound``);
 8. the Tucker path: ``tucker_hooi`` from HOSVD factors on a 1000^3 tensor
    of multilinear rank (32, 32, 32) and a 180^4 tensor of multilinear rank
    (16, 16, 16, 16), each plus 10 % noise: 5 sweeps on ``backend="cuda"``
    and on ``backend="einsum"``, each after one untimed sweep, counts set to
    0 before and read after (exactly N ``multi_ttm_keep`` launches a sweep,
-   at least one split-K reduction); fits finite, within 1e-4 of einsum's at
-   every sweep (``FIT_NOISE``) and, on both backends, never more than 3e-5
-   below the sweep before (``FIT_DROP``: fp32 rounding); factors
-   orthonormal within 1e-4; for each mode the smallest singular value of
-   ``A_cuda^T A_einsum`` at least 0.9999; one ``n_iters=0`` call, which
+   and one split-K reduction for each mode whose grid splits); fits
+   finite, within 1e-4 of einsum's at every sweep (``FIT_NOISE``) and, on
+   both backends, never more than 3e-5 below the sweep before
+   (``FIT_DROP``: fp32 rounding); factors orthonormal within 1e-4; for
+   each mode the smallest singular value of ``A_cuda^T A_einsum`` at least
+   0.9999; one ``n_iters=0`` call, which
    makes exactly one launch; then the same trajectory one sweep a call,
    with float64 readings: ``||X||^2``, each core's fit from float64 sums,
    and the fit of the factors' subspaces (QR in float64, X projected in
@@ -129,6 +138,9 @@ PER_ITER = {
     "dimtree": ({"mttkrp3": 1, "mttkrpn": 1, "mttkrp_partial": 2},
                 {"mttkrp3": 2, "mttkrp_partial": 4}),
 }
+#: Phase 6b: CP-ALS on a matrix (dims, rank, iterations): a 2-way tensor
+#: runs ``mttkrpn`` with one contraction axis, twice an iteration.
+MATRIX = ((10000, 10000), 64, 5)
 COUNTED = ("mttkrp3", "mttkrpn", "fused_pair", "mttkrp_partial", "multi_ttm_keep",
            "ssd_intra")
 KERNELS = ("mttkrp3", "mttkrpn", "splitk_reduce", "fused_pair", "mttkrp_partial",
@@ -200,25 +212,49 @@ def rel_err(got, want) -> tuple[float, float]:
 MMA_REGS: dict = {}
 
 
-def parse_mma_registers(log: str) -> dict:
-    """``{(dtype, NC, block_i, block_r): (registers, spill bytes)}`` of
-    ``mttkrp_mma_kernel<T, NC, MT, NT>`` from the compiler's report."""
-    found, key = {}, None
-    pat = re.compile(r"_Z17mttkrp_mma_kernelI(f|13__nv_bfloat16)Li(\d+)ELi(\d+)ELi(\d+)E")
+def ptxas_usage(log: str, pattern: str, key) -> dict:
+    """``{key(match): (registers, spill bytes)}`` of the kernels whose
+    mangled names match ``pattern``, from the compiler's report."""
+    found, current = {}, None
+    pat = re.compile(pattern)
     for line in log.splitlines():
         m = pat.search(line)
         if m:
-            key = ("float32" if m.group(1) == "f" else "bfloat16", int(m.group(2)),
-                   64 * int(m.group(3)), 16 * int(m.group(4)))
+            current = key(m)
             continue
         spill = re.search(r"(\d+) bytes spill stores", line)
-        if key and spill:
-            found[key] = [None, int(spill.group(1))]
+        if current and spill:
+            found[current] = [None, int(spill.group(1))]
         regs = re.search(r"Used (\d+) registers", line)
-        if key and regs:
-            found.setdefault(key, [None, 0])[0] = int(regs.group(1))
-            key = None
+        if current and regs:
+            found.setdefault(current, [None, 0])[0] = int(regs.group(1))
+            current = None
     return {k: tuple(v) for k, v in found.items()}
+
+
+def _dtype(mangled: str) -> str:
+    return "float32" if mangled == "f" else "bfloat16"
+
+
+def parse_mma_registers(log: str) -> dict:
+    """``{(dtype, NC, block_i, block_r): (registers, spill bytes)}`` of
+    ``mttkrp_mma_kernel<T, NC, MT, NT>``."""
+    return ptxas_usage(log, r"_Z17mttkrp_mma_kernelI(f|13__nv_bfloat16)Li(\d+)ELi(\d+)ELi(\d+)E",
+                       lambda m: (_dtype(m.group(1)), int(m.group(2)), 64 * int(m.group(3)),
+                                  16 * int(m.group(4))))
+
+
+#: Registers and spill bytes of the pair and Multi-TTM kernels, by (kernel,
+#: dtype, row block, rank block), from ``-Xptxas -v``.
+RING_REGS: dict = {}
+
+
+def parse_ring_registers(log: str, kernel: str, symbol: str) -> dict:
+    """``{(kernel, dtype, rows, block_r): (registers, spill bytes)}`` of the
+    ``symbol<T, MT, NT>`` instantiations."""
+    return ptxas_usage(log, rf"_Z\d+{symbol}I(f|13__nv_bfloat16)Li(\d+)ELi(\d+)E",
+                       lambda m: (kernel, _dtype(m.group(1)), 64 * int(m.group(2)),
+                                  16 * int(m.group(3))))
 
 
 def mttkrp_launch(x, rank: int, specialized: bool) -> dict:
@@ -376,7 +412,12 @@ def sweep_kernel_phases(gen, smi: str, records: dict) -> None:
     same function."""
     import torch
     import repro_torch
-    from repro_torch.engine.plan import Memory, choose_blocks, choose_sweep_blocks
+    from repro_torch.engine.plan import (
+        Memory,
+        choose_blocks,
+        choose_pair_kernel_blocks,
+        pair_kernel_grid,
+    )
     from repro_torch.engine.sweep import _fused_pair
     from repro_torch.kernels import ops
     from repro_torch.kernels import partial as partial_mod
@@ -395,15 +436,18 @@ def sweep_kernel_phases(gen, smi: str, records: dict) -> None:
         rel_p, diff_p = check(f"fused_pair P {tuple(x.shape)} {dtype}", got[1], want[1], dtype)
         del got
         lead = x.numel() // x.shape[-1]  # I0 * C_1..C_{N-2}: P's rows
-        b_ms, b_by = bound(x.numel(), x.element_size(), sum(f.numel() for f in fs[1:]),
-                           x.shape[0] * rank + lead * rank,
-                           2.0 * x.numel() * rank + 2.0 * lead * rank, dtype)
-        plan = choose_sweep_blocks(x.shape, rank,
-                                   memory=Memory.h100_smem(itemsize=x.element_size()))
+        # the P product on the tensor cores (3xTF32 for fp32), the B0 fold beside it
+        b_ms, b_by = mma_bound(x.numel(), x.element_size(), sum(f.numel() for f in fs[1:]),
+                               x.shape[0] * rank + lead * rank,
+                               2.0 * x.numel() * rank + 2.0 * lead * rank, dtype)
+        plan = choose_pair_kernel_blocks(x.shape, rank, x.element_size())
+        sms = torch.cuda.get_device_properties(0).multi_processor_count
         rec = {
             "kernel": "fused_pair", "shape": list(x.shape), "rank": rank, "dtype": dtype,
-            "plan": [plan.block_i, list(plan.block_contract), plan.block_r],
-            "smem_bytes": sweep_mod.smem_bytes(plan, x.dtype),
+            "plan": [plan.block_i, plan.block_k, plan.block_r, plan.stages],
+            "smem_bytes": sweep_mod.smem_bytes(plan, x.dtype, x.ndim - 1),
+            "splits": pair_kernel_grid(x.shape, rank, plan, sms)[2],
+            "registers": RING_REGS.get(("fused_pair", dtype, plan.block_i, plan.block_r)),
             "max_rel_err": max(rel_b, rel_p), "max_abs_err": max(diff_b, diff_p),
             "kernel_ms": cuda_ms(lambda: fused_pair(x, fs[1:])),
             "plain_ms": cuda_ms(lambda: fused_pair_plain(x, fs[1:]), reps=3, warm=1),
@@ -612,6 +656,43 @@ def cp_phase(gen) -> dict:
     return out
 
 
+def matrix_phase(gen) -> dict:
+    """Phase 6b: CP-ALS on a matrix (``backend="cuda"``): exactly two
+    ``mttkrpn`` launches an iteration (one contraction axis each) and no
+    other kernel but split-K reductions, fits within 1e-4 of einsum's."""
+    import torch
+    import repro_torch
+    from repro_torch.core.tensor import random_factors
+
+    dims, rank, iters = MATRIX
+    x = noisy_low_rank(gen, dims, rank)
+    init = random_factors(gen, dims, rank)
+    kernels = counters()
+    for k in kernels.values():
+        k.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = repro_torch.cp_als(x, rank, iters, init_factors=init,
+                             ctx=repro_torch.ExecutionContext.create("cuda"))
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) / iters * 1e3
+    launches = {name: k.launches for name, k in kernels.items()}
+    ref = repro_torch.cp_als(x, rank, iters, init_factors=init,
+                             ctx=repro_torch.ExecutionContext.create("einsum"))
+    gap = max(abs(a - b) for a, b in zip(res.fits, ref.fits))
+    want = {name: 2 * iters if name == "mttkrpn" else 0 for name in COUNTED}
+    rec = {"cp_als": list(dims), "sweep": "per_mode", "rank": rank, "iters": iters,
+           "fits": res.fits, "einsum_fits": ref.fits, "max_fit_gap": gap,
+           "iter_ms_cuda": ms, "launches": launches}
+    emit(rec)
+    if {k: launches[k] for k in COUNTED} != want or gap > 1e-4 or not all(
+            math.isfinite(f) for f in res.fits):
+        raise AssertionError(f"cp_als on a matrix: {json.dumps(rec)}; expected launches {want}")
+    del x, init, res, ref
+    torch.cuda.empty_cache()
+    return {"launches": launches, "cp": rec}
+
+
 def mode_by_mode_ops(shape, ranks) -> int:
     """Operations of a kept-mode-first Multi-TTM contracted mode by mode,
     the last axis first: ``sum_d 2 I prod(C[:d]) prod(R[d-1:])``."""
@@ -626,7 +707,7 @@ def multi_ttm_phase(gen, smi: str, records: dict) -> None:
     on the same canonical operands."""
     import torch
     import repro_torch
-    from repro_torch.engine.plan import choose_multi_ttm_kernel_blocks
+    from repro_torch.engine.plan import choose_multi_ttm_kernel_blocks, multi_ttm_kernel_grid
     from repro_torch.kernels import multi_ttm as multi_ttm_mod
     from repro_torch.kernels.multi_ttm import multi_ttm_keep, multi_ttm_keep_plain
 
@@ -672,17 +753,21 @@ def multi_ttm_phase(gen, smi: str, records: dict) -> None:
         rel, diff = check(f"multi_ttm_keep {tuple(x.shape)} keep={keep} {dtype}", got,
                           plain_cache[keep].reshape(got.shape), dtype)
         del got
-        b_ms, b_by = bound(x.numel(), x.element_size(), sum(m.numel() for m in mats
-                                                           if keep is None or m is not mats[keep]),
-                           out_words, flops, dtype)
+        # counted as the tensor cores run them (3xTF32 for fp32), the folds too
+        b_ms, b_by = mma_bound(x.numel(), x.element_size(),
+                               sum(m.numel() for m in mats if keep is None or m is not mats[keep]),
+                               out_words, flops, dtype)
         plan = choose_multi_ttm_kernel_blocks(xp.shape, ranks, x.element_size())
+        sms = torch.cuda.get_device_properties(0).multi_processor_count
         rec = {
             "kernel": "multi_ttm_keep", "shape": list(x.shape), "ranks": [m.shape[1] for m in mats],
             "mode": "core" if keep is None else keep, "dtype": dtype,
             "where": "repro_torch.multi_ttm(keep=None): kernel + A_0^T Z" if keep is None
             else "kernel on the kept-mode-first copy",
-            "plan": [plan.block_i, list(plan.block_contract)],
-            "smem_bytes": multi_ttm_mod.smem_bytes(plan, x.dtype),
+            "plan": [plan.block_m, plan.block_k, plan.block_r, plan.stages],
+            "smem_bytes": multi_ttm_mod.smem_bytes(plan, x.dtype, ranks),
+            "splits": multi_ttm_kernel_grid(xp.shape, ranks, plan, sms)[2],
+            "registers": RING_REGS.get(("multi_ttm_keep", dtype, plan.block_m, plan.block_r)),
             "max_rel_err": rel, "max_abs_err": diff,
             "kernel_ms": cuda_ms(run),
             "plain_ms": cuda_ms(plain, reps=3, warm=1),
@@ -826,15 +911,25 @@ def check_tucker(rec: dict) -> dict:
     non-decreasing from the HOSVD subspace through every sweep, and equal
     on the two backends."""
     import torch
+    from repro_torch.engine.plan import choose_multi_ttm_kernel_blocks, multi_ttm_kernel_grid
 
     n, sweeps = len(rec["ranks"]), rec["sweeps"]
     want = n * (sweeps + 1)
-    for backend, n_launch in (("cuda", want), ("einsum", 0)):
+    # one split-K reduction for each mode whose Multi-TTM the kernel's grid splits
+    dims, ranks = rec["tucker_hooi"], rec["ranks"]
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    split_modes = 0
+    for keep in range(n):
+        canon = [dims[keep]] + [d for j, d in enumerate(dims) if j != keep]
+        rk = [r for j, r in enumerate(ranks) if j != keep]
+        plan = choose_multi_ttm_kernel_blocks(canon, rk, 4)
+        split_modes += multi_ttm_kernel_grid(canon, rk, plan, sms)[2] > 1
+    for backend, n_launch, n_reduce in (("cuda", want, split_modes * (sweeps + 1)),
+                                        ("einsum", 0, 0)):
         got = rec[f"launches_{backend}"]
-        if got["multi_ttm_keep"] != n_launch or (backend == "cuda") != (
-                got["splitk_reduce"] > 0):
+        if got["multi_ttm_keep"] != n_launch or got["splitk_reduce"] != n_reduce:
             raise AssertionError(f"tucker_hooi {backend} {rec['tucker_hooi']}: launches {got}, "
-                                 f"expected {n_launch} multi_ttm_keep")
+                                 f"expected {n_launch} multi_ttm_keep, {n_reduce} split-K")
     if (rec["launches_hosvd_only"]["multi_ttm_keep"] != 1
             or rec["hosvd_only_core_shape"] != rec["ranks"]):
         raise AssertionError(f"tucker_hooi n_iters=0 {rec['tucker_hooi']}: "
@@ -1060,17 +1155,22 @@ def main() -> int:
         for line in log.splitlines():
             print(f"nvcc {source}: {line}", flush=True)
     MMA_REGS.update(parse_mma_registers(built["mttkrp.cu"][1]))
+    RING_REGS.update(parse_ring_registers(built["sweep.cu"][1], "fused_pair",
+                                          "fused_pair_mma_kernel"))
+    RING_REGS.update(parse_ring_registers(built["multi_ttm.cu"][1], "multi_ttm_keep",
+                                          "multi_ttm_mma_kernel"))
 
     gen = torch.Generator(device="cuda").manual_seed(args.seed)
     records: dict = {}
     kernel_phases(gen, smi, records)  # phases 3 and 4
     sweep_kernel_phases(gen, smi, records)  # phase 5
     main_path = cp_phase(gen)  # phase 6
+    matrix = matrix_phase(gen)  # phase 6b
     multi_ttm_phase(gen, smi, records)  # phase 7
     tucker = tucker_phase(gen)  # phase 8
     ssd_kernel_phase(gen, smi, records)  # phase 9a
     mamba = mamba_phase(gen, smi)  # phases 9b, 9c
-    for counted in (tucker["launches"], mamba["launches"]):
+    for counted in (matrix["launches"], tucker["launches"], mamba["launches"]):
         for name, n in counted.items():
             main_path["launches"][name] += n
 
@@ -1087,8 +1187,8 @@ def main() -> int:
         )
         if main_path["launches"][name] == 0:
             raise AssertionError(f"{name} was never launched on the main paths")
-        kernels.append({  # launches: summed over the main-path runs (CP-ALS, Tucker and
-            # the Mamba2 prefill), each counted from 0
+        kernels.append({  # launches: summed over the main-path runs (CP-ALS, CP-ALS on a
+            # matrix, Tucker and the Mamba2 prefill), each counted from 0
             "name": name, "route": "cuda", "source": CSRC + SOURCE[name],
             "replaces": REPLACES[name],
             "launches": main_path["launches"][name],

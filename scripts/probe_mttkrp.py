@@ -58,11 +58,12 @@ def _block_end(lines: list[str], i: int) -> int:
     raise ValueError("unbalanced braces")
 
 
-def probe_source(src: str) -> str:
-    """The kernel source with each phase wrapped in ``#ifndef SKIP_<phase>``."""
+def probe_source(src: str, phases: dict = PHASES) -> str:
+    """The kernel source with each phase of ``phases`` (name -> (macro,
+    marker comment)) wrapped in ``#ifndef <macro>``."""
     lines = src.split("\n")
     inserts = []
-    for macro, marker in PHASES.values():
+    for macro, marker in phases.values():
         start = next(i for i, line in enumerate(lines) if marker in line)
         first_brace = next(i for i in range(start, len(lines)) if "{" in lines[i].split("//")[0])
         inserts += [(start, f"#ifndef {macro}"), (_block_end(lines, first_brace) + 1, "#endif")]

@@ -43,8 +43,8 @@ import time
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 GROUPS = (  # (group, pattern in the device function's name), first match wins
-    ("fused_pair", r"fused_pair_kernel"),
-    ("multi_ttm_keep", r"multi_ttm_kernel"),
+    ("fused_pair", r"fused_pair_mma_kernel"),
+    ("multi_ttm_keep", r"multi_ttm_mma_kernel"),
     ("mttkrp_partial", r"partial_kernel"),
     ("mttkrp3", r"mttkrp_mma_kernel<[^,]+, 2,"),  # the 3-way specialization
     ("mttkrpn", r"mttkrp_mma_kernel<[^,]+, 0,"),  # the generic kernel

@@ -54,7 +54,11 @@ def tensor_from_factors(
 
 
 def frob_norm(x: torch.Tensor) -> torch.Tensor:
-    """Frobenius norm, accumulated in float32 (no float32 copy of ``x``)."""
+    """Frobenius norm of ``x`` cast to float32, as the reference takes it for
+    every input dtype: a float64 tensor is rounded to float32 first; a
+    narrower one is widened inside the reduction (no float32 copy)."""
+    if x.dtype == torch.float64:
+        x = x.float()
     return torch.linalg.vector_norm(x.reshape(-1), dtype=torch.float32)
 
 

@@ -38,10 +38,9 @@ from .plan import (
     BlockPlan,
     Memory,
     MTTKRPKernelPlan,
-    MultiTTMPlan,
+    MultiTTMKernelPlan,
     best_uniform_block,
     choose_blocks,
-    choose_sweep_blocks,
 )
 
 
@@ -97,8 +96,7 @@ def _mttkrp_impl(x, factors, mode, ctx, plan, block, out_dtype, kernel_variant):
     if out_dtype is None and ctx.out_dtype is not None:
         out_dtype = torch_dtype(ctx.out_dtype)
     x, factors, out_dtype, mixed = _cast_compute(ctx, x, factors, out_dtype)
-    if ctx.backend == "einsum" or (ctx.backend == "cuda" and x.ndim < 3):
-        # (the kernels need >= 2 contraction dims: a shape rule, not a fallback);
+    if ctx.backend == "einsum":
         # under a compute-dtype policy the float32 oracle accumulates in fp32
         out = mttkrp_ref(x, factors, mode) if mixed else _einsum_mttkrp(x, factors, mode)
         return out.to(out_dtype) if out_dtype is not None else out
@@ -108,7 +106,8 @@ def _mttkrp_impl(x, factors, mode, ctx, plan, block, out_dtype, kernel_variant):
         out = mttkrp_blocked(x, factors, mode, block, f32_acc=mixed)
         return out.to(out_dtype) if out_dtype is not None else out
     # cuda: the kernel plans itself against its own shared memory
-    # (choose_mttkrp_kernel_blocks); ctx.memory does not pick its plan
+    # (choose_mttkrp_kernel_blocks); ctx.memory does not pick its plan. A
+    # matrix runs the kernel too (one contraction axis); a 1-way tensor raises
     return kernel_ops.mttkrp(
         x, factors, mode, plan=plan, out_dtype=out_dtype, variant=kernel_variant
     )
@@ -198,15 +197,10 @@ def fused_pair(
     """The fused sweep's opening ``(B0, P)`` pair in one launch of the
     fused pair kernel (the ``cuda`` backend): ``factors`` is the full
     factor list; both outputs come back in ``x``'s dtype, as the reference
-    returns them. The plan comes from ``choose_sweep_blocks`` against
-    ``ctx.memory`` (at the compute dtype's itemsize), else from the kernel
-    wrapper against ``Memory.h100_smem()``."""
+    returns them. The kernel plans itself against its own shared memory
+    (``choose_pair_kernel_blocks``); ``ctx.memory`` does not pick its plan."""
     x, fs, out_dtype, _ = _cast_compute(ctx, x, list(factors[1:]), x.dtype)
-    plan = None
-    if ctx.memory is not None:
-        memory = ctx.memory.with_itemsize(x.element_size())
-        plan = choose_sweep_blocks(x.shape, fs[0].shape[1], x.element_size(), memory=memory)
-    return fused_pair_canonical(x, fs, plan=plan, out_dtype=out_dtype)
+    return fused_pair_canonical(x, fs, out_dtype=out_dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -256,7 +250,7 @@ def multi_ttm(
     keep: int | None = None,
     *,
     ctx: ExecutionContext | None = None,
-    plan: MultiTTMPlan | None = None,
+    plan: MultiTTMKernelPlan | None = None,
     block: int | None = None,
     out_dtype: torch.dtype | None = None,
 ) -> torch.Tensor:
@@ -273,11 +267,11 @@ def multi_ttm(
     ``ctx`` (default ``ExecutionContext()``: the ``cuda`` backend on the
     card) selects ``einsum``, ``blocked_host`` (the uniform-b blocked
     schedule; ``block`` overrides the Eq-9 optimum) or ``cuda`` (the
-    Hopper Multi-TTM kernel; ``plan`` pins its blocks, else the kernel
-    wrapper plans against the kernel's own shared memory with
-    ``choose_multi_ttm_kernel_blocks``; ``ctx.memory`` is not used there,
-    since ``choose_multi_ttm_blocks`` budgets for the Kronecker weight that
-    the kernel never holds). The kernel needs a contracted mode beside the
+    Hopper Multi-TTM kernel; ``plan``, a ``MultiTTMKernelPlan``, pins its
+    blocks, else the kernel wrapper plans against the kernel's own shared
+    memory with ``choose_multi_ttm_kernel_blocks``; ``ctx.memory`` is not
+    used there, since ``choose_multi_ttm_blocks`` budgets for the Kronecker
+    weight that the kernel never holds). The kernel needs a contracted mode beside the
     kept one, so ``cuda`` takes tensors of two or more modes. A leading
     batch axis waits for Queue 1 item 8 and raises."""
     ctx = ctx if ctx is not None else ExecutionContext()

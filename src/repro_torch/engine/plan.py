@@ -19,9 +19,12 @@ Counterpart of ``repro.engine.plan``:
     :func:`uniform_plan` — the paper's exact uniform-b selection (Eq 9).
   * :class:`MultiTTMPlan`, :func:`choose_multi_ttm_blocks`,
     :func:`uniform_multi_ttm_plan` — the Multi-TTM (Tucker) planner,
-    unchanged from the reference; beside it the Hopper Multi-TTM kernel's
-    own shared-memory count (:func:`multi_ttm_kernel_smem_bytes`) and the
-    plan its wrapper takes by default (:func:`choose_multi_ttm_kernel_blocks`).
+    unchanged from the reference.
+  * The Hopper kernels' own plans, chosen against their real shared
+    memory: :class:`MTTKRPKernelPlan` (:func:`choose_mttkrp_kernel_blocks`)
+    for the MTTKRP kernel and, with :func:`choose_pair_kernel_blocks`, the
+    fused pair kernel; :class:`MultiTTMKernelPlan`
+    (:func:`choose_multi_ttm_kernel_blocks`) for the Multi-TTM kernel.
 
 Formula provenance stays in :mod:`repro_torch.core.bounds`.
 """
@@ -411,8 +414,8 @@ class MultiTTMPlan:
     so every tile keeps them whole. The reference's TPU kernel builds the
     Kronecker weight block ``W[(c_1..c_k), (r_1..r_k)] = prod_d A_d(c_d,
     r_d)`` in fast memory, and the working set below counts it; the Hopper
-    kernel contracts mode by mode instead and never forms it (its own
-    count is :func:`multi_ttm_kernel_smem_bytes`).
+    kernel contracts mode by mode instead and never forms it (it has its
+    own plan, :class:`MultiTTMKernelPlan`).
     """
 
     block_i: int
@@ -586,68 +589,6 @@ def uniform_multi_ttm_plan(
     return plan
 
 
-def multi_ttm_kernel_smem_bytes(plan: MultiTTMPlan, itemsize: int) -> int:
-    """Dynamic shared memory of the Hopper Multi-TTM kernel under ``plan``
-    (``csrc/multi_ttm.cu:make_ttm_layout``, mirrored here so a plan can be
-    chosen on a host without the built library; the card tests hold the two
-    equal). It holds the X tile (input dtype, 16 bytes of row skew), its row
-    table, the last matrix's tile, the first-stage product
-    ``T (bi * prod(bc[:-1]), R_k)``, the leading matrices' tiles, one
-    partial fold per inner leading axis, and the fp32 output tile
-    ``bi x prod(R_d)``; never the Kronecker weight."""
-    bc, ranks, bi = plan.block_contract, plan.ranks, plan.block_i
-    k = len(bc)
-    lead = math.prod(bc[:-1])
-    bl4 = _round_up(bc[-1], 4)
-    ldx = bl4 + 16 // itemsize
-    rows = bi * lead
-    rows8 = _round_up(rows, 8)
-    ldw = _round_up(ranks[-1], 4)
-    tab = _round_up(rows8 * ldx * itemsize, 16)
-    a_last = _round_up(tab + 8 * rows, 16)
-    ps = a_last + 4 * bl4 * ldw
-    off = ps + 4 * rows8 * ldw + 4 * sum(c * r for c, r in zip(bc[:-1], ranks[:-1]))
-    for d in range(1, k - 1):
-        off += 4 * bi * math.prod(bc[:d]) * math.prod(ranks[d:])
-    return off + 4 * bi * math.prod(ranks)
-
-
-def choose_multi_ttm_kernel_blocks(
-    shape: Sequence[int], ranks: Sequence[int], itemsize: int = 4
-) -> MultiTTMPlan:
-    """The Hopper Multi-TTM kernel's default plan for a canonical
-    ``(I, C_1..C_k)`` problem, against its real shared memory
-    (:func:`multi_ttm_kernel_smem_bytes`). It starts from 8 rows, 8 on each
-    leading contraction axis and 256-byte runs along the contiguous last
-    axis (64 fp32 or 128 bf16 elements), then halves the rows, the largest
-    leading block, then the run, until the plan fits ``SMEM_BUDGET`` (two
-    CTAs per SM); where not even 1-wide blocks fit, it plans again against
-    one CTA's limit. Raises if they do not fit that either:
-    the output tile ``prod(R_d)`` of one row alone is then too large."""
-    ranks = tuple(int(r) for r in ranks)
-    for budget in (SMEM_BUDGET, SMEM_PER_CTA_MAX):
-        bi = max(1, min(int(shape[0]), 8))
-        lead = [max(1, min(int(c), 8)) for c in shape[1:-1]]
-        bl = max(1, min(int(shape[-1]), 256 // itemsize))
-        while True:
-            plan = MultiTTMPlan(bi, tuple(lead) + (bl,), ranks)
-            if multi_ttm_kernel_smem_bytes(plan, itemsize) <= budget:
-                return plan
-            if bi > 1:
-                bi //= 2
-            elif lead and max(lead) > 1:
-                j = max(range(len(lead)), key=lambda d: lead[d])
-                lead[j] //= 2
-            elif bl > 4:
-                bl //= 2
-            else:
-                break
-    raise ValueError(
-        f"Multi-TTM kernel: ranks {ranks} need more than {SMEM_PER_CTA_MAX} bytes of shared "
-        f"memory even with 1-wide blocks"
-    )
-
-
 #: CTAs the split rules want in flight on each SM, and the H100's SM count.
 CTAS_PER_SM = 2
 H100_SMS = 132
@@ -657,6 +598,9 @@ MTTKRP_BLOCK_I = (64, 128)
 MTTKRP_BLOCK_R = (16, 32, 64, 128)
 #: Bytes of each X row a chunk of ``block_k`` flat contraction indices spans.
 MTTKRP_CHUNK_BYTES = (32, 64, 128, 256)
+#: The Multi-TTM kernel's tile rows (``csrc/multi_ttm.cu``): 192 takes a
+#: C_{k-1} of up to 192 (180 at 180^4) in one tile.
+MULTI_TTM_BLOCK_M = (64, 128, 192)
 
 
 @dataclass(frozen=True)
@@ -674,13 +618,20 @@ class MTTKRPKernelPlan:
 
     def check(self, itemsize: int) -> None:
         """Raise ``ValueError`` unless the kernel takes these blocks."""
-        if (self.block_i not in MTTKRP_BLOCK_I or self.block_r not in MTTKRP_BLOCK_R
-                or self.block_k * itemsize not in MTTKRP_CHUNK_BYTES
-                or not 2 <= self.stages <= 4):
-            raise ValueError(
-                f"{self}: the MTTKRP kernel takes block_i in {MTTKRP_BLOCK_I}, block_r in "
-                f"{MTTKRP_BLOCK_R}, block_k of {MTTKRP_CHUNK_BYTES} bytes, 2 to 4 stages"
-            )
+        _check_ring_blocks(self, self.block_i, itemsize, "the MTTKRP kernel takes block_i")
+
+
+def _check_ring_blocks(plan, rows: int, itemsize: int, what: str,
+                       row_blocks: Sequence[int] = MTTKRP_BLOCK_I) -> None:
+    """Raise ``ValueError`` unless ``csrc/ring.cuh`` takes the blocks: rows
+    in ``row_blocks``, ``block_r`` in ``MTTKRP_BLOCK_R``, chunks of
+    ``MTTKRP_CHUNK_BYTES`` bytes, 2 to 4 stages."""
+    if (rows not in row_blocks or plan.block_r not in MTTKRP_BLOCK_R
+            or plan.block_k * itemsize not in MTTKRP_CHUNK_BYTES or not 2 <= plan.stages <= 4):
+        raise ValueError(
+            f"{plan}: {what} in {tuple(row_blocks)}, block_r in {MTTKRP_BLOCK_R}, block_k of "
+            f"{MTTKRP_CHUNK_BYTES} bytes, 2 to 4 stages"
+        )
 
 
 def mttkrp_kernel_smem_bytes(plan: MTTKRPKernelPlan, itemsize: int, ncontract: int = 2) -> int:
@@ -718,28 +669,156 @@ def mttkrp_kernel_grid(shape: Sequence[int], rank: int, plan: MTTKRPKernelPlan,
     return rows, rtiles, n_splits(rows * rtiles, chunks, sms)
 
 
-def choose_mttkrp_kernel_blocks(shape: Sequence[int], rank: int,
-                                itemsize: int = 4) -> MTTKRPKernelPlan:
-    """The Hopper MTTKRP kernel's default plan for a canonical
-    ``(I, C_1..C_k)`` problem, against its real shared memory
-    (:func:`mttkrp_kernel_smem_bytes`). ``block_r`` is R rounded up to a power
-    of two from 16 to 128, so X is read once for R <= 128; ``block_i`` is 128
-    (64 for I <= 64); a chunk spans 256 bytes of the last axis, or the
-    fewest bytes in ``MTTKRP_CHUNK_BYTES`` that hold a shorter one. The ring
-    takes as many of 4, 3, 2 stages as fit ``SMEM_BUDGET`` (two CTAs per SM);
-    failing that, the chunk narrows, then the rows, then the plan is made
-    against one CTA's limit. (On the H100, wide chunks and two CTAs an SM
-    beat deeper rings: ``scripts/probe_mttkrp.py``, PERF.md.)"""
-    i, c_last = int(shape[0]), int(shape[-1])
-    bi = 128 if i > 64 else 64
+def _choose_ring_plan(rows: int, c_last: int, rank: int, itemsize: int, smem, cls, what: str,
+                      row_blocks: Sequence[int] = ()):
+    """The ring kernels' default plan (``csrc/ring.cuh``), against their real
+    shared memory ``smem(plan)``: ``block_r`` is ``rank`` rounded up to a
+    power of two from 16 to 128, so the matrix is read once for ranks up to
+    128; the row block is 128 (64 for ``rows <= 64``), or, given
+    ``row_blocks``, the one of them that pads ``rows`` least (the larger on a
+    tie); a chunk spans 256 bytes of the last axis, or the fewest bytes in
+    ``MTTKRP_CHUNK_BYTES`` that hold a shorter one. The ring takes as many of
+    4, 3, 2 stages as fit ``SMEM_BUDGET`` (two CTAs per SM); failing that,
+    the chunk narrows, then the rows, then the plan is made against one
+    CTA's limit."""
+    if row_blocks:
+        blocks = sorted(row_blocks, key=lambda b: (math.ceil(rows / b) * b, -b))
+        blocks = blocks[:1] + sorted((b for b in blocks[1:] if b < blocks[0]), reverse=True)
+    else:
+        blocks = sorted({128 if rows > 64 else 64, 64}, reverse=True)
     br = min(128, max(16, 1 << (max(rank, 1) - 1).bit_length()))
     kb = next(b for b in MTTKRP_CHUNK_BYTES if b >= min(256, c_last * itemsize))
     for budget in (SMEM_BUDGET, SMEM_PER_CTA_MAX):
-        for rows in sorted({bi, 64}, reverse=True):
+        for block in blocks:
             for width in [b for b in reversed(MTTKRP_CHUNK_BYTES) if b <= kb]:
                 for stages in (4, 3, 2):
-                    plan = MTTKRPKernelPlan(rows, width // itemsize, br, stages)
-                    if mttkrp_kernel_smem_bytes(plan, itemsize, len(shape) - 1) <= budget:
+                    plan = cls(block, width // itemsize, br, stages)
+                    if smem(plan) <= budget:
                         return plan
-    raise ValueError(f"MTTKRP kernel: no plan for shape {tuple(shape)}, rank {rank} fits "
-                     f"{SMEM_PER_CTA_MAX} bytes of shared memory")
+    raise ValueError(f"{what} fits {SMEM_PER_CTA_MAX} bytes of shared memory")
+
+
+def choose_mttkrp_kernel_blocks(shape: Sequence[int], rank: int,
+                                itemsize: int = 4) -> MTTKRPKernelPlan:
+    """The Hopper MTTKRP kernel's default plan for a canonical
+    ``(I, C_1..C_k)`` problem (:func:`_choose_ring_plan` against
+    :func:`mttkrp_kernel_smem_bytes`, rows along I). (On the H100, wide
+    chunks and two CTAs an SM beat deeper rings: ``scripts/probe_mttkrp.py``,
+    PERF.md.)"""
+    return _choose_ring_plan(
+        int(shape[0]), int(shape[-1]), rank, itemsize,
+        lambda p: mttkrp_kernel_smem_bytes(p, itemsize, len(shape) - 1), MTTKRPKernelPlan,
+        f"MTTKRP kernel: no plan for shape {tuple(shape)}, rank {rank}")
+
+
+# ---------------------------------------------------------------------------
+# The fused (B0, P) pair kernel (csrc/sweep.cu): the MTTKRP kernel's plan
+# ---------------------------------------------------------------------------
+
+def pair_kernel_smem_bytes(plan: MTTKRPKernelPlan, itemsize: int, ncontract: int) -> int:
+    """Dynamic shared memory of the Hopper pair kernel under ``plan`` with
+    ``ncontract`` contraction axes (``csrc/sweep.cu:pair_smem_bytes``): the
+    MTTKRP kernel's ring (:func:`mttkrp_kernel_smem_bytes`) and the B0
+    accumulators, one fp32 word per output element of the tile."""
+    return mttkrp_kernel_smem_bytes(plan, itemsize, ncontract) + 4 * plan.block_i * plan.block_r
+
+
+def pair_kernel_grid(shape: Sequence[int], rank: int, plan: MTTKRPKernelPlan,
+                     sms: int = H100_SMS) -> tuple[int, int, int]:
+    """(row tiles, rank tiles, splits) of the pair kernel's launch: the
+    leading index tuples ``prod(C[:-1])`` are split over CTAs, whole tuples
+    only, enough that ``CTAS_PER_SM`` CTAs per SM are in flight."""
+    rows = math.ceil(shape[0] / plan.block_i)
+    rtiles = math.ceil(rank / plan.block_r)
+    return rows, rtiles, n_splits(rows * rtiles, math.prod(shape[1:-1]), sms)
+
+
+def choose_pair_kernel_blocks(shape: Sequence[int], rank: int,
+                              itemsize: int = 4) -> MTTKRPKernelPlan:
+    """The pair kernel's default plan for a canonical ``(I, C_1..C_{N-1})``
+    problem (:func:`_choose_ring_plan` against
+    :func:`pair_kernel_smem_bytes`)."""
+    return _choose_ring_plan(
+        int(shape[0]), int(shape[-1]), rank, itemsize,
+        lambda p: pair_kernel_smem_bytes(p, itemsize, len(shape) - 1), MTTKRPKernelPlan,
+        f"fused pair kernel: no plan for shape {tuple(shape)}, rank {rank}")
+
+
+# ---------------------------------------------------------------------------
+# The kept-mode Multi-TTM kernel (csrc/multi_ttm.cu)
+# ---------------------------------------------------------------------------
+
+@dataclass(frozen=True)
+class MultiTTMKernelPlan:
+    """The Hopper Multi-TTM kernel's plan for a kept-mode-first
+    ``(I, C_1..C_k)`` problem, X seen as the matrix of rows
+    ``(i, c_1..c_{k-1})`` by ``C_k``: ``block_m`` rows a tile (consecutive
+    ``c_{k-1}`` under one ``(i, c_1..c_{k-2})``; consecutive i when k = 1),
+    chunks of ``block_k`` ``C_k`` indices (32 to 256 bytes of each row),
+    ``block_r`` columns of ``R_k`` a CTA, and a ring of ``stages`` chunk
+    buffers. The kernel takes the MTTKRP kernel's block sizes."""
+
+    block_m: int
+    block_k: int
+    block_r: int
+    stages: int
+
+    def check(self, itemsize: int) -> None:
+        """Raise ``ValueError`` unless the kernel takes these blocks."""
+        _check_ring_blocks(self, self.block_m, itemsize, "the Multi-TTM kernel takes block_m",
+                           MULTI_TTM_BLOCK_M)
+
+
+def multi_ttm_kernel_smem_bytes(plan: MultiTTMKernelPlan, itemsize: int,
+                                ranks: Sequence[int]) -> int:
+    """Dynamic shared memory of the Hopper Multi-TTM kernel under ``plan``
+    for ranks ``R_1..R_k`` (``csrc/multi_ttm.cu:make_ttm_layout``, mirrored
+    here so a plan can be chosen on a host without the built library; the
+    card tests hold the two equal): the ring (the MTTKRP kernel's, with no
+    rows beside ``A_k``'s) and, for k >= 2, fp32: the tile's T
+    (``block_m x (block_r + 4)``), ``A_{k-1}``'s rows of the tile
+    (``block_m x R4``, R4 = ``R_{k-1}`` rounded up to 4), the outer weights
+    (``prod R[:-2]``, rounded up to 4), the fold's ``V`` (``R4 x block_r``)
+    and the output tile ``prod R[:-1] x min(block_r, R_k)``. Never the
+    Kronecker weight."""
+    plan.check(itemsize)
+    skew = 32 if itemsize == 4 else 16
+    ring = plan.stages * (plan.block_m * (plan.block_k * itemsize + 16)
+                          + plan.block_k * (plan.block_r * itemsize + skew))
+    if len(ranks) < 2:
+        return ring
+    n_w, rp = math.prod(ranks[:-2]), ranks[-2]
+    return ring + 4 * (plan.block_m * (plan.block_r + 4) + plan.block_m * _round_up(rp, 4)
+                       + _round_up(n_w, 4) + _round_up(rp, 4) * plan.block_r
+                       + n_w * rp * min(plan.block_r, ranks[-1]))
+
+
+def multi_ttm_kernel_grid(shape: Sequence[int], ranks: Sequence[int], plan: MultiTTMKernelPlan,
+                          sms: int = H100_SMS) -> tuple[int, int, int]:
+    """(units, rank tiles, splits) of the Multi-TTM kernel's launch. A unit
+    is one i (k >= 2), whose tiles ``prod(C[1:-2]) * ceil(C_{k-1} /
+    block_m)`` are split over enough CTAs that ``CTAS_PER_SM`` CTAs per SM
+    are in flight; with k = 1 a unit is a tile of ``block_m`` rows, never
+    split."""
+    rtiles = math.ceil(ranks[-1] / plan.block_r)
+    if len(shape) == 2:
+        return math.ceil(shape[0] / plan.block_m), rtiles, 1
+    tiles = math.prod(shape[1:-2]) * math.ceil(shape[-2] / plan.block_m)
+    return shape[0], rtiles, n_splits(shape[0] * rtiles, tiles, sms)
+
+
+def choose_multi_ttm_kernel_blocks(shape: Sequence[int], ranks: Sequence[int],
+                                   itemsize: int = 4) -> MultiTTMKernelPlan:
+    """The Multi-TTM kernel's default plan for a kept-mode-first
+    ``(I, C_1..C_k)`` problem (:func:`_choose_ring_plan` against
+    :func:`multi_ttm_kernel_smem_bytes`, rows along ``C_{k-1}``, or I for
+    k = 1, in the block of ``MULTI_TTM_BLOCK_M`` that pads them least: each
+    tile costs a fold). Raises where nothing fits one CTA: the output tile
+    ``prod R[:-1] x min(128, R_k)`` alone is then too large."""
+    ranks = tuple(int(r) for r in ranks)
+    rows = shape[-2] if len(shape) > 2 else shape[0]
+    return _choose_ring_plan(
+        int(rows), int(shape[-1]), ranks[-1], itemsize,
+        lambda p: multi_ttm_kernel_smem_bytes(p, itemsize, ranks), MultiTTMKernelPlan,
+        f"Multi-TTM kernel: no plan for shape {tuple(shape)}, ranks {ranks}",
+        MULTI_TTM_BLOCK_M)

@@ -6,7 +6,8 @@ per source builds a shared library (no PyTorch headers): ``mttkrp.cu``
 holds the MTTKRP tensor-core kernels and the split-K reduction, ``sweep.cu`` the
 fused-sweep pair and the rank-augmented partial contraction,
 ``multi_ttm.cu`` the kept-mode Multi-TTM of the Tucker path, ``ssd_intra.cu``
-the intra-chunk SSD term of the Mamba2 prefill. Each library
+the intra-chunk SSD term of the Mamba2 prefill; the first three share the
+``cp.async`` ring and tensor-core code of ``ring.cuh``. Each library
 goes into ``_build/`` beside this file (listed in ``.gitignore``), named by
 a hash of its source and the shared headers, so an edited source is rebuilt
 and an unchanged one is loaded as it is. :func:`build_all` starts one
@@ -47,14 +48,16 @@ SIGNATURES = {
         "repro_mttkrp_smem_bytes": (_LL, [_I, _I, _I, _I, _I, _I]),
     },
     "sweep.cu": {
-        "repro_fused_pair": (_I, [_I, _I, _PLL, _PI, _I, _I, _I, _P, _PLL, _P, _P, _P]),
+        "repro_fused_pair": (_I, [_I, _I, _PLL, _I, _I, _I, _I, _I, _I, _I, _I, _P, _PLL, _P,
+                                  _P, _P]),
         "repro_partial": (_I, [_I, _I, _PLL, _PI, _I, _I, _I, _P, _PLL, _P, _P]),
-        "repro_fused_pair_smem_bytes": (_LL, [_I, _I, _PI, _I, _I]),
+        "repro_fused_pair_smem_bytes": (_LL, [_I, _I, _I, _I, _I, _I]),
         "repro_partial_smem_bytes": (_LL, [_I, _PI, _I, _I]),
     },
     "multi_ttm.cu": {
-        "repro_multi_ttm": (_I, [_I, _I, _PLL, _PI, _PI, _I, _P, _PLL, _P, _P]),
-        "repro_multi_ttm_smem_bytes": (_LL, [_I, _I, _PI, _I, _PI]),
+        "repro_multi_ttm": (_I, [_I, _I, _PLL, _PI, _I, _I, _I, _I, _I, _I, _I, _P, _PLL, _P,
+                                 _P]),
+        "repro_multi_ttm_smem_bytes": (_LL, [_I, _I, _PI, _I, _I, _I, _I]),
     },
     "ssd_intra.cu": {
         "repro_ssd_intra": (_I, [_I, _LL, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P]),

@@ -29,157 +29,31 @@
 //     output a chunk) as they are added to the accumulators.
 //   * One CTA of 256 threads owns BI = 64 MT rows and BR = 16 NT rank columns
 //     (BR >= R for R <= 128, so X is read once); N changes only how P is formed.
-//   * A ring of `stages` chunk buffers in shared memory, filled by cp.async
-//     (16-byte .cg copies, or 8/4-byte .ca copies where the last axis' byte
-//     length or a base pointer is not 16-byte aligned; bf16 of odd length takes
-//     element loads). A chunk's buffer holds its X columns (BI rows, 16 bytes
-//     of row skew), the block_k rows of the last factor it multiplies, and one
-//     row of each leading factor (P's). The zero-fill form (src-size 0) masks
-//     the ragged row and last-axis edges, so X is never padded. The copies of
-//     chunk s + stages - 1 are in flight while chunk s is multiplied, and one
-//     barrier a chunk separates the two.
-//   * Tensor cores, fragments by ldmatrix (conflict-free through the skews):
-//     fp32 X runs 3xTF32 on mma.sync.m16n8k8.tf32 (X_lo A_hi + X_hi A_lo +
-//     X_hi A_hi), which keeps fp32-level error: the hi terms are rounded to
-//     tf32 as cvt.rna.tf32.f32 rounds (by an integer add and mask, which keeps
-//     the conversion unit out of the inner loop), the lo terms are the exact
-//     fp32 remainders, whose low 13 bits the tensor core ignores (as CUTLASS's
-//     fast 3xTF32 does): about 2^-20 of a product at most. bf16 X runs one
-//     mma.sync.m16n8k16.bf16 against the bf16 factor itself, which is exact;
-//     P is applied in fp32, as the reference's fp32 W is.
+//   * The ring's layout and its cp.async and mma.sync primitives are ring.cuh's,
+//     shared with the fused pair (sweep.cu) and the Multi-TTM (multi_ttm.cu): a ring of `stages`
+//     chunk buffers filled by cp.async, each holding the chunk's X columns,
+//     the block_k rows of the last factor it multiplies, and one row of each
+//     leading factor (P's); the zero-fill form masks the ragged edges, so X
+//     is never padded. The copies of chunk s + stages - 1 are in flight while
+//     chunk s is multiplied, and one barrier a chunk separates the two. fp32
+//     X runs 3xTF32 mma.sync, bf16 X one bf16 mma.sync against the bf16
+//     factor itself; P is applied in fp32, as the reference's fp32 W is.
 //   * Accumulators are fp32 registers: 8 warps as 4 (rows) x 2 (columns), each
-//     MT x NT tiles of 16 x 8. The tensor cores' own fp32 adds truncate, which
-//     over the ~10^4 products of a split of K biases the sum by ~1e-4 of its
-//     size; a chunk's products go to a zeroed partial, which ordinary
-//     (round-to-nearest) fp32 multiply-adds fold into the accumulators.
+//     MT x NT tiles of 16 x 8. A chunk's products go to a zeroed partial,
+//     which ordinary (round-to-nearest) fp32 multiply-adds fold into the
+//     accumulators (the tensor cores' own adds truncate).
+//   * This kernel keeps its copy and fragment loops written out in its body,
+//     though ring.cuh's copy_x_chunk, copy_rows and chunk_product compute the
+//     same: called from here they made ptxas schedule the kernel otherwise
+//     and cost it about 5 % at 1000^3 fp32 (scripts/probe_mttkrp.py
+//     --baseline, PERF.md). The pair and the Multi-TTM kernels call them.
 //   * Split-K over the chunks: gridDim.y = S CTAs share a row tile, split y
 //     takes chunks y, y + S, ... (so the CTAs in flight read neighbouring
 //     runs of the same rows) and writes its own fp32 (I, R) slab;
 //     splitk_reduce_kernel adds the slabs in slab order. No atomics: results
 //     repeat bit for bit. Offsets into X are 64-bit (I K is 5.8e9 at 180^4);
 //     I and K themselves stay below 2^31, so chunk indices are 32-bit.
-#include "common.cuh"
-
-struct TileProblem {
-  int ncontract;                         // N - 1
-  int rank;                              // R
-  int block_k;                           // last-axis indices a chunk
-  int stages;                            // ring depth
-  int n_splits;                          // CTAs along the chunks per output tile
-  int copy_x;                            // bytes a copy of X: 16, 8, 4, 0 = elements
-  int copy_f;                            // the same for factor rows
-  long long extent_i;                    // I
-  long long k;                           // K = prod C_d
-  long long c_last;                      // C_{N-1}
-  long long n_prefix;                    // K / C_last: leading index tuples
-  long long chunks_per_prefix;           // ceil(C_last / block_k)
-  long long extent_c[MAX_CONTRACT];      // C_1 .. C_{N-1}
-  long long lead_stride[MAX_CONTRACT];   // stride of leading digit d in a prefix index
-};
-
-// Shared-memory layout, computed identically on host and device (and in
-// repro_torch/engine/plan.py:mttkrp_kernel_smem_bytes): `stages` chunk
-// buffers, each
-//   X columns (BI rows of row_bytes) | block_k last-factor rows of frow_bytes
-//   | N - 2 leading-factor rows of BR elements (input dtype throughout).
-struct TileLayout {
-  int row_bytes;    // block_k * itemsize + 16 bytes of skew
-  int frow_bytes;   // BR * itemsize + skew (32 bytes fp32, 16 bf16)
-  int fl;     // offset of the last-factor rows inside a stage
-  int lead;   // offset of the leading-factor rows inside a stage
-  int stage;  // bytes a stage
-  int total;
-};
-
-static __host__ __device__ TileLayout make_tile_layout(int tsize, int nc, int bi, int bk, int br,
-                                                       int stages) {
-  TileLayout l;
-  l.row_bytes = bk * tsize + 16;
-  l.frow_bytes = br * tsize + (tsize == 4 ? 32 : 16);
-  l.fl = bi * l.row_bytes;
-  l.lead = l.fl + bk * l.frow_bytes;
-  l.stage = l.lead + (nc - 1) * br * tsize;
-  l.total = stages * l.stage;
-  return l;
-}
-
-// ---- PTX wrappers -----------------------------------------------------------
-
-__device__ __forceinline__ unsigned smem_u32(const void* p) {
-  return (unsigned)__cvta_generic_to_shared(p);
-}
-
-// One asynchronous copy of V bytes; src_bytes 0 writes V zero bytes.
-template <int V>
-__device__ __forceinline__ void cp_async(unsigned dst, const void* src, int src_bytes) {
-  if constexpr (V == 16) {
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
-                 "r"(src_bytes) : "memory");
-  } else {
-    asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;\n" ::"r"(dst), "l"(src), "n"(V),
-                 "r"(src_bytes) : "memory");
-  }
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-// Wait until at most n of this thread's copy groups are pending (n = stages
-// - 2 < 3).
-__device__ __forceinline__ void cp_async_wait(int n) {
-  switch (n) {
-    case 0: asm volatile("cp.async.wait_group 0;\n" ::: "memory"); break;
-    case 1: asm volatile("cp.async.wait_group 1;\n" ::: "memory"); break;
-    default: asm volatile("cp.async.wait_group 2;\n" ::: "memory"); break;
-  }
-}
-
-__device__ __forceinline__ void ldmatrix_x4(unsigned addr, unsigned (&r)[4]) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr)
-               : "memory");
-}
-
-__device__ __forceinline__ void ldmatrix_x4_trans(unsigned addr, unsigned (&r)[4]) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr)
-               : "memory");
-}
-
-__device__ __forceinline__ void ldmatrix_x2_trans(unsigned addr, unsigned& r0, unsigned& r1) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0, %1}, [%2];\n"
-               : "=r"(r0), "=r"(r1)
-               : "r"(addr)
-               : "memory");
-}
-
-
-// An fp32 value's bits rounded to tf32 (10 mantissa bits, nearest, ties
-// away from zero): what cvt.rna.tf32.f32 gives for finite values, in two
-// integer operations instead of the conversion unit.
-__device__ __forceinline__ unsigned round_tf32(unsigned bits) {
-  return (bits + 0x1000u) & 0xffffe000u;
-}
-
-// d += a b on one 16 x 8 tile: fp32 inputs as tf32 (k = 8), bf16 (k = 16).
-__device__ __forceinline__ void mma_tf32(float (&d)[4], const unsigned (&a)[4], unsigned b0,
-                                         unsigned b1) {
-  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, "
-      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const unsigned (&a)[4], unsigned b0,
-                                         unsigned b1) {
-  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
-      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
+#include "ring.cuh"
 
 // NC_STATIC == 2 fixes the number of contraction dims at compile time (the
 // 3-way specialization); NC_STATIC == 0 reads it from the problem.
@@ -450,41 +324,21 @@ __global__ void splitk_reduce_kernel(const float* __restrict__ ws, float* __rest
   }
 }
 
-template <typename T, int NC, int MT, int NT>
-static int launch_mma(const TileProblem& p, const void* x, const Factors& f, float* out,
-                      long long smem, cudaStream_t stream) {
-  auto kern = mttkrp_mma_kernel<T, NC, MT, NT>;
-  cudaError_t err =
-      cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  const long long gi = ceil_div(p.extent_i, 64 * MT);
-  const long long gr = ceil_div(p.rank, 16 * NT);
-  dim3 grid((unsigned)(gi * gr), (unsigned)p.n_splits);
-  kern<<<grid, NTHREADS, smem, stream>>>(p, reinterpret_cast<const T*>(x), f, out);
-  return (int)cudaGetLastError();
-}
-
 template <typename T, int NC>
-static int dispatch_tiles(int block_i, int block_r, const TileProblem& p, const void* x,
-                          const Factors& f, float* out, long long smem, cudaStream_t s) {
-  const bool m2 = block_i == 128;
-  switch (block_r) {
-    case 16: return m2 ? launch_mma<T, NC, 2, 1>(p, x, f, out, smem, s)
-                       : launch_mma<T, NC, 1, 1>(p, x, f, out, smem, s);
-    case 32: return m2 ? launch_mma<T, NC, 2, 2>(p, x, f, out, smem, s)
-                       : launch_mma<T, NC, 1, 2>(p, x, f, out, smem, s);
-    case 64: return m2 ? launch_mma<T, NC, 2, 4>(p, x, f, out, smem, s)
-                       : launch_mma<T, NC, 1, 4>(p, x, f, out, smem, s);
-    default: return m2 ? launch_mma<T, NC, 2, 8>(p, x, f, out, smem, s)
-                       : launch_mma<T, NC, 1, 8>(p, x, f, out, smem, s);
-  }
-}
-
-static bool valid_blocks(int tsize, int block_i, int block_k, int block_r, int stages) {
-  const int kb = block_k * tsize;
-  return (block_i == 64 || block_i == 128) &&
-         (block_r == 16 || block_r == 32 || block_r == 64 || block_r == 128) &&
-         (kb == 32 || kb == 64 || kb == 128 || kb == 256) && stages >= 2 && stages <= 4;
+static int launch_mma(int block_i, int block_r, const TileProblem& p, const void* x,
+                      const Factors& f, float* out, long long smem, cudaStream_t stream) {
+  return dispatch_tiles(block_i, block_r, [&](auto mt, auto nt) {
+    constexpr int MT = decltype(mt)::value, NT = decltype(nt)::value;
+    auto kern = mttkrp_mma_kernel<T, NC, MT, NT>;
+    cudaError_t err =
+        cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    const long long gi = ceil_div(p.extent_i, 64 * MT);
+    const long long gr = ceil_div(p.rank, 16 * NT);
+    dim3 grid((unsigned)(gi * gr), (unsigned)p.n_splits);
+    kern<<<grid, NTHREADS, smem, stream>>>(p, reinterpret_cast<const T*>(x), f, out);
+    return (int)cudaGetLastError();
+  });
 }
 
 extern "C" {
@@ -511,50 +365,27 @@ int repro_mttkrp_tile(int specialized, int dtype, int ncontract, const long long
                       int copy_x, int copy_f, const void* x, const long long* factors, void* out,
                       void* stream) {
   const int tsize = dtype == 0 ? 4 : 2;
-  auto copy_ok = [&](int v) { return v == 0 || v == 4 || v == 8 || v == 16; };
   if (ncontract < 1 || ncontract > MAX_CONTRACT || (specialized && ncontract != 2) ||
-      n_splits < 1 || rank < 1 || (dtype != 0 && dtype != 1) || extents[0] < 1 ||
-      !valid_blocks(tsize, block_i, block_k, block_r, stages) || !copy_ok(copy_x) ||
-      !copy_ok(copy_f))
+      n_splits < 1 || rank < 1 || (dtype != 0 && dtype != 1) ||
+      !valid_blocks(tsize, block_i, block_k, block_r, stages) || !valid_copy(copy_x) ||
+      !valid_copy(copy_f))
     return (int)cudaErrorInvalidValue;
   TileProblem p;
-  p.ncontract = ncontract;
-  p.rank = rank;
-  p.block_k = block_k;
-  p.stages = stages;
-  p.n_splits = n_splits;
-  p.copy_x = copy_x;
-  p.copy_f = copy_f;
-  p.extent_i = extents[0];
-  p.k = 1;
   Factors f;
-  for (int d = 0; d < MAX_CONTRACT; ++d) {
-    p.extent_c[d] = d < ncontract ? extents[1 + d] : 1;
-    if (p.extent_c[d] < 1) return (int)cudaErrorInvalidValue;
-    p.k *= p.extent_c[d];
-    f.ptr[d] = d < ncontract ? reinterpret_cast<const void*>(factors[d]) : nullptr;
-  }
-  if (p.extent_i >= (1LL << 31) || p.k >= (1LL << 31)) return (int)cudaErrorInvalidValue;
-  p.c_last = p.extent_c[ncontract - 1];
-  p.n_prefix = p.k / p.c_last;
-  p.chunks_per_prefix = ceil_div(p.c_last, block_k);
-  long long stride = 1;
-  for (int d = ncontract - 2; d >= 0; --d) {
-    p.lead_stride[d] = stride;
-    stride *= p.extent_c[d];
-  }
-  for (int d = ncontract - 1; d < MAX_CONTRACT; ++d) p.lead_stride[d] = 1;
+  if (!make_tile_problem(ncontract, extents, block_k, stages, rank, n_splits, copy_x, copy_f,
+                         factors, &p, &f))
+    return (int)cudaErrorInvalidValue;
   const long long smem =
       make_tile_layout(tsize, ncontract, block_i, block_k, block_r, stages).total;
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
   float* o = reinterpret_cast<float*>(out);
-  if (dtype == 0) {
-    return specialized ? dispatch_tiles<float, 2>(block_i, block_r, p, x, f, o, smem, s)
-                       : dispatch_tiles<float, 0>(block_i, block_r, p, x, f, o, smem, s);
-  }
   using B16 = __nv_bfloat16;
-  return specialized ? dispatch_tiles<B16, 2>(block_i, block_r, p, x, f, o, smem, s)
-                     : dispatch_tiles<B16, 0>(block_i, block_r, p, x, f, o, smem, s);
+  if (dtype == 0) {
+    return specialized ? launch_mma<float, 2>(block_i, block_r, p, x, f, o, smem, s)
+                       : launch_mma<float, 0>(block_i, block_r, p, x, f, o, smem, s);
+  }
+  return specialized ? launch_mma<B16, 2>(block_i, block_r, p, x, f, o, smem, s)
+                     : launch_mma<B16, 0>(block_i, block_r, p, x, f, o, smem, s);
 }
 
 // out[e] = sum_{q < splits} ws[q * n + e], in q order. Returns a cudaError_t.

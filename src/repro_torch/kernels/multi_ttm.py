@@ -1,10 +1,10 @@
 """The kept-mode Multi-TTM on Hopper: the wrapper, its plain version, and
 its launch count.
 
-Source: ``csrc/multi_ttm.cu`` (``multi_ttm_kernel<T>``). It replaces the TPU
-kernel ``repro/kernels/multi_ttm.py:multi_ttm_keep_pallas`` (``_kernel``),
-the Tucker/HOOI workhorse: for a kept-mode-first ``X (I, C_1..C_k)`` and k
-matrices ``A_d (C_d, R_d)``,
+Source: ``csrc/multi_ttm.cu`` (``multi_ttm_mma_kernel<T, MT, NT>``). It
+replaces the TPU kernel ``repro/kernels/multi_ttm.py:multi_ttm_keep_pallas``
+(``_kernel``), the Tucker/HOOI workhorse: for a kept-mode-first
+``X (I, C_1..C_k)`` and k matrices ``A_d (C_d, R_d)``,
 
     O(i, r_1..r_k) = sum_c X(i, c_1..c_k) prod_d A_d(c_d, r_d),
 
@@ -12,16 +12,20 @@ an fp32 ``(I, prod R_d)`` output, columns in C order over ``(r_1..r_k)``.
 
 What bounds it on an H100: reading X once (a 1000^3 fp32 tensor is 4.0e9 B,
 1.19 ms at 3.35 TB/s). The TPU kernel builds the full Kronecker weight and
-does ``2 |X| prod R_d`` operations (2.05e12 at 1000^3 with ranks (32, 32),
-31 ms of fp32 FMAs); the CUDA kernel contracts the modes one after another
-inside the CTA, ``c_k`` first against X as it streams in, then the leading
-axes in shared memory, about ``2 |X| R_k`` operations (6.6e10 there, 1.0
-ms). X is read once; the output tile stays in shared memory across the
-CTA's steps; the ``c_1`` tiles are split over CTAs and the slabs added by
+does ``2 |X| prod R_d`` operations; the CUDA kernel contracts the modes one
+after another and never forms it. X is the row-major matrix of rows
+``(i, c_1..c_{k-1})`` by ``C_k``; a tile of consecutive ``c_{k-1}`` rows
+streams through the ``cp.async`` ring of ``csrc/ring.cuh`` and is multiplied
+by ``A_k`` on the tensor cores (``2 |X| R_k`` operations, 3xTF32 for fp32);
+each finished tile is folded into the output tile of its i in shared
+memory, through ``A_{k-1}`` and the outer weights, on the CUDA cores. The
+tiles of one i are split over CTAs and the slabs added by
 :func:`.splitk.splitk_reduce` in a fixed order. Ragged edges are masked;
-nothing is padded. The wrapper plans against the kernel's real shared
-memory (:func:`~repro_torch.engine.plan.choose_multi_ttm_kernel_blocks`)
-and checks the library's own count against one CTA's limit.
+nothing is padded. The kernel has its own plan
+(:class:`~repro_torch.engine.plan.MultiTTMKernelPlan`, default
+:func:`~repro_torch.engine.plan.choose_multi_ttm_kernel_blocks` against its
+real shared memory); a reference-shaped ``MultiTTMPlan`` raises
+``TypeError`` on a CUDA tensor.
 """
 
 from __future__ import annotations
@@ -32,9 +36,14 @@ from typing import Sequence
 
 import torch
 
-from ..engine.plan import MultiTTMPlan, choose_multi_ttm_kernel_blocks
+from ..engine.plan import (
+    MultiTTMKernelPlan,
+    choose_multi_ttm_kernel_blocks,
+    multi_ttm_kernel_grid,
+    multi_ttm_kernel_smem_bytes,
+)
 from .build import check, library
-from .splitk import check_smem, n_splits, splitk_reduce
+from .splitk import check_extents, check_smem, copy_width, kernel_plan, splitk_reduce
 
 
 def multi_ttm_keep_plain(x: torch.Tensor, matrices: Sequence[torch.Tensor]) -> torch.Tensor:
@@ -47,19 +56,18 @@ def multi_ttm_keep_plain(x: torch.Tensor, matrices: Sequence[torch.Tensor]) -> t
     return out.reshape(x.shape[0], -1)
 
 
-def smem_bytes(plan: MultiTTMPlan, dtype: torch.dtype) -> int:
-    """Dynamic shared memory the kernel takes under ``plan``, from the
-    library's own layout."""
-    k = len(plan.block_contract)
-    bc = (ctypes.c_int * k)(*plan.block_contract)
-    ranks = (ctypes.c_int * k)(*plan.ranks)
+def smem_bytes(plan: MultiTTMKernelPlan, dtype: torch.dtype, ranks: Sequence[int]) -> int:
+    """The library's own count of the kernel's dynamic shared memory under
+    ``plan`` for ranks ``R_1..R_k`` (-1 for blocks it does not take);
+    :func:`~repro_torch.engine.plan.multi_ttm_kernel_smem_bytes` mirrors it."""
+    k = len(ranks)
     itemsize = torch.tensor([], dtype=dtype).element_size()
     return int(library("multi_ttm.cu").repro_multi_ttm_smem_bytes(
-        itemsize, k, bc, plan.block_i, ranks))
+        itemsize, k, (ctypes.c_int * k)(*ranks), plan.block_m, plan.block_k, plan.block_r,
+        plan.stages))
 
 
-def _check_operands(x: torch.Tensor, matrices: Sequence[torch.Tensor],
-                    plan: MultiTTMPlan) -> None:
+def _check_operands(x: torch.Tensor, matrices: Sequence[torch.Tensor]) -> None:
     if x.device.type != "cuda":
         raise ValueError(f"multi_ttm_keep: the kernel needs a CUDA tensor, got {x.device}")
     if x.dtype not in (torch.float32, torch.bfloat16):
@@ -71,22 +79,19 @@ def _check_operands(x: torch.Tensor, matrices: Sequence[torch.Tensor],
             raise ValueError(
                 f"multi_ttm_keep: matrix {d} must be a contiguous {x.dtype} tensor on {x.device}"
             )
-    ranks = tuple(m.shape[1] for m in matrices)
-    if len(plan.block_contract) != len(matrices) or tuple(plan.ranks) != ranks:
-        raise ValueError(f"multi_ttm_keep: plan {plan} does not fit operand "
-                         f"{tuple(x.shape)} with ranks {ranks}")
 
 
 def multi_ttm_keep(
     x: torch.Tensor,
     matrices: Sequence[torch.Tensor],
     *,
-    plan: MultiTTMPlan | None = None,
+    plan: MultiTTMKernelPlan | None = None,
 ) -> torch.Tensor:
     """Canonical kept-mode-first Multi-TTM of an ``(I, C_1..C_k)`` tensor
     with its k ``(C_d, R_d)`` matrices, k >= 1; returns float32
     ``(I, prod R_d)``. A CUDA tensor launches the kernel under ``plan``
-    (default: :func:`choose_multi_ttm_kernel_blocks`); a CPU tensor takes
+    (default: :func:`choose_multi_ttm_kernel_blocks`; any other plan type
+    raises ``TypeError``); a CPU tensor ignores ``plan`` and takes
     :func:`multi_ttm_keep_plain`."""
     k = len(matrices)
     if x.ndim != k + 1 or k < 1 or k > 7:
@@ -97,27 +102,30 @@ def multi_ttm_keep(
                              f"expected ({x.shape[1 + d]}, R_{d + 1})")
     if x.device.type == "cpu":
         return multi_ttm_keep_plain(x, matrices)
-    ranks = tuple(m.shape[1] for m in matrices)
-    if plan is None:
-        plan = choose_multi_ttm_kernel_blocks(x.shape, ranks, x.element_size())
-    _check_operands(x, matrices, plan)
+    _check_operands(x, matrices)
+    check_extents("multi_ttm_keep", x)
+    ranks = tuple(int(m.shape[1]) for m in matrices)
+    plan = kernel_plan("multi_ttm_keep", x, ranks, plan, choose=choose_multi_ttm_kernel_blocks,
+                       cls=MultiTTMKernelPlan)
+    itemsize = x.element_size()
+    check_smem("multi_ttm_keep", plan, multi_ttm_kernel_smem_bytes(plan, itemsize, ranks))
     lib = library("multi_ttm.cu")
-    check_smem("multi_ttm_keep", plan, smem_bytes(plan, x.dtype))
-    i_sz, prod_r = x.shape[0], math.prod(ranks)
-    outer = math.ceil(x.shape[1] / plan.block_contract[0])
     sms = torch.cuda.get_device_properties(x.device).multi_processor_count
-    splits = n_splits(math.ceil(i_sz / plan.block_i), outer, sms)
+    _, _, splits = multi_ttm_kernel_grid(x.shape, ranks, plan, sms)
+    i_sz, prod_r = x.shape[0], math.prod(ranks)
     out = torch.empty((i_sz, prod_r), device=x.device, dtype=torch.float32)
     ws = out if splits == 1 else torch.empty(
         (splits, i_sz, prod_r), device=x.device, dtype=torch.float32)
-    extents = (ctypes.c_longlong * (k + 1))(*x.shape)
-    blocks = (ctypes.c_int * (k + 1))(plan.block_i, *plan.block_contract)
-    c_ranks = (ctypes.c_int * k)(*ranks)
-    ptrs = (ctypes.c_longlong * k)(*(m.data_ptr() for m in matrices))
+    ptrs = [m.data_ptr() for m in matrices]
+    copy_x = copy_width(x.shape[-1] * itemsize, [x.data_ptr()])
+    copy_f = copy_width(ranks[-1] * itemsize, [ptrs[-1]])
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = lib.repro_multi_ttm(0 if x.dtype == torch.float32 else 1, k, extents, blocks,
-                                  c_ranks, splits, x.data_ptr(), ptrs, ws.data_ptr(), stream)
+        err = lib.repro_multi_ttm(
+            0 if x.dtype == torch.float32 else 1, k, (ctypes.c_longlong * (k + 1))(*x.shape),
+            (ctypes.c_int * k)(*ranks), plan.block_m, plan.block_k, plan.block_r, plan.stages,
+            splits, copy_x, copy_f, x.data_ptr(), (ctypes.c_longlong * k)(*ptrs),
+            ws.data_ptr(), stream)
     check(err, "multi_ttm_keep")
     multi_ttm_keep.launches += 1
     if splits > 1:

@@ -17,7 +17,7 @@ from typing import Sequence
 
 import torch
 
-from ..engine.plan import BlockPlan, MTTKRPKernelPlan, MultiTTMPlan
+from ..engine.plan import BlockPlan, MTTKRPKernelPlan, MultiTTMKernelPlan
 from .mttkrp3 import mttkrp3
 from .mttkrpn import mttkrpn
 from .multi_ttm import multi_ttm_keep
@@ -73,10 +73,16 @@ def mttkrp(
     out_dtype: torch.dtype | None = None,
     variant: str | None = None,
 ) -> torch.Tensor:
-    """MTTKRP for any mode through the blocked kernels (float32
-    accumulation); the result has ``out_dtype``, by default ``x.dtype``."""
-    if x.ndim < 3:
-        raise ValueError("the MTTKRP kernels support N >= 3 (use core.mttkrp)")
+    """MTTKRP for any mode of an N-way tensor, N >= 2, through the kernels
+    (float32 accumulation); the result has ``out_dtype``, by default
+    ``x.dtype``. A matrix takes ``mttkrpn`` with one contraction axis (the
+    dimension tree's edge path), 3-way tensors ``mttkrp3`` unless
+    ``variant="generic"``."""
+    if x.ndim < 2:
+        raise ValueError(
+            f"the MTTKRP kernels need a tensor of at least 2 modes (one contraction axis "
+            f"beside the output mode), got {x.ndim}; use backend='einsum'"
+        )
     if not 0 <= mode < x.ndim:
         raise ValueError(f"mode {mode} out of range for {x.ndim}-way tensor")
     xp, fs = canonicalize(x, factors, mode)
@@ -107,7 +113,7 @@ def multi_ttm_canonical(
     xp: torch.Tensor,
     mats: Sequence[torch.Tensor],
     *,
-    plan: MultiTTMPlan | None = None,
+    plan: MultiTTMKernelPlan | None = None,
     out_dtype: torch.dtype | None = None,
 ) -> torch.Tensor:
     """Kept-mode-first Multi-TTM through the kernel: ``xp`` has the kept

@@ -25,7 +25,6 @@ from ..engine.plan import (
     SMEM_PER_CTA_MAX,
     BlockPlan,
     MTTKRPKernelPlan,
-    MultiTTMPlan,
     choose_mttkrp_kernel_blocks,
     mttkrp_kernel_grid,
     mttkrp_kernel_smem_bytes,
@@ -105,12 +104,12 @@ def check_operands(name: str, x: torch.Tensor, factors: Sequence[torch.Tensor],
         raise ValueError(f"{name}: plan {plan} does not fit operand {tuple(x.shape)}")
 
 
-def check_smem(name: str, plan: BlockPlan | MultiTTMPlan | MTTKRPKernelPlan, smem: int) -> None:
+def check_smem(name: str, plan, smem: int) -> None:
     """Raise if a plan needs more shared memory than one CTA has."""
     if smem > SMEM_PER_CTA_MAX:
         raise ValueError(
             f"{name}: plan {plan} needs {smem} bytes of shared memory; a CTA has at most "
-            f"{SMEM_PER_CTA_MAX} (plan against Memory.h100_smem())"
+            f"{SMEM_PER_CTA_MAX}"
         )
 
 
@@ -152,17 +151,25 @@ def copy_width(run_bytes: int, ptrs: Sequence[int]) -> int:
     return 0
 
 
-def kernel_plan(name: str, x: torch.Tensor, rank: int,
-                plan: MTTKRPKernelPlan | None) -> MTTKRPKernelPlan:
-    """``plan``, or the kernel's own default for ``x``; raises ``TypeError``
-    for a plan of another type (a ``BlockPlan`` budgets the reference's tile
-    schedule, which this kernel does not run)."""
+def kernel_plan(name: str, x: torch.Tensor, rank, plan, *,
+                choose=choose_mttkrp_kernel_blocks, cls: type = MTTKRPKernelPlan):
+    """``plan``, or the kernel's own default ``choose(x.shape, rank,
+    itemsize)``; raises ``TypeError`` for a plan of another type than
+    ``cls`` (a ``BlockPlan`` or ``MultiTTMPlan`` budgets the reference's tile
+    schedule, which these kernels do not run)."""
     if plan is None:
-        return choose_mttkrp_kernel_blocks(x.shape, rank, x.element_size())
-    if not isinstance(plan, MTTKRPKernelPlan):
-        raise TypeError(f"{name}: on a CUDA tensor the plan is an MTTKRPKernelPlan, "
+        return choose(x.shape, rank, x.element_size())
+    if not isinstance(plan, cls):
+        raise TypeError(f"{name}: on a CUDA tensor the plan is a {cls.__name__}, "
                         f"got {type(plan).__name__}")
     return plan
+
+
+def check_extents(name: str, x: torch.Tensor) -> None:
+    """Raise unless the ring kernels' 32-bit row and chunk indices hold:
+    ``I`` and ``prod(C)`` below 2^31."""
+    if x.shape[0] >= 2 ** 31 or math.prod(x.shape[1:]) >= 2 ** 31:
+        raise ValueError(f"{name}: I and prod(C) must stay below 2^31, got {tuple(x.shape)}")
 
 
 def launch_tile(
@@ -179,8 +186,7 @@ def launch_tile(
     blocks and shared memory."""
     rank = factors[0].shape[1] if factors else 0
     check_operands(name, x, factors, rank, None)
-    if x.shape[0] >= 2 ** 31 or math.prod(x.shape[1:]) >= 2 ** 31:
-        raise ValueError(f"{name}: I and prod(C) must stay below 2^31, got {tuple(x.shape)}")
+    check_extents(name, x)
     plan = kernel_plan(name, x, rank, plan)
     itemsize = x.element_size()
     check_smem(name, plan, mttkrp_kernel_smem_bytes(plan, itemsize, x.ndim - 1))

@@ -26,14 +26,18 @@ from repro_torch.engine.plan import (
     BlockPlan,
     Memory,
     MTTKRPKernelPlan,
+    MultiTTMKernelPlan,
     MultiTTMPlan,
     choose_blocks,
     choose_multi_ttm_kernel_blocks,
     choose_mttkrp_kernel_blocks,
-    choose_sweep_blocks,
+    choose_pair_kernel_blocks,
+    multi_ttm_kernel_grid,
     mttkrp_kernel_grid,
     mttkrp_kernel_smem_bytes,
     multi_ttm_kernel_smem_bytes,
+    pair_kernel_grid,
+    pair_kernel_smem_bytes,
 )
 from repro_torch.engine.sweep import fused_als_sweep
 from repro_torch.engine.tree import dimtree_als_sweep
@@ -257,6 +261,27 @@ def test_cp_als_cuda_matches_einsum(card):
     np.testing.assert_allclose(res.fits, ref.fits, atol=1e-5)
 
 
+@pytest.mark.parametrize("dtype", DTYPES, ids=["f32", "bf16"])
+def test_cp_als_on_a_matrix_launches_mttkrpn(card, dtype):
+    """A 2-way CP-ALS on ``cuda`` runs the kernel: two ``mttkrpn`` launches
+    an iteration (one contraction axis each), none of the 3-way kernel."""
+    x, fs = _data((300, 257), 5, torch.float32, card, seed=24)
+    init = [f.clone() for f in fs]
+    before = (mttkrpn.launches, mttkrp3.launches)
+    res = repro_torch.cp_als(x, 5, 4, init_factors=init,
+                             ctx=repro_torch.ExecutionContext.create("cuda"))
+    assert (mttkrpn.launches - before[0], mttkrp3.launches - before[1]) == (8, 0)
+    ref = repro_torch.cp_als(x, 5, 4, init_factors=init,
+                             ctx=repro_torch.ExecutionContext.create("einsum"))
+    np.testing.assert_allclose(res.fits, ref.fits, atol=1e-5)
+    x, fs = x.to(dtype), [f.to(dtype) for f in fs]
+    for mode in (0, 1):
+        before = mttkrpn.launches
+        got = ops.mttkrp(x, fs, mode, out_dtype=torch.float32)
+        assert mttkrpn.launches == before + 1
+        _close(got, mttkrpn_plain(*ops.canonicalize(x, fs, mode)))
+
+
 def test_wrapper_rejects_what_the_kernel_does_not_take(card):
     x, fs = _data((8, 8, 8), 4, torch.float32, card)
     with pytest.raises(ValueError):
@@ -291,12 +316,12 @@ def test_fused_pair_matches_plain(card, dims, rank, dtype):
 
 
 PAIR_PLANS = [
-    ((50, 40, 70), 32, BlockPlan(8, (8, 32), 32)),          # splits, threads share units
-    ((37, 29, 61), 7, BlockPlan(3, (5, 7), 7)),              # unaligned blocks
-    ((70, 33, 45), 64, BlockPlan(64, (8, 16), 32)),          # 512 units: two passes
-    ((20, 9, 11, 13), 12, BlockPlan(8, (4, 4, 8), 16)),
-    ((12, 7, 5, 6, 9), 10, BlockPlan(4, (3, 2, 2, 4), 8)),
-    ((300, 9, 7), 500, BlockPlan(8, (8, 8), 512)),           # 8 rank tiles
+    ((50, 40, 70), 32, MTTKRPKernelPlan(64, 16, 32, 2)),     # many tuples, chunks and splits
+    ((37, 29, 61), 7, MTTKRPKernelPlan(64, 8, 16, 3)),       # 32-byte chunks, all ragged
+    ((70, 33, 45), 64, MTTKRPKernelPlan(128, 64, 64, 2)),    # 256-byte chunks
+    ((20, 9, 11, 13), 12, MTTKRPKernelPlan(64, 32, 16, 4)),
+    ((12, 7, 5, 6, 9), 10, MTTKRPKernelPlan(64, 8, 16, 2)),
+    ((300, 9, 7), 500, MTTKRPKernelPlan(128, 8, 128, 2)),    # 4 rank tiles of 128
 ]
 
 
@@ -304,6 +329,70 @@ PAIR_PLANS = [
 def test_fused_pair_pinned_plans_match_plain(card, dims, rank, plan):
     x, fs = _data(dims, rank, torch.float32, card, seed=7)
     _close_pair(fused_pair(x, fs[1:], plan=plan), fused_pair_plain(x, fs[1:]))
+
+
+# (dims, rank, dtype, plan or None, misaligned): the copy widths, the row and
+# rank edges, N = 5, one split and many
+RAGGED_PAIR = [
+    ((33, 17, 7), 7, torch.float32, None, False),       # C_last * 4 = 28 bytes: 4-byte copies
+    ((33, 17, 7), 7, torch.bfloat16, None, False),      # 14 bytes, R * 2 = 14: element loads
+    ((70, 9, 36), 64, torch.bfloat16, None, False),     # 72 bytes: 8-byte copies
+    ((100, 9, 20), 1, torch.float32, None, False),      # R = 1
+    ((200, 9, 20), 130, torch.float32, None, False),    # R = 130: two rank tiles
+    ((65, 8, 24), 64, torch.bfloat16, MTTKRPKernelPlan(64, 32, 64, 3), False),  # 2 row tiles
+    ((4, 5, 3, 2, 6), 7, torch.float32, None, False),   # N = 5
+    ((40000, 7, 8), 16, torch.float32, None, False),    # 313 row tiles: one split
+    ((50, 40, 70), 32, torch.float32, MTTKRPKernelPlan(64, 16, 32, 2), True),  # 4-byte copies
+    ((50, 40, 70), 32, torch.bfloat16, MTTKRPKernelPlan(64, 16, 32, 2), True),  # elements
+]
+
+
+@pytest.mark.parametrize("dims,rank,dtype,plan,misaligned", RAGGED_PAIR)
+def test_fused_pair_ragged_cases_match_plain(card, dims, rank, dtype, plan, misaligned):
+    x, fs = _data(dims, rank, dtype, card, seed=21)
+    if misaligned:
+        x = _misaligned(x)
+        assert x.data_ptr() % 16 != 0
+    _close_pair(fused_pair(x, fs[1:], plan=plan), fused_pair_plain(x, fs[1:]))
+
+
+@pytest.mark.parametrize("dims,rank,want_one",
+                         [((40000, 7, 8), 16, True), ((50, 40, 70), 32, False)])
+def test_fused_pair_split_counts_on_this_card(card, dims, rank, want_one):
+    plan = choose_pair_kernel_blocks(dims, rank, 4)
+    sms = torch.cuda.get_device_properties(card).multi_processor_count
+    assert (pair_kernel_grid(dims, rank, plan, sms)[2] == 1) == want_one
+    before = splitk.splitk_reduce.launches
+    x, fs = _data(dims, rank, torch.float32, card, seed=22)
+    _close_pair(fused_pair(x, fs[1:]), fused_pair_plain(x, fs[1:]))
+    assert splitk.splitk_reduce.launches == before + (0 if want_one else 1)
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=["f32", "bf16"])
+@pytest.mark.parametrize("nc", [2, 4, 7])
+def test_pair_smem_count_matches_its_mirror(card, nc, dtype):
+    size = dtype.itemsize
+    for bi in (64, 128):
+        for width in (32, 64, 128, 256):
+            for br in (16, 32, 64, 128):
+                for stages in (2, 3, 4):
+                    plan = MTTKRPKernelPlan(bi, width // size, br, stages)
+                    assert sweep.smem_bytes(plan, dtype, nc) == pair_kernel_smem_bytes(
+                        plan, size, nc)
+    assert sweep.smem_bytes(MTTKRPKernelPlan(96, 8, 16, 2), dtype, nc) == -1
+
+
+def test_a_reference_plan_on_the_ring_kernels_is_refused(card):
+    x, fs = _data((8, 8, 8), 4, torch.float32, card)
+    before = (fused_pair.launches, multi_ttm_keep.launches)
+    with pytest.raises(TypeError, match="MTTKRPKernelPlan"):
+        fused_pair(x, fs[1:], plan=BlockPlan(8, (8, 8), 16))
+    with pytest.raises(TypeError, match="MultiTTMKernelPlan"):
+        multi_ttm_keep(x, fs[1:], plan=MultiTTMPlan(8, (8, 8), (4, 4)))
+    with pytest.raises(TypeError, match="MultiTTMKernelPlan"):
+        repro_torch.multi_ttm(x, fs, 0, ctx=repro_torch.ExecutionContext.create("cuda"),
+                              plan=MultiTTMPlan(8, (8, 8), (4, 4)))
+    assert (fused_pair.launches, multi_ttm_keep.launches) == before
 
 
 NODES = [(5, 7, 3), (1, 2, 1), (33, 70, 17), (300, 130, 64), (6, 5, 4, 7), (9, 3, 10, 16),
@@ -360,8 +449,10 @@ def test_sweep_plans_fit_one_cta(card):
         for rank, dtype in [(1, torch.float32), (16, torch.float32), (64, torch.bfloat16),
                             (200, torch.float32)]:
             mem = Memory.h100_smem(itemsize=dtype.itemsize)
-            plan = choose_sweep_blocks(shape, rank, memory=mem)
-            assert sweep.smem_bytes(plan, dtype) <= 232_448, (shape, rank, plan)
+            plan = choose_pair_kernel_blocks(shape, rank, dtype.itemsize)
+            smem = sweep.smem_bytes(plan, dtype, len(shape) - 1)
+            assert smem == pair_kernel_smem_bytes(plan, dtype.itemsize, len(shape) - 1)
+            assert smem <= 232_448, (shape, rank, plan)
             node_plan = choose_blocks(shape[:-1], rank, memory=mem, x_has_rank=True)
             assert partial.smem_bytes(node_plan) <= 232_448, (shape, rank, node_plan)
 
@@ -428,30 +519,58 @@ def test_multi_ttm_keep_matches_plain(card, dims, ranks, dtype):
 
 
 TTM_PLANS = [
-    ((50, 40, 70), MultiTTMPlan(8, (8, 32), (4, 6))),            # splits, threads share units
-    ((37, 29, 61), MultiTTMPlan(3, (5, 7), (3, 2))),             # unaligned blocks
-    ((70, 33, 45), MultiTTMPlan(16, (8, 16), (5, 40))),          # R_k = 40: 160 units
-    ((20, 9, 11, 13), MultiTTMPlan(4, (4, 3, 8), (2, 3, 4))),    # two folds
-    ((12, 7, 5, 6, 9), MultiTTMPlan(2, (3, 2, 2, 4), (2, 2, 3, 2))),
-    ((60, 9, 300), MultiTTMPlan(8, (4, 16), (3, 130))),          # 1056 units: several passes
-    ((40, 500), MultiTTMPlan(8, (32,), (7,))),                   # k = 1: split along c_k
-    ((1000, 12, 12), MultiTTMPlan(4, (4, 4), (12, 12))),         # the reference's tiny tiles
+    ((50, 40, 70), (4, 6), MultiTTMKernelPlan(64, 16, 16, 2)),       # tiles along c_1, splits
+    ((37, 29, 61), (3, 2), MultiTTMKernelPlan(64, 8, 16, 3)),        # 32-byte chunks, ragged
+    ((70, 33, 45), (5, 40), MultiTTMKernelPlan(128, 64, 64, 2)),     # R_k = 40 of 64 columns
+    ((20, 9, 11, 13), (2, 3, 4), MultiTTMKernelPlan(64, 32, 16, 4)),  # outer weights
+    ((12, 7, 5, 6, 9), (2, 2, 3, 2), MultiTTMKernelPlan(64, 8, 16, 2)),
+    ((60, 9, 300), (3, 130), MultiTTMKernelPlan(128, 32, 128, 2)),   # two rank tiles
+    ((40, 500), (7,), MultiTTMKernelPlan(64, 32, 16, 3)),            # k = 1: rows are i
+    ((1000, 12, 12), (12, 12), MultiTTMKernelPlan(64, 8, 16, 2)),    # many i, one tile each
+    ((30, 6, 180, 40), (3, 5, 7), MultiTTMKernelPlan(192, 16, 16, 2)),  # 192-row tiles
+    ((20, 400, 36), (9, 33), MultiTTMKernelPlan(192, 32, 64, 2)),     # 3 tiles of 192, ragged
 ]
 
 
-@pytest.mark.parametrize("dims,plan", TTM_PLANS)
-def test_multi_ttm_keep_pinned_plans_match_plain(card, dims, plan):
-    x, mats = _ttm_data(dims, plan.ranks, torch.float32, card, seed=14)
+@pytest.mark.parametrize("dims,ranks,plan", TTM_PLANS)
+def test_multi_ttm_keep_pinned_plans_match_plain(card, dims, ranks, plan):
+    x, mats = _ttm_data(dims, ranks, torch.float32, card, seed=14)
     _close(multi_ttm_keep(x, mats, plan=plan), multi_ttm_keep_plain(x, mats))
 
 
+# (dims, ranks, dtype, misaligned): unaligned rows, a misaligned pointer, R_k
+# of 1, 7 and 130, one split and many
+RAGGED_TTM = [
+    ((33, 17, 7), (3, 7), torch.float32, False),        # 28-byte rows: 4-byte copies
+    ((33, 17, 7), (3, 7), torch.bfloat16, False),       # 14-byte rows: element loads
+    ((70, 9, 36), (4, 1), torch.bfloat16, False),       # R_k = 1
+    ((30, 200, 20), (5, 130), torch.float32, False),    # R_k = 130: two rank tiles
+    ((2000, 8, 24), (3, 5), torch.float32, False),      # 2000 i: one split
+    ((20, 300, 64), (6, 8), torch.float32, False),      # 3 tiles an i: splits
+    ((50, 40, 70), (4, 6), torch.float32, True),
+    ((50, 40, 70), (4, 6), torch.bfloat16, True),
+    ((9, 5, 7, 11, 13), (2, 3, 2, 4), torch.bfloat16, True),
+]
+
+
+@pytest.mark.parametrize("dims,ranks,dtype,misaligned", RAGGED_TTM)
+def test_multi_ttm_keep_ragged_cases_match_plain(card, dims, ranks, dtype, misaligned):
+    x, mats = _ttm_data(dims, ranks, dtype, card, seed=23)
+    if misaligned:
+        x = _misaligned(x)
+        assert x.data_ptr() % 16 != 0
+    _close(multi_ttm_keep(x, mats), multi_ttm_keep_plain(x, mats))
+
+
 def test_multi_ttm_keep_is_deterministic_and_counted(card):
-    x, mats = _ttm_data((300, 41, 257), (16, 16), torch.float32, card, seed=15)
+    x, mats = _ttm_data((60, 200, 257), (16, 16), torch.float32, card, seed=15)
+    plan = choose_multi_ttm_kernel_blocks(x.shape, (16, 16), 4)
+    assert multi_ttm_kernel_grid(x.shape, (16, 16), plan)[2] == 2  # 60 i, two tiles each
     before = (multi_ttm_keep.launches, splitk.splitk_reduce.launches)
     a, b = multi_ttm_keep(x, mats), multi_ttm_keep(x, mats)
     assert torch.equal(a, b)
     assert multi_ttm_keep.launches == before[0] + 2
-    assert splitk.splitk_reduce.launches == before[1] + 2  # 38 row tiles: split c_1
+    assert splitk.splitk_reduce.launches == before[1] + 2
 
 
 def test_multi_ttm_plans_fit_one_cta(card):
@@ -459,15 +578,17 @@ def test_multi_ttm_plans_fit_one_cta(card):
     planner's host-side mirror reproduces exactly."""
     for shape, ranks in [((1000, 1000, 1000), (32, 32)), ((180, 180, 180, 180), (16, 16, 16)),
                          ((130, 6, 200), (5, 4)), ((9, 3, 3, 10), (3, 3, 3)),
-                         ((3, 4, 2, 5, 3), (2, 2, 2, 2)), ((180, 180, 180, 180), (32, 33, 34))]:
+                         ((3, 4, 2, 5, 3), (2, 2, 2, 2)), ((180, 180, 180, 180), (32, 33, 34)),
+                         ((300, 70), (9,))]:
         for dtype in (torch.float32, torch.bfloat16):
             plan = choose_multi_ttm_kernel_blocks(shape, ranks, dtype.itemsize)
-            smem = multi_ttm_mod.smem_bytes(plan, dtype)
-            assert smem == multi_ttm_kernel_smem_bytes(plan, dtype.itemsize), (shape, plan)
+            smem = multi_ttm_mod.smem_bytes(plan, dtype, ranks)
+            assert smem == multi_ttm_kernel_smem_bytes(plan, dtype.itemsize, ranks), (shape, plan)
             assert smem <= 232_448, (shape, ranks, plan)
-            pinned = MultiTTMPlan(3, (2,) * (len(shape) - 2) + (5,), ranks)
-            assert multi_ttm_mod.smem_bytes(pinned, dtype) == multi_ttm_kernel_smem_bytes(
-                pinned, dtype.itemsize)
+            pinned = MultiTTMKernelPlan(64, 64 // dtype.itemsize, 32, 3)
+            assert multi_ttm_mod.smem_bytes(pinned, dtype, ranks) == multi_ttm_kernel_smem_bytes(
+                pinned, dtype.itemsize, ranks)
+    assert multi_ttm_mod.smem_bytes(MultiTTMKernelPlan(96, 8, 16, 2), torch.float32, (2, 3)) == -1
 
 
 def test_multi_ttm_keep_rejects_what_the_kernel_does_not_take(card):
@@ -480,12 +601,14 @@ def test_multi_ttm_keep_rejects_what_the_kernel_does_not_take(card):
         multi_ttm_keep(x, [mats[0], mats[1].T.contiguous().T])
     with pytest.raises(ValueError, match="matrix 1 has shape"):
         multi_ttm_keep(x, [mats[0], mats[1][:5]])
-    with pytest.raises(ValueError, match="does not fit"):
+    with pytest.raises(TypeError, match="MultiTTMKernelPlan"):
         multi_ttm_keep(x, mats, plan=MultiTTMPlan(8, (8, 8), (2, 4)))
     with pytest.raises(TypeError):
         multi_ttm_keep(x.double(), [m.double() for m in mats])
     with pytest.raises(ValueError, match="shared memory"):
-        multi_ttm_keep(x, mats, plan=MultiTTMPlan(512, (8, 8), (2, 3)))
+        multi_ttm_keep(x, mats, plan=MultiTTMKernelPlan(128, 64, 128, 4))
+    with pytest.raises(ValueError, match="takes block_m"):
+        multi_ttm_keep(x, mats, plan=MultiTTMKernelPlan(96, 32, 16, 2))
 
 
 def test_multi_ttm_engine_all_keeps(card):

@@ -126,34 +126,43 @@ def test_uniform_multi_ttm_plan_matches_reference(dims, ranks, mem):
 
 @pytest.mark.parametrize("itemsize", [2, 4])
 def test_kernel_plans_fit_one_cta(itemsize):
-    """The wrapper's default plan fits by the kernel's own count (never the
-    reference's Kronecker working set): the two-CTAs-per-SM budget unless
-    one output row alone takes most of it, one CTA's limit always."""
+    """The wrapper's default plan (a ``MultiTTMKernelPlan``) fits by the
+    kernel's own count (never the reference's Kronecker working set): the
+    two-CTAs-per-SM budget unless the output tile ``prod R[:-1] x R_k``
+    alone takes half of it, one CTA's limit always; one rank tile covers
+    ``R_k`` up to 128, so X is read once."""
     for shape, scale in itertools.product(PLAN_SHAPES, [1, 3, 16, 32]):
         ranks = _ranks_for(shape, scale)
         plan = tp.choose_multi_ttm_kernel_blocks(shape, ranks, itemsize)
-        smem = tp.multi_ttm_kernel_smem_bytes(plan, itemsize)
+        plan.check(itemsize)
+        smem = tp.multi_ttm_kernel_smem_bytes(plan, itemsize, ranks)
         assert smem <= tp.SMEM_PER_CTA_MAX
-        if 4 * math.prod(ranks) <= tp.SMEM_BUDGET // 2:
+        if 4 * math.prod(ranks) <= tp.SMEM_BUDGET // 4:
             assert smem <= tp.SMEM_BUDGET, (shape, ranks, plan)
-        assert plan.ranks == ranks and len(plan.block_contract) == len(shape) - 1
-        assert all(1 <= b <= max(s, 1) for b, s in zip(plan.blocks_per_mode(), shape))
+        assert isinstance(plan, tp.MultiTTMKernelPlan)
+        assert plan.block_r >= min(ranks[-1], 16) and (ranks[-1] > 128 or plan.block_r >= ranks[-1])
 
 
 def test_kernel_plans_at_the_main_shapes():
-    assert tp.choose_multi_ttm_kernel_blocks((1000,) * 3, (32, 32)) == tp.MultiTTMPlan(
-        8, (8, 64), (32, 32))
-    assert tp.choose_multi_ttm_kernel_blocks((1000,) * 3, (32, 32), 2) == tp.MultiTTMPlan(
-        8, (8, 128), (32, 32))
-    assert tp.choose_multi_ttm_kernel_blocks((180,) * 4, (16,) * 3) == tp.MultiTTMPlan(
-        2, (8, 8, 64), (16, 16, 16))
+    assert tp.choose_multi_ttm_kernel_blocks((1000,) * 3, (32, 32)) == tp.MultiTTMKernelPlan(
+        128, 32, 32, 3)
+    assert tp.choose_multi_ttm_kernel_blocks((1000,) * 3, (32, 32), 2) == tp.MultiTTMKernelPlan(
+        128, 64, 32, 3)
+    # C_{k-1} = 180 in one 192-row tile, not two of 128 (each tile is a fold)
+    assert tp.choose_multi_ttm_kernel_blocks((180,) * 4, (16,) * 3) == tp.MultiTTMKernelPlan(
+        192, 32, 16, 2)
+    assert tp.multi_ttm_kernel_grid((1000,) * 3, (32, 32),
+                                    tp.MultiTTMKernelPlan(128, 32, 32, 2)) == (1000, 1, 1)
+    assert tp.multi_ttm_kernel_grid((180,) * 4, (16,) * 3,
+                                    tp.MultiTTMKernelPlan(192, 32, 16, 2)) == (180, 1, 2)
     # the reference's chooser budgets for the full Kronecker weight: tiny tiles
     h100 = tp.Memory.h100_smem()
     assert tp.choose_multi_ttm_blocks((1000,) * 3, (32, 32), memory=h100) == tp.MultiTTMPlan(
         4, (4, 4), (32, 32))
-    # one output row of 32 x 33 x 34 fp32 words exceeds the two-CTA budget
-    assert tp.choose_multi_ttm_kernel_blocks((180,) * 4, (32, 33, 34)) == tp.MultiTTMPlan(
-        1, (8, 8, 64), (32, 33, 34))
+    # an output tile of 32 x 33 x 34 fp32 words leaves one CTA an SM and
+    # narrow chunks
+    assert tp.choose_multi_ttm_kernel_blocks((180,) * 4, (32, 33, 34)) == tp.MultiTTMKernelPlan(
+        128, 8, 64, 3)
     with pytest.raises(ValueError, match="shared memory"):
         tp.choose_multi_ttm_kernel_blocks((10, 10, 10), (300, 300))
 
