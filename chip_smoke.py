@@ -12,7 +12,10 @@ Phases (any failure raises, and the script exits non-zero):
 3. ``mttkrp3`` at 1000x1000x1000, R=64 (extents not multiples of the tiles),
    fp32 and bf16, all three modes through ``kernels.ops``, each against its
    plain version on the card; the 3-way generic variant (``mttkrpn``) too;
-4. ``mttkrpn`` at 180^4, R=32, fp32, all four modes;
+   ``splitk_reduce`` on that shape's workspace, timed by CUDA graphs
+   (``graph_ms``: a few microseconds, below the host's launch rate);
+4. ``mttkrpn`` at 180^4, R=32, fp32, all four modes, and ``splitk_reduce``
+   on that shape's workspace (132 slabs of 5,760 outputs);
 5. the fused-sweep kernels against their plain versions, in every position
    the sweeps use them: ``fused_pair`` at 1000^3, R=64 (fp32, bf16) and
    180^4, R=32, each record with its ``MTTKRPKernelPlan``, shared memory,
@@ -62,8 +65,10 @@ Phases (any failure raises, and the script exits non-zero):
 9. the Mamba2 path: (a) ``ssd_intra`` against its plain version at the
    served shape (BC = 64 chunks of q = 256, N = 128, H = 80, P = 64), x in
    bf16 with the rest fp32 (the model's mix, within 1e-2) and all fp32
-   (within 1e-5), timed beside its bound; (b) ``mamba2-2.7b`` at full width
-   and depth (64 layers, bf16, weights drawn on the card): prefill of 4
+   (within 1e-5), timed beside its bound; in bf16 also on operands where
+   weights rounded to bf16 once show (``ssd_cancelling``: within ``LO_TOL``
+   1e-2, where that control reads above it); (b) ``mamba2-2.7b`` at full
+   width and depth (64 layers, bf16, weights drawn on the card): prefill of 4
    prompts x 4096 tokens (``forward(mode="prefill", logits_positions=
    "last")``), timed after one untimed call, counts set to 0 before and read
    after (exactly 64 ``ssd_intra`` launches, nothing else), finite logits;
@@ -101,6 +106,10 @@ PEAK_BYTES = 3.35e12
 #: (three tf32 products each), bf16 as one bf16 product. By input dtype:
 #: (products the kernel does for each, the type whose peak rate they run at).
 MMA_OPS = {"float32": (3, "tf32"), "bfloat16": (1, "bfloat16")}
+#: The SSD kernel's products on the tensor cores: the Gram C B^T as 3xTF32;
+#: W X as two bf16 products for bf16 X (W split into bf16 hi and lo) or
+#: 3xTF32 for fp32 X. By X's itemsize: (products, the type of their rate).
+SSD_WX_OPS = {2: (2, "bfloat16"), 4: (3, "tf32")}
 CSRC = "src/repro_torch/kernels/csrc/"
 SOURCE = {"mttkrp3": "mttkrp.cu", "mttkrpn": "mttkrp.cu", "splitk_reduce": "mttkrp.cu",
           "fused_pair": "sweep.cu", "mttkrp_partial": "sweep.cu",
@@ -181,6 +190,36 @@ def cuda_ms(fn, reps: int = 10, warm: int = 2) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def graph_ms(fn, reps: int = 50, rounds: int = 4) -> float:
+    """Mean device time of ``fn`` with no host time between launches:
+    ``reps`` calls captured in one CUDA graph, replayed ``rounds`` times
+    between CUDA events. For kernels of a few microseconds, where
+    :func:`cuda_ms` reads the host's launch rate instead of the card."""
+    import torch
+
+    fn()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):  # warm on a side stream, as capture wants
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(rounds):
+        graph.replay()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / (reps * rounds)
 
 
 def bound(n_x: int, itemsize: int, factor_words: int, out_words: int,
@@ -309,11 +348,47 @@ def emit(obj: dict) -> None:
     print(json.dumps(obj), flush=True)
 
 
+def splitk_phase(gen, s: int, i: int, rank: int, smi: str, records: dict) -> None:
+    """``splitk_reduce`` on a random ``(s, i, rank)`` workspace: against its
+    plain version, bit for bit against the in-order slab sum, and timed."""
+    import torch
+    from repro_torch.kernels import splitk
+
+    ws = torch.randn((s, i, rank), generator=gen, device="cuda")
+    out = torch.empty((i, rank), device="cuda")
+    rel, diff = check(f"splitk_reduce {s} slabs", splitk.splitk_reduce(ws, out).clone(),
+                      splitk.splitk_reduce_plain(ws), "float32")
+    in_order = torch.zeros_like(out)
+    for slab in ws:  # the slabs added in slab order: the kernel's bits
+        in_order += slab
+    if not torch.equal(splitk.splitk_reduce(ws, out), in_order):
+        raise AssertionError("splitk_reduce: not the bits of the in-order slab sum")
+    n = i * rank
+    b_ms, b_by = bound(n * s, 4, 0, n, (s - 1) * n, "float32")
+    rec = {
+        "kernel": "splitk_reduce", "shape": [s, i, rank], "dtype": "float32",
+        "max_rel_err": rel, "max_abs_err": diff,
+        # a few microseconds on the card, under the host's launch rate: device
+        # times by CUDA graphs; beside them, the back-to-back call rate
+        "timing": "cuda_graph",
+        "kernel_ms": graph_ms(lambda: splitk.splitk_reduce(ws, out)),
+        "plain_ms": graph_ms(lambda: splitk.splitk_reduce_plain(ws)),
+        "library_ms": graph_ms(lambda: torch.sum(ws, 0)),
+        "host_ms": {"kernel": cuda_ms(lambda: splitk.splitk_reduce(ws, out), reps=50),
+                    "library": cuda_ms(lambda: torch.sum(ws, 0), reps=50)},
+        "bound_ms": b_ms, "bound_by": b_by, "gpu": smi,
+    }
+    emit(rec)
+    records.setdefault("splitk_reduce", []).append(rec)
+    del ws, out, in_order
+    torch.cuda.empty_cache()
+
+
 def kernel_phases(gen, smi: str, records: dict) -> None:
     """Phases 3 and 4: every kernel against its plain version, timed."""
     import torch
     from repro_torch.core.mttkrp import einsum_spec
-    from repro_torch.kernels import ops, splitk
+    from repro_torch.kernels import ops
     from repro_torch.kernels.mttkrp3 import mttkrp3, mttkrp3_plain
     from repro_torch.kernels.mttkrpn import mttkrpn, mttkrpn_plain
 
@@ -374,24 +449,8 @@ def kernel_phases(gen, smi: str, records: dict) -> None:
 
     # the split-K reduction at the main shape's workspace: the MTTKRP kernel's
     # split count there
-    s = max(2, records["mttkrp3"][0]["splits"])
-    ws = torch.randn((s, dims[0], rank), generator=gen, device="cuda")
-    out = torch.empty((dims[0], rank), device="cuda")
-    rel, diff = check("splitk_reduce", splitk.splitk_reduce(ws, out).clone(),
-                      splitk.splitk_reduce_plain(ws), "float32")
-    n = dims[0] * rank
-    b_ms, b_by = bound(n * s, 4, 0, n, (s - 1) * n, "float32")
-    rec = {
-        "kernel": "splitk_reduce", "shape": [s, dims[0], rank], "dtype": "float32",
-        "max_rel_err": rel, "max_abs_err": diff,
-        "kernel_ms": cuda_ms(lambda: splitk.splitk_reduce(ws, out)),
-        "plain_ms": cuda_ms(lambda: splitk.splitk_reduce_plain(ws)),
-        "library_ms": cuda_ms(lambda: torch.sum(ws, 0)),
-        "bound_ms": b_ms, "bound_by": b_by, "gpu": smi,
-    }
-    emit(rec)
-    records["splitk_reduce"] = [rec]
-    del x, fs, xb, fsb, plain_cache, ws
+    splitk_phase(gen, max(2, records["mttkrp3"][0]["splits"]), dims[0], rank, smi, records)
+    del x, fs, xb, fsb, plain_cache
     torch.cuda.empty_cache()
 
     # phase 4: 180^4, R=32, fp32, all modes
@@ -403,6 +462,9 @@ def kernel_phases(gen, smi: str, records: dict) -> None:
                 lambda xp, fsp: mttkrpn(xp, fsp), lambda xp, fsp: mttkrpn_plain(xp, fsp))
     del x, fs
     torch.cuda.empty_cache()
+    # the split-K reduction at this shape's workspace: many slabs of few outputs
+    splits = next(r["splits"] for r in records["mttkrpn"] if r["shape"] == list(dims))
+    splitk_phase(gen, max(2, splits), dims[0], rank, smi, records)
 
 
 def sweep_kernel_phases(gen, smi: str, records: dict) -> None:
@@ -972,16 +1034,68 @@ def tucker_phase(gen) -> dict:
 def ssd_bound(bcn: int, q: int, n: int, h: int, p: int, x_itemsize: int) -> tuple[float, str]:
     """Least time in ms of the intra-chunk SSD term: C, B, cum and dt (fp32)
     read once, X read and Y written once in X's dtype, at the HBM rate; or
-    the causal half's operations, ``2 BC q(q+1)/2 (N + H P)``, at the fp32
-    rate (the kernel's weights are fp32)."""
+    the causal half's operations as the kernel runs them on the tensor
+    cores: the Gram's ``2 BC q(q+1)/2 N`` as three tf32 products, and W X's
+    ``2 BC q(q+1)/2 H P`` as ``SSD_WX_OPS`` gives for X's dtype."""
     t_bytes = (bcn * q * (2 * n + 2 * h) * 4 + 2 * bcn * q * h * p * x_itemsize) / PEAK_BYTES
-    t_ops = 2.0 * bcn * q * (q + 1) / 2 * (n + h * p) / PEAK_FLOPS["float32"]
+    causal = bcn * q * (q + 1) / 2
+    times, rate = SSD_WX_OPS[x_itemsize]
+    t_ops = (3 * 2.0 * causal * n / PEAK_FLOPS["tf32"]
+             + times * 2.0 * causal * h * p / PEAK_FLOPS[rate])
     return (max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations")
+
+
+#: The limit on the bf16 mix's reading on :func:`ssd_cancelling` operands:
+#: above the sound kernel's (its bf16 output's own rounding, about 2^-9) and
+#: far below the bf16-once control's (the weights' own rounding, 2^-9, about
+#: as large as the pair differences it reads).
+LO_TOL = 1e-2
+
+
+def ssd_cancelling(gen, bcn: int, q: int, n: int, h: int, p: int, device: str = "cuda"):
+    """SSD operands (x bf16) on which rounding the weights to bf16 once
+    shows in the bf16 output: every row of C and B the same (one Gram value
+    for every pair i, j), no decay, X_{2k+1} = -X_{2k}, and dt_{2k} =
+    dt_{2k+1} (1 + e_k) with e_k in [2^-8, 2^-7). An odd row i then sums
+    (w_{i,2k} - w_{i,2k+1}) X_{2k}, differences of 2^-8 to 2^-7 of the
+    weights: weights held to 2^-9 (bf16) get them about half wrong, hi + lo
+    (about 2^-17) right. ``q`` is even."""
+    import torch
+
+    v = torch.randn((n,), generator=gen, device=device) / n ** 0.5
+    cc = v.expand(bcn, q, n).contiguous()
+    d = 0.5 + torch.rand((bcn, q // 2, h), generator=gen, device=device)
+    e = 2.0 ** -8 * (1.0 + torch.rand((bcn, q // 2, h), generator=gen, device=device))
+    dt = torch.stack((d * (1.0 + e), d), 2).reshape(bcn, q, h)
+    xe = torch.randn((bcn, q // 2, h, p), generator=gen, device=device).to(torch.bfloat16)
+    x = torch.stack((xe, -xe), 2).reshape(bcn, q, h, p)
+    return cc, cc.clone(), torch.zeros((bcn, q, h), device=device), dt, x
+
+
+def ssd_lo_readings(args, got) -> tuple[float, float]:
+    """On :func:`ssd_cancelling` operands: max|d|/max|ref| over the odd rows
+    of ``got``, and of the control (the weights rounded to bf16 once, the
+    products summed in fp32), against the fp32 sums of the same operands."""
+    import torch
+    from repro_torch.kernels.ssd_intra import ssd_intra_plain
+
+    cc, bc, cum, dt, x = args
+    ref = ssd_intra_plain(cc, bc, cum, dt, x.float())[:, 1::2]
+    q = cc.shape[1]
+    g = torch.einsum("bin,bjn->bij", cc, bc)
+    causal = torch.ones((q, q), dtype=torch.bool, device=cc.device).tril()
+    w = torch.where(causal[None, :, :, None],
+                    g[..., None] * torch.exp(cum[:, :, None] - cum[:, None]), 0.0)
+    once = torch.einsum("bijh,bjhp->bihp", (w * dt[:, None]).to(torch.bfloat16).float(),
+                        x.float())[:, 1::2]
+    return rel_err(got[:, 1::2], ref)[0], rel_err(once, ref)[0]
 
 
 def ssd_kernel_phase(gen, smi: str, records: dict) -> None:
     """Phase 9a: ``ssd_intra`` against its plain version at the served shape,
-    in the model's dtype mix (x bf16, the rest fp32) and in fp32."""
+    in the model's dtype mix (x bf16, the rest fp32) and in fp32; in the
+    bf16 mix also on :func:`ssd_cancelling` operands, against the limit
+    that a kernel with bf16 weights would exceed."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.ssd_intra import kernel_plan, smem_bytes, ssd_intra, ssd_intra_plain
@@ -992,9 +1106,10 @@ def ssd_kernel_phase(gen, smi: str, records: dict) -> None:
     cum = -torch.cumsum(F.softplus(torch.randn((bcn, q, h), generator=gen, device="cuda")), 1)
     dt = F.softplus(torch.randn((bcn, q, h), generator=gen, device="cuda"))
     x32 = torch.randn((bcn, q, h, p), generator=gen, device="cuda")
-    plan = kernel_plan(q, h, p)
     for mix, x, tol in (("x_bf16", x32.to(torch.bfloat16), 1e-2), ("f32", x32, 1e-5)):
         args = (cc, bc, cum, dt, x)
+        plan = kernel_plan(q, h, p, x.element_size(), bcn=bcn,
+                           sms=torch.cuda.get_device_properties(0).multi_processor_count)
         got, want = ssd_intra(*args), ssd_intra_plain(*args)
         if got.shape != want.shape or got.dtype != x.dtype or not bool(torch.isfinite(got).all()):
             raise AssertionError(f"ssd_intra {mix}: {tuple(got.shape)} {got.dtype}, or non-finite")
@@ -1002,15 +1117,24 @@ def ssd_kernel_phase(gen, smi: str, records: dict) -> None:
         if rel > tol:
             raise AssertionError(f"ssd_intra {mix}: max|d|/max|plain| = {rel:.3e} > {tol}")
         b_ms, b_by = ssd_bound(bcn, q, n, h, p, x.element_size())
+        lo = {}
+        if mix == "x_bf16":  # the weights stay fp32: the lo product is there
+            lo_args = ssd_cancelling(gen, bcn, q, n, h, p)
+            reading, control = ssd_lo_readings(lo_args, ssd_intra(*lo_args))
+            if not reading <= LO_TOL < control:
+                raise AssertionError(f"ssd_intra: cancelling operands read {reading:.3e}, the "
+                                     f"bf16-once control {control:.3e}, limit {LO_TOL}")
+            lo = {"lo_check": {"reading": reading, "bf16_once": control, "limit": LO_TOL}}
+            del lo_args
         rec = {
             "kernel": "ssd_intra", "shape": [bcn, q, n, h, p], "mix": mix,
             "dtype": "bfloat16" if mix == "x_bf16" else "float32", "main": mix == "x_bf16",
-            "plan": list(plan), "smem_bytes": smem_bytes(q, p, plan.tile),
+            "plan": list(plan), "smem_bytes": smem_bytes(q, p, plan.tile, x.element_size()),
             "max_rel_err": rel, "max_abs_err": diff, "tol": tol,
             "kernel_ms": cuda_ms(lambda: ssd_intra(*args)),
             "plain_ms": cuda_ms(lambda: ssd_intra_plain(*args), reps=3, warm=1),
             "library": "none: no single PyTorch call computes this function",
-            "library_ms": None, "bound_ms": b_ms, "bound_by": b_by, "gpu": smi,
+            "library_ms": None, "bound_ms": b_ms, "bound_by": b_by, **lo, "gpu": smi,
         }
         emit(rec)
         records.setdefault("ssd_intra", []).append(rec)
@@ -1196,6 +1320,9 @@ def main() -> int:
             "ms": head["kernel_ms"], "plain_ms": head["plain_ms"],
             "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
             "library_ms": head["library_ms"],
+            # how the three times were taken: back-to-back calls between CUDA
+            # events, or (kernels of a few microseconds) launches in a CUDA graph
+            "timing": head.get("timing", "cuda_events"),
         })
     print(smi, flush=True)
     emit({"kernels": kernels})

@@ -60,14 +60,30 @@ def _block_end(lines: list[str], i: int) -> int:
 
 def probe_source(src: str, phases: dict = PHASES) -> str:
     """The kernel source with each phase of ``phases`` (name -> (macro,
-    marker comment)) wrapped in ``#ifndef <macro>``."""
+    marker comment[, stand-ins])) wrapped in ``#ifndef <macro>``, at every
+    line that carries the marker (a kernel with an fp32 and a bf16 branch
+    has one block of each). Stand-ins, one a block, go under ``#else``: code
+    that keeps what the block read alive, so the compiler does not drop the
+    phases before it."""
     lines = src.split("\n")
     inserts = []
-    for macro, marker in phases.values():
-        start = next(i for i, line in enumerate(lines) if marker in line)
-        first_brace = next(i for i in range(start, len(lines)) if "{" in lines[i].split("//")[0])
-        inserts += [(start, f"#ifndef {macro}"), (_block_end(lines, first_brace) + 1, "#endif")]
-    for pos, text in sorted(inserts, reverse=True):
+    for macro, marker, *rest in phases.values():
+        starts = [i for i, line in enumerate(lines) if marker in line]
+        if not starts:
+            raise ValueError(f"no {marker!r} in the source")
+        stand_ins = rest[0] if rest else [None] * len(starts)
+        if len(stand_ins) != len(starts):
+            raise ValueError(f"{len(starts)} blocks marked {marker!r}, {len(stand_ins)} stand-ins")
+        for start, stand_in in zip(starts, stand_ins):
+            first_brace = next(i for i in range(start, len(lines))
+                               if "{" in lines[i].split("//")[0])
+            end = _block_end(lines, first_brace) + 1
+            # (line, order among the lines inserted there, text)
+            inserts.append((start, 2, f"#ifndef {macro}"))
+            if stand_in is not None:
+                inserts.append((end, 0, f"#else\n{stand_in}"))
+            inserts.append((end, 1, "#endif"))
+    for pos, _, text in sorted(inserts, reverse=True):
         lines.insert(pos, text)
     return "\n".join(lines)
 

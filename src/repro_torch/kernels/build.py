@@ -60,8 +60,9 @@ SIGNATURES = {
         "repro_multi_ttm_smem_bytes": (_LL, [_I, _I, _PI, _I, _I, _I, _I]),
     },
     "ssd_intra.cu": {
-        "repro_ssd_intra": (_I, [_I, _LL, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P]),
-        "repro_ssd_intra_smem_bytes": (_LL, [_I, _I, _I]),
+        "repro_ssd_intra": (_I, [_I, _LL, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P,
+                                 _P, _P]),
+        "repro_ssd_intra_smem_bytes": (_LL, [_I, _I, _I, _I]),
     },
 }
 

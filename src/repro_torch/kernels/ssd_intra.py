@@ -13,15 +13,18 @@ cumulative log-decay ``cum`` and ``dt`` ``(BC, q, H)``, and X
 ``(BC, q, H, P)`` in X's dtype, accumulated in fp32: the term ``y_intra`` of
 ``repro/models/ssm.py:125-147``, one launch per layer of a prefill.
 
-What bounds it on an H100: the causal half of the operations,
-``2 BC q(q+1)/2 (N + H P)`` (2.2e10 at Mamba2-2.7b's q=256, N=128, H=80,
-P=64 with BC=64: 0.33 ms on fp32 FMAs); its bytes (0.36 GB, 0.11 ms) bound
-it only on tensor cores. The kernel skips the j-tiles above the diagonal
-(the TPU kernel does the whole q x q product and masks half of it), forms
-each Gram tile once per CTA for all the heads of its block, and takes the
-exp only where ``j <= i``. Its plan (tile and heads per CTA,
-:func:`kernel_plan`) is its own; ``head_block`` is kept for the
-reference's signature and validation.
+What bounds it on an H100: its bytes (0.36 GB at Mamba2-2.7b's q=256,
+N=128, H=80, P=64 with BC=64: 0.108 ms for x bf16, 0.208 ms for fp32).
+Both products run on the tensor cores: the Gram ``C B^T`` as 3xTF32, and
+``W X`` as two bf16 products (W split into bf16 hi and lo parts) for bf16
+x, 3xTF32 for fp32 x, so the causal half of the operations,
+``2 BC q(q+1)/2 (N + H P)``, takes 0.045 / 0.13 ms at the tensor cores'
+rates. The kernel skips the j-tiles above the diagonal (the TPU kernel
+does the whole q x q product and masks half of it), forms each Gram tile
+once per CTA for all the heads of its block, builds the weights in the
+warps' own MMA fragments and takes the exp only where ``j <= i``. Its plan
+(tile and heads per CTA, :func:`kernel_plan`) is its own; ``head_block``
+is kept for the reference's signature and validation.
 """
 
 from __future__ import annotations
@@ -30,17 +33,23 @@ from typing import NamedTuple
 
 import torch
 
-from ..engine.plan import SMEM_PER_CTA_MAX
+from ..engine.plan import H100_SMS, SMEM_BUDGET, SMEM_PER_CTA_MAX
 from .build import check, library
+from .splitk import copy_width
 
-#: The Gram's N chunk, as ``NK`` in ``csrc/ssd_intra.cu``.
-NK = 32
-#: Threads of a CTA, as ``NTHREADS`` in ``csrc/common.cuh``.
-NTHREADS = 256
+#: The Gram's N chunk, as ``GK`` in ``csrc/ssd_intra.cu``, and the bytes a
+#: C or B row of a chunk takes in shared memory (``GROW``: 16 of skew).
+GK = 32
+GROW = GK * 4 + 16
+#: Warps of a CTA, as ``NWARPS`` in ``csrc/common.cuh``; each multiplies
+#: 16 rows by 64 columns of P of one head (``WNT`` n-tiles of 8).
+NWARPS = 8
+#: The largest head dimension the kernel takes.
+MAX_P = 256
 #: Most heads a CTA takes: every head of the block reuses the CTA's Gram.
-#: At Mamba2-2.7b's shape (H = 80) 20 heads (1024 CTAs) ran fastest of
-#: 4-80 on an H100 (PERF.md, section 6).
-MAX_HEADS = 20
+#: At Mamba2-2.7b's shape (H = 80, BC = 64) 40 heads (512 CTAs of 64 rows)
+#: ran fastest of 4-80 on an H100 (PERF.md, section 6).
+MAX_HEADS = 40
 
 
 class SsdPlan(NamedTuple):
@@ -80,36 +89,59 @@ def traffic_model(bcn: int, q: int, n: int, h: int, p: int, itemsize: int = 2) -
     }
 
 
-def kernel_smem_bytes(q: int, p: int, tile: int) -> int:
-    """Dynamic shared memory of one CTA, as ``make_ssd_layout`` counts it:
-    the Gram tiles ``G^T`` (q rounded up to the tile, x (tile + 4)), two
-    buffers of a j-tile's cum and dt, and one stage, the larger of the
-    Gram's C and B chunks and a head step's W and X tiles, in fp32."""
-    ldt, p4 = tile + 4, -(-p // 4) * 4
+def heads_at_once(p: int, tile: int) -> int:
+    """Heads a CTA's 8 warps take at once: each head needs ``tile / 16``
+    row blocks times ``ceil(P / 64)`` column blocks of warps."""
+    return NWARPS // ((tile // 16) * -(-p // 64))
+
+
+def valid_tile(p: int, tile: int) -> bool:
+    """Whether the kernel takes this tile at head dimension P."""
+    return tile in (16, 32, 64) and 1 <= p <= MAX_P and heads_at_once(p, tile) >= 1
+
+
+def kernel_smem_bytes(q: int, p: int, tile: int, itemsize: int) -> int:
+    """Dynamic shared memory of one CTA, as ``make_ssd_layout`` counts it
+    (x of ``itemsize`` bytes): the Gram tiles ``G`` in fp32 (tile rows of q
+    rounded up to the tile, skewed to 8 mod 16 floats for fp32 x and to 16
+    mod 32 for bf16 x), two stages of cum_j, dt_j and cum_i for the heads
+    taken at once, and the ring: two stages of their X tiles (rows of
+    64-column blocks plus 32 or 16 bytes of skew), or the Gram's two stages
+    of C and B chunks, the larger."""
+    hc = heads_at_once(p, tile)
     q_pad = -(-q // tile) * tile
-    stage = max(2 * NK * ldt, tile * ldt + tile * p4)
-    return (q_pad * ldt + 4 * tile + stage) * 4
+    ldg = q_pad + 8 if itemsize == 4 else (q_pad + 16 if q_pad % 32 == 0 else q_pad)
+    xrow = -(-p // 64) * 64 * itemsize + (32 if itemsize == 4 else 16)
+    ring = tile * ldg * 4 + 2 * hc * 3 * tile * 4
+    return ring + max(2 * hc * tile * xrow, 4 * tile * GROW)
 
 
-def kernel_plan(q: int, h: int, p: int) -> SsdPlan:
-    """The largest tile of 64, 32, 16 whose output units (4 rows x 4
-    columns of P) fit the CTA's threads and whose shared memory fits a CTA;
-    the most heads per CTA, up to :data:`MAX_HEADS`, that divide H."""
-    p4 = -(-p // 4) * 4
-    for tile in (64, 32, 16):
-        fits = kernel_smem_bytes(q, p, tile) <= SMEM_PER_CTA_MAX
-        if (tile // 4) * (p4 // 4) <= NTHREADS and fits:
-            break
-    else:
+def kernel_plan(q: int, h: int, p: int, itemsize: int, *, bcn: int,
+                sms: int = H100_SMS) -> SsdPlan:
+    """The largest tile of 64, 32, 16 that the kernel takes at this P and
+    whose shared memory lets two CTAs share an SM (``SMEM_BUDGET``), else
+    the largest that fits one CTA. Heads per CTA: divisors of H up to
+    :data:`MAX_HEADS`, multiples of :func:`heads_at_once` where one divides
+    H; the most of them that still give ``bcn`` chunks a CTA on each of
+    ``sms`` SMs, else the fewest (the most CTAs)."""
+    tiles = [t for t in (64, 32, 16) if valid_tile(p, t)]
+    tile = next((t for budget in (SMEM_BUDGET, SMEM_PER_CTA_MAX) for t in tiles
+                 if kernel_smem_bytes(q, p, t, itemsize) <= budget), None)
+    if tile is None:
         raise ValueError(f"ssd_intra: no tile fits q={q}, P={p} in one CTA "
-                         f"(P <= 256 and about q <= 2700 are needed)")
-    heads = max(d for d in range(1, min(h, MAX_HEADS) + 1) if h % d == 0)
-    return SsdPlan(tile, heads)
+                         f"(P <= {MAX_P}, and the Gram rows of a 16-row tile must fit)")
+    divisors = [d for d in range(1, min(h, MAX_HEADS) + 1) if h % d == 0]
+    hc = heads_at_once(p, tile)
+    heads = [d for d in divisors if d % hc == 0] or divisors
+    n_it = -(-q // tile)
+    full = [d for d in heads if bcn * (h // d) * n_it >= sms]
+    return SsdPlan(tile, max(full) if full else min(heads))
 
 
-def smem_bytes(q: int, p: int, tile: int) -> int:
-    """The library's own count of :func:`kernel_smem_bytes`."""
-    return int(library("ssd_intra.cu").repro_ssd_intra_smem_bytes(q, p, tile))
+def smem_bytes(q: int, p: int, tile: int, itemsize: int) -> int:
+    """The library's own count of :func:`kernel_smem_bytes` (-1 for a tile
+    or P the kernel does not take)."""
+    return int(library("ssd_intra.cu").repro_ssd_intra_smem_bytes(q, p, tile, itemsize))
 
 
 def _shapes(cc, bc, cum, dt, x, head_block):
@@ -146,21 +178,26 @@ def ssd_intra(cc: torch.Tensor, bc: torch.Tensor, cum: torch.Tensor, dt: torch.T
     if any(t.device != x.device for t in small):
         raise ValueError("ssd_intra: all operands must be on one device")
     x = x.contiguous()
-    plan = plan or kernel_plan(q, h, p)
-    units = (plan.tile // 4) * (-(-p // 4))
-    if plan.tile not in (16, 32, 64) or plan.heads < 1 or h % plan.heads or units > NTHREADS:
+    itemsize = x.element_size()
+    if plan is None:
+        sms = torch.cuda.get_device_properties(x.device).multi_processor_count
+        plan = kernel_plan(q, h, p, itemsize, bcn=bcn, sms=sms)
+    if not valid_tile(p, plan.tile) or plan.heads < 1 or h % plan.heads:
         raise ValueError(f"ssd_intra: plan {plan} does not fit H={h}, P={p}")
-    smem = smem_bytes(q, p, plan.tile)
+    smem = smem_bytes(q, p, plan.tile, itemsize)
     if smem > SMEM_PER_CTA_MAX:
         raise ValueError(f"ssd_intra: plan {plan} needs {smem} bytes of shared memory at q={q}; "
                          f"a CTA has at most {SMEM_PER_CTA_MAX}")
     out = torch.empty_like(x)
+    copy_cb = copy_width(n * 4, [small[0].data_ptr(), small[1].data_ptr()])
+    copy_x = copy_width(p * itemsize, [x.data_ptr()])
     lib = library("ssd_intra.cu")
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = lib.repro_ssd_intra(0 if x.dtype == torch.float32 else 1, bcn, q, n, h, p,
-                                  plan.heads, plan.tile, *(t.data_ptr() for t in small),
-                                  x.data_ptr(), out.data_ptr(), stream)
+                                  plan.heads, plan.tile, copy_cb, copy_x,
+                                  *(t.data_ptr() for t in small), x.data_ptr(), out.data_ptr(),
+                                  stream)
     check(err, "ssd_intra")
     ssd_intra.launches += 1
     return out

@@ -7,6 +7,7 @@ CUDA raises.
 """
 
 import ast
+import importlib.util
 import os
 import shutil
 import subprocess
@@ -151,3 +152,31 @@ def test_chip_smoke_alone_fails_and_prints_no_result(tmp_path):
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode != 0
     assert '"ok"' not in proc.stdout
+
+
+def _chip_smoke():
+    spec = importlib.util.spec_from_file_location("chip_smoke", ROOT / "chip_smoke.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@pytest.mark.parametrize("itemsize,want_ms", [(2, 0.10830), (4, 0.20846)])
+def test_ssd_bound_counts_the_tensor_cores(itemsize, want_ms):
+    """At the served shape the SSD kernel's products run on the tensor
+    cores (the Gram 3xTF32; W X two bf16 products for bf16 X, 3xTF32 for
+    fp32), so both mixes are bound by their bytes: 0.363 / 0.698 GB at
+    3.35 TB/s. Counted on the fp32 CUDA cores instead, the operations
+    took 0.330 ms."""
+    cs = _chip_smoke()
+    bcn, q, n, h, p = (cs.SSD_SHAPE[k] for k in ("bcn", "q", "n", "h", "p"))
+    ms, by = cs.ssd_bound(bcn, q, n, h, p, itemsize)
+    assert by == "bytes" and ms == pytest.approx(want_ms, abs=5e-5)
+    causal = bcn * q * (q + 1) / 2
+    ops_ms = 1e3 * (3 * 2 * causal * n / 495e12 + {2: 2 / 989e12, 4: 3 / 495e12}[itemsize]
+                    * 2 * causal * h * p)
+    assert ops_ms == pytest.approx({2: 0.04687, 4: 0.13397}[itemsize], abs=5e-5)
+    assert ops_ms < ms
+    fp32_cores_ms = 1e3 * 2 * causal * (n + h * p) / cs.PEAK_FLOPS["float32"]
+    assert fp32_cores_ms == pytest.approx(0.330, abs=1e-3)
+

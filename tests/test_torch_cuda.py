@@ -15,6 +15,9 @@ CPU copies: 1e-4 in fp32, 5e-2 in bf16 (cuBLAS and the CPU round bf16
 products at other places).
 """
 
+import importlib.util
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
@@ -247,6 +250,39 @@ def test_splitk_reduce_matches_plain(card):
     ws = torch.randn((5, 333, 17), device=card)
     out = torch.empty((333, 17), device=card)
     _close(splitk.splitk_reduce(ws, out), splitk.splitk_reduce_plain(ws))
+
+
+def _slab_sum(ws):
+    """The slabs added in slab order from 0, in fp32: the kernel's bits."""
+    acc = torch.zeros_like(ws[0])
+    for slab in ws:
+        acc += slab
+    return acc
+
+
+@pytest.mark.parametrize("s,i,r", [(33, 1000, 64), (1, 1000, 64), (64, 180, 32), (132, 180, 32),
+                                   (7, 333, 17), (5, 333, 61), (9, 5, 3), (64, 1, 1)])
+def test_splitk_reduce_is_the_slab_order_sum(card, s, i, r):
+    """Bit for bit the in-order fp32 sum, and the same bits again: n a
+    multiple of 4 or not (n = 20313, 5661, 15, 1); one slab, 64 and 132."""
+    ws = torch.randn((s, i, r), device=card)
+    out = torch.empty((i, r), device=card)
+    before = splitk.splitk_reduce.launches
+    got = splitk.splitk_reduce(ws, out)
+    assert splitk.splitk_reduce.launches == before + 1
+    assert torch.equal(got, _slab_sum(ws))
+    assert torch.equal(splitk.splitk_reduce(ws, torch.empty_like(out)), got)  # repeats
+
+
+@pytest.mark.parametrize("offset", [1, 2, 3])
+def test_splitk_reduce_misaligned_workspace(card, offset):
+    """A workspace (and an output) that starts off a 16-byte boundary gives
+    the same bits."""
+    s, i, r = 12, 1000, 64
+    ws = torch.randn(s * i * r + offset, device=card)[offset:].view(s, i, r)
+    out = torch.empty(i * r + offset, device=card)[offset:].view(i, r)
+    assert ws.data_ptr() % 16 and out.data_ptr() % 16
+    assert torch.equal(splitk.splitk_reduce(ws, out), _slab_sum(ws))
 
 
 def test_cp_als_cuda_matches_einsum(card):
@@ -744,13 +780,64 @@ def test_ssd_intra_shared_memory_count(card):
     from repro_torch.kernels import ssd_intra as ssd_mod
 
     for q in (8, 100, 256, 1000):
-        for p in (6, 64, 128):
+        for p in (6, 64, 128, 130, 256):
             for tile in (16, 32, 64):
-                assert ssd_mod.smem_bytes(q, p, tile) == kernel_smem_bytes(q, p, tile)
-    plan = kernel_plan(256, 80, 64)
+                for itemsize in (2, 4):
+                    want = (kernel_smem_bytes(q, p, tile, itemsize)
+                            if ssd_mod.valid_tile(p, tile) else -1)
+                    assert ssd_mod.smem_bytes(q, p, tile, itemsize) == want
     props = torch.cuda.get_device_properties(card)
     per_sm = getattr(props, "shared_memory_per_multiprocessor", 233472)
-    assert 2 * ssd_mod.smem_bytes(256, 64, plan.tile) <= per_sm  # two CTAs an SM
+    for itemsize in (2, 4):  # two CTAs an SM at the served shape
+        plan = kernel_plan(256, 80, 64, itemsize, bcn=64)
+        assert 2 * ssd_mod.smem_bytes(256, 64, plan.tile, itemsize) <= per_sm
+
+
+def _chip_smoke():
+    path = Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@pytest.mark.parametrize("shape", [(2, 256, 32, 8, 64), (3, 100, 48, 6, 40)])
+def test_ssd_intra_keeps_the_lo_product(card, shape):
+    """The bf16 mix keeps fp32 weights (hi + lo bf16 products): on operands
+    where weights rounded to bf16 once show in the bf16 output
+    (``chip_smoke.ssd_cancelling``), the kernel reads within ``LO_TOL`` of
+    the fp32 sums and that control above it."""
+    cs = _chip_smoke()
+    args = cs.ssd_cancelling(torch.Generator(device="cuda").manual_seed(sum(shape)), *shape)
+    reading, control = cs.ssd_lo_readings(args, ssd_intra(*args))
+    assert reading <= cs.LO_TOL < control
+
+
+@pytest.mark.parametrize("mix", list(SSD_MIX))
+def test_ssd_intra_misaligned_pointers(card, mix):
+    """X (and C, B) starting off a 16-byte boundary: 4-byte copies for fp32
+    X, element loads for bf16 X (2 bytes off), 4-byte copies for C and B."""
+    args = _ssd_data(2, 100, 48, 6, 64, mix, card, seed=8)
+    moved = []
+    for t in args:
+        flat = torch.empty(t.numel() + 1, dtype=t.dtype, device=card)
+        view = flat[1:].view(t.shape)
+        view.copy_(t)
+        moved.append(view)
+    assert all(t.data_ptr() % 16 for t in moved)
+    want = ssd_intra_plain(*args)
+    got = ssd_intra(*moved)
+    _ssd_close(got, want)
+    assert torch.equal(got, ssd_intra(*args))  # the same bits as from aligned operands
+
+
+@pytest.mark.parametrize("mix", list(SSD_MIX))
+@pytest.mark.parametrize("p", [13, 60, 100])
+def test_ssd_intra_p_off_eight(card, p, mix):
+    """P not a multiple of 8: odd (element loads for bf16, 4-byte copies for
+    fp32), 60 (8-byte copies for bf16), 100 (two column blocks of warps)."""
+    args = _ssd_data(3, 80, 32, 4, p, mix, card, seed=p)
+    _ssd_close(ssd_intra(*args), ssd_intra_plain(*args))
 
 
 def _mamba_cfg(dtype):

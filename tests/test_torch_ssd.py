@@ -7,7 +7,16 @@ Tolerances: fp32, max |port - ref| / max |ref| <= 1e-5 (the same formula,
 sums in another order); everything in bf16, 5e-2 absolute and relative, as
 the reference's own bf16 test; against the Pallas kernel 2e-4, as the
 reference's kernel test.
+
+The Hopper kernel itself runs only on the card; here :func:`_kernel_walk`
+repeats its arithmetic in plain torch (its tile walk, its operand
+splitting and its fold order) and is held to ``chip_smoke.py``'s limits
+for the kernel: max |d| / max |ref| <= 1e-5 for fp32 x, <= 1e-2 for bf16 x
+(a bf16 ulp of the output is 2^-8 of it).
 """
+
+import importlib.util
+from pathlib import Path
 
 import jax.numpy as jnp
 import numpy as np
@@ -16,6 +25,7 @@ import torch
 
 from repro.kernels.ssd_intra import ssd_intra_pallas, ssd_intra_ref
 from repro.kernels.ssd_intra import traffic_model as ref_traffic_model
+from repro_torch.engine.plan import SMEM_BUDGET
 from repro_torch.kernels import ssd_intra as ssd_mod
 from repro_torch.kernels.ssd_intra import (
     kernel_plan,
@@ -28,6 +38,7 @@ from repro_torch.kernels.ssd_intra import (
 F32_REL = 1e-5
 BF16_TOL = 5e-2
 PALLAS_TOL = 2e-4
+KERNEL_TOL = {"f32": 1e-5, "x_bf16": 1e-2}  # chip_smoke.py's limits for the kernel
 
 
 def _softplus(a):
@@ -153,13 +164,188 @@ def test_wrapper_validates_like_the_reference(bad, match):
 
 
 def test_kernel_plan_and_shared_memory():
-    # Mamba2-2.7b: q=256, H=80, P=64 -> 64-row tiles, 20 heads a CTA, two CTAs an SM
-    assert kernel_plan(256, 80, 64) == ssd_mod.SsdPlan(64, 20)
-    assert kernel_plan(256, 24, 64).heads == 12 and kernel_plan(256, 7, 64).heads == 7
-    assert kernel_smem_bytes(256, 64, 64) == (256 * 68 + 4 * 64 + 64 * 68 + 64 * 64) * 4
-    assert 2 * kernel_smem_bytes(256, 64, 64) <= 228 * 1024 - 2 * 1024
-    assert kernel_plan(8, 4, 16) == ssd_mod.SsdPlan(64, 4)
-    assert kernel_plan(256, 24, 128).tile == 32  # P=128: 4-row x 4-column units fill 256 threads
-    assert kernel_plan(2048, 8, 64).tile == 16  # a long chunk: smaller tiles for the Gram
+    # Mamba2-2.7b: q=256, H=80, P=64, BC=64, x bf16 -> 64-row tiles (two
+    # heads at once), 40 heads a CTA (512 CTAs), two CTAs an SM; fp32 X
+    # tiles are twice as wide, so 32-row tiles (four heads at once) keep two
+    # CTAs an SM
+    assert kernel_plan(256, 80, 64, 2, bcn=64) == ssd_mod.SsdPlan(64, 40)
+    assert kernel_plan(256, 80, 64, 4, bcn=64) == ssd_mod.SsdPlan(32, 40)
+    # few chunks: fewer heads a CTA, so that every SM has a CTA
+    assert kernel_plan(256, 80, 64, 2, bcn=2) == ssd_mod.SsdPlan(64, 4)
+    assert kernel_plan(256, 80, 64, 2, bcn=2, sms=8) == ssd_mod.SsdPlan(64, 40)
+    assert kernel_plan(256, 24, 64, 2, bcn=64).heads == 24  # all of H: 256 CTAs
+    assert kernel_plan(256, 7, 64, 2, bcn=64).heads == 7  # no multiple of 2 divides 7
+    assert kernel_plan(256, 6, 64, 4, bcn=64).heads == 6  # nor of 4 6
+    # G (64 rows of 256 + 16 fp32) | cum_j, dt_j, cum_i of 2 heads, two
+    # stages | two stages of 2 heads' X tiles (64 rows of 128 + 16 bytes)
+    assert kernel_smem_bytes(256, 64, 64, 2) == 64 * 272 * 4 + 2 * 2 * 3 * 64 * 4 + 2 * 2 * 64 * 144
+    assert kernel_smem_bytes(256, 64, 32, 4) == 32 * 264 * 4 + 2 * 4 * 3 * 32 * 4 + 2 * 4 * 32 * 288
+    assert kernel_smem_bytes(200, 64, 16, 2) == 16 * 208 * 4 + 2 * 8 * 3 * 16 * 4 + 2 * 8 * 16 * 144
+    assert kernel_smem_bytes(256, 64, 64, 4) > SMEM_BUDGET
+    for itemsize in (2, 4):
+        plan = kernel_plan(256, 80, 64, itemsize, bcn=64)
+        assert 2 * kernel_smem_bytes(256, 64, plan.tile, itemsize) <= 228 * 1024 - 2 * 1024
+    # small P: the Gram's two stages of C and B chunks set the ring's size
+    assert kernel_smem_bytes(8, 6, 16, 2) == 16 * 16 * 4 + 2 * 8 * 3 * 16 * 4 + 2 * 8 * 16 * 144
+    assert kernel_plan(8, 4, 16, 2, bcn=1000) == ssd_mod.SsdPlan(64, 4)
+    assert kernel_plan(8, 4, 16, 2, bcn=64) == ssd_mod.SsdPlan(64, 2)
+    # P=128: 4 row blocks x 2 column blocks fill the 8 warps; P=256 needs 32-row tiles
+    assert kernel_plan(256, 24, 128, 2, bcn=64).tile == 64
+    assert kernel_plan(256, 8, 256, 2, bcn=64).tile == 32 and not ssd_mod.valid_tile(256, 64)
+    assert ssd_mod.heads_at_once(130, 32) == 1 and ssd_mod.heads_at_once(64, 16) == 8
+    assert kernel_plan(2048, 8, 64, 2, bcn=8).tile == 16  # a long chunk: smaller tiles for the Gram
     with pytest.raises(ValueError, match="no tile fits"):
-        kernel_plan(256, 8, 300)
+        kernel_plan(256, 8, 300, 2, bcn=1)
+    with pytest.raises(ValueError, match="no tile fits"):
+        kernel_plan(8192, 8, 64, 4, bcn=1)
+
+
+# ---- the Hopper kernel's arithmetic, emulated -------------------------------
+
+
+def _tf32_round(a: torch.Tensor) -> torch.Tensor:
+    """``ring.cuh:round_tf32``: the fp32 bits plus 0x1000, low 13 bits cleared."""
+    bits = a.contiguous().view(torch.int32).to(torch.int64) & 0xFFFFFFFF
+    bits = ((bits + 0x1000) & 0xFFFFE000) & 0xFFFFFFFF
+    return torch.where(bits >= 2 ** 31, bits - 2 ** 32, bits).to(torch.int32).view(torch.float32)
+
+
+def _tf32_trunc(a: torch.Tensor) -> torch.Tensor:
+    """What a tensor core reads of an fp32 operand: its low 13 bits dropped."""
+    return (a.contiguous().view(torch.int32) & -0x2000).view(torch.float32)
+
+
+def _split3(a: torch.Tensor):
+    hi = _tf32_round(a)
+    return hi, _tf32_trunc(a - hi)
+
+
+def _mm3(eq: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """3xTF32, the small terms first (lo hi + hi lo + hi hi); exact products
+    summed in float64, one fp32 partial."""
+    (ah, al), (bh, bl) = _split3(a), _split3(b)
+    terms = [(al, bh), (ah, bl), (ah, bh)]
+    return sum(torch.einsum(eq, u.double(), v.double()) for u, v in terms).float()
+
+
+def _kernel_walk(cc, bc, cum, dt, x, tile, out_dtype=None):
+    """``csrc/ssd_intra.cu`` in plain torch: per i-tile, the Gram tiles of
+    every j-tile at or below the diagonal as 3xTF32 over N chunks of ``GK``
+    (a fresh partial a chunk, folded in fp32); per j-tile the weights
+    ``G exp(cum_i - cum_j) dt_j`` selected on ``j <= i`` (the diagonal tile
+    masked), split into bf16 hi and lo for bf16 x (two products against the
+    exact bf16 X) or rounded as tf32 (3xTF32, fp32 x), a fresh partial a
+    j-tile folded into the fp32 sums; the output in x's dtype (or
+    ``out_dtype``)."""
+    bcn, q, n = cc.shape
+    h, p = x.shape[2:]
+    out = torch.zeros((bcn, q, h, p), dtype=torch.float32)
+    xf = x.float()
+    for it in range(-(-q // tile)):
+        i0, i1 = it * tile, min(q, (it + 1) * tile)
+        acc = torch.zeros((bcn, i1 - i0, h, p), dtype=torch.float32)
+        for jt in range(it + 1):
+            j0, j1 = jt * tile, min(q, (jt + 1) * tile)
+            g = torch.zeros((bcn, i1 - i0, j1 - j0), dtype=torch.float32)
+            for k0 in range(0, n, ssd_mod.GK):
+                ks = slice(k0, k0 + ssd_mod.GK)
+                g = g + _mm3("bik,bjk->bij", cc[:, i0:i1, ks], bc[:, j0:j1, ks])
+            seg = cum[:, i0:i1, None, :] - cum[:, None, j0:j1, :]
+            causal = (torch.arange(i0, i1)[:, None] >= torch.arange(j0, j1)[None, :])
+            w = torch.where(causal[None, :, :, None], g[..., None] * torch.exp(seg)
+                            * dt[:, None, j0:j1, :], 0.0)
+            xj = xf[:, j0:j1]
+            if x.dtype == torch.float32:
+                part = _mm3("bijh,bjhp->bihp", w, xj)
+            else:
+                hi = w.to(torch.bfloat16).float()
+                lo = (w - hi).to(torch.bfloat16).float()
+                part = sum(torch.einsum("bijh,bjhp->bihp", u.double(), xj.double())
+                           for u in (lo, hi)).float()
+            acc = acc + part
+        out[:, i0:i1] = acc
+    return out.to(out_dtype or x.dtype)
+
+
+# ragged q (off every tile), N (off the Gram's chunk and off 4), P (off 8 and 64)
+WALK_SHAPES = [(2, 40, 20, 4, 24), (1, 70, 33, 3, 6), (2, 16, 32, 2, 64)]
+
+
+def _walk_args(bcn, q, n, h, p, mix, seed, steep):
+    cc, bc, cum, dt, x = _mk(bcn, q, n, h, p, seed=seed)
+    if steep:  # exp(cum_i - cum_j) overflows above the diagonal
+        cum = cum * 40.0
+    t = [torch.from_numpy(a) for a in (cc, bc, cum, dt, x)]
+    if mix == "x_bf16":
+        t[4] = t[4].to(torch.bfloat16)
+    return (cc, bc, cum, dt, x), t
+
+
+@pytest.mark.parametrize("steep", [False, True])
+@pytest.mark.parametrize("mix", ["f32", "x_bf16"])
+@pytest.mark.parametrize("tile", [16, 32, 64])
+@pytest.mark.parametrize("shape", WALK_SHAPES)
+def test_kernel_walk_matches_reference_oracle(shape, tile, mix, steep):
+    """The kernel's walk and operand splits against ``ssd_intra_ref``."""
+    arrays, t = _walk_args(*shape, mix, seed=sum(shape) + tile, steep=steep)
+    if mix == "x_bf16":
+        ref = ssd_intra_ref(*(jnp.asarray(a) for a in arrays[:4]),
+                            jnp.asarray(arrays[4], jnp.bfloat16))
+    else:
+        ref = ssd_intra_ref(*(jnp.asarray(a) for a in arrays))
+    got = _kernel_walk(*t, tile)
+    assert got.dtype == t[4].dtype and bool(torch.isfinite(got).all())
+    assert _rel(got.float().numpy(), np.asarray(ref, np.float32)) <= KERNEL_TOL[mix]
+
+
+@pytest.mark.parametrize("mix", ["f32", "x_bf16"])
+@pytest.mark.parametrize("shape", [(2, 40, 20, 4, 24), (1, 70, 33, 2, 6)])
+def test_kernel_walk_matches_pallas_interpret(shape, mix):
+    """The same walk (64-row tiles, the served plan's) against the Pallas
+    kernel in interpret mode, with steep decay."""
+    arrays, t = _walk_args(*shape, mix, seed=11, steep=True)
+    x_jax = jnp.asarray(arrays[4], jnp.bfloat16 if mix == "x_bf16" else jnp.float32)
+    ref = ssd_intra_pallas(*(jnp.asarray(a) for a in arrays[:4]), x_jax,
+                           head_block=shape[3], interpret=True)
+    got = _kernel_walk(*t, 64)
+    assert _rel(got.float().numpy(), np.asarray(ref, np.float32)) <= KERNEL_TOL[mix]
+
+
+def test_kernel_walk_needs_the_lo_part():
+    """The bf16 mix keeps fp32 weights: W rounded to bf16 once (no lo
+    part) is a different function. Before the output is rounded, the
+    split walk stays within 1e-5 of the fp32 sums; the weights rounded once
+    are 100x further off."""
+    arrays, t = _walk_args(2, 64, 32, 4, 64, "x_bf16", seed=5, steep=False)
+    xb = np.asarray(t[4].float())  # x as bf16 holds it
+    want = np.asarray(ssd_intra_ref(*(jnp.asarray(a) for a in arrays[:4]), jnp.asarray(xb)))
+    got = _kernel_walk(*t, 64, out_dtype=torch.float32).numpy()
+    g = torch.einsum("bin,bjn->bij", t[0], t[1])
+    seg = t[2][:, :, None, :] - t[2][:, None, :, :]
+    causal = torch.ones((64, 64), dtype=torch.bool).tril()
+    w = torch.where(causal[None, :, :, None], g[..., None] * torch.exp(seg) * t[3][:, None], 0.0)
+    once = torch.einsum("bijh,bjhp->bihp", w.to(torch.bfloat16).float(), t[4].float()).numpy()
+    assert _rel(got, want) <= F32_REL
+    assert _rel(once, want) > 100 * _rel(got, want)
+
+
+def _chip_smoke():
+    path = Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@pytest.mark.parametrize("tile", [16, 64])
+@pytest.mark.parametrize("shape", [(2, 64, 32, 4, 64), (1, 100, 20, 3, 24)])
+def test_cancelling_operands_separate_the_lo_product(shape, tile):
+    """``chip_smoke.py``'s card check that the bf16 mix keeps fp32 weights,
+    here on the emulated walk: on ``ssd_cancelling`` operands the hi + lo
+    products, output in bf16, read within ``LO_TOL`` (1e-2) of the fp32
+    sums over the odd rows, and the weights rounded to bf16 once read above
+    it."""
+    cs = _chip_smoke()
+    args = cs.ssd_cancelling(torch.Generator().manual_seed(sum(shape)), *shape, device="cpu")
+    reading, control = cs.ssd_lo_readings(args, _kernel_walk(*args, tile))
+    assert reading <= cs.LO_TOL < control
