@@ -21,18 +21,25 @@ Phases (any failure raises, and the script exits non-zero):
    180^4, R=32, each record with its ``MTTKRPKernelPlan``, shared memory,
    split count and registers, its bound counted as the tensor cores run its
    products (``mma_bound``); ``mttkrp_partial`` with one contraction axis on 1000^3's
-   rank-augmented nodes and with two on 180^4's P; ``mttkrpn`` on the
+   rank-augmented nodes and with two on 180^4's P (fp32 and bf16), each
+   node read in place as ``contract_partial`` hands it over (the permuted
+   view) and as its canonical copy, each record with its
+   ``PartialKernelPlan``, shared memory and registers, timed as device time
+   by CUDA graphs (``graph_ms``: kernel, plain version, ``torch.einsum``)
+   with the back-to-back call rate beside (``host_ms``) and the copy the
+   engine no longer makes (``transpose_ms``); ``mttkrpn`` on the
    dimension tree's 2-D edge at 1000^3; at 180^4 the 4-way tree's two root
    edges (``mttkrp3`` on X as (32400, 180, 180), once after a permute) and
-   the k=1 partials on both leaves of each (180, 180, R) node (the node
-   permutes ``contract_partial`` makes are timed apart);
+   the k=1 partials on both leaves of each (180, 180, R) node;
 6. the main paths: CP-ALS (``backend="cuda"``) on a 1000^3 tensor of CP
    rank 64 plus noise (10 iterations) and on a 180^4 tensor of CP rank 32
    plus noise (5 iterations), with each schedule (``per_mode``, ``fused``,
    ``dimtree``), each timed after one untimed iteration; every kernel's
    launch count is set to 0 before each run and read after, and must equal
    the schedule's launches per iteration times the iterations run (the
-   untimed one included); each run is held against the same schedule with
+   untimed one included); every node ``contract_partial`` hands the
+   partial kernel must arrive as a view of the node (no copy), rank axis at
+   unit stride; each run is held against the same schedule with
    ``backend="einsum"`` and against the cuda ``per_mode`` run, from the
    same initial factors: fits within 1e-4 at every iteration;
    6b. CP-ALS on a 10000 x 10000 matrix of CP rank 64 plus noise (5
@@ -286,6 +293,18 @@ def parse_mma_registers(log: str) -> dict:
 #: Registers and spill bytes of the pair and Multi-TTM kernels, by (kernel,
 #: dtype, row block, rank block), from ``-Xptxas -v``.
 RING_REGS: dict = {}
+#: Registers and spill bytes of the partial kernel, by (dtype, vec, rows
+#: layout, rows a thread), from ``-Xptxas -v``.
+PARTIAL_REGS: dict = {}
+
+
+def parse_partial_registers(log: str) -> dict:
+    """``{(dtype, vec, rows layout, rows a thread): (registers, spill bytes)}``
+    of ``streaming_partial_kernel<T, V, ROWL, ROWS>``."""
+    return ptxas_usage(log, r"_Z24streaming_partial_kernelI(f|13__nv_bfloat16)Li(\d+)ELb(\d)"
+                            r"ELi(\d+)E",
+                       lambda m: (_dtype(m.group(1)), int(m.group(2)), m.group(3) == "1",
+                                  int(m.group(4))))
 
 
 def parse_ring_registers(log: str, kernel: str, symbol: str) -> dict:
@@ -474,12 +493,7 @@ def sweep_kernel_phases(gen, smi: str, records: dict) -> None:
     same function."""
     import torch
     import repro_torch
-    from repro_torch.engine.plan import (
-        Memory,
-        choose_blocks,
-        choose_pair_kernel_blocks,
-        pair_kernel_grid,
-    )
+    from repro_torch.engine.plan import choose_pair_kernel_blocks, pair_kernel_grid
     from repro_torch.engine.sweep import _fused_pair
     from repro_torch.kernels import ops
     from repro_torch.kernels import partial as partial_mod
@@ -520,39 +534,63 @@ def sweep_kernel_phases(gen, smi: str, records: dict) -> None:
         emit(rec)
         records.setdefault("fused_pair", []).append(rec)
 
-    def partial(node, fs, perm, where):
-        """``node`` as the tree or sweep holds it; ``perm`` is the
-        canonicalizing permute ``contract_partial`` makes (kept mode first)."""
-        canon = node.permute(perm).contiguous()
+    def partial(node, fs, perm, where, want=None):
+        """``node`` as the tree or sweep holds it; ``perm`` is the permute
+        ``contract_partial`` makes (kept modes first). The kernel is timed
+        on that view, read in place as the engine hands it over, and on its
+        canonical copy, both against the plain version (of the fp32 node
+        ``want`` is taken from, for a bf16 one)."""
         fsp = [fs[a] for a in perm[1:-1]]  # fs[a] is the factor of node axis a
-        k = len(fsp)
-        got = mttkrp_partial(canon, fsp)
-        rel, diff = check(f"mttkrp_partial {where}", got, mttkrp_partial_plain(canon, fsp),
-                          "float32")
-        rank = node.shape[-1]
-        letters = "abcdefg"[:canon.ndim - 1]
+        k, rank = len(fsp), node.shape[-1]
+        dtype = str(node.dtype).split(".")[-1]
+        if want is None:
+            want = mttkrp_partial_plain(node.permute(perm), fsp)
+        letters = "abcdefg"[:node.ndim - 1]
         spec = f"{letters}z," + ",".join(f"{c}z" for c in letters[1:]) + "->az"
-        ctot = canon.numel() // (canon.shape[0] * rank)
-        b_ms, b_by = bound(canon.numel(), 4, sum(f.numel() for f in fsp),
-                           canon.shape[0] * rank,
-                           2.0 * canon.numel() + (k - 1) * ctot * rank, "float32")
-        plan = choose_blocks(canon.shape[:-1], rank, memory=Memory.h100_smem(),
-                             x_has_rank=True)
-        rec = {
-            "kernel": "mttkrp_partial", "where": where, "shape": list(canon.shape),
-            "k": k, "rank": rank, "dtype": "float32", "max_rel_err": rel, "max_abs_err": diff,
-            "plan": [plan.block_i, list(plan.block_contract), plan.block_r],
-            "smem_bytes": partial_mod.smem_bytes(plan),
-            "kernel_ms": cuda_ms(lambda: mttkrp_partial(canon, fsp)),
-            "plain_ms": cuda_ms(lambda: mttkrp_partial_plain(canon, fsp), reps=3, warm=1),
-            "library": "torch.einsum", "library_ms": cuda_ms(
-                lambda: torch.einsum(spec, canon, *fsp), reps=3, warm=1),
-            "transpose_ms": cuda_ms(lambda: node.permute(perm).contiguous(), reps=3, warm=1)
-            if list(perm) != sorted(perm) else 0.0,
-            "bound_ms": b_ms, "bound_by": b_by, "gpu": smi,
-        }
-        emit(rec)
-        records.setdefault("mttkrp_partial", []).append(rec)
+        copy_ms = cuda_ms(lambda: node.permute(perm).contiguous(), reps=3, warm=1) \
+            if list(perm) != sorted(perm) else 0.0
+        for how in ("in place", "canonical"):
+            view = node.permute(perm)
+            if how == "canonical":
+                view = view.contiguous()
+            got = mttkrp_partial(view, fsp)
+            rel, diff = check(f"mttkrp_partial {where}, {how}, {dtype}", got, want, dtype)
+            ctot = view.numel() // (view.shape[0] * rank)
+            b_ms, b_by = bound(view.numel(), view.element_size(), sum(f.numel() for f in fsp),
+                               view.shape[0] * rank,
+                               2.0 * view.numel() + (k - 1) * ctot * rank, "float32")
+            plan = partial_mod.default_plan(view, fsp)
+            rows = plan.rows_per_thread(rank)
+            times = {
+                "kernel": lambda: mttkrp_partial(view, fsp),
+                "plain": lambda: mttkrp_partial_plain(view, fsp),
+                "library": lambda: torch.einsum(spec, view, *fsp),
+            }
+            dev = {name: graph_ms(fn, reps=20, rounds=3) for name, fn in times.items()}
+            host = {name: cuda_ms(fn, reps=10 if name == "kernel" else 3,
+                                  warm=2 if name == "kernel" else 1)
+                    for name, fn in times.items()}
+            rec = {
+                "kernel": "mttkrp_partial", "where": where, "view": how,
+                "shape": list(view.shape), "strides": list(view.stride()), "k": k,
+                "rank": rank, "dtype": dtype, "max_rel_err": rel, "max_abs_err": diff,
+                "plan": {"layout": plan.layout, "block_rows": plan.block_rows, "vec": plan.vec,
+                         "loads": plan.loads, "splits": plan.splits},
+                "smem_bytes": partial_mod.smem_bytes(plan, view.dtype, rank),
+                "registers": PARTIAL_REGS.get(
+                    (dtype, plan.vec, plan.layout == "rows", rows)),
+                # device time by CUDA graphs (the 4 MB leaves run for a few
+                # microseconds, under the host's call rate); host_ms beside
+                "timing": "cuda_graph", "graph_ms": dev, "host_ms": host,
+                "kernel_ms": dev["kernel"], "plain_ms": dev["plain"],
+                "library": "torch.einsum", "library_ms": dev["library"],
+                # the canonical copy the engine made in front of the kernel
+                # before it read nodes in place
+                "transpose_ms": copy_ms, "bound_ms": b_ms, "bound_by": b_by, "gpu": smi,
+            }
+            emit(rec)
+            records.setdefault("mttkrp_partial", []).append(rec)
+            del view, got
 
     # fused_pair and the partial kernel at 1000^3, R=64
     dims, rank = (1000, 1000, 1000), 64
@@ -599,9 +637,15 @@ def sweep_kernel_phases(gen, smi: str, records: dict) -> None:
     want = fused_pair_plain(x, fs[1:])
     pair(x, fs, "float32", want)
     p = want[1]  # (I0, I1, I2, R)
-    partial(p, fs[:3], (1, 0, 2, 3), "fused 4-way mode 1: P(I0, I1, I2, R), k=2")
-    partial(p, fs[:3], (2, 0, 1, 3), "fused 4-way mode 2: P(I0, I1, I2, R), k=2")
-    del want, p
+    pb, fsb = p.to(torch.bfloat16), [f.to(torch.bfloat16) for f in fs[:3]]
+    for perm, mode in (((1, 0, 2, 3), 1), ((2, 0, 1, 3), 2)):
+        where = f"fused 4-way mode {mode}: P(I0, I1, I2, R), k=2"
+        want_p = mttkrp_partial_plain(p.permute(perm), [fs[a] for a in perm[1:-1]])
+        partial(p, fs[:3], perm, where, want_p)
+        # bf16 inputs against the fp32 plain version of the fp32 node
+        partial(pb, fsb, perm, where, want_p)
+        del want_p
+    del want, p, pb, fsb
     # the dimension tree's root edges: mttkrp3 on X seen as (I0 I1, I2, I3)
     # and, after a permute, as (I2 I3, I0, I1); then the k=1 partials on
     # each (180, 180, R) node, both leaves
@@ -655,6 +699,7 @@ def cp_phase(gen) -> dict:
     import torch
     import repro_torch
     from repro_torch.core.tensor import random_factors
+    from repro_torch.kernels import ops
 
     cases = [((1000, 1000, 1000), 64, 10), ((180, 180, 180, 180), 32, 5)]
     data = []
@@ -665,6 +710,15 @@ def cp_phase(gen) -> dict:
     kernels = counters()
     cuda_ctx = repro_torch.ExecutionContext.create("cuda")
     ein_ctx = repro_torch.ExecutionContext.create("einsum")
+    # every node contract_partial hands the partial kernel, as it arrives:
+    # a view (of the node, not a copy), its rank axis at unit stride, and
+    # whether it is strided (read in place through a permute)
+    handed = []
+    real_partial = ops.mttkrp_partial
+
+    def watched(node, fs, **kw):
+        handed.append((node._base is not None, node.stride(-1) == 1, not node.is_contiguous()))
+        return real_partial(node, fs, **kw)
 
     def run(x, init, rank, iters, sweep, ctx):
         # one untimed iteration first: the first call of a process pays
@@ -682,8 +736,17 @@ def cp_phase(gen) -> dict:
         for sweep in ("per_mode", "fused", "dimtree"):
             for k in kernels.values():
                 k.launches = 0
-            res, ms = run(x, init, rank, iters, sweep, cuda_ctx)
+            handed.clear()
+            ops.mttkrp_partial = watched
+            try:
+                res, ms = run(x, init, rank, iters, sweep, cuda_ctx)
+            finally:
+                ops.mttkrp_partial = real_partial
             launches = {name: k.launches for name, k in kernels.items()}
+            if len(handed) != launches["mttkrp_partial"] or not all(
+                    view and unit for view, unit, _ in handed):
+                raise AssertionError(f"{sweep} {tuple(x.shape)}: a node reached the partial "
+                                     f"kernel as a copy: {handed}")
             want = {name: n * (iters + 1) for name, n in PER_ITER[sweep][case].items()}
             if {k: launches[k] for k in COUNTED} != {k: want.get(k, 0) for k in COUNTED}:
                 raise AssertionError(f"{sweep} {tuple(x.shape)}: launches {launches}, "
@@ -708,7 +771,7 @@ def cp_phase(gen) -> dict:
                 "cp_als": list(x.shape), "sweep": sweep, "rank": rank, "iters": iters,
                 "fits": res.fits, "einsum_fits": ref.fits, "max_fit_gap": gap,
                 "max_fit_gap_vs_per_mode": gap_pm, "iter_ms_cuda": ms, "iter_ms_einsum": ein_ms,
-                "launches": launches,
+                "launches": launches, "partial_nodes_strided": sum(s for *_, s in handed),
             }
             emit(rec)
             out["cp"].append(rec)
@@ -1283,6 +1346,7 @@ def main() -> int:
                                           "fused_pair_mma_kernel"))
     RING_REGS.update(parse_ring_registers(built["multi_ttm.cu"][1], "multi_ttm_keep",
                                           "multi_ttm_mma_kernel"))
+    PARTIAL_REGS.update(parse_partial_registers(built["sweep.cu"][1]))
 
     gen = torch.Generator(device="cuda").manual_seed(args.seed)
     records: dict = {}

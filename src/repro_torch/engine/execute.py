@@ -35,12 +35,11 @@ from ..kernels.ref import mttkrp_ref
 from ..kernels.sweep import fused_pair_canonical
 from .context import ExecutionContext, torch_dtype
 from .plan import (
-    BlockPlan,
     Memory,
     MTTKRPKernelPlan,
     MultiTTMKernelPlan,
+    PartialKernelPlan,
     best_uniform_block,
-    choose_blocks,
 )
 
 
@@ -121,7 +120,7 @@ def contract_partial(
     has_rank: bool,
     *,
     ctx: ExecutionContext | None = None,
-    plan: BlockPlan | MTTKRPKernelPlan | None = None,
+    plan: PartialKernelPlan | MTTKRPKernelPlan | None = None,
 ) -> torch.Tensor:
     """Contract the factors for ``drop`` out of a dimension-tree ``node``.
 
@@ -131,11 +130,12 @@ def contract_partial(
     ``keep = modes - drop`` (rank axis last).
 
     ``einsum`` and ``blocked_host`` take one ``torch.einsum``. ``cuda``
-    canonicalizes the node (kept modes first and flattened, dropped modes
-    next, rank last) and runs the rank-augmented partial kernel when the
-    node has a rank axis, the MTTKRP kernels when it has none. ``plan``
-    pins the kernel's blocks: a ``BlockPlan`` for the partial kernel, an
-    ``MTTKRPKernelPlan`` for the MTTKRP kernels."""
+    orders the node's axes kept modes first, dropped modes next, rank last:
+    a node with a rank axis goes to the rank-augmented partial kernel as
+    that permuted view, read in place (no copy); one without goes to the
+    MTTKRP kernels as a canonical copy, kept modes flattened. ``plan`` pins
+    the kernel's blocks: a ``PartialKernelPlan`` for the partial kernel, an
+    ``MTTKRPKernelPlan`` for the MTTKRP kernels; a CPU tensor ignores it."""
     ctx = ctx if ctx is not None else ExecutionContext()
     ctx.check_tensor("repro_torch.contract_partial", node, *factors)
     modes, drop = tuple(modes), tuple(drop)
@@ -169,24 +169,21 @@ def _contract_partial_impl(node, factors, modes, drop, has_rank, ctx, plan):
     pos = {m: i for i, m in enumerate(modes)}
     keep_sizes = tuple(node.shape[pos[m]] for m in keep)
     drop_sizes = tuple(node.shape[pos[m]] for m in drop)
-    # canonicalize: kept modes first (flattened), dropped modes next, rank last
+    # kept modes first, dropped modes next, rank last
     perm = tuple(pos[m] for m in keep) + tuple(pos[m] for m in drop)
-    if has_rank:
-        perm = perm + (node.ndim - 1,)
-    i_rows = math.prod(keep_sizes)
-    xp = node.permute(perm).reshape((i_rows,) + drop_sizes + ((rank,) if has_rank else ()))
     fs = [factors[m] for m in drop]
-    memory = ctx.memory
-    if has_rank and plan is None and memory is not None:
-        # the partial kernel plans against ctx.memory (dtype-aware); the
-        # MTTKRP kernel of the no-rank edge plans itself
-        itemsize = node.element_size()
-        if mixed:
-            memory = memory.with_itemsize(itemsize)
-        plan = choose_blocks((i_rows,) + drop_sizes, rank, itemsize, memory=memory,
-                             x_has_rank=True)
-    kernel = kernel_ops.mttkrp_partial_canonical if has_rank else kernel_ops.mttkrp_canonical
-    out = kernel(xp, fs, plan=plan, out_dtype=out_dtype if mixed else node.dtype)
+    out_as = out_dtype if mixed else node.dtype
+    if has_rank:
+        # the partial kernel reads the permuted view in place, through its
+        # strides, and plans itself (choose_partial_kernel_blocks); ctx.memory
+        # does not pick its plan
+        out = kernel_ops.mttkrp_partial_canonical(node.permute(perm + (node.ndim - 1,)), fs,
+                                                  plan=plan, out_dtype=out_as)
+    else:
+        # the MTTKRP kernels take the canonical copy, kept modes flattened,
+        # and plan themselves (choose_mttkrp_kernel_blocks)
+        xp = node.permute(perm).reshape((math.prod(keep_sizes),) + drop_sizes)
+        out = kernel_ops.mttkrp_canonical(xp, fs, plan=plan, out_dtype=out_as)
     out = out.reshape(keep_sizes + (rank,))
     return out.to(out_dtype) if out_dtype is not None else out
 

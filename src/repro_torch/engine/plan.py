@@ -24,13 +24,16 @@ Counterpart of ``repro.engine.plan``:
     memory: :class:`MTTKRPKernelPlan` (:func:`choose_mttkrp_kernel_blocks`)
     for the MTTKRP kernel and, with :func:`choose_pair_kernel_blocks`, the
     fused pair kernel; :class:`MultiTTMKernelPlan`
-    (:func:`choose_multi_ttm_kernel_blocks`) for the Multi-TTM kernel.
+    (:func:`choose_multi_ttm_kernel_blocks`) for the Multi-TTM kernel;
+    :class:`PartialKernelPlan` (:func:`choose_partial_kernel_blocks`, from
+    the node's strides) for the streaming partial kernel.
 
 Formula provenance stays in :mod:`repro_torch.core.bounds`.
 """
 
 from __future__ import annotations
 
+import functools
 import math
 from dataclasses import dataclass
 from typing import Sequence
@@ -822,3 +825,177 @@ def choose_multi_ttm_kernel_blocks(shape: Sequence[int], ranks: Sequence[int],
         lambda p: multi_ttm_kernel_smem_bytes(p, itemsize, ranks), MultiTTMKernelPlan,
         f"Multi-TTM kernel: no plan for shape {tuple(shape)}, ranks {ranks}",
         MULTI_TTM_BLOCK_M)
+
+
+# ---------------------------------------------------------------------------
+# The rank-augmented partial contraction (csrc/sweep.cu): a streaming kernel
+# ---------------------------------------------------------------------------
+
+#: The partial kernel's CTA: 256 threads in 8 warps (``csrc/common.cuh``).
+PARTIAL_THREADS = 256
+PARTIAL_WARPS = PARTIAL_THREADS // 32
+#: The axis the warp spans beside the r-vectors: ``"rows"``, the innermost
+#: kept axis (each output sum stays in one thread), or ``"contract"``, the
+#: innermost contraction axis (each thread's sums folded across the lane
+#: axis's threads in a fixed order).
+PARTIAL_LAYOUTS = ("rows", "contract")
+#: Rows a thread owns, and the node loads a thread may keep in flight
+#: (rows x unrolled c steps); the kernel is instantiated for each row count.
+PARTIAL_THREAD_ROWS = (1, 2, 4, 8)
+PARTIAL_LOADS = (1, 2, 4, 8)
+#: The widest load: 16 bytes along r.
+PARTIAL_VEC_BYTES = 16
+#: Nodes up to this size are planned without a split-K reduction where the
+#: card allows (:func:`choose_partial_kernel_blocks`): 8 MiB is what the
+#: card reads in about 3 microseconds, the cost of the reduction's launch.
+PARTIAL_SMALL_NODE_BYTES = 8 << 20
+
+
+@dataclass(frozen=True)
+class PartialKernelPlan:
+    """The Hopper partial kernel's plan for a node ``N (K.., C_1..C_k, R)``
+    read in place, rank axis at unit stride: ``layout`` (the axis the warp
+    spans beside the r-vectors, :data:`PARTIAL_LAYOUTS`), ``block_rows``
+    kept rows a CTA, ``vec`` elements a load along r (16 bytes' worth, or
+    1), ``loads`` node loads a thread keeps in flight (its rows times the c
+    steps it unrolls), and ``splits`` CTAs the contraction is split over
+    (each writes its own fp32 slab)."""
+
+    layout: str
+    block_rows: int
+    vec: int
+    loads: int
+    splits: int
+
+    def threads(self, rank: int) -> tuple[int, int, int]:
+        """(threads along r, threads along the lane axis, rank tiles):
+        ``ceil(R / vec)`` r-vectors, at most 32 threads across them (a
+        power of two), the rest of the CTA along the lane axis."""
+        return partial_kernel_threads(rank, self.vec)
+
+    def rows_per_thread(self, rank: int) -> int:
+        """Rows a thread owns: ``block_rows`` spread over the lane threads
+        (``"rows"``), or all of them (``"contract"``)."""
+        if self.layout == "rows":
+            return self.block_rows // self.threads(rank)[1]
+        return self.block_rows
+
+    def check(self, rank: int, itemsize: int) -> None:
+        """Raise ``ValueError`` unless the kernel takes this plan."""
+        ok = (self.layout in PARTIAL_LAYOUTS and self.vec in (1, PARTIAL_VEC_BYTES // itemsize)
+              and rank % self.vec == 0 and self.loads in PARTIAL_LOADS
+              and 1 <= self.splits <= 65535)
+        if ok:
+            rows = self.rows_per_thread(rank)
+            ok = (rows in PARTIAL_THREAD_ROWS and self.loads >= rows
+                  and (self.layout == "contract" or self.block_rows == rows * self.threads(rank)[1]))
+        if not ok:
+            raise ValueError(
+                f"{self}: layout in {PARTIAL_LAYOUTS}, vec 1 or {PARTIAL_VEC_BYTES} bytes' "
+                f"worth dividing R={rank}, {PARTIAL_THREAD_ROWS} rows a thread, loads in "
+                f"{PARTIAL_LOADS} and at least the rows, 1 to 65535 splits")
+
+
+def partial_kernel_threads(rank: int, vec: int) -> tuple[int, int, int]:
+    """(threads along r, threads along the lane axis, rank tiles) of the
+    partial kernel for rank ``rank`` in loads of ``vec`` elements."""
+    nvec = -(-rank // vec)
+    tr = min(32, 1 << (nvec - 1).bit_length())
+    return tr, PARTIAL_THREADS // tr, -(-nvec // tr)
+
+
+def partial_kernel_smem_bytes(plan: PartialKernelPlan, rank: int) -> int:
+    """Dynamic shared memory of the partial kernel under ``plan``
+    (``csrc/sweep.cu:partial_smem_bytes``, mirrored here; the card tests
+    hold the two equal): none for ``"rows"``; for ``"contract"`` the
+    cross-warp fold, one fp32 word per warp, row and column of the CTA
+    (``block_rows x threads along r x vec``)."""
+    if plan.layout == "rows":
+        return 0
+    tr = plan.threads(rank)[0]
+    return 4 * PARTIAL_WARPS * plan.block_rows * tr * plan.vec
+
+
+def partial_kernel_grid(shape: Sequence[int], rank: int, plan: PartialKernelPlan,
+                        nkeep: int = 1) -> tuple[int, int, int]:
+    """(row blocks, rank tiles, units) of the partial kernel's launch for a
+    node of axis sizes ``shape`` (rank axis excluded; ``nkeep`` kept axes
+    first, then the contraction axes). A unit is one outer contraction
+    tuple ``(c_1..c_{k-1})`` with a chunk of the innermost axis ``C_k``: as
+    many indices as the CTA's lane threads take in their unrolled steps
+    (``"contract"``), or a thread's unrolled steps (``"rows"``). The
+    ``plan.splits`` splits take consecutive runs of units."""
+    rows = math.prod(shape[:nkeep])
+    tl, rtiles = plan.threads(rank)[1:]
+    unroll = plan.loads // plan.rows_per_thread(rank)
+    chunk = unroll * (tl if plan.layout == "contract" else 1)
+    units = math.prod(shape[nkeep:-1]) * -(-shape[-1] // chunk)
+    return -(-rows // plan.block_rows), rtiles, units
+
+
+def one_wave_splits(ctas: int, units: int, sms: int) -> int:
+    """Splits of the partial kernel's contraction over ``ctas`` CTAs: as
+    many as keep the launch within one wave of ``CTAS_PER_SM`` CTAs per SM,
+    at least one, never more than its ``units``. (:func:`n_splits` fills
+    the wave at least, and so may start a second one that is nearly empty.)"""
+    return max(1, min(units, CTAS_PER_SM * sms // max(ctas, 1), 65535))
+
+
+@functools.lru_cache(maxsize=4096)
+def choose_partial_kernel_blocks(shape: Sequence[int], strides: Sequence[int], rank: int,
+                                 itemsize: int = 4, sms: int = H100_SMS, *, nkeep: int = 1,
+                                 aligned: bool = True) -> PartialKernelPlan:
+    """The partial kernel's default plan for a node read in place: axis
+    sizes ``shape`` and element strides ``strides`` (rank axis excluded, at
+    unit stride; ``nkeep`` kept axes first, then the contraction axes,
+    innermost last). Cached per argument tuple, so a node's plan costs the
+    host one lookup after its first call.
+
+    * ``vec``: 16 bytes along r where R, every stride and (``aligned``) the
+      pointers allow it, else one element.
+    * ``loads``: 8 in flight a thread.
+    * A node of more than :data:`PARTIAL_SMALL_NODE_BYTES`: ``layout``
+      spans the axis that lies next to r in memory (``"rows"`` when the
+      innermost kept axis has a smaller stride than every contraction axis
+      and there is more than one row, ``"contract"`` otherwise); rows a
+      thread of 1, 2, 4, 8 (at most 32 accumulators), the one that
+      minimises the padded rows times ``1 + 1 / (2 rows)`` (a factor load,
+      served by L1 or L2, costs about half a node load; one serves a
+      thread's rows), fewer padded rows on a tie; and
+      :func:`one_wave_splits` (a second, nearly empty wave cost 20 % at
+      180^4: ``scripts/probe_partial.py``).
+    * A smaller node, which the card reads in a few microseconds, about
+      what a split-K reduction's launch costs: ``"contract"``, the most
+      rows a thread whose row blocks alone give every SM a CTA (else one),
+      and no split unless the row blocks are fewer than the SMs.
+    """
+    shape, strides = tuple(int(s) for s in shape), tuple(int(s) for s in strides)
+    wide = PARTIAL_VEC_BYTES // itemsize
+    vec = wide if aligned and rank % wide == 0 and all(s % wide == 0 for s in strides) else 1
+    i_rows = math.prod(shape[:nkeep])
+    small = math.prod(shape) * rank * itemsize <= PARTIAL_SMALL_NODE_BYTES
+    kept, contract = strides[nkeep - 1], min(strides[nkeep:])
+    layout = "rows" if not small and i_rows > 1 and kept < contract else "contract"
+    tl, rtiles = partial_kernel_threads(rank, vec)[1:]
+    loads = max(PARTIAL_LOADS)
+    candidates = [r for r in PARTIAL_THREAD_ROWS if r * vec <= 32]
+
+    def block(rows: int) -> int:
+        return rows * (tl if layout == "rows" else 1)
+
+    def grid(rows: int) -> tuple[int, int, int]:
+        return partial_kernel_grid(shape, rank, PartialKernelPlan(layout, block(rows), vec,
+                                                                  loads, 1), nkeep)
+
+    if small:
+        rows = max((r for r in candidates if grid(r)[0] * rtiles >= sms), default=1)
+        ctas, units = grid(rows)[0] * rtiles, grid(rows)[2]
+        splits = 1 if ctas >= sms else min(units, -(-sms // ctas))
+    else:
+        def cost(rows: int) -> tuple[float, int]:
+            padded = -(-i_rows // block(rows)) * block(rows)
+            return padded * (1 + 1 / (2 * rows)), padded
+
+        rows = min(candidates, key=cost)
+        splits = one_wave_splits(grid(rows)[0] * rtiles, grid(rows)[2], sms)
+    return PartialKernelPlan(layout, block(rows), vec, loads, min(65535, splits))

@@ -4,7 +4,7 @@
 The sources under ``csrc/`` have a plain C interface, so one ``nvcc`` call
 per source builds a shared library (no PyTorch headers): ``mttkrp.cu``
 holds the MTTKRP tensor-core kernels and the split-K reduction, ``sweep.cu`` the
-fused-sweep pair and the rank-augmented partial contraction,
+fused-sweep pair and the streaming rank-augmented partial contraction,
 ``multi_ttm.cu`` the kept-mode Multi-TTM of the Tucker path, ``ssd_intra.cu``
 the intra-chunk SSD term of the Mamba2 prefill; the first three share the
 ``cp.async`` ring and tensor-core code of ``ring.cuh``. Each library
@@ -50,9 +50,10 @@ SIGNATURES = {
     "sweep.cu": {
         "repro_fused_pair": (_I, [_I, _I, _PLL, _I, _I, _I, _I, _I, _I, _I, _I, _P, _PLL, _P,
                                   _P, _P]),
-        "repro_partial": (_I, [_I, _I, _PLL, _PI, _I, _I, _I, _P, _PLL, _P, _P]),
+        "repro_partial": (_I, [_I, _I, _I, _I, _I, _I, _I, _PLL, _PLL, _I, _PLL, _PLL, _I, _P,
+                               _PLL, _P, _P]),
         "repro_fused_pair_smem_bytes": (_LL, [_I, _I, _I, _I, _I, _I]),
-        "repro_partial_smem_bytes": (_LL, [_I, _PI, _I, _I]),
+        "repro_partial_smem_bytes": (_LL, [_I, _I, _I, _I, _I, _I]),
     },
     "multi_ttm.cu": {
         "repro_multi_ttm": (_I, [_I, _I, _PLL, _PI, _I, _I, _I, _I, _I, _I, _I, _P, _PLL, _P,

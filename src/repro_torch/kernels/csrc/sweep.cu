@@ -31,31 +31,44 @@
 //     slabs in slab order: results repeat bit for bit.
 // Ragged edges are masked by the ring's zero-fill; nothing is padded.
 //
-// partial_kernel<T> replaces src/repro/kernels/mttkrpn.py:
-// mttkrp_partial_pallas (_partial_kernel), the dimension tree's
-// rank-augmented partial contraction
+// streaming_partial_kernel<T, V, ROWL, ROWS> replaces src/repro/kernels/mttkrpn.py:
+// mttkrp_partial_pallas (_partial_kernel), the dimension tree's and the fused
+// sweep's rank-augmented partial contraction
 //   O(i, r) = sum_{c_1..c_k} N(i, c_1..c_k, r) prod_d A_d(c_d, r),  k >= 1.
-// The node carries the rank axis, so there is no product for tensor cores:
-// each node element is read once and used once, and the kernel is bound by
-// memory bandwidth (a (1000, 1000, 64) fp32 node is 2.56e8 B, 0.076 ms).
-// Threads run along r, the node's contiguous last axis, so loads coalesce;
-// the contraction is a loop inside the CTA with the weight
-// W(c, r) = prod_d A_d(c_d, r) built per step in shared memory (k = 1 is the
-// same loop with a one-factor weight). The output is small (I x R), so the
-// outermost contraction axis is split over CTAs and the slabs are added by
-// splitk_reduce_kernel: no atomics, results repeat bit for bit.
+// The node carries the rank axis, so there is no product for the tensor
+// cores: each node element is read once and used once (two flops a 4-byte
+// element), and the kernel is bound by the node's bytes (a (1000, 1000, 64)
+// fp32 node is 2.56e8 B, 0.077 ms at 3.35 TB/s; 180^3 x 32 is 7.5e8 B,
+// 0.223 ms). Running the TPU's tile schedule here (blocks from the
+// reference's VMEM planner, an index table and the weight block rebuilt in
+// shared memory with two barriers every step, 4-byte gathers, a canonical
+// copy of the node in front) reached 27-44 % of that bound. This kernel is a
+// streaming reduction shaped for the card instead:
+//   * the node is read in place, as a strided view: kept axes (decoded once
+//     a row) and contraction axes of any strides, the rank axis at unit
+//     stride; no copy in front;
+//   * 16-byte read-only loads along r (4 fp32 or 8 bf16; one element where
+//     R, a stride or a pointer does not allow 16), neighbouring lanes on
+//     neighbouring addresses, `loads` independent node loads in flight a
+//     thread (its ROWS rows times its unrolled c steps); no shared index
+//     table and no barrier inside the contraction loop;
+//   * weights in registers: a thread forms W(c, r:r+V) = prod_d A_d(c_d, r:r+V)
+//     from factor rows as vectors, the outer factors' product kept across a
+//     run of the innermost index c_k; each weight vector serves the thread's
+//     ROWS rows, so factor loads are a 1/ROWS share of the node's;
+//   * the warp spans (lane axis, r-vector), where the lane axis is the one
+//     that lies next to r in memory (PartialKernelPlan.layout): the
+//     innermost kept axis (ROWL: each output sum stays in one thread's
+//     registers), or the innermost contraction axis (each thread's sums are
+//     folded across the lane axis's threads in a fixed order: a shuffle
+//     butterfly in the warp, then the warps through shared memory in warp
+//     order);
+//   * the contraction is split over CTAs in runs of units (an outer tuple
+//     (c_1..c_{k-1}) with a chunk of c_k); each split writes its own fp32
+//     slab and mttkrp.cu:splitk_reduce_kernel adds the slabs in slab order:
+//     no atomics, results repeat bit for bit.
+// Ragged edges (rows, c_k, R) are masked; nothing is padded.
 #include "ring.cuh"
-
-struct SweepProblem {
-  int ncontract;                      // contraction axes of the operand
-  int block_i;                        // bi
-  int block_r;                        // br
-  int rank;                           // R
-  int n_splits;                       // CTAs along the outermost contraction axis
-  long long extent_i;                 // I
-  long long extent_c[MAX_CONTRACT];   // C_1 .. C_nc
-  int block_c[MAX_CONTRACT];          // bc_1 .. bc_nc
-};
 
 // --------------------------------------------------------------------------
 // fused (B0, P) pair
@@ -218,159 +231,231 @@ fused_pair_mma_kernel(TileProblem p, const T* __restrict__ x, Factors f, float* 
 }
 
 // --------------------------------------------------------------------------
-// rank-augmented partial contraction
+// rank-augmented partial contraction: a streaming reduction
 // --------------------------------------------------------------------------
 
-// Shared-memory layout of the partial kernel:
-// tab (kc x i64) | ws (kc x ldw) | accs (cparts x bi x ldw), fp32.
-struct PartialLayout {
-  int kc;      // prod bc: contraction indices of one step
-  int rw;      // threads along r: a power of two >= br, at most NTHREADS
-  int slots;   // NTHREADS / rw thread groups
-  int cparts;  // groups sharing one row, each on a slice of the step (1 if slots <= bi)
-  int ldw;     // br rounded up to rw
-  long long ws, accs, total;  // byte offsets
+#define PARTIAL_MAX_LOADS 8
+
+// A node read in place: nkeep kept axes (their row-major flat index is the
+// output row) and ncontract contraction axes, each with its size and element
+// stride, the rank axis at unit stride; and the launch shape of its plan.
+struct PartialProblem {
+  int nkeep, ncontract;
+  int rank, vec;                  // R; elements a load along r
+  int tr, tl, rtiles;             // threads along r-vectors / along the lane axis; CTAs along r
+  int block_rows, unroll;         // rows a CTA; c steps a thread unrolls
+  int n_splits;
+  long long rows;                 // I = prod keep_size
+  long long keep_size[MAX_CONTRACT], keep_stride[MAX_CONTRACT];
+  long long c_size[MAX_CONTRACT], c_stride[MAX_CONTRACT];
+  long long nch;                  // chunks of the innermost contraction axis
+  long long units;                // prod c_size[:-1] * nch
 };
 
-static __host__ __device__ PartialLayout make_partial_layout(int nc, const int* bc, int bi,
-                                                             int br) {
-  PartialLayout l;
-  l.kc = 1;
-  for (int d = 0; d < nc; ++d) l.kc *= bc[d];
-  l.rw = 1;
-  while (l.rw < br && l.rw < NTHREADS) l.rw *= 2;
-  l.slots = NTHREADS / l.rw;
-  l.cparts = l.slots > bi ? l.slots / bi : 1;
-  l.ldw = (int)round_up(br, l.rw);
-  l.ws = 8LL * l.kc;
-  l.accs = l.ws + 4LL * l.kc * l.ldw;
-  l.total = l.accs + 4LL * l.cparts * bi * l.ldw;
-  return l;
+// Read-only vector loads of V elements along r, and their fp32 values.
+template <typename T, int V> struct NodeVec;
+template <> struct NodeVec<float, 4> {
+  using raw = uint4;
+  static __device__ __forceinline__ raw load(const float* q) {
+    return __ldg(reinterpret_cast<const uint4*>(q));
+  }
+  static __device__ __forceinline__ raw zero() { return make_uint4(0u, 0u, 0u, 0u); }
+  static __device__ __forceinline__ void unpack(raw x, float* o) {
+    o[0] = __uint_as_float(x.x);
+    o[1] = __uint_as_float(x.y);
+    o[2] = __uint_as_float(x.z);
+    o[3] = __uint_as_float(x.w);
+  }
+};
+template <> struct NodeVec<float, 1> {
+  using raw = unsigned;
+  static __device__ __forceinline__ raw load(const float* q) {
+    return __ldg(reinterpret_cast<const unsigned*>(q));
+  }
+  static __device__ __forceinline__ raw zero() { return 0u; }
+  static __device__ __forceinline__ void unpack(raw x, float* o) { o[0] = __uint_as_float(x); }
+};
+template <> struct NodeVec<__nv_bfloat16, 8> {  // element 2q in the low half of word q
+  using raw = uint4;
+  static __device__ __forceinline__ raw load(const __nv_bfloat16* q) {
+    return __ldg(reinterpret_cast<const uint4*>(q));
+  }
+  static __device__ __forceinline__ raw zero() { return make_uint4(0u, 0u, 0u, 0u); }
+  static __device__ __forceinline__ void unpack(raw x, float* o) {
+    const unsigned w[4] = {x.x, x.y, x.z, x.w};
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      o[2 * q] = __uint_as_float(w[q] << 16);
+      o[2 * q + 1] = __uint_as_float(w[q] & 0xffff0000u);
+    }
+  }
+};
+template <> struct NodeVec<__nv_bfloat16, 1> {
+  using raw = unsigned short;
+  static __device__ __forceinline__ raw load(const __nv_bfloat16* q) {
+    return __ldg(reinterpret_cast<const unsigned short*>(q));
+  }
+  static __device__ __forceinline__ raw zero() { return 0; }
+  static __device__ __forceinline__ void unpack(raw x, float* o) {
+    o[0] = __uint_as_float((unsigned)x << 16);
+  }
+};
+
+// Dynamic shared memory of the partial kernel: the "contract" layout's
+// cross-warp fold, one fp32 word per warp, row and column of the CTA
+// (mirrored by repro_torch/engine/plan.py:partial_kernel_smem_bytes).
+static inline long long partial_smem_bytes(bool rowl, int block_rows, int tr, int vec) {
+  return rowl ? 0 : 4LL * NWARPS * block_rows * tr * vec;
 }
 
-template <typename T>
-__global__ void __launch_bounds__(NTHREADS)
-partial_kernel(SweepProblem p, const T* __restrict__ node, Factors f, float* __restrict__ out) {
-  const int nc = p.ncontract;
-  const int bi = p.block_i, br = p.block_r, R = p.rank;
-  const PartialLayout l = make_partial_layout(nc, p.block_c, bi, br);
-  const int ldw = l.ldw;
+// One CTA: block_rows kept rows (rows of blockIdx.x / rtiles) by tr * V rank
+// columns (tile blockIdx.x % rtiles), over the units of split blockIdx.y.
+// Thread tid = tl * tr + tr_idx takes r-vector tr_idx and, along the lane
+// axis, rows tl, tl + TL, ... (ROWL) or c_k = tl, tl + TL, ... of each chunk.
+template <typename T, int V, bool ROWL, int ROWS>
+__global__ void __launch_bounds__(NTHREADS, 2)
+streaming_partial_kernel(PartialProblem p, const T* __restrict__ node, Factors f,
+                         float* __restrict__ out) {
+  using L = NodeVec<T, V>;
+  constexpr int UMAX = PARTIAL_MAX_LOADS / ROWS;
+  const int tid = threadIdx.x;
+  const int tri = tid % p.tr, tl = tid / p.tr;
+  const int rt = (int)(blockIdx.x % (unsigned)p.rtiles);
+  const long long rb = blockIdx.x / (unsigned)p.rtiles;
+  const int r0 = (rt * p.tr + tri) * V;  // this thread's first rank column
+  const bool rin = r0 < p.rank;          // V > 1 only where V divides R
+  const int kin = p.ncontract - 1;
+  const long long cin = p.c_size[kin], cstride = p.c_stride[kin];
+  const T* fin = reinterpret_cast<const T*>(f.ptr[kin]) + r0;
 
-  extern __shared__ __align__(16) unsigned char smem[];
-  long long* tab = reinterpret_cast<long long*>(smem);
-  float* ws = reinterpret_cast<float*>(smem + l.ws);
-  float* accs = reinterpret_cast<float*>(smem + l.accs);
-
-  const int gr = (int)ceil_div(R, br);
-  const int r0 = (blockIdx.x % gr) * br;
-  const long long i0 = (long long)(blockIdx.x / gr) * bi;
-  const int split = blockIdx.y;
-  const int t = threadIdx.x;
-
-  long long ntiles[MAX_CONTRACT];
-  long long c_total = 1;
-  for (int d = 0; d < nc; ++d) {
-    ntiles[d] = ceil_div(p.extent_c[d], p.block_c[d]);
-    c_total *= p.extent_c[d];
+  // this thread's rows, decoded once: their node offsets (with r0)
+  long long roff[ROWS];
+  bool rok[ROWS];
+#pragma unroll
+  for (int j = 0; j < ROWS; ++j) {
+    const long long i = rb * p.block_rows + (ROWL ? tl + (long long)j * p.tl : j);
+    rok[j] = rin && i < p.rows;
+    long long rem = i, off = r0;
+    for (int d = p.nkeep - 1; d >= 0; --d) {
+      off += rem % p.keep_size[d] * p.keep_stride[d];
+      rem /= p.keep_size[d];
+    }
+    roff[j] = off;
   }
-  long long n_inner = 1;
-  for (int d = 1; d < nc; ++d) n_inner *= ntiles[d];
-  const long long o_begin = split * ntiles[0] / p.n_splits;
-  const long long o_end = (split + 1) * ntiles[0] / p.n_splits;
 
-  // thread -> column rr (+ multiples of rw), and its group -> rows and slice
-  const int rr = t % l.rw, slot = t / l.rw;
-  const int cpart = l.cparts > 1 ? slot / bi : 0;
-  const bool active = cpart < l.cparts;
-  const int row_begin = l.cparts > 1 ? slot % bi : slot;
-  const int row_step = l.cparts > 1 ? bi : l.slots;
-  const int cchunk = (int)ceil_div(l.kc, l.cparts);
-  const int cb = cpart * cchunk;
-  const int ce = cb + cchunk < l.kc ? cb + cchunk : l.kc;
+  float acc[ROWS][V];
+#pragma unroll
+  for (int j = 0; j < ROWS; ++j)
+#pragma unroll
+    for (int e = 0; e < V; ++e) acc[j][e] = 0.f;
 
-  for (int e = t; e < l.cparts * bi * ldw; e += NTHREADS) accs[e] = 0.f;
-
-  for (long long step = o_begin * n_inner; step < o_end * n_inner; ++step) {
-    long long c0[MAX_CONTRACT];
-    {
-      long long rem = step;
-      for (int d = nc - 1; d >= 1; --d) {
-        c0[d] = (rem % ntiles[d]) * p.block_c[d];
-        rem /= ntiles[d];
+  const int split = (int)blockIdx.y;
+  const long long u0 = split * p.units / p.n_splits;
+  const long long u1 = (split + 1) * p.units / p.n_splits;
+  const long long cb = ROWL ? p.unroll : (long long)p.tl * p.unroll;  // c_k indices a unit
+  const long long c_lane = ROWL ? 0 : tl, c_step = ROWL ? 1 : p.tl;
+  long long o = u0 / p.nch, ch = u0 % p.nch;
+  long long obase = 0;  // node offset of the outer tuple o
+  float wo[V];          // its weight vector: prod_{d < k-1} A_d(c_d, r0:r0+V)
+  auto outer = [&]() {
+    long long rem = o;
+    obase = 0;
+#pragma unroll
+    for (int e = 0; e < V; ++e) wo[e] = 1.f;
+    for (int d = kin - 1; d >= 0; --d) {
+      const long long cd = rem % p.c_size[d];
+      rem /= p.c_size[d];
+      obase += cd * p.c_stride[d];
+      if (rin) {
+        float a[V];
+        L::unpack(L::load(reinterpret_cast<const T*>(f.ptr[d]) + cd * p.rank + r0), a);
+#pragma unroll
+        for (int e = 0; e < V; ++e) wo[e] *= a[e];
       }
-      c0[0] = rem * p.block_c[0];
     }
-    __syncthreads();  // the previous step is done with tab and ws
-    // flat contraction offset of each index of the step (-1 out of range)
-    for (int c = t; c < l.kc; c += NTHREADS) {
-      int rem = c;
-      int dig[MAX_CONTRACT];
-      for (int d = nc - 1; d >= 0; --d) {
-        dig[d] = rem % p.block_c[d];
-        rem /= p.block_c[d];
-      }
-      long long g = 0;
-      bool in = true;
-      for (int d = 0; d < nc; ++d) {
-        const long long gd = c0[d] + dig[d];
-        in = in && gd < p.extent_c[d];
-        g = g * p.extent_c[d] + gd;
-      }
-      tab[c] = in ? g : -1;
+  };
+  if (u0 < u1) outer();
+
+  for (long long u = u0; u < u1; ++u) {
+    const long long c0 = ch * cb + c_lane;
+    // every load of the unit first: UMAX weight vectors, ROWS x UMAX node vectors
+    typename L::raw wr[UMAX], xr[UMAX][ROWS];
+#pragma unroll
+    for (int m = 0; m < UMAX; ++m) {
+      const long long c = c0 + m * c_step;
+      const bool cok = m < p.unroll && c < cin;
+      wr[m] = cok && rin ? L::load(fin + c * p.rank) : L::zero();
+#pragma unroll
+      for (int j = 0; j < ROWS; ++j)
+        xr[m][j] = cok && rok[j] ? L::load(node + roff[j] + obase + c * cstride) : L::zero();
     }
-    // weight W(c, r) = prod_d A_d(c_d, r), masked on C_d, br and R
-    for (int e = t; e < l.kc * ldw; e += NTHREADS) {
-      const int c = e / ldw, col = e - (e / ldw) * ldw;
-      bool in = col < br && r0 + col < R;
-      float v = 1.f;
-      int rem = c;
-      for (int d = nc - 1; d >= 0; --d) {
-        const long long g = c0[d] + rem % p.block_c[d];
-        rem /= p.block_c[d];
-        if (!in || g >= p.extent_c[d]) {
-          in = false;
-        } else {
-          v *= to_float(reinterpret_cast<const T*>(f.ptr[d])[g * R + r0 + col]);
-        }
+    // then the FMAs, c steps in order
+#pragma unroll
+    for (int m = 0; m < UMAX; ++m) {
+      if (m >= p.unroll) break;
+      float w[V];
+      L::unpack(wr[m], w);
+#pragma unroll
+      for (int e = 0; e < V; ++e) w[e] *= wo[e];
+#pragma unroll
+      for (int j = 0; j < ROWS; ++j) {
+        float x[V];
+        L::unpack(xr[m][j], x);
+#pragma unroll
+        for (int e = 0; e < V; ++e) acc[j][e] = fmaf(x[e], w[e], acc[j][e]);
       }
-      ws[e] = in ? v : 0.f;
+    }
+    if (++ch == p.nch) {
+      ch = 0;
+      ++o;
+      if (u + 1 < u1) outer();
+    }
+  }
+
+  float* slab = out + (long long)split * p.rows * p.rank;
+  if constexpr (ROWL) {  // each output sum is whole in this thread
+#pragma unroll
+    for (int j = 0; j < ROWS; ++j) {
+      if (!rok[j]) continue;
+      const long long i = rb * p.block_rows + tl + (long long)j * p.tl;
+      float* dst = slab + i * p.rank + r0;
+      if constexpr (V % 4 == 0) {
+#pragma unroll
+        for (int q = 0; q < V / 4; ++q)
+          reinterpret_cast<float4*>(dst)[q] =
+              make_float4(acc[j][4 * q], acc[j][4 * q + 1], acc[j][4 * q + 2], acc[j][4 * q + 3]);
+      } else {
+        dst[0] = acc[j][0];
+      }
+    }
+  } else {
+    // "contract": fold the lane axis's threads in a fixed order, the warp's
+    // lanes by a shuffle butterfly, then the warps through shared memory in
+    // warp order
+    extern __shared__ __align__(16) float red[];  // [warp][row][tr * V]
+#pragma unroll
+    for (int j = 0; j < ROWS; ++j)
+#pragma unroll
+      for (int e = 0; e < V; ++e)
+        for (int off = p.tr; off < 32; off *= 2)
+          acc[j][e] += __shfl_xor_sync(0xffffffffu, acc[j][e], off);
+    const int lane = tid % 32, warp = tid / 32, width = p.tr * V;
+    if (lane < p.tr) {
+#pragma unroll
+      for (int j = 0; j < ROWS; ++j)
+#pragma unroll
+        for (int e = 0; e < V; ++e) red[(warp * ROWS + j) * width + lane * V + e] = acc[j][e];
     }
     __syncthreads();
-    if (!active) continue;
-    for (int row = row_begin; row < bi; row += row_step) {
-      const long long gi = i0 + row;
-      if (gi >= p.extent_i) break;
-      const T* nrow = node + gi * c_total * R + r0;
-      for (int col = rr; col < ldw; col += l.rw) {
-        if (col >= br || r0 + col >= R) break;
-        float acc = 0.f;
-        for (int c = cb; c < ce; c += XLOADS) {
-          float v[XLOADS];
-#pragma unroll
-          for (int u = 0; u < XLOADS; ++u) {
-            v[u] = 0.f;
-            if (c + u < ce) {
-              const long long g = tab[c + u];
-              if (g >= 0) v[u] = to_float(nrow[g * R + col]);
-            }
-          }
-#pragma unroll
-          for (int u = 0; u < XLOADS; ++u)
-            if (c + u < ce) acc = fmaf(v[u], ws[(c + u) * ldw + col], acc);
-        }
-        accs[((long long)cpart * bi + row) * ldw + col] += acc;
-      }
+    for (int q = tid; q < ROWS * width; q += NTHREADS) {
+      const int j = q / width, col = q - j * width;
+      const long long i = rb * p.block_rows + j;
+      const int r = rt * width + col;
+      if (i >= p.rows || r >= p.rank) continue;
+      float s = 0.f;
+      for (int w = 0; w < NWARPS; ++w) s += red[(w * ROWS + j) * width + col];
+      slab[i * p.rank + r] = s;
     }
-  }
-  __syncthreads();
-  float* o = out + (long long)split * p.extent_i * R;
-  for (int e = t; e < bi * br; e += NTHREADS) {
-    const int row = e / br, col = e - (e / br) * br;
-    const long long gi = i0 + row;
-    if (gi >= p.extent_i || r0 + col >= R) continue;
-    float s = 0.f;
-    for (int q = 0; q < l.cparts; ++q) s += accs[((long long)q * bi + row) * ldw + col];
-    o[gi * R + r0 + col] = s;
   }
 }
 
@@ -378,38 +463,83 @@ partial_kernel(SweepProblem p, const T* __restrict__ node, Factors f, float* __r
 // host side
 // --------------------------------------------------------------------------
 
-static int make_problem(int ncontract, const long long* extents, const int* blocks, int block_r,
-                        int rank, int n_splits, const long long* factors, SweepProblem* p,
-                        Factors* f) {
-  if (ncontract < 1 || ncontract > MAX_CONTRACT || n_splits < 1 || block_r < 1 || rank < 1 ||
-      blocks[0] < 1)
-    return (int)cudaErrorInvalidValue;
+// The partial kernel's problem from the wrapper's arguments; false if the
+// plan or the node is not one the kernel takes.
+static bool make_partial_problem(int tsize, int layout, int block_rows, int vec, int loads,
+                                 int n_splits, int nkeep, const long long* keep_sizes,
+                                 const long long* keep_strides, int ncontract,
+                                 const long long* c_sizes, const long long* c_strides, int rank,
+                                 PartialProblem* p) {
+  if ((layout != 0 && layout != 1) || (vec != 1 && vec != 16 / tsize) || rank < 1 ||
+      rank % vec || nkeep < 1 || nkeep > MAX_CONTRACT || ncontract < 1 ||
+      ncontract > MAX_CONTRACT || n_splits < 1 || n_splits > 65535 ||
+      (loads != 1 && loads != 2 && loads != 4 && loads != 8))
+    return false;
+  const bool rowl = layout == 0;
+  p->nkeep = nkeep;
   p->ncontract = ncontract;
-  p->block_i = blocks[0];
-  p->block_r = block_r;
   p->rank = rank;
+  p->vec = vec;
+  const int nvec = (int)ceil_div(rank, vec);
+  p->tr = 1;
+  while (p->tr < nvec && p->tr < 32) p->tr *= 2;
+  p->tl = NTHREADS / p->tr;
+  p->rtiles = (int)ceil_div(nvec, p->tr);
+  const int rows = rowl ? block_rows / p->tl : block_rows;
+  if (block_rows < 1 || (rowl && block_rows % p->tl) ||
+      (rows != 1 && rows != 2 && rows != 4 && rows != 8) || loads < rows)
+    return false;
+  p->block_rows = block_rows;
+  p->unroll = loads / rows;
   p->n_splits = n_splits;
-  p->extent_i = extents[0];
+  p->rows = 1;
   for (int d = 0; d < MAX_CONTRACT; ++d) {
-    p->extent_c[d] = d < ncontract ? extents[1 + d] : 1;
-    p->block_c[d] = d < ncontract ? blocks[1 + d] : 1;
-    if (p->block_c[d] < 1) return (int)cudaErrorInvalidValue;
-    f->ptr[d] = d < ncontract ? reinterpret_cast<const void*>(factors[d]) : nullptr;
+    p->keep_size[d] = d < nkeep ? keep_sizes[d] : 1;
+    p->keep_stride[d] = d < nkeep ? keep_strides[d] : 0;
+    p->c_size[d] = d < ncontract ? c_sizes[d] : 1;
+    p->c_stride[d] = d < ncontract ? c_strides[d] : 0;
+    if (p->keep_size[d] < 1 || p->c_size[d] < 1 || p->keep_stride[d] < 0 || p->c_stride[d] < 0)
+      return false;
+    p->rows *= p->keep_size[d];
   }
-  return 0;
+  const long long cb = rowl ? p->unroll : (long long)p->tl * p->unroll;
+  p->nch = ceil_div(p->c_size[ncontract - 1], cb);
+  p->units = p->nch;
+  for (int d = 0; d < ncontract - 1; ++d) p->units *= p->c_size[d];
+  return ceil_div(p->rows, block_rows) * p->rtiles < (1LL << 31);
 }
 
-template <typename K, typename... Args>
-static int launch(K kern, const SweepProblem& p, long long smem, cudaStream_t stream,
-                  Args... args) {
-  cudaError_t err =
-      cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  const long long gi = ceil_div(p.extent_i, p.block_i);
-  const long long gr = ceil_div(p.rank, p.block_r);
-  dim3 grid((unsigned)(gi * gr), (unsigned)p.n_splits);
-  kern<<<grid, NTHREADS, smem, stream>>>(p, args...);
+template <typename T, int V, bool ROWL, int ROWS>
+static int launch_partial(const PartialProblem& p, const void* node, const Factors& f, float* out,
+                          cudaStream_t s) {
+  auto kern = streaming_partial_kernel<T, V, ROWL, ROWS>;
+  const long long smem = partial_smem_bytes(ROWL, p.block_rows, p.tr, V);
+  if (smem > 48 * 1024) {  // above the default only: the call is not a stream operation
+    cudaError_t err =
+        cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  dim3 grid((unsigned)(ceil_div(p.rows, p.block_rows) * p.rtiles), (unsigned)p.n_splits);
+  kern<<<grid, NTHREADS, smem, s>>>(p, reinterpret_cast<const T*>(node), f, out);
   return (int)cudaGetLastError();
+}
+
+template <typename T, int V, bool ROWL>
+static int dispatch_partial_rows(const PartialProblem& p, int rows, const void* node,
+                                 const Factors& f, float* out, cudaStream_t s) {
+  switch (rows) {
+    case 1: return launch_partial<T, V, ROWL, 1>(p, node, f, out, s);
+    case 2: return launch_partial<T, V, ROWL, 2>(p, node, f, out, s);
+    case 4: return launch_partial<T, V, ROWL, 4>(p, node, f, out, s);
+    default: return launch_partial<T, V, ROWL, 8>(p, node, f, out, s);
+  }
+}
+
+template <typename T, int V>
+static int dispatch_partial(const PartialProblem& p, bool rowl, const void* node,
+                            const Factors& f, float* out, cudaStream_t s) {
+  if (rowl) return dispatch_partial_rows<T, V, true>(p, p.block_rows / p.tl, node, f, out, s);
+  return dispatch_partial_rows<T, V, false>(p, p.block_rows, node, f, out, s);
 }
 
 extern "C" {
@@ -424,9 +554,18 @@ long long repro_fused_pair_smem_bytes(int tsize, int ncontract, int block_i, int
   return pair_smem_bytes(tsize, ncontract, block_i, block_k, block_r, stages);
 }
 
-// Bytes of dynamic shared memory the partial kernel takes for these blocks.
-long long repro_partial_smem_bytes(int ncontract, const int* block_c, int block_i, int block_r) {
-  return make_partial_layout(ncontract, block_c, block_i, block_r).total;
+// Bytes of dynamic shared memory the partial kernel takes under a plan
+// (layout: 0 "rows", 1 "contract") for rank R; -1 if the plan is not one
+// the kernel takes.
+long long repro_partial_smem_bytes(int tsize, int layout, int block_rows, int vec, int loads,
+                                   int rank) {
+  const long long one = 1;
+  PartialProblem p;
+  if ((tsize != 2 && tsize != 4) ||
+      !make_partial_problem(tsize, layout, block_rows, vec, loads, 1, 1, &one, &one, 1, &one,
+                            &one, rank, &p))
+    return -1;
+  return partial_smem_bytes(layout == 0, block_rows, p.tr, vec);
 }
 
 // One launch of the pair kernel. dtype: 0 float32, 1 bfloat16.
@@ -471,25 +610,35 @@ int repro_fused_pair(int dtype, int ncontract, const long long* extents, int blo
   return dtype == 0 ? run(float()) : run(__nv_bfloat16());
 }
 
-// One launch of the partial kernel. dtype: 0 float32, 1 bfloat16.
-// extents: I, C_1..C_k (the node is (I, C_1..C_k, R)); blocks: bi,
-// bc_1..bc_k; factors: k device pointers. out: n_splits slabs of (I, R)
-// fp32. Returns a cudaError_t.
-int repro_partial(int dtype, int ncontract, const long long* extents, const int* blocks,
-                  int block_r, int rank, int n_splits, const void* node,
-                  const long long* factors, void* out, void* stream) {
+// One launch of the partial kernel. dtype: 0 float32, 1 bfloat16. The node,
+// read in place: nkeep kept axes (sizes, element strides; the output row is
+// their row-major flat index) and ncontract contraction axes (the innermost
+// last), the rank axis at unit stride; factors: ncontract device pointers
+// to (C_d, R) in the node's dtype. Plan: layout (0 "rows", 1 "contract"),
+// block_rows, vec (1, or 16 bytes' worth where R, the strides and the
+// pointers are multiples of it: checked by the caller), loads, n_splits.
+// out: n_splits slabs of (I, R) fp32. Returns a cudaError_t.
+int repro_partial(int dtype, int layout, int block_rows, int vec, int loads, int n_splits,
+                  int nkeep, const long long* keep_sizes, const long long* keep_strides,
+                  int ncontract, const long long* c_sizes, const long long* c_strides, int rank,
+                  const void* node, const long long* factors, void* out, void* stream) {
   if (dtype != 0 && dtype != 1) return (int)cudaErrorInvalidValue;
-  SweepProblem p;
+  const int tsize = dtype == 0 ? 4 : 2;
+  PartialProblem p;
+  if (!make_partial_problem(tsize, layout, block_rows, vec, loads, n_splits, nkeep, keep_sizes,
+                            keep_strides, ncontract, c_sizes, c_strides, rank, &p))
+    return (int)cudaErrorInvalidValue;
   Factors f;
-  int err = make_problem(ncontract, extents, blocks, block_r, rank, n_splits, factors, &p, &f);
-  if (err) return err;
-  const long long smem = make_partial_layout(ncontract, p.block_c, p.block_i, block_r).total;
+  for (int d = 0; d < MAX_CONTRACT; ++d)
+    f.ptr[d] = d < ncontract ? reinterpret_cast<const void*>(factors[d]) : nullptr;
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
   float* o = reinterpret_cast<float*>(out);
+  const bool rowl = layout == 0;
   if (dtype == 0)
-    return launch(partial_kernel<float>, p, smem, s, reinterpret_cast<const float*>(node), f, o);
-  return launch(partial_kernel<__nv_bfloat16>, p, smem, s,
-                reinterpret_cast<const __nv_bfloat16*>(node), f, o);
+    return vec == 1 ? dispatch_partial<float, 1>(p, rowl, node, f, o, s)
+                    : dispatch_partial<float, 4>(p, rowl, node, f, o, s);
+  return vec == 1 ? dispatch_partial<__nv_bfloat16, 1>(p, rowl, node, f, o, s)
+                  : dispatch_partial<__nv_bfloat16, 8>(p, rowl, node, f, o, s);
 }
 
 }  // extern "C"

@@ -8,7 +8,8 @@ Counterpart of ``repro.kernels.ops`` (``mttkrp_canonical_pallas``,
 Unlike the reference, nothing here pads: the kernels take unpadded extents
 and mask their ragged edges, and the plain versions need no padding. The
 transpose that brings the output mode to axis 0 is a
-``permute(...).contiguous()`` copy (none for mode 0).
+``permute(...).contiguous()`` copy (none for mode 0) for the MTTKRP kernels;
+the partial kernel reads its node in place through its strides.
 """
 
 from __future__ import annotations
@@ -17,7 +18,7 @@ from typing import Sequence
 
 import torch
 
-from ..engine.plan import BlockPlan, MTTKRPKernelPlan, MultiTTMKernelPlan
+from ..engine.plan import BlockPlan, MTTKRPKernelPlan, MultiTTMKernelPlan, PartialKernelPlan
 from .mttkrp3 import mttkrp3
 from .mttkrpn import mttkrpn
 from .multi_ttm import multi_ttm_keep
@@ -95,15 +96,17 @@ def mttkrp_partial_canonical(
     node: torch.Tensor,
     fs: Sequence[torch.Tensor],
     *,
-    plan: BlockPlan | None = None,
+    plan: PartialKernelPlan | BlockPlan | None = None,
     out_dtype: torch.dtype | None = None,
 ) -> torch.Tensor:
     """Rank-augmented partial contraction (a dimension-tree node): ``node``
-    is ``(I, C_1..C_k, R)``, kept modes flattened into axis 0, dropped modes
-    next, rank last; ``fs`` are the k dropped factors ``(C_d, R)``, cast to
-    the node's dtype. Nothing is padded (the kernel masks). The kernel
-    returns float32; ``out_dtype`` casts the result."""
-    node = node.contiguous()
+    is ``(K_1..K_m, C_1..C_k, R)``, kept modes first, dropped modes next,
+    rank last, any view of the node (the kernel reads it in place through
+    its strides; nothing is copied or padded); ``fs`` are the k dropped
+    factors ``(C_d, R)``, cast to the node's dtype. Returns ``(prod K, R)``:
+    float32 from the kernel, cast to ``out_dtype`` when given. ``plan``: a
+    ``PartialKernelPlan`` for a CUDA tensor; a CPU tensor ignores it (a
+    reference ``BlockPlan`` too)."""
     fs = [f.to(node.dtype).contiguous() for f in fs]
     out = mttkrp_partial(node, fs, plan=plan)
     return out.to(out_dtype) if out_dtype is not None else out

@@ -1,85 +1,195 @@
 """The rank-augmented partial contraction on Hopper: the wrapper, its plain
 version, and its launch count.
 
-Source: ``csrc/sweep.cu`` (``partial_kernel<T>``). It replaces the TPU
-kernel ``repro/kernels/mttkrpn.py:mttkrp_partial_pallas``
-(``_partial_kernel``): a dimension-tree node that already carries the rank
-axis, ``N (I, C_1..C_k, R)``, contracted with the k dropped factors,
+Source: ``csrc/sweep.cu`` (``streaming_partial_kernel<T, V, ROWL, ROWS>``).
+It replaces the TPU kernel ``repro/kernels/mttkrpn.py:mttkrp_partial_pallas``
+(``_partial_kernel``): a dimension-tree or fused-sweep node that already
+carries the rank axis, ``N (K_1..K_m, C_1..C_k, R)``, contracted with the k
+dropped factors,
 
-    O(i, r) = sum_{c_1..c_k} N(i, c_1..c_k, r) prod_d A_d(c_d, r),  k >= 1.
+    O(i, r) = sum_{c_1..c_k} N(i, c_1..c_k, r) prod_d A_d(c_d, r),  k >= 1,
+
+i the row-major flat index of the kept axes ``K_1..K_m``.
 
 What bounds it on an H100: with the rank axis on the node there is no
 product for the tensor cores; each node element is read once and used once,
-so it is bound by memory bandwidth (a (1000, 1000, 64) fp32 node is
-2.56e8 B, 0.076 ms at 3.35 TB/s). The design: threads run along r, the
-node's contiguous last axis, so the loads coalesce; the contraction is a
-loop inside the CTA with the weight block built per step in shared memory
-(k = 1 is the same loop with a one-factor weight); the outermost contraction
-axis is split over CTAs and ``splitk.splitk_reduce`` adds the splits in a
-fixed order. Ragged edges are masked; nothing is padded.
+so it is bound by the node's bytes (a (1000, 1000, 64) fp32 node is
+2.56e8 B, 0.077 ms at 3.35 TB/s). The design is a streaming reduction that
+reads the node in place, through its strides (the rank axis at unit
+stride), so the engine makes no canonical copy in front: 16-byte read-only
+loads along r, several independent loads in flight a thread, weight vectors
+formed in registers from the factor rows and reused across a thread's rows,
+the warp spanning the axis that lies next to r in memory (the innermost
+kept axis, each sum whole in one thread, or the innermost contraction axis,
+sums folded across threads in a fixed order). The contraction is split over
+CTAs and ``splitk.splitk_reduce`` adds the splits' slabs in a fixed order.
+Its plan is :class:`~repro_torch.engine.plan.PartialKernelPlan`, chosen from
+the node's shape and strides by
+:func:`~repro_torch.engine.plan.choose_partial_kernel_blocks` (cached).
+Ragged edges are masked; nothing is padded.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
+import math
 from typing import Sequence
 
 import torch
 
 from ..core.krp import khatri_rao
-from ..engine.plan import BlockPlan, Memory, choose_blocks
+from ..engine.plan import (
+    PARTIAL_LAYOUTS,
+    PARTIAL_VEC_BYTES,
+    PartialKernelPlan,
+    choose_partial_kernel_blocks,
+    partial_kernel_smem_bytes,
+)
 from .build import check, library
-from .splitk import c_args, check_operands, check_smem, split_output, splitk_reduce
+from .splitk import check_smem, splitk_reduce
 
 
 def mttkrp_partial_plain(node: torch.Tensor, factors: Sequence[torch.Tensor]) -> torch.Tensor:
     """Plain version: ``(N * W).sum`` over the flattened contraction axes in
     float32, with W the Khatri-Rao product of the factors, the last factor's
-    index fastest (C-order over the node's contraction axes)."""
+    index fastest (C-order over the node's contraction axes). The leading
+    ``node.ndim - 1 - len(factors)`` axes are kept and flattened into the
+    output's rows."""
     w = khatri_rao([f.float() for f in reversed(factors)])
-    n = node.float().reshape(node.shape[0], -1, node.shape[-1])
+    rows = math.prod(node.shape[:node.ndim - 1 - len(factors)])
+    n = node.float().reshape(rows, -1, node.shape[-1])
     return (n * w[None]).sum(1)
 
 
-def smem_bytes(plan: BlockPlan) -> int:
-    """Dynamic shared memory the partial kernel takes under ``plan``."""
-    k = len(plan.block_contract)
-    bc = (ctypes.c_int * k)(*plan.block_contract)
-    return int(library("sweep.cu").repro_partial_smem_bytes(k, bc, plan.block_i, plan.block_r))
+def smem_bytes(plan: PartialKernelPlan, dtype: torch.dtype, rank: int) -> int:
+    """The library's own count of the partial kernel's dynamic shared memory
+    under ``plan`` for rank ``rank`` (-1 for a plan it does not take);
+    :func:`~repro_torch.engine.plan.partial_kernel_smem_bytes` mirrors it."""
+    itemsize = torch.tensor([], dtype=dtype).element_size()
+    return int(library("sweep.cu").repro_partial_smem_bytes(
+        itemsize, PARTIAL_LAYOUTS.index(plan.layout), plan.block_rows, plan.vec, plan.loads,
+        rank))
+
+
+@functools.cache
+def _sms(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def node_view(node: torch.Tensor, nkeep: int
+              ) -> tuple[list[int], list[int], list[int], list[int], list[int]]:
+    """The kernel's view of ``node``: kept sizes and strides with the kept
+    axes merged where their strides allow it (size-1 axes dropped; one axis
+    of size 1 if none is left), and the contraction axes reordered by
+    decreasing stride (the innermost last), with that order (``order[d]``:
+    the contraction axis at position d). Strides in elements."""
+    keep: list[list[int]] = []
+    for size, stride in zip(node.shape[:nkeep], node.stride()[:nkeep]):
+        if size == 1:
+            continue
+        if keep and keep[-1][1] == size * stride:
+            keep[-1] = [keep[-1][0] * size, stride]
+        else:
+            keep.append([size, stride])
+    keep = keep or [[1, 0]]
+    csizes, cstrides = node.shape[nkeep:-1], node.stride()[nkeep:-1]
+    order = sorted(range(len(csizes)), key=lambda d: -cstrides[d])
+    return ([s for s, _ in keep], [t for _, t in keep], [csizes[d] for d in order],
+            [cstrides[d] for d in order], order)
+
+
+def _kernel_view(node: torch.Tensor, factors: Sequence[torch.Tensor]):
+    """:func:`node_view` of a node with ``len(factors)`` contraction axes,
+    the factors in the view's contraction order, and whether every pointer
+    takes 16-byte loads."""
+    ksizes, kstrides, csizes, cstrides, order = node_view(node, node.ndim - 1 - len(factors))
+    fs = [factors[d] for d in order]
+    aligned = all(t.data_ptr() % PARTIAL_VEC_BYTES == 0 for t in [node, *fs])
+    return ksizes, kstrides, csizes, cstrides, fs, aligned
+
+
+def default_plan(node: torch.Tensor, factors: Sequence[torch.Tensor]) -> PartialKernelPlan:
+    """The plan :func:`mttkrp_partial` chooses for a CUDA ``node`` (rank axis
+    at unit stride) and its factors."""
+    ksizes, kstrides, csizes, cstrides, _, aligned = _kernel_view(node, factors)
+    return choose_partial_kernel_blocks(
+        (*ksizes, *csizes), (*kstrides, *cstrides), node.shape[-1], node.element_size(),
+        _sms(node.device.index or 0), nkeep=len(ksizes), aligned=aligned)
 
 
 def mttkrp_partial(
     node: torch.Tensor,
     factors: Sequence[torch.Tensor],
     *,
-    plan: BlockPlan | None = None,
+    plan: PartialKernelPlan | None = None,
 ) -> torch.Tensor:
-    """Canonical rank-augmented partial contraction of an ``(I, C_1..C_k,
-    R)`` node with its k ``(C_d, R)`` factors; returns float32 ``(I, R)``.
-    A CUDA tensor launches the kernel under ``plan`` (default: planned
-    against ``Memory.h100_smem()`` with ``x_has_rank=True``); a CPU tensor
-    takes :func:`mttkrp_partial_plain`."""
-    if node.ndim != len(factors) + 2 or not factors:
+    """Rank-augmented partial contraction of a ``(K_1..K_m, C_1..C_k, R)``
+    node, m >= 0 kept axes first, with its k ``(C_d, R)`` factors; returns
+    float32 ``(prod K, R)``. A CUDA tensor is read in place through its
+    strides (a node whose rank axis is not at unit stride gets one
+    ``.contiguous()``) and launches the kernel under ``plan`` (default:
+    :func:`choose_partial_kernel_blocks` for its view; any other plan type
+    raises ``TypeError``); a CPU tensor ignores ``plan`` and takes
+    :func:`mttkrp_partial_plain`."""
+    k = len(factors)
+    if not factors or node.ndim < k + 1:
         raise ValueError(f"mttkrp_partial: node of shape {tuple(node.shape)} with "
-                         f"{len(factors)} factors")
+                         f"{k} factors")
     if node.device.type == "cpu":
         return mttkrp_partial_plain(node, factors)
-    rank = node.shape[-1]
+    name = "mttkrp_partial"
+    if node.device.type != "cuda":
+        raise ValueError(f"{name}: the kernel needs a CUDA tensor, got {node.device}")
+    if node.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"{name}: float32 or bfloat16 input, got {node.dtype}")
+    rank, nkeep = node.shape[-1], node.ndim - 1 - k
+    if not 1 <= k <= 7 or nkeep > 7:
+        raise ValueError(f"{name}: {k} contraction and {nkeep} kept axes; the kernel takes "
+                         f"1 to 7 of each")
+    for d, f in enumerate(factors):
+        if f.device != node.device or f.dtype != node.dtype or not f.is_contiguous():
+            raise ValueError(
+                f"{name}: factor {d} must be a contiguous {node.dtype} tensor on {node.device}")
+        if tuple(f.shape) != (node.shape[nkeep + d], rank):
+            raise ValueError(f"{name}: factor {d} has shape {tuple(f.shape)}, "
+                             f"expected {(node.shape[nkeep + d], rank)}")
+    if node.stride(-1) != 1 and rank > 1:
+        node = node.contiguous()
+    ksizes, kstrides, csizes, cstrides, fs, aligned = _kernel_view(node, factors)
+    rows = math.prod(ksizes)
+    if node.numel() == 0:
+        return torch.zeros((rows, rank), device=node.device, dtype=torch.float32)
+    itemsize = node.element_size()
+    wide = PARTIAL_VEC_BYTES // itemsize
     if plan is None:
-        plan = choose_blocks(node.shape[:-1], rank, x_has_rank=True,
-                             memory=Memory.h100_smem(itemsize=node.element_size()))
-    check_operands("mttkrp_partial", node, factors, rank, plan, x_has_rank=True)
+        plan = choose_partial_kernel_blocks(
+            (*ksizes, *csizes), (*kstrides, *cstrides), rank, itemsize,
+            _sms(node.device.index or 0), nkeep=len(ksizes), aligned=aligned)
+    elif not isinstance(plan, PartialKernelPlan):
+        raise TypeError(f"{name}: on a CUDA tensor the plan is a PartialKernelPlan, "
+                        f"got {type(plan).__name__}")
+    plan.check(rank, itemsize)
+    if plan.vec > 1 and not (aligned and all(s % wide == 0 for s in kstrides + cstrides)):
+        raise ValueError(f"{name}: plan {plan} loads {PARTIAL_VEC_BYTES} bytes, but the node's "
+                         f"strides or a pointer are not multiples of them")
+    check_smem(name, plan, partial_kernel_smem_bytes(plan, rank))
+    out = torch.empty((rows, rank), device=node.device, dtype=torch.float32)
+    ws = out if plan.splits == 1 else torch.empty(
+        (plan.splits, rows, rank), device=node.device, dtype=torch.float32)
     lib = library("sweep.cu")
-    check_smem("mttkrp_partial", plan, smem_bytes(plan))
-    out, ws, splits = split_output(node, rank, plan)
-    extents, blocks, ptrs, dtype = c_args(node, factors, plan)
+    ll = ctypes.c_longlong
+    nk, nc = len(ksizes), len(csizes)
     with torch.cuda.device(node.device):
         stream = torch.cuda.current_stream(node.device).cuda_stream
-        err = lib.repro_partial(dtype, len(factors), extents, blocks, plan.block_r, rank,
-                                splits, node.data_ptr(), ptrs, ws.data_ptr(), stream)
-    check(err, "mttkrp_partial")
+        err = lib.repro_partial(
+            0 if node.dtype == torch.float32 else 1, PARTIAL_LAYOUTS.index(plan.layout),
+            plan.block_rows, plan.vec, plan.loads, plan.splits, nk, (ll * nk)(*ksizes),
+            (ll * nk)(*kstrides), nc, (ll * nc)(*csizes), (ll * nc)(*cstrides), rank,
+            node.data_ptr(), (ll * nc)(*(f.data_ptr() for f in fs)), ws.data_ptr(), stream)
+    check(err, name)
     mttkrp_partial.launches += 1
-    if splits > 1:
+    if plan.splits > 1:
         splitk_reduce(ws, out)
     return out
 

@@ -5,8 +5,9 @@ Source: ``csrc/mttkrp.cu`` (``splitk_reduce_kernel``). It replaces what the
 TPU kernels get from their sequential grid: the output tile stays resident
 across the contraction steps (``repro/kernels/mttkrp3.py:67-69``). On
 Hopper the CTAs run in parallel and in no order, so the contraction is split
-over ``S`` CTAs (flat K for the MTTKRP kernel, the outermost contraction
-axis for the sweep and Multi-TTM kernels), each writing an fp32 slab of an
+over ``S`` CTAs (chunks of flat K for the MTTKRP kernel, leading tuples for
+the pair, runs of contraction units for the partial kernel, ``c_1`` tiles
+for Multi-TTM), each writing an fp32 slab of an
 ``(S, I, R)`` workspace, and this kernel sums the slabs in slab order: no
 atomics, the same bits on every run. It moves ``(S + 1) * I * R * 4``
 bytes and is bound by memory bandwidth.
@@ -20,16 +21,15 @@ from typing import Sequence
 
 import torch
 
-from ..engine.plan import CTAS_PER_SM as CTAS_PER_SM  # re-exported beside n_splits
+from ..engine.plan import CTAS_PER_SM as CTAS_PER_SM  # re-exported with the split rule
 from ..engine.plan import (
     SMEM_PER_CTA_MAX,
-    BlockPlan,
     MTTKRPKernelPlan,
     choose_mttkrp_kernel_blocks,
     mttkrp_kernel_grid,
     mttkrp_kernel_smem_bytes,
-    n_splits,
 )
+from ..engine.plan import n_splits as n_splits  # re-exported: the split rule
 from .build import check, library
 
 
@@ -76,22 +76,19 @@ def smem_bytes(plan: MTTKRPKernelPlan, dtype: torch.dtype, ncontract: int) -> in
 
 
 def check_operands(name: str, x: torch.Tensor, factors: Sequence[torch.Tensor],
-                   rank: int, plan: BlockPlan | None, *, x_has_rank: bool = False) -> None:
+                   rank: int) -> None:
     """Raise unless ``x`` is a contiguous fp32 or bf16 CUDA tensor whose axes
-    1..k match the k contiguous ``(C_d, R)`` factors of its dtype and device
-    (``x_has_rank``: a trailing rank axis follows them), and ``plan``, where
-    given, has k contraction blocks of that kind."""
+    1..k match the k contiguous ``(C_d, R)`` factors of its dtype and
+    device."""
     if x.device.type != "cuda":
         raise ValueError(f"{name}: the kernel needs a CUDA tensor, got {x.device}")
     if x.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"{name}: float32 or bfloat16 input, got {x.dtype}")
-    k = x.ndim - 1 - int(x_has_rank)
+    k = x.ndim - 1
     if len(factors) != k or not 1 <= k <= 7:
         raise ValueError(f"{name}: operand of shape {tuple(x.shape)} with {len(factors)} factors")
     if not x.is_contiguous():
         raise ValueError(f"{name}: the tensor must be contiguous")
-    if x_has_rank and x.shape[-1] != rank:
-        raise ValueError(f"{name}: rank axis {x.shape[-1]}, factors of rank {rank}")
     for d, f in enumerate(factors):
         if f.device != x.device or f.dtype != x.dtype or not f.is_contiguous():
             raise ValueError(
@@ -100,8 +97,6 @@ def check_operands(name: str, x: torch.Tensor, factors: Sequence[torch.Tensor],
         if tuple(f.shape) != (x.shape[1 + d], rank):
             raise ValueError(f"{name}: factor {d} has shape {tuple(f.shape)}, "
                              f"expected {(x.shape[1 + d], rank)}")
-    if plan is not None and (len(plan.block_contract) != k or plan.x_has_rank != x_has_rank):
-        raise ValueError(f"{name}: plan {plan} does not fit operand {tuple(x.shape)}")
 
 
 def check_smem(name: str, plan, smem: int) -> None:
@@ -111,34 +106,6 @@ def check_smem(name: str, plan, smem: int) -> None:
             f"{name}: plan {plan} needs {smem} bytes of shared memory; a CTA has at most "
             f"{SMEM_PER_CTA_MAX}"
         )
-
-
-def split_output(x: torch.Tensor, rank: int, plan: BlockPlan
-                 ) -> tuple[torch.Tensor, torch.Tensor, int]:
-    """The fp32 ``(I, R)`` output, the workspace the kernel writes (the
-    output itself when the contraction is not split), and the split count
-    :func:`n_splits` gives for ``plan`` on this card."""
-    i_sz = x.shape[0]
-    gi = math.ceil(i_sz / plan.block_i)
-    gr = math.ceil(rank / plan.block_r)
-    outer = math.ceil(x.shape[1] / plan.block_contract[0])
-    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
-    splits = n_splits(gi * gr, outer, sms)
-    out = torch.empty((i_sz, rank), device=x.device, dtype=torch.float32)
-    ws = out if splits == 1 else torch.empty(
-        (splits, i_sz, rank), device=x.device, dtype=torch.float32
-    )
-    return out, ws, splits
-
-
-def c_args(x: torch.Tensor, factors: Sequence[torch.Tensor], plan: BlockPlan):
-    """The C entry points' shared arguments: extents (I, C_1..C_k), blocks
-    (bi, bc_1..bc_k), the factors' device pointers, and the dtype code."""
-    k = len(factors)
-    extents = (ctypes.c_longlong * (k + 1))(*x.shape[:k + 1])
-    blocks = (ctypes.c_int * (k + 1))(plan.block_i, *plan.block_contract)
-    ptrs = (ctypes.c_longlong * k)(*(f.data_ptr() for f in factors))
-    return extents, blocks, ptrs, 0 if x.dtype == torch.float32 else 1
 
 
 def copy_width(run_bytes: int, ptrs: Sequence[int]) -> int:
@@ -185,7 +152,7 @@ def launch_tile(
     Checks device, dtype, shape and contiguity first, then the plan's type,
     blocks and shared memory."""
     rank = factors[0].shape[1] if factors else 0
-    check_operands(name, x, factors, rank, None)
+    check_operands(name, x, factors, rank)
     check_extents(name, x)
     plan = kernel_plan(name, x, rank, plan)
     itemsize = x.element_size()

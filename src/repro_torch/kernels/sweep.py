@@ -89,7 +89,7 @@ def fused_pair(
     if x.device.type == "cpu":
         return fused_pair_plain(x, factors)
     rank = factors[0].shape[1]
-    check_operands("fused_pair", x, factors, rank, None)
+    check_operands("fused_pair", x, factors, rank)
     check_extents("fused_pair", x)
     plan = kernel_plan("fused_pair", x, rank, plan, choose=choose_pair_kernel_blocks)
     nc, itemsize = len(factors), x.element_size()

@@ -31,7 +31,7 @@ from repro_torch.engine.plan import (
     MTTKRPKernelPlan,
     MultiTTMKernelPlan,
     MultiTTMPlan,
-    choose_blocks,
+    PartialKernelPlan,
     choose_multi_ttm_kernel_blocks,
     choose_mttkrp_kernel_blocks,
     choose_pair_kernel_blocks,
@@ -41,6 +41,8 @@ from repro_torch.engine.plan import (
     multi_ttm_kernel_smem_bytes,
     pair_kernel_grid,
     pair_kernel_smem_bytes,
+    partial_kernel_smem_bytes,
+    partial_kernel_threads,
 )
 from repro_torch.engine.sweep import fused_als_sweep
 from repro_torch.engine.tree import dimtree_als_sweep
@@ -445,22 +447,137 @@ def test_partial_matches_plain(card, shape, dtype):
     _close(mttkrp_partial(node, fs), mttkrp_partial_plain(node, fs))
 
 
+# (node shape, permute, dtype, plan): both layouts, one split and many, R off
+# 16 bytes (element loads), k = 3, R beyond one warp's 32 vectors (three
+# rank tiles), bf16; "rows" plans read a permuted node in place
 PARTIAL_PLANS = [
-    ((50, 70, 32), BlockPlan(8, (16,), 32, True)),            # k=1, splits
-    ((37, 61, 7), BlockPlan(3, (7,), 7, True)),               # unaligned blocks
-    ((20, 9, 11, 13), BlockPlan(8, (4, 8), 16, True)),        # k=2, groups share rows
-    ((12, 7, 5, 6, 9), BlockPlan(4, (3, 2, 4), 8, True)),     # k=3
-    ((9, 40, 300), BlockPlan(8, (8,), 512, True)),            # columns beyond 256 threads
+    ((50, 70, 32), (0, 1, 2), torch.float32, PartialKernelPlan("contract", 8, 4, 8, 5)),
+    ((70, 50, 32), (1, 0, 2), torch.float32, PartialKernelPlan("rows", 64, 4, 8, 7)),
+    ((37, 61, 7), (0, 1, 2), torch.float32, PartialKernelPlan("contract", 2, 1, 4, 3)),
+    ((61, 37, 7), (1, 0, 2), torch.float32, PartialKernelPlan("rows", 32, 1, 4, 1)),
+    ((20, 9, 11, 13), (0, 1, 2, 3), torch.float32, PartialKernelPlan("contract", 4, 1, 8, 6)),
+    ((12, 7, 5, 6, 9), (0, 1, 2, 3, 4), torch.float32,
+     PartialKernelPlan("contract", 4, 1, 8, 2)),
+    ((7, 5, 6, 12, 9), (3, 0, 1, 2, 4), torch.float32, PartialKernelPlan("rows", 32, 1, 8, 4)),
+    ((9, 40, 300), (0, 1, 2), torch.float32, PartialKernelPlan("contract", 2, 4, 8, 2)),
+    ((40, 9, 300), (1, 0, 2), torch.float32, PartialKernelPlan("rows", 8, 4, 8, 2)),
+    ((30, 20, 64), (0, 1, 2), torch.bfloat16, PartialKernelPlan("contract", 4, 8, 8, 3)),
+    ((20, 30, 64), (1, 0, 2), torch.bfloat16, PartialKernelPlan("rows", 128, 8, 8, 3)),
 ]
 
 
-@pytest.mark.parametrize("shape,plan", PARTIAL_PLANS)
-def test_partial_pinned_plans_match_plain(card, shape, plan):
-    rng = np.random.default_rng(9)
-    node = torch.as_tensor(rng.standard_normal(shape, dtype=np.float32)).to(card)
-    fs = [torch.as_tensor(rng.standard_normal((c, shape[-1]), dtype=np.float32)).to(card)
-          for c in shape[1:-1]]
-    _close(mttkrp_partial(node, fs, plan=plan), mttkrp_partial_plain(node, fs))
+def _node(shape, dtype, device, seed):
+    rng = np.random.default_rng(seed)
+    node = torch.as_tensor(rng.standard_normal(shape, dtype=np.float32)).to(device, dtype)
+    return node, rng
+
+
+@pytest.mark.parametrize("shape,perm,dtype,plan", PARTIAL_PLANS)
+def test_partial_pinned_plans_match_plain(card, shape, perm, dtype, plan):
+    node, rng = _node(shape, dtype, card, 9)
+    view = node.permute(perm)
+    fs = [torch.as_tensor(rng.standard_normal((c, shape[-1]), dtype=np.float32)).to(card, dtype)
+          for c in view.shape[1:-1]]
+    _close(mttkrp_partial(view, fs, plan=plan), mttkrp_partial_plain(view.contiguous(), fs))
+
+
+def _partial_edges(n):
+    """Every rank-carrying (modes, drop) the dimension tree and the fused
+    sweep of an n-way tensor produce."""
+    out = []
+
+    def rec(modes):
+        if len(modes) == 1:
+            return
+        half = max(1, len(modes) // 2)
+        for child, drop in ((modes[:half], modes[half:]), (modes[half:], modes[:half])):
+            out.append((modes, drop))
+            rec(child)
+
+    full = tuple(range(n))
+    for child in (full[:max(1, n // 2)], full[max(1, n // 2):]):
+        rec(child)
+    inner = tuple(range(n - 1))
+    out += [(inner, tuple(d for d in inner if d != m)) for m in range(n - 1)]
+    out.append((inner, tuple(range(1, n - 1))))
+    return out
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=["f32", "bf16"])
+@pytest.mark.parametrize("dims,rank", [((37, 29, 41), 16), ((21, 13, 17, 19), 7),
+                                       ((9, 7, 11, 6, 8), 13)])
+def test_partial_reads_every_contract_partial_permute_in_place(card, dims, rank, dtype):
+    """Each permute ``contract_partial`` makes of a rank-carrying node (3-,
+    4- and 5-way tensors) through the kernel as that strided view, against
+    the plain version of its contiguous copy; then ``contract_partial``
+    itself on ``cuda`` against ``einsum``."""
+    rng = np.random.default_rng(14)
+    fs = [torch.as_tensor(rng.standard_normal((d, rank), dtype=np.float32)).to(card, dtype)
+          for d in dims]
+    cuda = repro_torch.ExecutionContext.create("cuda")
+    ein = repro_torch.ExecutionContext.create("einsum")
+    for modes, drop in _partial_edges(len(dims)):
+        shape = tuple(dims[m] for m in modes) + (rank,)
+        node = torch.as_tensor(rng.standard_normal(shape, dtype=np.float32)).to(card, dtype)
+        keep = tuple(m for m in modes if m not in drop)
+        perm = tuple(modes.index(m) for m in keep + tuple(drop)) + (len(modes),)
+        view = node.permute(perm)
+        got = mttkrp_partial(view, [fs[m] for m in drop])
+        _close(got, mttkrp_partial_plain(view.contiguous(), [fs[m] for m in drop]))
+        if dtype == torch.float32:
+            _close(repro_torch.contract_partial(node, fs, modes, drop, True, ctx=cuda),
+                   repro_torch.contract_partial(node, fs, modes, drop, True, ctx=ein))
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=["f32", "bf16"])
+@pytest.mark.parametrize("rank", [7, 13, 32])
+def test_partial_misaligned_nodes_and_odd_ranks(card, rank, dtype):
+    """A node one element past a 16-byte boundary, and rows of R elements
+    that are not 16-byte multiples: element loads, in both layouts."""
+    node, rng = _node((45, 33, 19, rank), dtype, card, 15)
+    fs = [torch.as_tensor(rng.standard_normal((c, rank), dtype=np.float32)).to(card, dtype)
+          for c in (45, 33, 19)]
+    for x in (node, _misaligned(node)):
+        for perm in ((0, 1, 2, 3), (1, 0, 2, 3), (2, 0, 1, 3)):
+            view = x.permute(perm)
+            vfs = [fs[a] for a in perm[1:-1]]
+            plan = partial.default_plan(view, vfs)
+            wide = 16 // dtype.itemsize
+            assert plan.vec == (wide if rank % wide == 0 and x.data_ptr() % 16 == 0 else 1)
+            _close(mttkrp_partial(view, vfs), mttkrp_partial_plain(view.contiguous(), vfs))
+
+
+def test_a_reference_plan_on_the_partial_kernel_is_refused(card):
+    node, _ = _node((8, 8, 4), torch.float32, card, 16)
+    fs = [torch.ones((8, 4), device=card)]
+    before = mttkrp_partial.launches
+    with pytest.raises(TypeError, match="PartialKernelPlan"):
+        mttkrp_partial(node, fs, plan=BlockPlan(8, (8,), 4, True))
+    with pytest.raises(TypeError, match="PartialKernelPlan"):
+        repro_torch.contract_partial(node, [fs[0], fs[0]], (0, 1), (1,), True,
+                                     ctx=repro_torch.ExecutionContext.create("cuda"),
+                                     plan=BlockPlan(8, (8,), 4, True))
+    with pytest.raises(ValueError):  # 16-byte loads on a misaligned node
+        mttkrp_partial(_misaligned(node), fs, plan=PartialKernelPlan("contract", 8, 4, 8, 1))
+    assert mttkrp_partial.launches == before
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=["f32", "bf16"])
+@pytest.mark.parametrize("rank", [1, 7, 13, 32, 64, 300])
+def test_partial_smem_count_matches_its_mirror(card, rank, dtype):
+    size = dtype.itemsize
+    for layout in ("rows", "contract"):
+        for vec in (1, 16 // size):
+            if rank % vec:
+                continue
+            tl = partial_kernel_threads(rank, vec)[1]
+            for rows in (1, 2, 4, 8):
+                for loads in (1, 2, 4, 8):
+                    block = rows * (tl if layout == "rows" else 1)
+                    plan = PartialKernelPlan(layout, block, vec, loads, 1)
+                    want = partial_kernel_smem_bytes(plan, rank) if loads >= rows else -1
+                    assert partial.smem_bytes(plan, dtype, rank) == want, plan
+    assert partial.smem_bytes(PartialKernelPlan("contract", 3, 1, 8, 1), dtype, rank) == -1
 
 
 def test_sweep_kernels_are_deterministic_and_counted(card):
@@ -484,13 +601,16 @@ def test_sweep_plans_fit_one_cta(card):
                   (3, 4, 2, 5, 3), (4096, 16, 2048)]:
         for rank, dtype in [(1, torch.float32), (16, torch.float32), (64, torch.bfloat16),
                             (200, torch.float32)]:
-            mem = Memory.h100_smem(itemsize=dtype.itemsize)
             plan = choose_pair_kernel_blocks(shape, rank, dtype.itemsize)
             smem = sweep.smem_bytes(plan, dtype, len(shape) - 1)
             assert smem == pair_kernel_smem_bytes(plan, dtype.itemsize, len(shape) - 1)
             assert smem <= 232_448, (shape, rank, plan)
-            node_plan = choose_blocks(shape[:-1], rank, memory=mem, x_has_rank=True)
-            assert partial.smem_bytes(node_plan) <= 232_448, (shape, rank, node_plan)
+            node = torch.empty(tuple(shape[:-1]) + (rank,), device=card, dtype=dtype)
+            node_fs = [torch.empty((c, rank), device=card, dtype=dtype) for c in shape[1:-1]]
+            node_plan = partial.default_plan(node, node_fs)
+            smem = partial.smem_bytes(node_plan, dtype, rank)
+            assert smem == partial_kernel_smem_bytes(node_plan, rank) <= 232_448, (
+                shape, rank, node_plan)
 
 
 def _update(factors, rank):

@@ -11,6 +11,7 @@ largest output magnitude (float32 on both sides, different summation orders).
 """
 
 import math
+import sys
 
 import jax.numpy as jnp
 import numpy as np
@@ -19,6 +20,7 @@ import torch
 
 import repro_torch
 import repro_torch.engine.execute as execute
+import repro_torch.engine.plan as plan_mod
 from repro.engine.plan import BlockPlan as JPlan
 from repro.kernels.ops import mttkrp_canonical_pallas
 from repro_torch.engine.plan import (
@@ -186,14 +188,22 @@ def _cuda_ctx():
 
 
 def test_engine_does_not_plan_mttkrp_with_choose_blocks_on_cuda(monkeypatch):
-    """On ``cuda`` the MTTKRP kernel plans itself: ``ctx.memory`` no longer
-    picks a reference-shaped plan for ``mttkrp`` or for the no-rank edge of
-    ``contract_partial``; the rank-augmented partial kernel still plans
-    against it."""
+    """On ``cuda`` the kernels plan themselves: ``ctx.memory`` no longer
+    picks a reference-shaped plan for ``mttkrp``, for the no-rank edge of
+    ``contract_partial``, or for its rank-augmented partial kernel (which
+    takes a ``PartialKernelPlan`` from the node's strides). Every port
+    module that holds ``choose_blocks`` is watched."""
     planned = []
-    real = execute.choose_blocks
-    monkeypatch.setattr(execute, "choose_blocks",
-                        lambda *a, **k: planned.append(k.get("x_has_rank")) or real(*a, **k))
+    real = plan_mod.choose_blocks
+
+    def spy(*a, **k):
+        planned.append(k.get("x_has_rank"))
+        return real(*a, **k)
+
+    for mod in list(sys.modules.values()):
+        if (getattr(mod, "__name__", "").startswith("repro_torch")
+                and getattr(mod, "choose_blocks", None) is real):
+            monkeypatch.setattr(mod, "choose_blocks", spy)
     seen = []  # every cuda MTTKRP goes through kernels.ops.mttkrp_canonical
     real_canon = execute.kernel_ops.mttkrp_canonical
     monkeypatch.setattr(execute.kernel_ops, "mttkrp_canonical",
@@ -213,4 +223,4 @@ def test_engine_does_not_plan_mttkrp_with_choose_blocks_on_cuda(monkeypatch):
     assert planned == [] and seen == [None] * 4
     node = torch.from_numpy(rng.standard_normal((5, 4, 3), dtype=np.float32))
     repro_torch.contract_partial(node, fs, (1, 2), (2,), True, ctx=ctx)
-    assert planned == [True]
+    assert planned == []
