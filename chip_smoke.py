@@ -83,9 +83,26 @@ Phases (any failure raises, and the script exits non-zero):
    launch); (c) the same model in fp32: prefill logits at every position of
    one 512-token prompt (two chunks) against token-by-token ``decode_step``
    logits, max |d| / max |prefill| within ``DUAL_TOL``;
-10. one JSON line per kernel and shape (times from CUDA events), the
+10. the batched engine (``BATCHES``: 16 tensors of 256^3 at R = 32 in fp32
+    and bf16, 64 of 96^3 at R = 16, 8 of 64^4 at R = 16): batched
+    ``repro_torch.mttkrp`` in every mode with per-element and with shared
+    factors, batched ``contract_partial`` on the fused and dimension-tree
+    nodes, batched ``multi_ttm`` on every keep and the core (ranks 16), each
+    exactly one kernel launch and at most one ``splitk_reduce``, each
+    against the kernel's plain version on the same batched operands (the
+    MTTKRP kernels' with its product taken in float64, ``mttkrp64``) and
+    against a loop of B unbatched calls (B launches), to 1e-5 (fp32
+    outputs) or ``TOL["bfloat16"]`` (bf16 ones); each kernel's batched call
+    and its loop timed back to back (CUDA events) and as device time (CUDA
+    graphs); then ``cp_als_batched`` on 16 x 256^3 at R = 32 (10
+    iterations, exactly 3 ``mttkrp3`` launches an iteration, fits within
+    1e-4 of a loop of 16 ``cp_als`` runs from the same starts) and
+    ``tucker_hooi_batched`` on 16 x 256^3 at ranks 16 (5 sweeps, exactly 3
+    ``multi_ttm_keep`` launches a sweep, fits within 1e-4 of a loop of 16
+    ``tucker_hooi`` runs), each timed against its loop;
+11. one JSON line per kernel and shape (times from CUDA events), the
     ``nvidia-smi`` line, and one ``{"kernels": [...]}`` line;
-11. the last line, ``{"ok": true, "device": {...}}``.
+12. the last line, ``{"ok": true, "device": {...}}``.
 
 All data are made on the card from ``--seed`` with a ``torch.Generator``.
 Matmuls run in full fp32 (TF32 off), so the plain versions and the einsum
@@ -172,6 +189,17 @@ DUAL_LEN = 512
 #: kernel's dt weights scaled by 1.001 read 9.6e-4, its diagonal dropped
 #: 0.57 (PERF.md, section 6).
 DUAL_TOL = 1e-4
+#: Phase 10, the batched engine: (B, element shape, R, dtypes). 16 x 256^3
+#: (1.07 GB in fp32) is a bucket of mid-sized requests, 64 x 96^3 the
+#: small-request bucket where the host's cost a call sets the pace, 8 x 64^4
+#: a 4-way bucket (the partial kernel's k = 2 nodes, the MTTKRP kernel's
+#: generic path).
+BATCHES = [(16, (256, 256, 256), 32, ("float32", "bfloat16")),
+           (64, (96, 96, 96), 16, ("float32",)),
+           (8, (64, 64, 64, 64), 16, ("float32",))]
+#: Phase 10's drivers: (B, element shape, CP rank, CP iterations, Tucker
+#: rank, HOOI sweeps).
+BATCHED_DRIVERS = (16, (256, 256, 256), 32, 10, 16, 5)
 
 
 def nvidia_smi() -> str:
@@ -214,7 +242,9 @@ def graph_ms(fn, reps: int = 50, rounds: int = 4) -> float:
     torch.cuda.current_stream().wait_stream(side)
     torch.cuda.synchronize()
     graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
+    # relaxed: the wrappers set a kernel's shared-memory limit
+    # (cudaFuncSetAttribute, not a stream operation) at each launch
+    with torch.cuda.graph(graph, capture_error_mode="relaxed"):
         for _ in range(reps):
             fn()
     graph.replay()
@@ -1312,6 +1342,266 @@ def mamba_phase(gen, smi: str) -> dict:
     return {"launches": launches, "serve": rec, "duality": dual}
 
 
+def batched_phase(gen, smi: str) -> dict:
+    """Phase 10: the batched engine, one launch a batched call, each call
+    against the kernel's plain version and a loop of B unbatched calls,
+    then the batched CP-ALS and HOOI drivers against loops of the
+    unbatched drivers. Returns the drivers' launches and the records."""
+    import torch
+    import repro_torch
+    from repro_torch.core.krp import khatri_rao
+    from repro_torch.core.tensor import random_factors
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.mttkrpn import mttkrpn_plain
+    from repro_torch.kernels.multi_ttm import multi_ttm_keep_plain
+    from repro_torch.kernels.partial import mttkrp_partial_plain
+
+    def mttkrp64(xp, fs):
+        """The MTTKRP kernels' plain version (``mttkrpn_plain``: X (B, I, K)
+        times the Khatri-Rao product) with its product taken in float64:
+        cuBLAS's batched fp32 product sums each element's K (65,536 to
+        262,144 here) in one pass and strays from float64 by more than the
+        kernel does (each mttkrp record's ``plain_fp32_rel_err``)."""
+        w = khatri_rao([f.double() for f in reversed(fs)])
+        return xp.double().reshape(xp.shape[0], xp.shape[1], -1) @ w
+
+    kernels = counters()
+    ctx = repro_torch.ExecutionContext.create("cuda")
+    records = []
+
+    def counted(fn):
+        """``fn()``, and the launches it made, by kernel."""
+        before = {name: k.launches for name, k in kernels.items()}
+        out = fn()
+        torch.cuda.synchronize()
+        return out, {name: k.launches - before[name] for name, k in kernels.items()
+                     if k.launches != before[name]}
+
+    def one_launch(what, launches, kernel):
+        extra = {k: n for k, n in launches.items() if k not in (kernel, "splitk_reduce")}
+        if launches.get(kernel) != 1 or launches.get("splitk_reduce", 0) > 1 or extra:
+            raise AssertionError(f"{what}: launches {launches}, expected one {kernel} and at "
+                                 f"most one splitk_reduce")
+
+    def measure(what, kernel, batch, call, loop_call, plain, dtype, bytes_moved, time_it,
+                plain32=None):
+        """One batched engine call: one launch, against its plain version
+        and a loop of B calls (B launches); timed against the loop.
+        ``plain32``: the fp32 plain version, whose own distance from
+        ``plain`` (taken in float64) is recorded."""
+        got, launches = counted(call)
+        one_launch(what, launches, kernel)
+        # fp32 outputs to 1e-5; the engine returns contract_partial's and
+        # multi_ttm's results in the input's dtype, so bf16 ones carry its
+        # rounding (TOL["bfloat16"])
+        out_tol = "float32" if got.dtype == torch.float32 else "bfloat16"
+        want = plain()
+        rel, diff = check(what, got, want, out_tol)
+        extra = {"plain_fp32_rel_err": rel_err(plain32(), want)[0]} if plain32 else {}
+        del want
+        loop, loop_launches = counted(loop_call)
+        if loop_launches.get(kernel) != batch:
+            raise AssertionError(f"{what}: the loop made {loop_launches}, expected {batch}")
+        rel_loop, _ = check(f"{what} vs loop", got, loop, out_tol)
+        rec = {"batched": what, "kernel": kernel, "batch": batch, "dtype": dtype,
+               "launches": launches, "loop_launches": loop_launches, "max_rel_err": rel,
+               "max_abs_err": diff, "max_rel_err_vs_loop": rel_loop, **extra, "gpu": smi}
+        if time_it:
+            b_ms = bytes_moved / PEAK_BYTES * 1e3
+            rec.update({
+                "batched_ms": cuda_ms(call), "looped_ms": cuda_ms(loop_call, reps=3, warm=1),
+                "timing": "cuda_events, back to back: host and device",
+                "batched_graph_ms": graph_ms(call, reps=5, rounds=2),
+                "looped_graph_ms": graph_ms(loop_call, reps=2, rounds=2),
+                "bound_ms": b_ms, "bound_by": "bytes"})
+        emit(rec)
+        records.append(rec)
+        del got, loop
+
+    for batch, dims, rank, dtypes in BATCHES:
+        n = len(dims)
+        x32 = torch.randn((batch, *dims), generator=gen, device="cuda")
+        per32 = [torch.randn((batch, d, rank), generator=gen, device="cuda") / rank ** 0.5
+                 for d in dims]
+        for dtype in dtypes:
+            td = getattr(torch, dtype)
+            x, per = x32.to(td), [f.to(td) for f in per32]
+            shared = [f[0] for f in per]
+            elem_bytes = x.element_size()
+            tag = f"{batch}x{'x'.join(map(str, dims))} R={rank} {dtype}"
+            kern = "mttkrp3" if n == 3 else "mttkrpn"
+            # mttkrp in every mode, per-element and shared factors
+            for form, fs in (("per_element", per), ("shared", shared)):
+                for mode in range(n):
+                    def call(fs=fs, mode=mode):
+                        return repro_torch.mttkrp(x, fs, mode, ctx=ctx, out_dtype=torch.float32)
+
+                    def loop_call(fs=fs, mode=mode):
+                        return torch.stack([repro_torch.mttkrp(
+                            x[b], [f[b] if f.ndim == 3 else f for f in fs], mode, ctx=ctx,
+                            out_dtype=torch.float32) for b in range(batch)])
+
+                    def plain(fs=fs, mode=mode):
+                        return mttkrp64(*ops.canonicalize(x, fs, mode, batched=True))
+
+                    def plain32(fs=fs, mode=mode):
+                        return mttkrpn_plain(*ops.canonicalize(x, fs, mode, batched=True))
+
+                    fbytes = sum(f.numel() for k, f in enumerate(fs) if k != mode) * elem_bytes
+                    measure(f"mttkrp {tag} mode {mode} {form}", kern, batch, call, loop_call,
+                            plain, dtype, x.numel() * elem_bytes + fbytes
+                            + batch * dims[mode] * rank * 4, mode == 0 and form == "per_element",
+                            plain32)
+            # contract_partial on the sweeps' nodes: the fused sweep's P
+            # (rank axis, read in place) and the dimension tree's edges
+            if n == 3:
+                nodes = [((0, 1), (0,), True), ((0, 1), (1,), True),
+                         ((0, 1, 2), (2,), False)]
+            else:
+                nodes = [((0, 1, 2), (0, 2), True), ((0, 1, 2), (0, 1), True),
+                         ((0, 1), (1,), True), ((0, 1, 2, 3), (2, 3), False)]
+            for modes, drop, has_rank in nodes:
+                if has_rank:
+                    node = torch.randn((batch, *(dims[m] for m in modes), rank), generator=gen,
+                                       device="cuda").to(td)
+                else:
+                    node = x
+                keep = tuple(m for m in modes if m not in drop)
+                pos = {m: i for i, m in enumerate(modes)}
+                perm = (0,) + tuple(1 + pos[m] for m in keep + drop)
+
+                def call(node=node, modes=modes, drop=drop, has_rank=has_rank):
+                    return repro_torch.contract_partial(node, per, modes, drop, has_rank,
+                                                        ctx=ctx)
+
+                def loop_call(node=node, modes=modes, drop=drop, has_rank=has_rank):
+                    return torch.stack([repro_torch.contract_partial(
+                        node[b], [f[b] for f in per], modes, drop, has_rank, ctx=ctx)
+                        for b in range(batch)])
+
+                def plain(node=node, drop=drop, has_rank=has_rank, keep=keep, perm=perm):
+                    fs = [per[m] for m in drop]
+                    sizes = (batch,) + tuple(dims[m] for m in keep) + (rank,)
+                    if has_rank:
+                        view = node.permute(perm + (node.ndim - 1,))
+                        return mttkrp_partial_plain(view, fs, batched=True).reshape(sizes)
+                    xp = node.permute(perm).reshape(
+                        (batch, math.prod(dims[m] for m in keep)) + tuple(dims[m] for m in drop))
+                    return mttkrp64(xp, fs).reshape(sizes)
+
+                kname = "mttkrp_partial" if has_rank else ("mttkrpn" if len(drop) == 1
+                                                           else "mttkrp3")
+                nbytes = node.numel() * elem_bytes + batch * math.prod(
+                    dims[m] for m in keep) * rank * 4
+                measure(f"contract_partial {tag} modes {modes} drop {drop}"
+                        f"{' rank' if has_rank else ''}", kname, batch, call, loop_call, plain,
+                        dtype, nbytes, has_rank and drop == nodes[0][1])
+                del node
+            # multi_ttm on every keep and the core, ranks 16
+            tr = min(16, rank)
+            mats = [f[..., :tr].contiguous() for f in per]
+            for keep in (*range(n), None):
+                ms = [None if k == keep else m for k, m in enumerate(mats)]
+
+                def call(ms=ms, keep=keep):
+                    return repro_torch.multi_ttm(x, ms, keep, ctx=ctx)
+
+                def loop_call(ms=ms, keep=keep):
+                    return torch.stack([repro_torch.multi_ttm(
+                        x[b], [None if m is None else m[b] for m in ms], keep, ctx=ctx)
+                        for b in range(batch)])
+
+                def plain(ms=ms, keep=keep):
+                    lead = 0 if keep is None else keep
+                    order = (lead,) + tuple(k for k in range(n) if k != lead)
+                    xp = x.permute((0,) + tuple(1 + k for k in order))
+                    z = multi_ttm_keep_plain(xp, [ms[k] for k in order[1:]], batched=True)
+                    ranks = (tr,) * (n - 1)
+                    if keep is None:
+                        return (ms[0].float().transpose(1, 2) @ z).reshape((batch, tr) + ranks)
+                    inv = [order.index(a) for a in range(n)]
+                    return z.reshape((batch, dims[lead]) + ranks).permute(
+                        (0,) + tuple(1 + i for i in inv))
+
+                nbytes = x.numel() * elem_bytes + batch * dims[0] * tr ** (n - 1) * 4
+                measure(f"multi_ttm {tag} keep {keep}", "multi_ttm_keep", batch, call,
+                        loop_call, plain, dtype, nbytes, keep == 0)
+            del x, per, shared, mats
+            torch.cuda.empty_cache()
+        del x32, per32
+        torch.cuda.empty_cache()
+
+    # the drivers: batched CP-ALS and HOOI against loops of the unbatched ones
+    batch, dims, rank, iters, trank, sweeps = BATCHED_DRIVERS
+    n = len(dims)
+    x = torch.stack([noisy_low_rank(gen, dims, rank) for _ in range(batch)])
+    draws = [random_factors(gen, dims, rank) for _ in range(batch)]
+    init = [torch.stack(f) for f in zip(*draws)]
+    for k in kernels.values():
+        k.launches = 0
+    repro_torch.cp_als_batched(x, rank, 1, init_factors=init, ctx=ctx)  # untimed, counted
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = repro_torch.cp_als_batched(x, rank, iters, init_factors=init, ctx=ctx)
+    torch.cuda.synchronize()
+    batched_ms = (time.perf_counter() - t0) / iters * 1e3
+    launches = {name: k.launches for name, k in kernels.items()}
+    t0 = time.perf_counter()
+    loop = [repro_torch.cp_als(x[b], rank, iters, init_factors=[f[b] for f in init], ctx=ctx)
+            for b in range(batch)]
+    torch.cuda.synchronize()
+    looped_ms = (time.perf_counter() - t0) / iters * 1e3
+    gap = max(abs(float(h[b]) - loop[b].fits[it]) for it, h in enumerate(res.fit_history)
+              for b in range(batch))
+    cp_rec = {"cp_als_batched": [batch, *dims], "rank": rank, "iters": iters,
+              "fits": [float(f) for f in res.fits], "loop_fits": [r.final_fit for r in loop],
+              "max_fit_gap_vs_loop": gap, "iter_ms_batched": batched_ms,
+              "iter_ms_looped": looped_ms, "launches": launches, "gpu": smi}
+    emit(cp_rec)
+    want = {name: (n if name == "mttkrp3" else 0) * (iters + 1) for name in COUNTED}
+    if {k: launches[k] for k in COUNTED} != want or launches["splitk_reduce"] > n * (iters + 1):
+        raise AssertionError(f"cp_als_batched: launches {launches}, expected {want} and at "
+                             f"most one splitk_reduce a call")
+    if gap > 1e-4 or not all(0.0 < float(f) <= 1.0 for f in res.fits):
+        raise AssertionError(f"cp_als_batched: fits {cp_rec['fits']} against the loop's "
+                             f"{cp_rec['loop_fits']} (gap {gap:.2e})")
+    driver_launches = dict(launches)
+    del res, loop, init, draws, x
+    torch.cuda.empty_cache()
+
+    x = torch.stack([noisy_tucker(gen, dims, (trank,) * n) for _ in range(batch)])
+    for k in kernels.values():
+        k.launches = 0
+    repro_torch.tucker_hooi_batched(x, (trank,) * n, 1, ctx=ctx)  # untimed, counted
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = repro_torch.tucker_hooi_batched(x, (trank,) * n, sweeps, ctx=ctx)
+    torch.cuda.synchronize()
+    batched_ms = (time.perf_counter() - t0) / sweeps * 1e3
+    launches = {name: k.launches for name, k in kernels.items()}
+    t0 = time.perf_counter()
+    loop = [repro_torch.tucker_hooi(x[b], (trank,) * n, sweeps, ctx=ctx) for b in range(batch)]
+    torch.cuda.synchronize()
+    looped_ms = (time.perf_counter() - t0) / sweeps * 1e3
+    gap = max(abs(float(res.fits[b]) - loop[b].final_fit) for b in range(batch))
+    tk_rec = {"tucker_hooi_batched": [batch, *dims], "ranks": [trank] * n, "sweeps": sweeps,
+              "fits": [float(f) for f in res.fits], "loop_fits": [r.final_fit for r in loop],
+              "max_fit_gap_vs_loop": gap, "sweep_ms_batched": batched_ms,
+              "sweep_ms_looped": looped_ms, "launches": launches, "gpu": smi}
+    emit(tk_rec)
+    want = {name: (n if name == "multi_ttm_keep" else 0) * (sweeps + 1) for name in COUNTED}
+    if {k: launches[k] for k in COUNTED} != want:
+        raise AssertionError(f"tucker_hooi_batched: launches {launches}, expected {want}")
+    if gap > FIT_NOISE or not all(0.0 < float(f) <= 1.0 for f in res.fits):
+        raise AssertionError(f"tucker_hooi_batched: fits {tk_rec['fits']} against the loop's "
+                             f"{tk_rec['loop_fits']} (gap {gap:.2e})")
+    for name, k in launches.items():
+        driver_launches[name] += k
+    del res, loop, x
+    torch.cuda.empty_cache()
+    return {"launches": driver_launches, "records": records, "cp": cp_rec, "tucker": tk_rec}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1358,7 +1648,9 @@ def main() -> int:
     tucker = tucker_phase(gen)  # phase 8
     ssd_kernel_phase(gen, smi, records)  # phase 9a
     mamba = mamba_phase(gen, smi)  # phases 9b, 9c
-    for counted in (matrix["launches"], tucker["launches"], mamba["launches"]):
+    batched = batched_phase(gen, smi)  # phase 10
+    for counted in (matrix["launches"], tucker["launches"], mamba["launches"],
+                    batched["launches"]):
         for name, n in counted.items():
             main_path["launches"][name] += n
 
@@ -1376,7 +1668,8 @@ def main() -> int:
         if main_path["launches"][name] == 0:
             raise AssertionError(f"{name} was never launched on the main paths")
         kernels.append({  # launches: summed over the main-path runs (CP-ALS, CP-ALS on a
-            # matrix, Tucker and the Mamba2 prefill), each counted from 0
+            # matrix, Tucker, the Mamba2 prefill and the batched CP-ALS and HOOI
+            # drivers), each counted from 0
             "name": name, "route": "cuda", "source": CSRC + SOURCE[name],
             "replaces": REPLACES[name],
             "launches": main_path["launches"][name],

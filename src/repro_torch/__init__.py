@@ -2,8 +2,10 @@
 MTTKRP, CP-ALS and Tucker/HOOI), for an NVIDIA H100.
 
 It carries dense CP-ALS on the per-mode, fused (mode-reuse) and
-dimension-tree schedules, and Multi-TTM with Tucker/HOOI, every contraction
-through the hand-written Hopper kernels (``backend="cuda"``)::
+dimension-tree schedules, gradient-based CP, and Multi-TTM with
+Tucker/HOOI, every contraction through the hand-written Hopper kernels
+(``backend="cuda"``), and the batched forms of all of them: a leading batch
+axis of B same-shaped tensors is one kernel launch a contraction::
 
     import torch, repro_torch
 
@@ -13,12 +15,20 @@ through the hand-written Hopper kernels (``backend="cuda"``)::
     b0 = repro_torch.mttkrp(x, cp.factors, 0, ctx=ctx)
     tk = repro_torch.tucker_hooi(x, (16, 12, 8), n_iters=5, ctx=ctx)
     y0 = repro_torch.multi_ttm(x, tk.factors, keep=0, ctx=ctx)
+    xs = torch.randn(16, 96, 96, 96, device="cuda")              # a batch of 16
+    cps = repro_torch.cp_als_batched(xs, rank=16, n_iters=10, ctx=ctx)
 
 The JAX package ``repro`` is the reference; this package never imports it.
 """
 
-from .core.cp_als import CPResult, cp_als
+from .core.cp_als import CPResult, cp_als, cp_gradient
 from .core.tucker import TuckerResult, tucker_hooi
+from .engine.batch import (
+    BatchedCPResult,
+    BatchedTuckerResult,
+    cp_als_batched,
+    tucker_hooi_batched,
+)
 from .engine.context import ExecutionContext
 from .engine.execute import contract_partial, mttkrp, multi_ttm
 from .engine.plan import BlockPlan, Memory, MultiTTMPlan
@@ -30,9 +40,14 @@ __all__ = [
     "mttkrp",
     "contract_partial",
     "cp_als",
+    "cp_gradient",
     "CPResult",
+    "cp_als_batched",
+    "BatchedCPResult",
     "multi_ttm",
     "MultiTTMPlan",
     "tucker_hooi",
     "TuckerResult",
+    "tucker_hooi_batched",
+    "BatchedTuckerResult",
 ]

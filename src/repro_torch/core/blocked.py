@@ -14,6 +14,8 @@ from typing import Sequence
 import torch
 import torch.nn.functional as F
 
+from .mttkrp import mttkrp
+
 _L = "abcdefghijklmnop"
 
 
@@ -119,3 +121,12 @@ def multi_ttm_blocked(
         out = out.reshape(shape[:keep] + (shape[keep] * shape[keep + 1],) + shape[keep + 2:])
         out = out.narrow(keep, 0, dims[keep])
     return out
+
+
+def mttkrp_blocked_reference_check(
+    x: torch.Tensor, factors: Sequence[torch.Tensor], mode: int, block: int
+) -> torch.Tensor:
+    """abs-max discrepancy between blocked and direct MTTKRP (for tests)."""
+    a = mttkrp_blocked(x, factors, mode, block)
+    b = mttkrp(x, factors, mode)
+    return torch.max(torch.abs(a - b))

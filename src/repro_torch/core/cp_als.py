@@ -1,5 +1,5 @@
-"""CP-ALS (PyTorch). Counterpart of ``repro.core.cp_als`` (``CPResult``,
-``cp_als``).
+"""CP-ALS and gradient-based CP (PyTorch). Counterpart of
+``repro.core.cp_als`` (``CPResult``, ``cp_als``, ``cp_gradient``).
 
 One sweep = for each mode n: B = MTTKRP(X, A, n) through the engine; solve
 the normal equations A_n Γ_n = B in float32 with a small ridge;
@@ -12,12 +12,18 @@ uses the inner-product identity
     ||X - recon||^2 = ||X||^2 - 2<B^(N-1), A^(N-1)> + 1^T (Γ ∘ A_N^T A_N) 1
 
 so the full tensor is never rebuilt.
+
+``cp_gradient`` is Adam on 0.5 ||X - [[A]]||_F^2 with the analytic gradient
+dL/dA_n = A_n Γ_n - MTTKRP(X, A, n), every MTTKRP through the engine too.
+Both drivers take a ``mttkrp_fn(x, factors, mode)`` that replaces the
+engine's MTTKRP on their per-mode path (the hook the distributed drivers
+plug into).
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass, field
-from typing import Sequence
+from typing import Callable, Sequence
 
 import torch
 
@@ -26,6 +32,8 @@ from ..engine.context import ExecutionContext
 from ..engine.sweep import fused_als_sweep
 from ..engine.tree import dimtree_als_sweep
 from .tensor import frob_norm, random_factors, tensor_from_factors
+
+MttkrpFn = Callable[[torch.Tensor, Sequence[torch.Tensor], int], torch.Tensor]
 
 
 @dataclass
@@ -77,6 +85,8 @@ def cp_als(
     *,
     init_factors: Sequence[torch.Tensor] | None = None,
     generator: torch.Generator | None = None,
+    mttkrp_fn: MttkrpFn | None = None,
+    use_dimension_tree: bool = False,
     tol: float = 0.0,
     sweep: str | None = None,
     ctx: ExecutionContext | None = None,
@@ -87,18 +97,30 @@ def cp_als(
     ``init_factors`` start the iteration (tests pass the reference's); else
     the factors are drawn from ``generator`` (default: seed 0 on the
     context's device). ``tol > 0`` stops once the fit changes by less.
-    ``sweep`` picks the schedule: ``"per_mode"`` (the default, also for
-    ``None``), ``"fused"`` (two tensor passes a sweep; one fused pair kernel
-    launch on ``cuda``) or ``"dimtree"``."""
+    ``sweep`` picks the schedule: ``"per_mode"`` (the default),
+    ``"fused"`` (two tensor passes a sweep; one fused pair kernel launch on
+    ``cuda``) or ``"dimtree"``; ``use_dimension_tree=True`` is the
+    reference's alias of ``sweep="dimtree"`` (passing another ``sweep``
+    beside it raises). ``mttkrp_fn(x, factors, mode)`` replaces the engine's
+    MTTKRP on the ``per_mode`` schedule, as in the reference."""
     ctx = ctx if ctx is not None else ExecutionContext()
-    schedule = sweep if sweep is not None else "per_mode"
+    if sweep is not None:
+        if sweep not in _SWEEPS + ("auto",):
+            raise ValueError(f"unknown sweep {sweep!r}; expected one of {_SWEEPS + ('auto',)}")
+        if use_dimension_tree and sweep != "dimtree":
+            raise ValueError(
+                f"sweep={sweep!r} conflicts with use_dimension_tree=True (pass only one of "
+                f"the two)"
+            )
+    schedule = sweep if sweep is not None else ("dimtree" if use_dimension_tree else "per_mode")
     if schedule == "auto":
         raise ValueError(
             "sweep='auto' resolves through the autotuner, which comes with the tuning "
             "slice (ROADMAP Queue 1 item 9)"
         )
-    if schedule not in _SWEEPS:
-        raise ValueError(f"unknown sweep {sweep!r}; expected one of {_SWEEPS}")
+    if mttkrp_fn is None:
+        def mttkrp_fn(t, fs, mode):
+            return engine_execute.mttkrp(t, fs, mode, ctx=ctx)
     ctx.check_tensor("repro_torch.cp_als", x, *(init_factors or ()))
     n = x.ndim
     if init_factors is not None:
@@ -135,9 +157,63 @@ def cp_als(
             dimtree_als_sweep(x, factors, update, ctx=ctx)
         else:
             for mode in range(n):
-                factors[mode] = update(mode, engine_execute.mttkrp(x, factors, mode, ctx=ctx))
+                factors[mode] = update(mode, mttkrp_fn(x, factors, mode))
         gram_full = _hadamard_except(grams, -1) * torch.outer(weights, weights)
         fits.append(float(_fit(normx, last["b"], last["a"], gram_full)))
         if tol and it > 0 and abs(fits[-1] - fits[-2]) < tol:
             break
     return CPResult(factors, weights, fits)
+
+
+def cp_gradient(
+    x: torch.Tensor,
+    rank: int,
+    n_iters: int = 200,
+    lr: float = 0.05,
+    *,
+    init_factors: Sequence[torch.Tensor] | None = None,
+    generator: torch.Generator | None = None,
+    mttkrp_fn: MttkrpFn | None = None,
+    ctx: ExecutionContext | None = None,
+) -> CPResult:
+    """Gradient-based CP: Adam on the analytic MTTKRP gradient, every MTTKRP
+    through ``engine.execute.mttkrp`` under ``ctx`` (as :func:`cp_als`) or
+    through ``mttkrp_fn``. ``init_factors`` start it (the parity tests pass
+    the reference's ``random_factors(key, ...)`` start); else the factors are
+    drawn from ``generator`` (default: seed 0 on the context's device). A fit
+    is recorded every 10 steps and at the last. The result's ``weights`` are
+    ones (the factors carry the scale)."""
+    ctx = ctx if ctx is not None else ExecutionContext()
+    ctx.check_tensor("repro_torch.cp_gradient", x, *(init_factors or ()))
+    n = x.ndim
+    if mttkrp_fn is None:
+        def mttkrp_fn(t, fs, mode):
+            return engine_execute.mttkrp(t, fs, mode, ctx=ctx)
+    if init_factors is not None:
+        factors = [f.to(x.dtype) for f in init_factors]
+    else:
+        if generator is None:
+            generator = torch.Generator(device=ctx.torch_device).manual_seed(0)
+        factors = random_factors(generator, x.shape, rank, x.dtype)
+    normx = frob_norm(x)
+    m = [torch.zeros_like(f) for f in factors]
+    v = [torch.zeros_like(f) for f in factors]
+    b1, b2, eps = 0.9, 0.999, 1e-8
+    fits: list[float] = []
+    for it in range(1, n_iters + 1):
+        grams = _grams(factors)
+        grads = []
+        for mode in range(n):
+            b = mttkrp_fn(x, factors, mode)
+            grads.append(factors[mode] @ _hadamard_except(grams, mode) - b)
+        for k in range(n):
+            m[k] = b1 * m[k] + (1 - b1) * grads[k]
+            v[k] = b2 * v[k] + (1 - b2) * torch.square(grads[k])
+            mhat = m[k] / (1 - b1 ** it)
+            vhat = v[k] / (1 - b2 ** it)
+            factors[k] = factors[k] - lr * mhat / (torch.sqrt(vhat) + eps)
+        if it % 10 == 0 or it == n_iters:
+            b = mttkrp_fn(x, factors, n - 1)
+            gram_full = _hadamard_except(_grams(factors), -1)
+            fits.append(float(_fit(normx, b, factors[n - 1], gram_full)))
+    return CPResult(factors, torch.ones((rank,), dtype=x.dtype, device=x.device), fits)

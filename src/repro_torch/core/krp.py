@@ -16,17 +16,20 @@ def khatri_rao(matrices: Sequence[torch.Tensor]) -> torch.Tensor:
     ``matrices[k]`` is ``(I_k, R)``; the result is ``(prod I_k, R)`` with
     the *first* matrix's index varying fastest, so that
     ``matricize(X, n) @ khatri_rao([A_k for k != n])`` is the MTTKRP.
+    Leading batch axes broadcast: a ``(B, I_k, R)`` stack beside shared
+    ``(I_k, R)`` matrices gives ``(B, prod I_k, R)``.
     """
     if len(matrices) == 0:
         raise ValueError("need at least one matrix")
-    rank = matrices[0].shape[1]
+    rank = matrices[0].shape[-1]
     for m in matrices:
-        if m.shape[1] != rank:
+        if m.shape[-1] != rank:
             raise ValueError("rank mismatch in khatri_rao")
     out = matrices[-1]
     for m in reversed(matrices[:-1]):
-        # out: (J, R), m: (I, R) -> (J*I, R) with m's index fastest.
-        out = (out[:, None, :] * m[None, :, :]).reshape(-1, rank)
+        # out: (.., J, R), m: (.., I, R) -> (.., J*I, R) with m's index fastest.
+        out = out[..., :, None, :] * m[..., None, :, :]
+        out = out.reshape(*out.shape[:-3], -1, rank)
     return out
 
 

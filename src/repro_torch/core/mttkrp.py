@@ -55,3 +55,10 @@ def mttkrp_naive(
             prod = prod * factors[k][:, r].reshape(shape)
         cols.append(prod.sum(dim=axes))
     return torch.stack(cols, dim=1)
+
+
+def mttkrp_all_modes(
+    x: torch.Tensor, factors: Sequence[torch.Tensor]
+) -> list[torch.Tensor]:
+    """MTTKRP in every mode (the CP-ALS inner loop), no reuse."""
+    return [mttkrp(x, factors, n) for n in range(x.ndim)]

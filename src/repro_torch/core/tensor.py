@@ -19,6 +19,7 @@ import math
 from functools import reduce
 from typing import Sequence
 
+import numpy as np
 import torch
 
 _LETTERS = "abcdefghijklmnopqrstuvw"
@@ -33,6 +34,21 @@ def matricize(x: torch.Tensor, mode: int) -> torch.Tensor:
     rest = tuple(k for k in range(n) if k != mode)
     # Fortran order over the remaining axes == reversed axes, C-ravel.
     return x.permute((mode,) + rest[::-1]).reshape(x.shape[mode], -1)
+
+
+def dematricize(xm: torch.Tensor, mode: int, shape: Sequence[int]) -> torch.Tensor:
+    """Inverse of :func:`matricize`: the ``shape`` tensor whose mode-``mode``
+    matricization is ``xm``."""
+    shape = tuple(shape)
+    n = len(shape)
+    rest = tuple(k for k in range(n) if k != mode)
+    # matricize produced axes (mode, reversed(rest))
+    xt = xm.reshape((shape[mode],) + tuple(shape[k] for k in reversed(rest)))
+    xt = xt.permute((0,) + tuple(range(n - 1, 0, -1)))  # now (mode,) + rest
+    inv = [0] * n
+    for pos, axis in enumerate((mode,) + rest):
+        inv[axis] = pos
+    return xt.permute(inv)
 
 
 def tensor_from_factors(
@@ -62,9 +78,23 @@ def frob_norm(x: torch.Tensor) -> torch.Tensor:
     return torch.linalg.vector_norm(x.reshape(-1), dtype=torch.float32)
 
 
+def relative_error(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """``||x - y|| / ||x||`` in float32 (a zero ``x`` counts as 1e-30)."""
+    return frob_norm(x - y) / torch.clamp(frob_norm(x), min=1e-30)
+
+
 def total_size(dims: Sequence[int]) -> int:
     """I = prod(I_k)."""
     return int(reduce(lambda a, b: a * b, dims, 1))
+
+
+def random_tensor(
+    generator: torch.Generator,
+    dims: Sequence[int],
+    dtype: torch.dtype = torch.float32,
+) -> torch.Tensor:
+    """A standard-normal tensor of shape ``dims`` on the generator's device."""
+    return torch.randn(tuple(dims), generator=generator, device=generator.device, dtype=dtype)
 
 
 def random_factors(
@@ -115,3 +145,11 @@ def random_tucker_tensor(
     for k, a in enumerate(factors):
         out = torch.tensordot(out, a, dims=([k], [1])).movedim(-1, k)
     return out, core, factors
+
+
+def np_matricize(x: np.ndarray, mode: int) -> np.ndarray:
+    """NumPy twin of :func:`matricize` (the sequential simulator's), a copy
+    of ``repro.core.tensor.np_matricize``."""
+    n = x.ndim
+    perm = (mode,) + tuple(k for k in range(n) if k != mode)
+    return np.transpose(x, perm).reshape(x.shape[mode], -1, order="F")

@@ -14,7 +14,12 @@ Counterpart of ``repro.engine.execute.mttkrp`` / ``_mttkrp_impl``,
 
 Configuration comes in as one :class:`~.context.ExecutionContext`;
 ``plan``, ``block``, ``kernel_variant`` and ``out_dtype`` pin one
-contraction's details. Each kernel wrapper counts its own launches
+contraction's details. A leading batch axis on the tensor (B problems of one
+shape, factors ``(B, I_k, R)`` per element or ``(I_k, R)`` shared) is one
+batched call, as in the reference: one ``torch.einsum`` with a batch letter,
+a host loop of the blocked schedule, or ONE kernel launch on ``cuda`` (the
+batch is the kernels' grid z dimension), plus at most one
+``splitk_reduce``. Each kernel wrapper counts its own launches
 (``mttkrp3.launches``, ``mttkrpn.launches``, ``mttkrp_partial.launches``,
 ``fused_pair.launches``, ``multi_ttm_keep.launches``,
 ``splitk_reduce.launches``).
@@ -61,7 +66,43 @@ def _cast_compute(ctx: ExecutionContext, x, arrays, out_dtype):
 _L = "abcdefghijklmnopqrstuvw"
 _RANK = "z"
 _RANKS = "ABCDEFGHIJ"  # per-mode Tucker rank letters (Multi-TTM einsum)
-_BATCH_SLICE = "a leading batch axis comes with the batched-engine slice, ROADMAP Queue 1 item 8"
+_BATCH = "y"  # the batch axis of a batched call
+
+
+def _batch_axes(api: str, arrays, batch: int, elem_dims, ranks, what: str) -> list[bool]:
+    """Which per-mode operands of a batched call carry the batch: True for
+    a per-element ``(B, I_k, R)`` stack, False for a shared ``(I_k, R)``
+    operand (and for a ``None`` slot). ``ranks[k]`` may be ``None`` to skip
+    the rank-extent check. Raises the reference's ``ValueError`` otherwise
+    (``repro.engine.execute._batch_axes``)."""
+    axes: list[bool] = []
+    for k, a in enumerate(arrays):
+        if a is None:
+            axes.append(False)
+            continue
+        want = (elem_dims[k],) if ranks[k] is None else (elem_dims[k], ranks[k])
+        if a.ndim == len(want) + 1 and tuple(a.shape) == (batch,) + want:
+            axes.append(True)
+        elif a.ndim == len(want) and tuple(a.shape) == want:
+            axes.append(False)
+        else:
+            raise ValueError(
+                f"{api}: batched call (B={batch}) needs {what} {k} of shape "
+                f"{(batch,) + want} (per-element) or {want} (shared), got {tuple(a.shape)}"
+            )
+    return axes
+
+
+def _operand(sub: str, per_element: bool) -> str:
+    """An operand's einsum subscripts, the batch letter first if it has one."""
+    return (_BATCH if per_element else "") + sub
+
+
+def _stack_loop(fn, batch: int, x, arrays, axes) -> torch.Tensor:
+    """``fn`` on each element of a batch (element b of every per-element
+    operand, the shared ones as they are), stacked: the host-loop form."""
+    return torch.stack([fn(x[b], [a[b] if per else a for a, per in zip(arrays, axes)])
+                        for b in range(batch)])
 
 
 def mttkrp(
@@ -83,10 +124,11 @@ def mttkrp(
     specialized or N-way generic kernel."""
     ctx = ctx if ctx is not None else ExecutionContext()
     ctx.check_tensor("repro_torch.mttkrp", x, *factors)
+    if x.ndim == len(factors) + 1:
+        # leading batch axis: B independent MTTKRPs in one call
+        return _mttkrp_batched(x, factors, mode, ctx, plan, block, out_dtype, kernel_variant)
     if x.ndim != len(factors):
-        raise ValueError(
-            f"{x.ndim}-way tensor with {len(factors)} factors ({_BATCH_SLICE})"
-        )
+        raise ValueError(f"{x.ndim}-way tensor with {len(factors)} factors")
     return _mttkrp_impl(x, factors, mode, ctx, plan, block, out_dtype, kernel_variant)
 
 
@@ -110,6 +152,40 @@ def _mttkrp_impl(x, factors, mode, ctx, plan, block, out_dtype, kernel_variant):
     return kernel_ops.mttkrp(
         x, factors, mode, plan=plan, out_dtype=out_dtype, variant=kernel_variant
     )
+
+
+def _mttkrp_batched(x, factors, mode, ctx, plan, block, out_dtype, kernel_variant):
+    """B MTTKRPs as one call: ``x`` is ``(B, I_0, ..., I_{N-1})``,
+    ``factors[k]`` is ``(B, I_k, R)`` (per element) or ``(I_k, R)``
+    (shared). ``einsum`` takes one einsum with a batch letter,
+    ``blocked_host`` loops the blocked schedule over the elements, ``cuda``
+    launches the kernel once for the batch (its plan is the element's)."""
+    batch, elem_shape = int(x.shape[0]), tuple(x.shape[1:])
+    n = len(elem_shape)
+    if not 0 <= mode < n:
+        raise ValueError(f"mode {mode} out of range for batched {n}-way tensor")
+    rank = next(int(f.shape[-1]) for k, f in enumerate(factors) if k != mode)
+    axes = _batch_axes("repro_torch.mttkrp", factors, batch, elem_shape, [rank] * n, "factor")
+    if out_dtype is None and ctx.out_dtype is not None:
+        out_dtype = torch_dtype(ctx.out_dtype)
+    x, factors, out_dtype, mixed = _cast_compute(ctx, x, factors, out_dtype)
+    if ctx.backend == "einsum":
+        others = [k for k in range(n) if k != mode]
+        subs = [_BATCH + _L[:n]] + [_operand(_L[k] + _RANK, axes[k]) for k in others]
+        ops = [x] + [factors[k] for k in others]
+        if mixed:  # fp32 accumulation under a compute-dtype policy
+            ops = [o.float() for o in ops]
+        out = torch.einsum(",".join(subs) + "->" + _BATCH + _L[mode] + _RANK, *ops)
+        return out.to(out_dtype) if out_dtype is not None else out
+    if ctx.backend == "blocked_host":
+        if block is None:
+            block = best_uniform_block(elem_shape, ctx.memory or Memory.abstract(2 ** 20))
+        out = _stack_loop(lambda xb, fb: mttkrp_blocked(xb, fb, mode, block, f32_acc=mixed),
+                          batch, x, factors, axes)
+        return out.to(out_dtype) if out_dtype is not None else out
+    # cuda: one launch for the batch, the element's plan
+    return kernel_ops.mttkrp(x, factors, mode, plan=plan, out_dtype=out_dtype,
+                             variant=kernel_variant, batched=True)
 
 
 def contract_partial(
@@ -139,13 +215,14 @@ def contract_partial(
     ctx = ctx if ctx is not None else ExecutionContext()
     ctx.check_tensor("repro_torch.contract_partial", node, *factors)
     modes, drop = tuple(modes), tuple(drop)
-    if node.ndim != len(modes) + int(has_rank):
-        raise ValueError(
-            f"node of {node.ndim} axes for modes {modes} (has_rank={has_rank}); "
-            f"{_BATCH_SLICE}"
-        )
+    batched = node.ndim == len(modes) + int(has_rank) + 1
+    if node.ndim != len(modes) + int(has_rank) and not batched:
+        raise ValueError(f"node of {node.ndim} axes for modes {modes} (has_rank={has_rank})")
     if not drop or any(m not in modes for m in drop):
         raise ValueError(f"drop {drop} must be a non-empty subset of modes {modes}")
+    if batched:
+        # leading batch axis: B tree-node contractions in one call
+        return _contract_partial_batched(node, factors, modes, drop, has_rank, ctx, plan)
     return _contract_partial_impl(node, factors, modes, drop, has_rank, ctx, plan)
 
 
@@ -185,6 +262,52 @@ def _contract_partial_impl(node, factors, modes, drop, has_rank, ctx, plan):
         xp = node.permute(perm).reshape((math.prod(keep_sizes),) + drop_sizes)
         out = kernel_ops.mttkrp_canonical(xp, fs, plan=plan, out_dtype=out_as)
     out = out.reshape(keep_sizes + (rank,))
+    return out.to(out_dtype) if out_dtype is not None else out
+
+
+def _contract_partial_batched(node, factors, modes, drop, has_rank, ctx, plan):
+    """B dimension-tree contractions as one call: ``node`` carries a leading
+    batch axis ahead of its tensor modes (and trailing rank axis when
+    ``has_rank``); ``factors[m]`` for each dropped mode is ``(B, I_m, R)``
+    or shared ``(I_m, R)``. ``einsum`` and ``blocked_host`` take one einsum
+    with a batch letter; ``cuda`` one launch of the partial kernel (a node
+    with a rank axis, read in place) or of the MTTKRP kernels (one without,
+    as its canonical copy), the batch axis kept first."""
+    keep = tuple(m for m in modes if m not in drop)
+    batch, elem_shape = int(node.shape[0]), tuple(node.shape[1:])
+    rank = int(factors[drop[0]].shape[-1])
+    pos = {m: i for i, m in enumerate(modes)}
+    # the factor list is indexed by mode; slots of modes the node lacks are
+    # checked against their own rows, when present
+    dims = [elem_shape[pos[k]] if k in pos else (None if f is None else int(f.shape[-2]))
+            for k, f in enumerate(factors)]
+    axes = _batch_axes("repro_torch.contract_partial", factors, batch, dims,
+                       [rank] * len(factors), "factor")
+    out_dtype = torch_dtype(ctx.out_dtype) if ctx.out_dtype is not None else None
+    node, factors, out_dtype, mixed = _cast_compute(ctx, node, factors, out_dtype)
+    if ctx.backend != "cuda":
+        sub_in = _BATCH + "".join(_L[m] for m in modes) + (_RANK if has_rank else "")
+        subs = [sub_in] + [_operand(_L[m] + _RANK, axes[m]) for m in drop]
+        ops = [node] + [factors[m] for m in drop]
+        if mixed:  # fp32 accumulation under a compute-dtype policy
+            ops = [o.float() for o in ops]
+        spec = ",".join(subs) + "->" + _BATCH + "".join(_L[m] for m in keep) + _RANK
+        out = torch.einsum(spec, *ops)
+        return out.to(out_dtype) if out_dtype is not None else out
+
+    keep_sizes = tuple(elem_shape[pos[m]] for m in keep)
+    drop_sizes = tuple(elem_shape[pos[m]] for m in drop)
+    # the batch first, then kept modes, dropped modes, rank last
+    perm = (0,) + tuple(1 + pos[m] for m in keep) + tuple(1 + pos[m] for m in drop)
+    fs = [factors[m] for m in drop]
+    out_as = out_dtype if mixed else node.dtype
+    if has_rank:
+        out = kernel_ops.mttkrp_partial_canonical(node.permute(perm + (node.ndim - 1,)), fs,
+                                                  plan=plan, out_dtype=out_as, batched=True)
+    else:
+        xp = node.permute(perm).reshape((batch, math.prod(keep_sizes)) + drop_sizes)
+        out = kernel_ops.mttkrp_canonical(xp, fs, plan=plan, out_dtype=out_as)
+    out = out.reshape((batch,) + keep_sizes + (rank,))
     return out.to(out_dtype) if out_dtype is not None else out
 
 
@@ -268,16 +391,15 @@ def multi_ttm(
     blocks, else the kernel wrapper plans against the kernel's own shared
     memory with ``choose_multi_ttm_kernel_blocks``; ``ctx.memory`` is not
     used there, since ``choose_multi_ttm_blocks`` budgets for the Kronecker
-    weight that the kernel never holds). The kernel needs a contracted mode beside the
-    kept one, so ``cuda`` takes tensors of two or more modes. A leading
-    batch axis waits for Queue 1 item 8 and raises."""
+    weight that the kernel never holds). The kernel needs a contracted mode
+    beside the kept one, so ``cuda`` takes tensors of two or more modes. A
+    leading batch axis, every matrix ``(B, I_k, R_k)`` or shared
+    ``(I_k, R_k)``, is one batched call (one kernel launch on ``cuda``)."""
     ctx = ctx if ctx is not None else ExecutionContext()
     ctx.check_tensor("repro_torch.multi_ttm", x, *matrices)
     if x.ndim == len(matrices) + 1 and _looks_batched_multi_ttm(x, matrices, keep):
-        raise ValueError(
-            f"multi_ttm: a {x.ndim}-way tensor with {len(matrices)} matrices is a batched "
-            f"call; {_BATCH_SLICE}"
-        )
+        # leading batch axis: B Multi-TTMs in one call
+        return _multi_ttm_batched(x, matrices, keep, ctx, plan, block, out_dtype)
     n = x.ndim
     if keep is not None and not 0 <= keep < n:
         raise ValueError(f"keep mode {keep} out of range for {n}-way tensor")
@@ -344,3 +466,74 @@ def _multi_ttm_impl(x, matrices, keep, ctx, plan, block, out_dtype):
         inv[axis] = pos
     out = out.permute(inv).to(x.dtype)
     return out.to(out_dtype) if out_dtype is not None else out
+
+
+def _multi_ttm_batched(x, matrices, keep, ctx, plan, block, out_dtype):
+    """B Multi-TTMs as one call: ``x`` is ``(B, I_1, ..., I_N)``,
+    ``matrices[k]`` is ``(B, I_k, R_k)`` (per element), ``(I_k, R_k)``
+    (shared), or ``None`` at the kept mode. ``einsum`` takes one einsum
+    with a batch letter, ``blocked_host`` loops the blocked schedule over
+    the elements, ``cuda`` launches the kernel once for the batch (kept
+    mode first after the batch axis; the full core's lead-mode product one
+    batched ``torch.matmul``)."""
+    n = x.ndim - 1
+    batch, elem_shape = int(x.shape[0]), tuple(x.shape[1:])
+    if keep is not None and not 0 <= keep < n:
+        raise ValueError(f"keep mode {keep} out of range for batched {n}-way tensor")
+    for k, m in enumerate(matrices):
+        if m is None and k != keep:
+            raise ValueError(
+                f"matrix {k} is None but mode {k} is contracted "
+                f"(only matrices[keep] may be None; keep={keep})"
+            )
+    axes = _batch_axes("repro_torch.multi_ttm", matrices, batch, elem_shape,
+                       [None if m is None else int(m.shape[-1]) for m in matrices], "matrix")
+    if out_dtype is None and ctx.out_dtype is not None:
+        out_dtype = torch_dtype(ctx.out_dtype)
+    x, matrices, out_dtype, mixed = _cast_compute(ctx, x, matrices, out_dtype)
+    if ctx.backend == "einsum":
+        subs, ops, out = [_BATCH + _L[:n]], [x], _BATCH
+        for k in range(n):
+            if k == keep:
+                out += _L[k]
+                continue
+            ops.append(matrices[k])
+            subs.append(_operand(_L[k] + _RANKS[k], axes[k]))
+            out += _RANKS[k]
+        if mixed:  # fp32 accumulation under a compute-dtype policy
+            ops = [o.float() for o in ops]
+        res = torch.einsum(",".join(subs) + "->" + out, *ops)
+        return res.to(out_dtype) if out_dtype is not None else res
+    if ctx.backend == "blocked_host":
+        if block is None:
+            ranks = tuple(m.shape[-1] for k, m in enumerate(matrices) if k != keep)
+            canon = _keep_first(elem_shape, 0 if keep is None else keep)
+            mem = ctx.memory or Memory.abstract(2 ** 20)
+            block = multi_ttm_best_block_size(
+                canon, ranks[1:] if keep is None else ranks, mem.budget_words)
+        res = _stack_loop(lambda xb, mb: multi_ttm_blocked(xb, mb, keep, block, f32_acc=mixed),
+                          batch, x, matrices, axes)
+        return res.to(out_dtype) if out_dtype is not None else res
+    # cuda: the batch first, then the kept mode (mode 0 for the full core)
+    if n < 2:
+        raise ValueError(
+            f"multi_ttm: the cuda backend needs a tensor of at least 2 modes (the kernel "
+            f"contracts the modes beside the kept one), got {n}; use backend='einsum'"
+        )
+    lead = 0 if keep is None else keep
+    perm = (lead,) + tuple(k for k in range(n) if k != lead)
+    mats = [matrices[k] for k in perm[1:]]
+    out3 = kernel_ops.multi_ttm_canonical(x.permute((0,) + tuple(1 + k for k in perm)), mats,
+                                          plan=plan, batched=True)
+    rest_ranks = tuple(m.shape[-1] for m in mats)
+    if keep is None:
+        # contract the lead mode too: one batched matmul A_0^T @ Z
+        out3 = matrices[0].to(out3.dtype).transpose(-1, -2) @ out3
+        res = out3.reshape((batch, matrices[0].shape[-1]) + rest_ranks).to(x.dtype)
+        return res.to(out_dtype) if out_dtype is not None else res
+    res = out3.reshape((batch, elem_shape[keep]) + rest_ranks)
+    inv = [0] * n
+    for p, axis in enumerate(perm):
+        inv[axis] = p
+    res = res.permute((0,) + tuple(1 + i for i in inv)).to(x.dtype)
+    return res.to(out_dtype) if out_dtype is not None else res

@@ -12,7 +12,8 @@ Counterpart of ``repro.engine.plan``:
     working-set check and the Eq-10 traffic model as methods.
   * :func:`choose_blocks` — aligned block selection against a Memory
     budget, unchanged from the reference: under ``Memory.tpu_vmem()`` it
-    returns exactly the reference's plans.
+    returns exactly the reference's plans; :func:`batched_choose_blocks`,
+    the plan of a batch, is the element's.
   * :func:`choose_sweep_blocks` (with :func:`fused_pair_working_set_words`)
     — the fused (B0, P) pair's plan, unchanged from the reference.
   * :func:`best_uniform_block` / :func:`uniform_block_feasible` /
@@ -298,6 +299,29 @@ def choose_blocks(
 # ---------------------------------------------------------------------------
 # Fused-sweep planning (the arXiv:1708.08976 mode-reuse schedule)
 # ---------------------------------------------------------------------------
+
+def batched_choose_blocks(
+    batch: int,
+    shape: Sequence[int],
+    rank: int,
+    itemsize: int,
+    *,
+    memory: Memory | None = None,
+    x_has_rank: bool = False,
+) -> BlockPlan:
+    """The block plan a batched dispatch of ``batch`` element problems runs
+    under: the element's plan, :func:`choose_blocks` of ``shape``, for any
+    ``batch >= 1`` (raises ``ValueError`` below). The batch is a grid
+    dimension of the kernels, so no block spans two elements and the
+    working set is the element's. Counterpart of
+    ``repro.engine.batch.batched_choose_blocks``. (The Hopper kernels' own
+    plans keep the element's blocks too; their split counts alone see the
+    batch: :func:`mttkrp_kernel_grid`, :func:`multi_ttm_kernel_grid`,
+    :func:`choose_partial_kernel_blocks`.)"""
+    if batch < 1:
+        raise ValueError(f"batch must be >= 1, got {batch}")
+    return choose_blocks(shape, rank, itemsize, memory=memory, x_has_rank=x_has_rank)
+
 
 def fused_pair_working_set_words(plan: BlockPlan) -> int:
     """Eq-9 analogue for the fused (B^(0), P) pair kernel: the per-mode
@@ -661,15 +685,17 @@ def n_splits(ctas: int, outer_tiles: int, sms: int) -> int:
 
 
 def mttkrp_kernel_grid(shape: Sequence[int], rank: int, plan: MTTKRPKernelPlan,
-                       sms: int = H100_SMS) -> tuple[int, int, int]:
-    """(row tiles, rank tiles, splits) of the kernel's launch. K is walked in
-    chunks of ``block_k`` last-axis indices under one leading index tuple
-    each; enough splits of the chunks that ``CTAS_PER_SM`` CTAs per SM are in
-    flight, never more than there are chunks."""
+                       sms: int = H100_SMS, batch: int = 1) -> tuple[int, int, int]:
+    """(row tiles, rank tiles, splits) of the kernel's launch for one problem
+    of ``shape``, ``batch`` of them in the launch (the grid's z dimension).
+    K is walked in chunks of ``block_k`` last-axis indices under one leading
+    index tuple each; enough splits of the chunks that ``CTAS_PER_SM`` CTAs
+    per SM are in flight over the whole batch, never more than there are
+    chunks: a batch that fills the card alone runs unsplit."""
     rows = math.ceil(shape[0] / plan.block_i)
     rtiles = math.ceil(rank / plan.block_r)
     chunks = math.prod(shape[1:-1]) * math.ceil(shape[-1] / plan.block_k)
-    return rows, rtiles, n_splits(rows * rtiles, chunks, sms)
+    return rows, rtiles, n_splits(rows * rtiles * batch, chunks, sms)
 
 
 def _choose_ring_plan(rows: int, c_last: int, rank: int, itemsize: int, smem, cls, what: str,
@@ -797,17 +823,18 @@ def multi_ttm_kernel_smem_bytes(plan: MultiTTMKernelPlan, itemsize: int,
 
 
 def multi_ttm_kernel_grid(shape: Sequence[int], ranks: Sequence[int], plan: MultiTTMKernelPlan,
-                          sms: int = H100_SMS) -> tuple[int, int, int]:
-    """(units, rank tiles, splits) of the Multi-TTM kernel's launch. A unit
-    is one i (k >= 2), whose tiles ``prod(C[1:-2]) * ceil(C_{k-1} /
-    block_m)`` are split over enough CTAs that ``CTAS_PER_SM`` CTAs per SM
-    are in flight; with k = 1 a unit is a tile of ``block_m`` rows, never
-    split."""
+                          sms: int = H100_SMS, batch: int = 1) -> tuple[int, int, int]:
+    """(units, rank tiles, splits) of the Multi-TTM kernel's launch for one
+    problem of ``shape``, ``batch`` of them in the launch (the grid's z
+    dimension). A unit is one i (k >= 2), whose tiles ``prod(C[1:-2]) *
+    ceil(C_{k-1} / block_m)`` are split over enough CTAs that
+    ``CTAS_PER_SM`` CTAs per SM are in flight over the whole batch; with
+    k = 1 a unit is a tile of ``block_m`` rows, never split."""
     rtiles = math.ceil(ranks[-1] / plan.block_r)
     if len(shape) == 2:
         return math.ceil(shape[0] / plan.block_m), rtiles, 1
     tiles = math.prod(shape[1:-2]) * math.ceil(shape[-2] / plan.block_m)
-    return shape[0], rtiles, n_splits(shape[0] * rtiles, tiles, sms)
+    return shape[0], rtiles, n_splits(shape[0] * rtiles * batch, tiles, sms)
 
 
 def choose_multi_ttm_kernel_blocks(shape: Sequence[int], ranks: Sequence[int],
@@ -944,7 +971,7 @@ def one_wave_splits(ctas: int, units: int, sms: int) -> int:
 @functools.lru_cache(maxsize=4096)
 def choose_partial_kernel_blocks(shape: Sequence[int], strides: Sequence[int], rank: int,
                                  itemsize: int = 4, sms: int = H100_SMS, *, nkeep: int = 1,
-                                 aligned: bool = True) -> PartialKernelPlan:
+                                 aligned: bool = True, batch: int = 1) -> PartialKernelPlan:
     """The partial kernel's default plan for a node read in place: axis
     sizes ``shape`` and element strides ``strides`` (rank axis excluded, at
     unit stride; ``nkeep`` kept axes first, then the contraction axes,
@@ -968,6 +995,11 @@ def choose_partial_kernel_blocks(shape: Sequence[int], strides: Sequence[int], r
       what a split-K reduction's launch costs: ``"contract"``, the most
       rows a thread whose row blocks alone give every SM a CTA (else one),
       and no split unless the row blocks are fewer than the SMs.
+
+    ``batch`` nodes of this view in one launch (the grid's z dimension)
+    change the split count alone: it is chosen for ``batch`` times the
+    element's CTAs, so a batch that fills the card runs unsplit. The
+    layout, rows, vector and loads are the element's.
     """
     shape, strides = tuple(int(s) for s in shape), tuple(int(s) for s in strides)
     wide = PARTIAL_VEC_BYTES // itemsize
@@ -989,7 +1021,7 @@ def choose_partial_kernel_blocks(shape: Sequence[int], strides: Sequence[int], r
 
     if small:
         rows = max((r for r in candidates if grid(r)[0] * rtiles >= sms), default=1)
-        ctas, units = grid(rows)[0] * rtiles, grid(rows)[2]
+        ctas, units = grid(rows)[0] * rtiles * batch, grid(rows)[2]
         splits = 1 if ctas >= sms else min(units, -(-sms // ctas))
     else:
         def cost(rows: int) -> tuple[float, int]:
@@ -997,5 +1029,5 @@ def choose_partial_kernel_blocks(shape: Sequence[int], strides: Sequence[int], r
             return padded * (1 + 1 / (2 * rows)), padded
 
         rows = min(candidates, key=cost)
-        splits = one_wave_splits(grid(rows)[0] * rtiles, grid(rows)[2], sms)
+        splits = one_wave_splits(grid(rows)[0] * rtiles * batch, grid(rows)[2], sms)
     return PartialKernelPlan(layout, block(rows), vec, loads, min(65535, splits))

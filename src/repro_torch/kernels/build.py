@@ -42,22 +42,22 @@ _PLL, _PI = ctypes.POINTER(_LL), ctypes.POINTER(_I)
 #: The C entry points of each source: name -> (restype, argtypes).
 SIGNATURES = {
     "mttkrp.cu": {
-        "repro_mttkrp_tile": (_I, [_I, _I, _I, _PLL, _I, _I, _I, _I, _I, _I, _I, _I, _P, _PLL,
-                                   _P, _P]),
+        "repro_mttkrp_tile": (_I, [_I, _I, _I, _PLL, _I, _I, _I, _I, _I, _I, _I, _I, _I, _LL,
+                                   _PLL, _P, _PLL, _P, _P]),
         "repro_splitk_reduce": (_I, [_P, _P, _LL, _I, _P]),
         "repro_mttkrp_smem_bytes": (_LL, [_I, _I, _I, _I, _I, _I]),
     },
     "sweep.cu": {
         "repro_fused_pair": (_I, [_I, _I, _PLL, _I, _I, _I, _I, _I, _I, _I, _I, _P, _PLL, _P,
                                   _P, _P]),
-        "repro_partial": (_I, [_I, _I, _I, _I, _I, _I, _I, _PLL, _PLL, _I, _PLL, _PLL, _I, _P,
-                               _PLL, _P, _P]),
+        "repro_partial": (_I, [_I, _I, _I, _I, _I, _I, _I, _PLL, _PLL, _I, _PLL, _PLL, _I, _I,
+                               _LL, _PLL, _P, _PLL, _P, _P]),
         "repro_fused_pair_smem_bytes": (_LL, [_I, _I, _I, _I, _I, _I]),
         "repro_partial_smem_bytes": (_LL, [_I, _I, _I, _I, _I, _I]),
     },
     "multi_ttm.cu": {
-        "repro_multi_ttm": (_I, [_I, _I, _PLL, _PI, _I, _I, _I, _I, _I, _I, _I, _P, _PLL, _P,
-                                 _P]),
+        "repro_multi_ttm": (_I, [_I, _I, _PLL, _PI, _I, _I, _I, _I, _I, _I, _I, _I, _LL, _PLL,
+                                 _P, _PLL, _P, _P]),
         "repro_multi_ttm_smem_bytes": (_LL, [_I, _I, _PI, _I, _I, _I, _I]),
     },
     "ssd_intra.cu": {

@@ -11,6 +11,7 @@
 #define NWARPS 8
 #define NTHREADS (NWARPS * 32)
 #define XLOADS 8  // global loads each thread keeps in flight when staging a tile
+#define MAX_BATCH 65535  // problems a batched launch takes: gridDim.z's limit
 
 struct Factors {
   const void* ptr[MAX_CONTRACT];  // (C_d, R), row-major, dtype of the tensor

@@ -53,6 +53,13 @@
 //     splitk_reduce_kernel adds the slabs in slab order. No atomics: results
 //     repeat bit for bit. Offsets into X are 64-bit (I K is 5.8e9 at 180^4);
 //     I and K themselves stay below 2^31, so chunk indices are 32-bit.
+//   * A batch of B problems of one shape (the reference vmaps its kernel,
+//     which makes the batch a grid dimension): blockIdx.z = b, X and each
+//     factor offset by b times their batch strides (64-bit; a factor's
+//     stride 0 when the batch shares it), and split y of problem b writes
+//     slab y b of an (S, B, I, R) workspace, so one splitk_reduce_kernel
+//     launch adds all B I R outputs. One launch a batched call; the plan is
+//     the element's (only the split count sees B's CTAs).
 #include "ring.cuh"
 
 // NC_STATIC == 2 fixes the number of contraction dims at compile time (the
@@ -81,7 +88,9 @@ mttkrp_mma_kernel(TileProblem p, const T* __restrict__ x, Factors f, float* __re
   const int n_local = (int)blockIdx.y < nch ? (nch - (int)blockIdx.y + S - 1) / S : 0;
   const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
   const int wm = warp >> 1, wn = warp & 1;  // 4 warps along rows, 2 along columns
-  const T* flast = reinterpret_cast<const T*>(f.ptr[nc - 1]);
+  const long long bz = blockIdx.z;  // the batch element: 64-bit offsets
+  x += bz * p.x_bstride;
+  const T* flast = reinterpret_cast<const T*>(f.ptr[nc - 1]) + bz * p.f_bstride[nc - 1];
 
   // A chunk: prefix tuple pf, last-axis offset off.
   struct Cursor {
@@ -116,7 +125,8 @@ mttkrp_mma_kernel(TileProblem p, const T* __restrict__ x, Factors f, float* __re
     }
     const int d = fr - bk;
     const unsigned g = (unsigned)c.pf / (unsigned)p.lead_stride[d] % (unsigned)p.extent_c[d];
-    src = reinterpret_cast<const T*>(f.ptr[d]) + (long long)g * p.rank + r0;
+    src = reinterpret_cast<const T*>(f.ptr[d]) + bz * p.f_bstride[d] + (long long)g * p.rank +
+          r0;
     dst = l.lead + d * BR * TS;
     return true;
   };
@@ -298,7 +308,7 @@ mttkrp_mma_kernel(TileProblem p, const T* __restrict__ x, Factors f, float* __re
   cp_async_wait(0);
 
   // fragment (g, 2t), (g, 2t + 1), (g + 8, 2t), (g + 8, 2t + 1) of each tile
-  float* o = out + (long long)blockIdx.y * p.extent_i * p.rank;
+  float* o = out + ((long long)blockIdx.y * p.batch + bz) * p.extent_i * p.rank;
 #pragma unroll
   for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
@@ -335,7 +345,7 @@ static int launch_mma(int block_i, int block_r, const TileProblem& p, const void
     if (err != cudaSuccess) return (int)err;
     const long long gi = ceil_div(p.extent_i, 64 * MT);
     const long long gr = ceil_div(p.rank, 16 * NT);
-    dim3 grid((unsigned)(gi * gr), (unsigned)p.n_splits);
+    dim3 grid((unsigned)(gi * gr), (unsigned)p.n_splits, (unsigned)p.batch);
     kern<<<grid, NTHREADS, smem, stream>>>(p, reinterpret_cast<const T*>(x), f, out);
     return (int)cudaGetLastError();
   });
@@ -358,23 +368,33 @@ long long repro_mttkrp_smem_bytes(int tsize, int ncontract, int block_i, int blo
 // extents: I, C_1..C_{N-1}; factors: N-1 device pointers to (C_d, R) in the
 // tensor's dtype. copy_x / copy_f: bytes a cp.async of X's last-axis runs /
 // the factors' rows takes (16, 8 or 4; 0 for element loads), which the caller
-// has checked against C_{N-1}, R and the pointers. out: n_splits slabs of (I, R) fp32.
-// Returns a cudaError_t.
+// has checked against C_{N-1}, R, the pointers and the batch strides. batch:
+// B problems of these extents (1 to MAX_BATCH), X's and each factor's
+// elements from one problem to the next in x_bstride and f_bstrides (0 for a
+// factor the batch shares). out: n_splits x batch slabs of (I, R) fp32, slab
+// y b at (y B + b) I R. Returns a cudaError_t.
 int repro_mttkrp_tile(int specialized, int dtype, int ncontract, const long long* extents,
                       int block_i, int block_k, int block_r, int stages, int rank, int n_splits,
-                      int copy_x, int copy_f, const void* x, const long long* factors, void* out,
-                      void* stream) {
+                      int copy_x, int copy_f, int batch, long long x_bstride,
+                      const long long* f_bstrides, const void* x, const long long* factors,
+                      void* out, void* stream) {
   const int tsize = dtype == 0 ? 4 : 2;
   if (ncontract < 1 || ncontract > MAX_CONTRACT || (specialized && ncontract != 2) ||
       n_splits < 1 || rank < 1 || (dtype != 0 && dtype != 1) ||
       !valid_blocks(tsize, block_i, block_k, block_r, stages) || !valid_copy(copy_x) ||
-      !valid_copy(copy_f))
+      !valid_copy(copy_f) || batch < 1 || batch > MAX_BATCH || x_bstride < 0)
     return (int)cudaErrorInvalidValue;
   TileProblem p;
   Factors f;
   if (!make_tile_problem(ncontract, extents, block_k, stages, rank, n_splits, copy_x, copy_f,
                          factors, &p, &f))
     return (int)cudaErrorInvalidValue;
+  p.batch = batch;
+  p.x_bstride = x_bstride;
+  for (int d = 0; d < ncontract; ++d) {
+    if (f_bstrides[d] < 0) return (int)cudaErrorInvalidValue;
+    p.f_bstride[d] = f_bstrides[d];
+  }
   const long long smem =
       make_tile_layout(tsize, ncontract, block_i, block_k, block_r, stages).total;
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);

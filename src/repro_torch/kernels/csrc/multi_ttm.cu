@@ -36,7 +36,11 @@
 // and mttkrp.cu:splitk_reduce_kernel adds the slabs in slab order: no
 // atomics, results repeat bit for bit. With one contraction axis (k = 1) a
 // tile is BI consecutive i and T is the output itself (no split). Ragged
-// edges are masked by the ring's zero-fill; nothing is padded.
+// edges are masked by the ring's zero-fill; nothing is padded. A batch of B
+// problems of one shape is one launch: blockIdx.z = b, X and each matrix
+// offset by b times their batch strides (64-bit; a matrix's stride 0 when
+// the batch shares it), split y of problem b writing slab y b of an
+// (S, B, I, prod R_d) workspace.
 #include "ring.cuh"
 
 struct TtmProblem {
@@ -57,6 +61,9 @@ struct TtmProblem {
   long long extent_c[MAX_CONTRACT];
   long long outer_stride[MAX_CONTRACT];  // stride of c_d in an outer tuple index, d < k - 2
   int rank[MAX_CONTRACT];
+  int batch;                             // B problems, blockIdx.z (1 unbatched)
+  long long x_bstride;                   // elements from one problem's X to the next
+  long long m_bstride[MAX_CONTRACT];     // the same for each matrix; 0: shared by all
 };
 
 // Shared-memory layout, computed identically on host and device (and in
@@ -122,7 +129,14 @@ multi_ttm_mma_kernel(TtmProblem p, const T* __restrict__ x, Factors f, float* __
   const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
   const int wm = warp >> 1, wn = warp & 1;  // 4 warps along rows, 2 along columns
   const int g = lane >> 2, t = lane & 3;
-  const T* alast = reinterpret_cast<const T*>(f.ptr[k - 1]);
+  const long long bz = blockIdx.z;  // the batch element: 64-bit offsets
+  const long long prod_r = (long long)p.n_w * rp * rl;
+  x += bz * p.x_bstride;
+  out += ((long long)y * p.batch + bz) * p.extent_i * prod_r;  // this split's slab of b
+  const T* alast = reinterpret_cast<const T*>(f.ptr[k - 1]) + bz * p.m_bstride[k - 1];
+  // A_{k-1}'s rows of element b
+  const T* aprev = k >= 2 ? reinterpret_cast<const T*>(f.ptr[k - 2]) + bz * p.m_bstride[k - 2]
+                          : nullptr;
 
   // Tile q: its first row in the (rows, C_k) matrix and its rows in range.
   struct Tile {
@@ -192,13 +206,14 @@ multi_ttm_mma_kernel(TtmProblem p, const T* __restrict__ x, Factors f, float* __
       rem /= p.rank[d];
       // prod C < 2^31 (checked by the caller): 32-bit index arithmetic
       const int cd = tl.uo / (int)p.outer_stride[d] % (int)p.extent_c[d];
-      w *= to_float(reinterpret_cast<const T*>(f.ptr[d])[(long long)cd * p.rank[d] + rd]);
+      w *= to_float(reinterpret_cast<const T*>(f.ptr[d])[bz * p.m_bstride[d] +
+                                                         (long long)cd * p.rank[d] + rd]);
     }
     return w;
   };
   auto fetch = [&](const Tile& tl) {  // into registers
     const int nrows = tl.nrows < BI ? (int)tl.nrows : BI;
-    const T* ap = reinterpret_cast<const T*>(f.ptr[k - 2]) + tl.m0 * rp;
+    const T* ap = aprev + tl.m0 * rp;
 #pragma unroll
     for (int u = 0; u < AROWS; ++u) {
       const int row = warp + u * NWARPS;
@@ -221,7 +236,7 @@ multi_ttm_mma_kernel(TtmProblem p, const T* __restrict__ x, Factors f, float* __
     } else {
       // A_{k-1}'s rows (zero past C_{k-1}): a warp per row, lanes along
       // R_{k-1}, XLOADS rows in flight
-      const T* ap = reinterpret_cast<const T*>(f.ptr[k - 2]) + tl.m0 * rp;
+      const T* ap = aprev + tl.m0 * rp;
       for (int c = lane; c < rp4; c += 32) {
         for (int row0 = warp; row0 < BI; row0 += NWARPS * XLOADS) {
           float v[XLOADS];
@@ -378,8 +393,7 @@ multi_ttm_mma_kernel(TtmProblem p, const T* __restrict__ x, Factors f, float* __
   cp_async_wait(0);
   if (k == 1) return;
   __syncthreads();  // every thread's share of O is in
-  const long long prod_r = (long long)p.n_w * rp * rl;
-  float* o = out + ((long long)y * p.extent_i + unit) * prod_r + r0;
+  float* o = out + (long long)unit * prod_r + r0;
   for (long long e = tid; e < (long long)p.n_w * rp * rvalid; e += NTHREADS) {
     const long long wr = e / rvalid;  // (w index, r_{k-1})
     const int c = (int)(e - wr * rvalid);
@@ -408,17 +422,22 @@ long long repro_multi_ttm_smem_bytes(int tsize, int ncontract, const int* ranks,
 // dtype. block_m, block_k, block_r, stages: the tile's rows (64, 128 or
 // 192), the chunk, the rank tile of R_k and the ring depth. copy_x / copy_f: bytes a cp.async of
 // X's last-axis runs / A_k's rows takes (16, 8, 4; 0 for element loads),
-// checked by the caller. n_splits: CTAs along one i's tiles (1 when k = 1).
-// out: n_splits slabs of (I, prod R_d) fp32. Returns a cudaError_t.
+// checked by the caller with the batch strides. n_splits: CTAs along one
+// i's tiles (1 when k = 1). batch: B problems of these extents (1 to
+// MAX_BATCH), X's and each matrix's elements from one problem to the next in
+// x_bstride and m_bstrides (0 for a matrix the batch shares). out: n_splits
+// x batch slabs of (I, prod R_d) fp32, slab y b at (y B + b) I prod R_d.
+// Returns a cudaError_t.
 int repro_multi_ttm(int dtype, int ncontract, const long long* extents, const int* ranks,
                     int block_m, int block_k, int block_r, int stages, int n_splits, int copy_x,
-                    int copy_f, const void* x, const long long* mats, void* out, void* stream) {
+                    int copy_f, int batch, long long x_bstride, const long long* m_bstrides,
+                    const void* x, const long long* mats, void* out, void* stream) {
   const int tsize = dtype == 0 ? 4 : 2;
   if (ncontract < 1 || ncontract > MAX_CONTRACT || n_splits < 1 ||
       (ncontract == 1 && n_splits != 1) || (dtype != 0 && dtype != 1) ||
       !valid_blocks(tsize, block_m == 192 ? 128 : block_m, block_k, block_r, stages) ||
-      !valid_copy(copy_x) ||
-      !valid_copy(copy_f) || extents[0] < 1)
+      !valid_copy(copy_x) || !valid_copy(copy_f) || extents[0] < 1 || batch < 1 ||
+      batch > MAX_BATCH || x_bstride < 0)
     return (int)cudaErrorInvalidValue;
   TtmProblem p;
   Factors f;
@@ -429,10 +448,14 @@ int repro_multi_ttm(int dtype, int ncontract, const long long* extents, const in
   p.copy_x = copy_x;
   p.copy_f = copy_f;
   p.extent_i = extents[0];
+  p.batch = batch;
+  p.x_bstride = x_bstride;
   for (int d = 0; d < MAX_CONTRACT; ++d) {
     p.extent_c[d] = d < ncontract ? extents[1 + d] : 1;
     p.rank[d] = d < ncontract ? ranks[d] : 1;
-    if (p.extent_c[d] < 1 || p.rank[d] < 1) return (int)cudaErrorInvalidValue;
+    p.m_bstride[d] = d < ncontract ? m_bstrides[d] : 0;
+    if (p.extent_c[d] < 1 || p.rank[d] < 1 || p.m_bstride[d] < 0)
+      return (int)cudaErrorInvalidValue;
     f.ptr[d] = d < ncontract ? reinterpret_cast<const void*>(mats[d]) : nullptr;
   }
   p.rank_last = p.rank[ncontract - 1];
@@ -464,7 +487,7 @@ int repro_multi_ttm(int dtype, int ncontract, const long long* extents, const in
       if (err != cudaSuccess) return (int)err;
       const long long units = ncontract >= 2 ? p.extent_i : p.mtiles;
       const long long gr = ceil_div(p.rank_last, 16 * NT);
-      dim3 grid((unsigned)(units * gr), (unsigned)p.n_splits);
+      dim3 grid((unsigned)(units * gr), (unsigned)p.n_splits, (unsigned)p.batch);
       kern<<<grid, NTHREADS, smem, s>>>(p, reinterpret_cast<const T*>(x), f, o);
       return (int)cudaGetLastError();
     };

@@ -54,6 +54,9 @@ struct TileProblem {
   long long chunks_per_prefix;           // ceil(C_last / block_k)
   long long extent_c[MAX_CONTRACT];      // C_1 .. C_{N-1}
   long long lead_stride[MAX_CONTRACT];   // stride of leading digit d in a prefix index
+  int batch;                             // B problems, blockIdx.z (1 unbatched)
+  long long x_bstride;                   // elements from one problem's X to the next
+  long long f_bstride[MAX_CONTRACT];     // the same for each factor; 0: shared by all
 };
 
 // Shared-memory layout of the ring, computed identically on host and device
@@ -124,6 +127,9 @@ static inline bool make_tile_problem(int ncontract, const long long* extents, in
     stride *= p->extent_c[d];
   }
   for (int d = ncontract - 1; d < MAX_CONTRACT; ++d) p->lead_stride[d] = 1;
+  p->batch = 1;  // one problem; repro_mttkrp_tile sets a batch
+  p->x_bstride = 0;
+  for (int d = 0; d < MAX_CONTRACT; ++d) p->f_bstride[d] = 0;
   return true;
 }
 

@@ -66,7 +66,11 @@
 //   * the contraction is split over CTAs in runs of units (an outer tuple
 //     (c_1..c_{k-1}) with a chunk of c_k); each split writes its own fp32
 //     slab and mttkrp.cu:splitk_reduce_kernel adds the slabs in slab order:
-//     no atomics, results repeat bit for bit.
+//     no atomics, results repeat bit for bit;
+//   * a batch of B nodes of one shape is one launch: blockIdx.z = b, the
+//     node and each factor offset by b times their batch strides (64-bit; a
+//     factor's stride 0 when the batch shares it), split y of node b writing
+//     slab y b of an (S, B, I, R) workspace.
 // Ragged edges (rows, c_k, R) are masked; nothing is padded.
 #include "ring.cuh"
 
@@ -250,6 +254,9 @@ struct PartialProblem {
   long long c_size[MAX_CONTRACT], c_stride[MAX_CONTRACT];
   long long nch;                  // chunks of the innermost contraction axis
   long long units;                // prod c_size[:-1] * nch
+  int batch;                      // B nodes, blockIdx.z (1 unbatched)
+  long long node_bstride;         // elements from one node to the next
+  long long f_bstride[MAX_CONTRACT];  // the same for each factor; 0: shared
 };
 
 // Read-only vector loads of V elements along r, and their fp32 values.
@@ -309,7 +316,8 @@ static inline long long partial_smem_bytes(bool rowl, int block_rows, int tr, in
 }
 
 // One CTA: block_rows kept rows (rows of blockIdx.x / rtiles) by tr * V rank
-// columns (tile blockIdx.x % rtiles), over the units of split blockIdx.y.
+// columns (tile blockIdx.x % rtiles), over the units of split blockIdx.y, of
+// node blockIdx.z.
 // Thread tid = tl * tr + tr_idx takes r-vector tr_idx and, along the lane
 // axis, rows tl, tl + TL, ... (ROWL) or c_k = tl, tl + TL, ... of each chunk.
 template <typename T, int V, bool ROWL, int ROWS>
@@ -326,7 +334,9 @@ streaming_partial_kernel(PartialProblem p, const T* __restrict__ node, Factors f
   const bool rin = r0 < p.rank;          // V > 1 only where V divides R
   const int kin = p.ncontract - 1;
   const long long cin = p.c_size[kin], cstride = p.c_stride[kin];
-  const T* fin = reinterpret_cast<const T*>(f.ptr[kin]) + r0;
+  const long long bz = blockIdx.z;  // the batch element: 64-bit offsets
+  node += bz * p.node_bstride;
+  const T* fin = reinterpret_cast<const T*>(f.ptr[kin]) + bz * p.f_bstride[kin] + r0;
 
   // this thread's rows, decoded once: their node offsets (with r0)
   long long roff[ROWS];
@@ -368,7 +378,9 @@ streaming_partial_kernel(PartialProblem p, const T* __restrict__ node, Factors f
       obase += cd * p.c_stride[d];
       if (rin) {
         float a[V];
-        L::unpack(L::load(reinterpret_cast<const T*>(f.ptr[d]) + cd * p.rank + r0), a);
+        L::unpack(L::load(reinterpret_cast<const T*>(f.ptr[d]) + bz * p.f_bstride[d] +
+                          cd * p.rank + r0),
+                  a);
 #pragma unroll
         for (int e = 0; e < V; ++e) wo[e] *= a[e];
       }
@@ -412,7 +424,7 @@ streaming_partial_kernel(PartialProblem p, const T* __restrict__ node, Factors f
     }
   }
 
-  float* slab = out + (long long)split * p.rows * p.rank;
+  float* slab = out + ((long long)split * p.batch + bz) * p.rows * p.rank;
   if constexpr (ROWL) {  // each output sum is whole in this thread
 #pragma unroll
     for (int j = 0; j < ROWS; ++j) {
@@ -469,12 +481,20 @@ static bool make_partial_problem(int tsize, int layout, int block_rows, int vec,
                                  int n_splits, int nkeep, const long long* keep_sizes,
                                  const long long* keep_strides, int ncontract,
                                  const long long* c_sizes, const long long* c_strides, int rank,
+                                 int batch, long long node_bstride, const long long* f_bstrides,
                                  PartialProblem* p) {
   if ((layout != 0 && layout != 1) || (vec != 1 && vec != 16 / tsize) || rank < 1 ||
       rank % vec || nkeep < 1 || nkeep > MAX_CONTRACT || ncontract < 1 ||
       ncontract > MAX_CONTRACT || n_splits < 1 || n_splits > 65535 ||
-      (loads != 1 && loads != 2 && loads != 4 && loads != 8))
+      (loads != 1 && loads != 2 && loads != 4 && loads != 8) || batch < 1 ||
+      batch > MAX_BATCH || node_bstride < 0)
     return false;
+  p->batch = batch;
+  p->node_bstride = node_bstride;
+  for (int d = 0; d < MAX_CONTRACT; ++d) {
+    p->f_bstride[d] = d < ncontract ? f_bstrides[d] : 0;
+    if (p->f_bstride[d] < 0) return false;
+  }
   const bool rowl = layout == 0;
   p->nkeep = nkeep;
   p->ncontract = ncontract;
@@ -519,7 +539,8 @@ static int launch_partial(const PartialProblem& p, const void* node, const Facto
         cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;
   }
-  dim3 grid((unsigned)(ceil_div(p.rows, p.block_rows) * p.rtiles), (unsigned)p.n_splits);
+  dim3 grid((unsigned)(ceil_div(p.rows, p.block_rows) * p.rtiles), (unsigned)p.n_splits,
+            (unsigned)p.batch);
   kern<<<grid, NTHREADS, smem, s>>>(p, reinterpret_cast<const T*>(node), f, out);
   return (int)cudaGetLastError();
 }
@@ -559,11 +580,11 @@ long long repro_fused_pair_smem_bytes(int tsize, int ncontract, int block_i, int
 // the kernel takes.
 long long repro_partial_smem_bytes(int tsize, int layout, int block_rows, int vec, int loads,
                                    int rank) {
-  const long long one = 1;
+  const long long one = 1, zero = 0;
   PartialProblem p;
   if ((tsize != 2 && tsize != 4) ||
       !make_partial_problem(tsize, layout, block_rows, vec, loads, 1, 1, &one, &one, 1, &one,
-                            &one, rank, &p))
+                            &one, rank, 1, 0, &zero, &p))
     return -1;
   return partial_smem_bytes(layout == 0, block_rows, p.tr, vec);
 }
@@ -615,18 +636,23 @@ int repro_fused_pair(int dtype, int ncontract, const long long* extents, int blo
 // their row-major flat index) and ncontract contraction axes (the innermost
 // last), the rank axis at unit stride; factors: ncontract device pointers
 // to (C_d, R) in the node's dtype. Plan: layout (0 "rows", 1 "contract"),
-// block_rows, vec (1, or 16 bytes' worth where R, the strides and the
-// pointers are multiples of it: checked by the caller), loads, n_splits.
-// out: n_splits slabs of (I, R) fp32. Returns a cudaError_t.
+// block_rows, vec (1, or 16 bytes' worth where R, the strides, the batch
+// strides and the pointers are multiples of it: checked by the caller),
+// loads, n_splits. batch: B nodes of this view (1 to MAX_BATCH),
+// node_bstride and f_bstrides the elements from one node's (factor's) start
+// to the next (0 for a factor the batch shares). out: n_splits x batch slabs
+// of (I, R) fp32, slab y b at (y B + b) I R. Returns a cudaError_t.
 int repro_partial(int dtype, int layout, int block_rows, int vec, int loads, int n_splits,
                   int nkeep, const long long* keep_sizes, const long long* keep_strides,
                   int ncontract, const long long* c_sizes, const long long* c_strides, int rank,
+                  int batch, long long node_bstride, const long long* f_bstrides,
                   const void* node, const long long* factors, void* out, void* stream) {
   if (dtype != 0 && dtype != 1) return (int)cudaErrorInvalidValue;
   const int tsize = dtype == 0 ? 4 : 2;
   PartialProblem p;
   if (!make_partial_problem(tsize, layout, block_rows, vec, loads, n_splits, nkeep, keep_sizes,
-                            keep_strides, ncontract, c_sizes, c_strides, rank, &p))
+                            keep_strides, ncontract, c_sizes, c_strides, rank, batch,
+                            node_bstride, f_bstrides, &p))
     return (int)cudaErrorInvalidValue;
   Factors f;
   for (int d = 0; d < MAX_CONTRACT; ++d)

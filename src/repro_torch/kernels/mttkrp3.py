@@ -34,9 +34,11 @@ from .splitk import launch_tile
 
 
 def mttkrp3_plain(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """Plain version: ``X(I, J*K) @ KRP`` in float32, KRP row index j*K + k."""
+    """Plain version: ``X(I, J*K) @ KRP`` in float32, KRP row index j*K + k;
+    for a batch ``(B, I, J, K)`` the same for each element, against its
+    ``(B, J, R)`` factors or the shared ``(J, R)`` ones."""
     w = khatri_rao([b.float(), a.float()])  # the first matrix's index fastest
-    return x.float().reshape(x.shape[0], -1) @ w
+    return x.float().reshape(*x.shape[:-2], -1) @ w
 
 
 def mttkrp3(
@@ -48,13 +50,15 @@ def mttkrp3(
 ) -> torch.Tensor:
     """Canonical mode-0 3-way MTTKRP: O(i,r) = sum_jk X(i,j,k) A(j,r) B(k,r).
 
-    Unpadded inputs of any extent; returns float32 ``(I, R)``. A CUDA tensor
-    launches the kernel under ``plan`` (default:
-    ``choose_mttkrp_kernel_blocks``; any other plan type raises
-    ``TypeError``); a CPU tensor ignores ``plan`` and takes
+    Unpadded inputs of any extent; returns float32 ``(I, R)``. A batch
+    ``(B, I, J, K)``, with ``(B, J, R)`` / ``(B, K, R)`` factors or shared
+    ``(J, R)`` / ``(K, R)`` ones, returns ``(B, I, R)`` from one launch. A
+    CUDA tensor launches the kernel under ``plan`` (default:
+    ``choose_mttkrp_kernel_blocks`` for one element; any other plan type
+    raises ``TypeError``); a CPU tensor ignores ``plan`` and takes
     :func:`mttkrp3_plain`."""
-    if x.ndim != 3:
-        raise ValueError(f"mttkrp3: a 3-way tensor, got {x.ndim}-way")
+    if x.ndim not in (3, 4):
+        raise ValueError(f"mttkrp3: a 3-way tensor or a batch of them, got {x.ndim}-way")
     if x.device.type == "cpu":
         return mttkrp3_plain(x, a, b)
     out = launch_tile(x, [a, b], plan, specialized=True, name="mttkrp3")

@@ -36,9 +36,12 @@ from .splitk import launch_tile
 
 def mttkrpn_plain(x: torch.Tensor, factors: Sequence[torch.Tensor]) -> torch.Tensor:
     """Plain version: ``X(I, prod C) @ KRP`` in float32, the last factor's
-    index fastest (C-order over the contraction axes)."""
+    index fastest (C-order over the contraction axes); for a batch (``x``
+    with a leading axis more) the same for each element, against its
+    ``(B, C_d, R)`` factors or the shared ``(C_d, R)`` ones."""
     w = khatri_rao([f.float() for f in reversed(factors)])
-    return x.float().reshape(x.shape[0], -1) @ w
+    lead = x.ndim - len(factors)  # (I,) or (B, I)
+    return x.float().reshape(*x.shape[:lead], -1) @ w
 
 
 def mttkrpn(
@@ -49,11 +52,13 @@ def mttkrpn(
 ) -> torch.Tensor:
     """Canonical mode-0 N-way MTTKRP. ``factors`` are the N-1 non-output
     factors in tensor-axis order (axes 1..N-1). Unpadded inputs; returns
-    float32 ``(I, R)``. A CUDA tensor launches the kernel under ``plan``
-    (default: ``choose_mttkrp_kernel_blocks``; any other plan type raises
-    ``TypeError``); a CPU tensor ignores ``plan`` and takes
-    :func:`mttkrpn_plain`."""
-    if len(factors) != x.ndim - 1:
+    float32 ``(I, R)``. An ``x`` with one axis more is a batch ``(B, I,
+    C_1..C_{N-1})``, each factor ``(B, C_d, R)`` or shared ``(C_d, R)``:
+    ``(B, I, R)`` from one launch. A CUDA tensor launches the kernel under
+    ``plan`` (default: ``choose_mttkrp_kernel_blocks`` for one element; any
+    other plan type raises ``TypeError``); a CPU tensor ignores ``plan`` and
+    takes :func:`mttkrpn_plain`."""
+    if len(factors) not in (x.ndim - 1, x.ndim - 2) or not factors:
         raise ValueError(f"mttkrpn: {x.ndim}-way tensor with {len(factors)} factors")
     if x.device.type == "cpu":
         return mttkrpn_plain(x, factors)

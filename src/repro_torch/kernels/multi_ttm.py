@@ -25,7 +25,8 @@ nothing is padded. The kernel has its own plan
 (:class:`~repro_torch.engine.plan.MultiTTMKernelPlan`, default
 :func:`~repro_torch.engine.plan.choose_multi_ttm_kernel_blocks` against its
 real shared memory); a reference-shaped ``MultiTTMPlan`` raises
-``TypeError`` on a CUDA tensor.
+``TypeError`` on a CUDA tensor. A batch of B problems of one shape (``X``
+with a leading batch axis) is one launch, the batch the grid's z dimension.
 """
 
 from __future__ import annotations
@@ -43,17 +44,36 @@ from ..engine.plan import (
     multi_ttm_kernel_smem_bytes,
 )
 from .build import check, library
-from .splitk import check_extents, check_smem, copy_width, kernel_plan, splitk_reduce
+from .splitk import (
+    batch_stride,
+    check_batch,
+    check_extents,
+    check_smem,
+    copy_width,
+    kernel_plan,
+    splitk_reduce,
+)
 
 
-def multi_ttm_keep_plain(x: torch.Tensor, matrices: Sequence[torch.Tensor]) -> torch.Tensor:
+def multi_ttm_keep_plain(x: torch.Tensor, matrices: Sequence[torch.Tensor],
+                         batched: bool = False) -> torch.Tensor:
     """Plain version: a float32 chain of ``torch.tensordot``, the last axis
-    first; returns ``(I, prod R_d)``."""
+    first; returns ``(I, prod R_d)``. ``batched``: ``x`` is a batch ``(B, I,
+    C_1..C_k)``, a ``(B, C_d, R_d)`` matrix applied to each element by
+    ``torch.bmm``, a shared ``(C_d, R_d)`` one by ``tensordot``; returns
+    ``(B, I, prod R_d)``."""
     out = x.float()
-    k = len(matrices)
-    for d in range(k, 0, -1):  # out is (I, C_1..C_d, R_{d+1}..R_k)
-        out = torch.tensordot(out, matrices[d - 1].float(), dims=([d], [0])).movedim(-1, d)
-    return out.reshape(x.shape[0], -1)
+    k, lead = len(matrices), int(batched)
+    for d in range(k, 0, -1):  # out is ([B,] I, C_1..C_d, R_{d+1}..R_k)
+        m, ax = matrices[d - 1].float(), lead + d
+        if m.ndim == 2:
+            out = torch.tensordot(out, m, dims=([ax], [0])).movedim(-1, ax)
+        else:
+            o = out.movedim(ax, -1)
+            rest = o.shape[:-1]
+            o = torch.bmm(o.reshape(rest[0], -1, o.shape[-1]), m)
+            out = o.reshape(*rest, m.shape[-1]).movedim(-1, ax)
+    return out.reshape(*x.shape[:lead + 1], -1)
 
 
 def smem_bytes(plan: MultiTTMKernelPlan, dtype: torch.dtype, ranks: Sequence[int]) -> int:
@@ -67,13 +87,15 @@ def smem_bytes(plan: MultiTTMKernelPlan, dtype: torch.dtype, ranks: Sequence[int
         plan.stages))
 
 
-def _check_operands(x: torch.Tensor, matrices: Sequence[torch.Tensor]) -> None:
+def _check_operands(x: torch.Tensor, matrices: Sequence[torch.Tensor], batched: bool) -> None:
     if x.device.type != "cuda":
         raise ValueError(f"multi_ttm_keep: the kernel needs a CUDA tensor, got {x.device}")
     if x.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"multi_ttm_keep: float32 or bfloat16 input, got {x.dtype}")
     if not x.is_contiguous():
         raise ValueError("multi_ttm_keep: the tensor must be contiguous")
+    if batched:
+        check_batch("multi_ttm_keep", x.shape[0])
     for d, m in enumerate(matrices):
         if m.device != x.device or m.dtype != x.dtype or not m.is_contiguous():
             raise ValueError(
@@ -86,51 +108,64 @@ def multi_ttm_keep(
     matrices: Sequence[torch.Tensor],
     *,
     plan: MultiTTMKernelPlan | None = None,
+    batched: bool = False,
 ) -> torch.Tensor:
     """Canonical kept-mode-first Multi-TTM of an ``(I, C_1..C_k)`` tensor
     with its k ``(C_d, R_d)`` matrices, k >= 1; returns float32
-    ``(I, prod R_d)``. A CUDA tensor launches the kernel under ``plan``
-    (default: :func:`choose_multi_ttm_kernel_blocks`; any other plan type
-    raises ``TypeError``); a CPU tensor ignores ``plan`` and takes
-    :func:`multi_ttm_keep_plain`."""
+    ``(I, prod R_d)``. ``batched``: ``x`` is a batch ``(B, I, C_1..C_k)``,
+    each matrix ``(B, C_d, R_d)`` or shared ``(C_d, R_d)``; one launch
+    returns ``(B, I, prod R_d)``. A CUDA tensor launches the kernel under
+    ``plan`` (default: :func:`choose_multi_ttm_kernel_blocks` for one
+    element; any other plan type raises ``TypeError``); a CPU tensor ignores
+    ``plan`` and takes :func:`multi_ttm_keep_plain`."""
     k = len(matrices)
-    if x.ndim != k + 1 or k < 1 or k > 7:
-        raise ValueError(f"multi_ttm_keep: tensor of shape {tuple(x.shape)} with {k} matrices")
+    lead = int(batched)
+    if x.ndim != k + 1 + lead or k < 1 or k > 7:
+        raise ValueError(f"multi_ttm_keep: tensor of shape {tuple(x.shape)} with {k} matrices"
+                         + (" (batched)" if batched else ""))
     for d, m in enumerate(matrices):
-        if m.ndim != 2 or m.shape[0] != x.shape[1 + d]:
+        rows = x.shape[lead + 1 + d]
+        if not ((m.ndim == 2 and m.shape[0] == rows)
+                or (batched and m.ndim == 3 and tuple(m.shape[:2]) == (x.shape[0], rows))):
             raise ValueError(f"multi_ttm_keep: matrix {d} has shape {tuple(m.shape)}, "
-                             f"expected ({x.shape[1 + d]}, R_{d + 1})")
+                             f"expected ({rows}, R_{d + 1})"
+                             + (f" or ({x.shape[0]}, {rows}, R_{d + 1})" if batched else ""))
     if x.device.type == "cpu":
-        return multi_ttm_keep_plain(x, matrices)
-    _check_operands(x, matrices)
-    check_extents("multi_ttm_keep", x)
-    ranks = tuple(int(m.shape[1]) for m in matrices)
-    plan = kernel_plan("multi_ttm_keep", x, ranks, plan, choose=choose_multi_ttm_kernel_blocks,
-                       cls=MultiTTMKernelPlan)
+        return multi_ttm_keep_plain(x, matrices, batched)
+    _check_operands(x, matrices, batched)
+    shape = tuple(x.shape[lead:])
+    batch = x.shape[0] if batched else 1
+    check_extents("multi_ttm_keep", shape)
+    ranks = tuple(int(m.shape[-1]) for m in matrices)
     itemsize = x.element_size()
+    plan = kernel_plan("multi_ttm_keep", x[0] if batched else x, ranks, plan,
+                       choose=choose_multi_ttm_kernel_blocks, cls=MultiTTMKernelPlan)
     check_smem("multi_ttm_keep", plan, multi_ttm_kernel_smem_bytes(plan, itemsize, ranks))
     lib = library("multi_ttm.cu")
     sms = torch.cuda.get_device_properties(x.device).multi_processor_count
-    _, _, splits = multi_ttm_kernel_grid(x.shape, ranks, plan, sms)
-    i_sz, prod_r = x.shape[0], math.prod(ranks)
-    out = torch.empty((i_sz, prod_r), device=x.device, dtype=torch.float32)
+    _, _, splits = multi_ttm_kernel_grid(shape, ranks, plan, sms, batch)
+    i_sz, prod_r = shape[0], math.prod(ranks)
+    out = torch.empty((batch, i_sz, prod_r), device=x.device, dtype=torch.float32)
     ws = out if splits == 1 else torch.empty(
-        (splits, i_sz, prod_r), device=x.device, dtype=torch.float32)
+        (splits, batch, i_sz, prod_r), device=x.device, dtype=torch.float32)
+    ll = ctypes.c_longlong
     ptrs = [m.data_ptr() for m in matrices]
-    copy_x = copy_width(x.shape[-1] * itemsize, [x.data_ptr()])
-    copy_f = copy_width(ranks[-1] * itemsize, [ptrs[-1]])
+    x_bs = x.stride(0) if batched else 0
+    m_bs = [batch_stride(m, 2) for m in matrices]
+    copy_x = copy_width(shape[-1] * itemsize, [x.data_ptr()], [x_bs * itemsize])
+    copy_f = copy_width(ranks[-1] * itemsize, [ptrs[-1]], [m_bs[-1] * itemsize])
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = lib.repro_multi_ttm(
-            0 if x.dtype == torch.float32 else 1, k, (ctypes.c_longlong * (k + 1))(*x.shape),
+            0 if x.dtype == torch.float32 else 1, k, (ll * (k + 1))(*shape),
             (ctypes.c_int * k)(*ranks), plan.block_m, plan.block_k, plan.block_r, plan.stages,
-            splits, copy_x, copy_f, x.data_ptr(), (ctypes.c_longlong * k)(*ptrs),
-            ws.data_ptr(), stream)
+            splits, copy_x, copy_f, batch, x_bs, (ll * k)(*m_bs), x.data_ptr(),
+            (ll * k)(*ptrs), ws.data_ptr(), stream)
     check(err, "multi_ttm_keep")
     multi_ttm_keep.launches += 1
     if splits > 1:
         splitk_reduce(ws, out)
-    return out
+    return out if batched else out[0]
 
 
 multi_ttm_keep.launches = 0  # type: ignore[attr-defined]

@@ -26,7 +26,10 @@ CTAs and ``splitk.splitk_reduce`` adds the splits' slabs in a fixed order.
 Its plan is :class:`~repro_torch.engine.plan.PartialKernelPlan`, chosen from
 the node's shape and strides by
 :func:`~repro_torch.engine.plan.choose_partial_kernel_blocks` (cached).
-Ragged edges are masked; nothing is padded.
+Ragged edges are masked; nothing is padded. A batch of B nodes of one view
+(``batched=True``: a leading batch axis) is one launch, the batch the grid's
+z dimension; the plan is the element's, its split count chosen for B times
+the element's CTAs.
 """
 
 from __future__ import annotations
@@ -47,19 +50,22 @@ from ..engine.plan import (
     partial_kernel_smem_bytes,
 )
 from .build import check, library
-from .splitk import check_smem, splitk_reduce
+from .splitk import batch_stride, check_batch, check_smem, splitk_reduce
 
 
-def mttkrp_partial_plain(node: torch.Tensor, factors: Sequence[torch.Tensor]) -> torch.Tensor:
+def mttkrp_partial_plain(node: torch.Tensor, factors: Sequence[torch.Tensor],
+                         batched: bool = False) -> torch.Tensor:
     """Plain version: ``(N * W).sum`` over the flattened contraction axes in
     float32, with W the Khatri-Rao product of the factors, the last factor's
     index fastest (C-order over the node's contraction axes). The leading
     ``node.ndim - 1 - len(factors)`` axes are kept and flattened into the
-    output's rows."""
+    output's rows. ``batched``: axis 0 is a batch, each factor ``(B, C_d,
+    R)`` or shared ``(C_d, R)``; returns ``(B, rows, R)``."""
     w = khatri_rao([f.float() for f in reversed(factors)])
-    rows = math.prod(node.shape[:node.ndim - 1 - len(factors)])
-    n = node.float().reshape(rows, -1, node.shape[-1])
-    return (n * w[None]).sum(1)
+    lead = int(batched)
+    rows = math.prod(node.shape[lead:node.ndim - 1 - len(factors)])
+    n = node.float().reshape(*node.shape[:lead], rows, -1, node.shape[-1])
+    return (n * (w[:, None] if w.ndim == 3 else w)).sum(-2)
 
 
 def smem_bytes(plan: PartialKernelPlan, dtype: torch.dtype, rank: int) -> int:
@@ -99,23 +105,34 @@ def node_view(node: torch.Tensor, nkeep: int
             [cstrides[d] for d in order], order)
 
 
-def _kernel_view(node: torch.Tensor, factors: Sequence[torch.Tensor]):
-    """:func:`node_view` of a node with ``len(factors)`` contraction axes,
-    the factors in the view's contraction order, and whether every pointer
-    takes 16-byte loads."""
-    ksizes, kstrides, csizes, cstrides, order = node_view(node, node.ndim - 1 - len(factors))
+def _kernel_view(node: torch.Tensor, factors: Sequence[torch.Tensor], batched: bool = False):
+    """:func:`node_view` of a node (of one element of a batch) with
+    ``len(factors)`` contraction axes, the factors in the view's contraction
+    order, the batch strides of the node and of those factors (0 unbatched,
+    and for a factor the batch shares), and whether every element's
+    pointers take 16-byte loads (each pointer and, in a batch, each batch
+    stride a multiple of 16 bytes)."""
+    elem = node[0] if batched else node
+    ksizes, kstrides, csizes, cstrides, order = node_view(elem, elem.ndim - 1 - len(factors))
     fs = [factors[d] for d in order]
-    aligned = all(t.data_ptr() % PARTIAL_VEC_BYTES == 0 for t in [node, *fs])
-    return ksizes, kstrides, csizes, cstrides, fs, aligned
+    node_bs = node.stride(0) if batched else 0
+    f_bs = [batch_stride(f, 2) for f in fs]
+    aligned = (all(t.data_ptr() % PARTIAL_VEC_BYTES == 0 for t in [node, *fs])
+               and all(b * node.element_size() % PARTIAL_VEC_BYTES == 0
+                       for b in (node_bs, *f_bs)))
+    return ksizes, kstrides, csizes, cstrides, fs, node_bs, f_bs, aligned
 
 
-def default_plan(node: torch.Tensor, factors: Sequence[torch.Tensor]) -> PartialKernelPlan:
+def default_plan(node: torch.Tensor, factors: Sequence[torch.Tensor],
+                 batched: bool = False) -> PartialKernelPlan:
     """The plan :func:`mttkrp_partial` chooses for a CUDA ``node`` (rank axis
-    at unit stride) and its factors."""
-    ksizes, kstrides, csizes, cstrides, _, aligned = _kernel_view(node, factors)
+    at unit stride; ``batched``: a batch of nodes along axis 0) and its
+    factors."""
+    ksizes, kstrides, csizes, cstrides, _, _, _, aligned = _kernel_view(node, factors, batched)
     return choose_partial_kernel_blocks(
         (*ksizes, *csizes), (*kstrides, *cstrides), node.shape[-1], node.element_size(),
-        _sms(node.device.index or 0), nkeep=len(ksizes), aligned=aligned)
+        _sms(node.device.index or 0), nkeep=len(ksizes), aligned=aligned,
+        batch=node.shape[0] if batched else 1)
 
 
 def mttkrp_partial(
@@ -123,60 +140,70 @@ def mttkrp_partial(
     factors: Sequence[torch.Tensor],
     *,
     plan: PartialKernelPlan | None = None,
+    batched: bool = False,
 ) -> torch.Tensor:
     """Rank-augmented partial contraction of a ``(K_1..K_m, C_1..C_k, R)``
     node, m >= 0 kept axes first, with its k ``(C_d, R)`` factors; returns
-    float32 ``(prod K, R)``. A CUDA tensor is read in place through its
+    float32 ``(prod K, R)``. ``batched``: axis 0 of the node is a batch of B
+    nodes, each factor ``(B, C_d, R)`` or shared ``(C_d, R)``; one launch
+    returns ``(B, prod K, R)``. A CUDA tensor is read in place through its
     strides (a node whose rank axis is not at unit stride gets one
     ``.contiguous()``) and launches the kernel under ``plan`` (default:
     :func:`choose_partial_kernel_blocks` for its view; any other plan type
     raises ``TypeError``); a CPU tensor ignores ``plan`` and takes
     :func:`mttkrp_partial_plain`."""
     k = len(factors)
-    if not factors or node.ndim < k + 1:
+    lead = int(batched)
+    if not factors or node.ndim < k + 1 + lead:
         raise ValueError(f"mttkrp_partial: node of shape {tuple(node.shape)} with "
-                         f"{k} factors")
+                         f"{k} factors (batched={batched})")
     if node.device.type == "cpu":
-        return mttkrp_partial_plain(node, factors)
+        return mttkrp_partial_plain(node, factors, batched)
     name = "mttkrp_partial"
     if node.device.type != "cuda":
         raise ValueError(f"{name}: the kernel needs a CUDA tensor, got {node.device}")
     if node.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"{name}: float32 or bfloat16 input, got {node.dtype}")
-    rank, nkeep = node.shape[-1], node.ndim - 1 - k
+    rank, nkeep = node.shape[-1], node.ndim - 1 - k - lead
     if not 1 <= k <= 7 or nkeep > 7:
         raise ValueError(f"{name}: {k} contraction and {nkeep} kept axes; the kernel takes "
                          f"1 to 7 of each")
+    batch = node.shape[0] if batched else 1
+    if batched:
+        check_batch(name, batch)
     for d, f in enumerate(factors):
         if f.device != node.device or f.dtype != node.dtype or not f.is_contiguous():
             raise ValueError(
                 f"{name}: factor {d} must be a contiguous {node.dtype} tensor on {node.device}")
-        if tuple(f.shape) != (node.shape[nkeep + d], rank):
-            raise ValueError(f"{name}: factor {d} has shape {tuple(f.shape)}, "
-                             f"expected {(node.shape[nkeep + d], rank)}")
+        want = (node.shape[lead + nkeep + d], rank)
+        if tuple(f.shape) != want and not (batched and tuple(f.shape) == (batch, *want)):
+            raise ValueError(f"{name}: factor {d} has shape {tuple(f.shape)}, expected "
+                             f"{want}" + (f" or {(batch, *want)}" if batched else ""))
     if node.stride(-1) != 1 and rank > 1:
         node = node.contiguous()
-    ksizes, kstrides, csizes, cstrides, fs, aligned = _kernel_view(node, factors)
+    ksizes, kstrides, csizes, cstrides, fs, node_bs, f_bs, aligned = _kernel_view(
+        node, factors, batched)
     rows = math.prod(ksizes)
+    out_shape = (batch, rows, rank) if batched else (rows, rank)
     if node.numel() == 0:
-        return torch.zeros((rows, rank), device=node.device, dtype=torch.float32)
+        return torch.zeros(out_shape, device=node.device, dtype=torch.float32)
     itemsize = node.element_size()
     wide = PARTIAL_VEC_BYTES // itemsize
     if plan is None:
         plan = choose_partial_kernel_blocks(
             (*ksizes, *csizes), (*kstrides, *cstrides), rank, itemsize,
-            _sms(node.device.index or 0), nkeep=len(ksizes), aligned=aligned)
+            _sms(node.device.index or 0), nkeep=len(ksizes), aligned=aligned, batch=batch)
     elif not isinstance(plan, PartialKernelPlan):
         raise TypeError(f"{name}: on a CUDA tensor the plan is a PartialKernelPlan, "
                         f"got {type(plan).__name__}")
     plan.check(rank, itemsize)
     if plan.vec > 1 and not (aligned and all(s % wide == 0 for s in kstrides + cstrides)):
         raise ValueError(f"{name}: plan {plan} loads {PARTIAL_VEC_BYTES} bytes, but the node's "
-                         f"strides or a pointer are not multiples of them")
+                         f"strides, batch strides or a pointer are not multiples of them")
     check_smem(name, plan, partial_kernel_smem_bytes(plan, rank))
-    out = torch.empty((rows, rank), device=node.device, dtype=torch.float32)
+    out = torch.empty(out_shape, device=node.device, dtype=torch.float32)
     ws = out if plan.splits == 1 else torch.empty(
-        (plan.splits, rows, rank), device=node.device, dtype=torch.float32)
+        (plan.splits, *out_shape), device=node.device, dtype=torch.float32)
     lib = library("sweep.cu")
     ll = ctypes.c_longlong
     nk, nc = len(ksizes), len(csizes)
@@ -186,7 +213,8 @@ def mttkrp_partial(
             0 if node.dtype == torch.float32 else 1, PARTIAL_LAYOUTS.index(plan.layout),
             plan.block_rows, plan.vec, plan.loads, plan.splits, nk, (ll * nk)(*ksizes),
             (ll * nk)(*kstrides), nc, (ll * nc)(*csizes), (ll * nc)(*cstrides), rank,
-            node.data_ptr(), (ll * nc)(*(f.data_ptr() for f in fs)), ws.data_ptr(), stream)
+            batch, node_bs, (ll * nc)(*f_bs), node.data_ptr(),
+            (ll * nc)(*(f.data_ptr() for f in fs)), ws.data_ptr(), stream)
     check(err, name)
     mttkrp_partial.launches += 1
     if plan.splits > 1:

@@ -90,7 +90,7 @@ def fused_pair(
         return fused_pair_plain(x, factors)
     rank = factors[0].shape[1]
     check_operands("fused_pair", x, factors, rank)
-    check_extents("fused_pair", x)
+    check_extents("fused_pair", x.shape)
     plan = kernel_plan("fused_pair", x, rank, plan, choose=choose_pair_kernel_blocks)
     nc, itemsize = len(factors), x.element_size()
     check_smem("fused_pair", plan, pair_kernel_smem_bytes(plan, itemsize, nc))

@@ -31,7 +31,9 @@ ROOT = Path(__file__).resolve().parents[1]
 def test_public_surface():
     assert sorted(repro_torch.__all__) == sorted(
         ["ExecutionContext", "Memory", "BlockPlan", "mttkrp", "contract_partial", "cp_als",
-         "CPResult", "multi_ttm", "MultiTTMPlan", "tucker_hooi", "TuckerResult"])
+         "CPResult", "multi_ttm", "MultiTTMPlan", "tucker_hooi", "TuckerResult",
+         "cp_gradient", "cp_als_batched", "tucker_hooi_batched", "BatchedCPResult",
+         "BatchedTuckerResult"])
     for name in repro_torch.__all__:  # the reference's names for the same things
         assert name in repro.__all__
 

@@ -992,3 +992,192 @@ def test_forward_launches_once_a_layer_and_decode_never(card):
     for t in range(3):
         lg, state = decode_step(model, cfg, state, tokens[:, t:t + 1])
     assert ssd_intra.launches == before + cfg.n_layers
+
+
+# -- batched calls: one launch for B problems, the batch the grid's z axis ----
+
+def _batch_data(batch, dims, rank, dtype, device, shared=False, seed=0):
+    """A ``(B, *dims)`` tensor and per-element ``(B, I_k, R)`` factors (or
+    shared ``(I_k, R)`` ones)."""
+    rng = np.random.default_rng(seed)
+    x = torch.as_tensor(rng.standard_normal((batch, *dims), dtype=np.float32))
+    lead = () if shared else (batch,)
+    fs = [torch.as_tensor(rng.standard_normal((*lead, d, rank), dtype=np.float32))
+          for d in dims]
+    return x.to(device, dtype), [f.to(device, dtype) for f in fs]
+
+
+def _elem(f, b):
+    return f[b] if f.ndim == 3 else f
+
+
+BATCH_CASES = [  # (B, dims, R); (5, 7, 9) has an odd product: bf16 elements start misaligned
+    (3, (5, 7, 9), 5), (1, (33, 17, 70), 16), (4, (64, 64, 64), 33), (2, (6, 5, 4, 7), 7),
+    (5, (40, 21, 19, 35), 16), (7, (300, 41, 9), 13),
+]
+
+
+@pytest.mark.parametrize("shared", [False, True], ids=["per_element", "shared"])
+@pytest.mark.parametrize("dtype", DTYPES, ids=["f32", "bf16"])
+@pytest.mark.parametrize("batch,dims,rank", BATCH_CASES)
+def test_batched_mttkrp_kernel_is_one_launch(card, batch, dims, rank, dtype, shared):
+    """mttkrp3 / mttkrpn on a batch: one launch (and at most one split-K
+    reduction), equal to the plain version and to a loop of B launches."""
+    x, fs = _batch_data(batch, dims, rank, dtype, card, shared)
+    kern, call = ((mttkrp3, lambda xx, ff: mttkrp3(xx, *ff)) if len(dims) == 3
+                  else (mttkrpn, lambda xx, ff: mttkrpn(xx, ff)))
+    before = (kern.launches, splitk.splitk_reduce.launches)
+    got = call(x, fs[1:])
+    assert kern.launches == before[0] + 1
+    assert splitk.splitk_reduce.launches - before[1] in (0, 1)
+    _close(got, mttkrpn_plain(x, fs[1:]))
+    loop = torch.stack([call(x[b], [_elem(f, b) for f in fs[1:]]) for b in range(batch)])
+    assert kern.launches == before[0] + 1 + batch
+    _close(got, loop)
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=["f32", "bf16"])
+def test_batched_ops_mttkrp_all_modes(card, dtype):
+    x, fs = _batch_data(3, (20, 9, 31), 6, dtype, card, seed=1)
+    for mode in range(3):
+        got = ops.mttkrp(x, fs, mode, out_dtype=torch.float32, batched=True)
+        loop = torch.stack([ops.mttkrp(x[b], [f[b] for f in fs], mode, out_dtype=torch.float32)
+                            for b in range(3)])
+        _close(got, loop)
+
+
+def test_a_full_wave_batch_runs_unsplit(card):
+    """A batch whose CTAs fill a wave alone runs unsplit: no reduction."""
+    sms = torch.cuda.get_device_properties(card).multi_processor_count
+    dims, rank = (64, 64, 64), 16
+    plan = choose_mttkrp_kernel_blocks(dims, rank, 4)
+    assert mttkrp_kernel_grid(dims, rank, plan, sms)[2] > 1
+    batch = 2 * sms
+    assert mttkrp_kernel_grid(dims, rank, plan, sms, batch)[2] == 1
+    x, fs = _batch_data(batch, dims, rank, torch.float32, card, seed=2)
+    before = splitk.splitk_reduce.launches
+    got = mttkrp3(x, fs[1], fs[2])
+    assert splitk.splitk_reduce.launches == before
+    _close(got, mttkrpn_plain(x, fs[1:]))
+
+
+def test_a_batch_beyond_the_grid_limit_raises(card):
+    x = torch.zeros((splitk.MAX_BATCH + 1, 1, 1, 1), device=card)
+    fs = [torch.zeros((1, 1), device=card)] * 2
+    with pytest.raises(ValueError, match="65535"):
+        mttkrp3(x, *fs)
+
+
+@pytest.mark.parametrize("shared", [False, True], ids=["per_element", "shared"])
+@pytest.mark.parametrize("dtype", DTYPES, ids=["f32", "bf16"])
+@pytest.mark.parametrize("batch,dims,perm,nkeep", [
+    (3, (30, 20, 40), (0, 1, 2), 1),      # canonical, k = 2
+    (4, (30, 20, 40), (1, 0, 2), 1),      # in place: the kept axis inner
+    (2, (9, 11, 13, 7), (2, 0, 1, 3), 2),  # 4-way, k = 2, kept axes permuted
+    (5, (64, 50), (1, 0), 1),             # k = 1
+    (1, (12, 10, 8), (0, 2, 1), 0),       # nothing kept
+])
+def test_batched_partial_is_one_launch(card, batch, dims, perm, nkeep, dtype, shared):
+    """The partial kernel on a batch of in-place views: one launch, equal to
+    the plain version and to a loop."""
+    rank = 16
+    rng = np.random.default_rng(4)
+    node = torch.as_tensor(rng.standard_normal((batch, *dims, rank), dtype=np.float32))
+    node = node.to(card, dtype).permute((0,) + tuple(1 + p for p in perm) + (len(dims) + 1,))
+    elem = node.shape[1:-1]
+    lead = () if shared else (batch,)
+    fs = [torch.as_tensor(rng.standard_normal((*lead, c, rank), dtype=np.float32)).to(card, dtype)
+          for c in elem[nkeep:]]
+    before = partial.mttkrp_partial.launches
+    got = mttkrp_partial(node, fs, batched=True)
+    assert partial.mttkrp_partial.launches == before + 1
+    _close(got, mttkrp_partial_plain(node, fs, batched=True))
+    loop = torch.stack([mttkrp_partial(node[b], [_elem(f, b) for f in fs])
+                        for b in range(batch)])
+    _close(got, loop)
+
+
+def test_batched_partial_width_sees_the_batch_stride(card):
+    """Element strides that take 16-byte loads but a batch stride that does
+    not: the plan loads one element at a time, and the result holds."""
+    batch, rows, c, rank = 3, 40, 30, 8
+    buf = torch.randn(batch * (rows * c * rank + 2), device=card)
+    node = buf.as_strided((batch, rows, c, rank), (rows * c * rank + 2, c * rank, rank, 1))
+    fs = [torch.randn((c, rank), device=card)]
+    assert partial.default_plan(node[0], fs).vec == 4
+    assert partial.default_plan(node, fs, batched=True).vec == 1
+    _close(mttkrp_partial(node, fs, batched=True), mttkrp_partial_plain(node, fs, batched=True))
+
+
+@pytest.mark.parametrize("shared", [False, True], ids=["per_element", "shared"])
+@pytest.mark.parametrize("dtype", DTYPES, ids=["f32", "bf16"])
+@pytest.mark.parametrize("batch,dims,ranks", [
+    (3, (20, 30, 17), (5, 8)), (1, (40, 33, 70), (16, 16)), (4, (9, 11, 13, 7), (3, 4, 5)),
+    (6, (50, 21), (7,)), (2, (5, 7, 9), (2, 3)),
+])
+def test_batched_multi_ttm_kernel_is_one_launch(card, batch, dims, ranks, dtype, shared):
+    rng = np.random.default_rng(5)
+    x = torch.as_tensor(rng.standard_normal((batch, *dims), dtype=np.float32)).to(card, dtype)
+    lead = () if shared else (batch,)
+    mats = [torch.as_tensor(rng.standard_normal((*lead, c, r), dtype=np.float32)).to(card, dtype)
+            for c, r in zip(dims[1:], ranks)]
+    before = multi_ttm_keep.launches
+    got = multi_ttm_keep(x, mats, batched=True)
+    assert multi_ttm_keep.launches == before + 1
+    _close(got, multi_ttm_keep_plain(x, mats, batched=True))
+    loop = torch.stack([multi_ttm_keep(x[b], [_elem(m, b) for m in mats]) for b in range(batch)])
+    _close(got, loop)
+
+
+@pytest.mark.parametrize("dims", [(12, 9, 15), (6, 5, 7, 4)])
+def test_batched_engine_calls_match_einsum(card, dims):
+    """Batched mttkrp, contract_partial and multi_ttm on cuda against einsum,
+    each one kernel launch."""
+    batch, rank = 4, 6
+    cu = repro_torch.ExecutionContext.create("cuda")
+    es = repro_torch.ExecutionContext.create("einsum")
+    x, fs = _batch_data(batch, dims, rank, torch.float32, card, seed=6)
+    n = len(dims)
+    for mode in range(n):
+        _close(repro_torch.mttkrp(x, fs, mode, ctx=cu), repro_torch.mttkrp(x, fs, mode, ctx=es))
+    counted = (mttkrp3, mttkrpn, partial.mttkrp_partial, multi_ttm_keep)
+    for modes, drop, has_rank in [(tuple(range(n)), (n - 1,), False),
+                                  (tuple(range(n)), (0,), True), ((0, n - 1), (n - 1,), True)]:
+        shape = tuple(dims[m] for m in modes) + ((rank,) if has_rank else ())
+        node = x if not has_rank and len(modes) == n else torch.randn((batch, *shape),
+                                                                      device=card)
+        before = sum(k.launches for k in counted)
+        got = repro_torch.contract_partial(node, fs, modes, drop, has_rank, ctx=cu)
+        assert sum(k.launches for k in counted) == before + 1
+        _close(got, repro_torch.contract_partial(node, fs, modes, drop, has_rank, ctx=es))
+    mats = [f[..., :3] for f in fs]
+    for keep in [None, *range(n)]:
+        ms = [None if k == keep else m for k, m in enumerate(mats)]
+        before = multi_ttm_keep.launches
+        got = repro_torch.multi_ttm(x, ms, keep, ctx=cu)
+        assert multi_ttm_keep.launches == before + 1
+        _close(got, repro_torch.multi_ttm(x, ms, keep, ctx=es))
+
+
+def test_batched_cp_sweep_launches_n_a_sweep(card):
+    """cp_als_batched on cuda: N MTTKRP launches an iteration, whatever B."""
+    for batch in (1, 5):
+        x, fs = _batch_data(batch, (20, 18, 16), 4, torch.float32, card, seed=7)
+        ctx = repro_torch.ExecutionContext.create("cuda")
+        before = mttkrp3.launches
+        res = repro_torch.cp_als_batched(x, 4, 3, init_factors=fs, ctx=ctx)
+        assert mttkrp3.launches == before + 9
+        ref = repro_torch.cp_als_batched(x, 4, 3, init_factors=fs,
+                                         ctx=repro_torch.ExecutionContext.create("einsum"))
+        assert float((res.fits - ref.fits).abs().max()) < 1e-4
+
+
+def test_batched_hooi_sweep_launches_n_a_sweep(card):
+    x = torch.randn((3, 20, 18, 16), device=card)
+    before = multi_ttm_keep.launches
+    res = repro_torch.tucker_hooi_batched(x, (4, 3, 2), 2,
+                                          ctx=repro_torch.ExecutionContext.create("cuda"))
+    assert multi_ttm_keep.launches == before + 6
+    ref = repro_torch.tucker_hooi_batched(x, (4, 3, 2), 2,
+                                          ctx=repro_torch.ExecutionContext.create("einsum"))
+    assert float((res.fits - ref.fits).abs().max()) < 1e-4

@@ -193,13 +193,20 @@ def test_contract_partial_matches_reference_on_every_edge(dims, backend):
 
 
 def test_contract_partial_refuses_batches_and_bad_drops():
+    """A leading batch axis was refused until the batched engine came in; it
+    is now one batched call, equal to a loop. A bad ``drop`` is refused."""
     ctx = repro_torch.ExecutionContext.create("einsum", device="cpu")
     fs = [torch.ones((2, 1))] * 3
-    with pytest.raises(ValueError, match="batched-engine slice"):
-        repro_torch.contract_partial(torch.ones((4, 2, 2, 2)), fs, (0, 1, 2), (2,), False,
-                                     ctx=ctx)
+    node = torch.arange(32.0).reshape(4, 2, 2, 2)
+    got = repro_torch.contract_partial(node, fs, (0, 1, 2), (2,), False, ctx=ctx)
+    loop = torch.stack([repro_torch.contract_partial(node[b], fs, (0, 1, 2), (2,), False,
+                                                     ctx=ctx) for b in range(4)])
+    assert got.shape == (4, 2, 2, 1)
+    torch.testing.assert_close(got, loop, rtol=1e-6, atol=1e-6)
     with pytest.raises(ValueError, match="subset"):
         repro_torch.contract_partial(torch.ones((2, 2, 2)), fs, (0, 1, 2), (), False, ctx=ctx)
+    with pytest.raises(ValueError, match="subset"):
+        repro_torch.contract_partial(node, fs, (0, 1, 2), (), False, ctx=ctx)
 
 
 def test_contract_partial_under_bf16_policy_matches_reference():

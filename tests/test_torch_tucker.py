@@ -270,10 +270,22 @@ def test_multi_ttm_cuda_rejects_a_one_way_tensor():
 
 
 def test_batched_multi_ttm_raises_by_name():
-    x = torch.zeros(2, 4, 3, 5)
-    mats = [torch.zeros(4, 2), torch.zeros(3, 2), torch.zeros(5, 2)]
-    with pytest.raises(ValueError, match="Queue 1 item 8"):
-        repro_torch.multi_ttm(x, mats, ctx=_port_ctx("cuda"))
+    """A leading batch axis was refused by name until the batched engine
+    came in; now the batched call equals a loop of unbatched calls (shared
+    matrices), on the cuda backend too, and the reference's batched call."""
+    rng = np.random.default_rng(30)
+    x = rng.standard_normal((2, 4, 3, 5), dtype=np.float32)
+    mats = [rng.standard_normal((d, 2), dtype=np.float32) for d in (4, 3, 5)]
+    xt, mt = torch.from_numpy(x), [torch.from_numpy(m) for m in mats]
+    for keep in (None, 1):
+        ms = [None if k == keep else m for k, m in enumerate(mt)]
+        got = repro_torch.multi_ttm(xt, ms, keep, ctx=_port_ctx("cuda"))
+        loop = torch.stack([repro_torch.multi_ttm(xt[b], ms, keep, ctx=_port_ctx("cuda"))
+                            for b in range(2)])
+        torch.testing.assert_close(got, loop, rtol=1e-6, atol=1e-6)
+        want = repro.multi_ttm(jnp.asarray(x), [None if m is None else jnp.asarray(m.numpy())
+                                                for m in ms], keep)
+        close(got, want)
 
 
 @pytest.mark.parametrize("backend", ["einsum", "blocked_host", "cuda"])
