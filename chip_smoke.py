@@ -2,6 +2,7 @@
 """Drive the PyTorch/CUDA port's main path on one NVIDIA card and check it.
 
     python3 chip_smoke.py [--seed N]
+    python3 chip_smoke.py --serve-once DIR   # phase 11's cold or warm start alone
 
 Phases (any failure raises, and the script exits non-zero):
 
@@ -100,9 +101,39 @@ Phases (any failure raises, and the script exits non-zero):
     ``tucker_hooi_batched`` on 16 x 256^3 at ranks 16 (5 sweeps, exactly 3
     ``multi_ttm_keep`` launches a sweep, fits within 1e-4 of a loop of 16
     ``tucker_hooi`` runs), each timed against its loop;
-11. one JSON line per kernel and shape (times from CUDA events), the
+11. the decomposition server (``SERVE_QUEUE``, ``SERVE_4WAY``) on
+    ``backend="auto"`` with an empty tune cache: a mixed queue of 16
+    requests near 256^3 at R = 32 and 64 near 96^3 at R = 16, then 8 near
+    64^4 at R = 16, each flushed once untimed and once timed; exactly one
+    ``cp_als_batched`` call a bucket and N MTTKRP launches an iteration it
+    ran (counts set to 0 before the timed flush, read after); every request
+    against a direct ``cp_als`` from the same start for the same iterations
+    and its float64 run, request by request: within 1e-4 of the direct run
+    in each of fit, weights and factors where the direct run is within
+    ``SERVE_SOUND`` of float64 there, and everywhere no further from
+    float64 than twice the direct run plus 1e-4, and at most
+    ``SERVE_CAP``; after one iteration of a fresh server, every request
+    within 1e-4 of its direct run in fit, weights and factors;
+    requests/s of the flush against the loop of direct
+    calls; then the cold and the warm start (``--serve-once``: two
+    processes in turn on one fresh ``compilation_cache`` directory, the
+    first builds ``mttkrp.cu``, the second loads it; the warm one must
+    reach its first result sooner);
+12. the tuner (``TUNE_PROBLEM``) on an isolated cache: ``tune_mttkrp``,
+    ``tune_partial`` (the fused sweep's k = 1 edge), ``tune_multi_ttm``
+    and ``tune_sweep`` at 1000^3, every candidate's time, plan and error
+    recorded, the winner the fastest measured and the chooser's plan among
+    the candidates, every key a hit from a fresh ``PlanCache`` and carrying
+    the card's name and the torch version; ``cp_als`` on ``backend="auto"``
+    (``per_mode``) and with ``sweep="auto"`` against ``cuda`` (fits within
+    1e-4, exactly the launches the resolved decisions call for); the host's
+    µs an engine call on a cache hit, through the default cache and through
+    ``cache_path``, against ``cuda`` (at most 1.3x); ``calibrate`` on
+    ``CALIBRATION`` and
+    its report;
+13. one JSON line per kernel and shape (times from CUDA events), the
     ``nvidia-smi`` line, and one ``{"kernels": [...]}`` line;
-12. the last line, ``{"ok": true, "device": {...}}``.
+14. the last line, ``{"ok": true, "device": {...}}``.
 
 All data are made on the card from ``--seed`` with a ``torch.Generator``.
 Matmuls run in full fp32 (TF32 off), so the plain versions and the einsum
@@ -200,6 +231,38 @@ BATCHES = [(16, (256, 256, 256), 32, ("float32", "bfloat16")),
 #: Phase 10's drivers: (B, element shape, CP rank, CP iterations, Tucker
 #: rank, HOOI sweeps).
 BATCHED_DRIVERS = (16, (256, 256, 256), 32, 10, 16, 5)
+#: Phase 11, serving: the mixed queue of one flush, as (requests, extents
+#: drawn in [lo, hi], R): 16 mid-sized requests (one 16 x 256^3 bucket) and
+#: 64 small ones (one 64 x 96^3 bucket, host-bound when looped), then a
+#: 4-way queue (one 8 x 64^4 bucket); fp32, ``pad_to`` 8, SERVE_ITERS
+#: iterations at most, the server's default tol.
+SERVE_QUEUE = [(16, (249, 256), 32, 3), (64, (89, 96), 16, 3)]
+SERVE_4WAY = [(8, (57, 64), 16, 4)]
+SERVE_ITERS = 10
+#: The iterations over which every served result must equal its direct run
+#: to 1e-4: one update of every mode (later iterations amplify fp32
+#: rounding: the 4-way requests' factors differ by 2.0e-5 after one, 1.1e-4
+#: after two: PERF.md section 6).
+SERVE_EXACT_ITERS = 1
+#: After SERVE_ITERS iterations, request by request and in each of (fit,
+#: weights, factors): where the direct run is within SERVE_SOUND of its
+#: float64 run (a tenth of the 1e-4 limit) the served result must be within
+#: SERVE_TOL of the direct run; everywhere it must be within twice the direct
+#: run's distance from float64 plus SERVE_TOL of float64, and within
+#: SERVE_CAP of it (5x the worst served reading, PERF.md section 6).
+SERVE_TOL = 1e-4
+SERVE_SOUND = 1e-5
+SERVE_CAP = (1e-3, 1e-2, 1e-2)
+#: The small bucket the cold and the warm start serve, each in a process of
+#: its own: (requests, extents, R, iterations).
+SERVE_START = (8, (25, 32), 8, 5)
+#: Phase 12, tuning: the searches' problem (shape, R, Multi-TTM ranks), the
+#: auto runs' iterations, the host-cost probe (shape, R, calls) and the
+#: calibration's shapes.
+TUNE_PROBLEM = ((1000, 1000, 1000), 64, 32)
+AUTO_ITERS = 3
+HOST_PROBE = ((64, 64, 64), 16, 400)
+CALIBRATION = (((256, 256, 256), 32), ((384, 320, 256), 32), ((512, 384, 256), 16))
 
 
 def nvidia_smi() -> str:
@@ -1602,9 +1665,439 @@ def batched_phase(gen, smi: str) -> dict:
     return {"launches": driver_launches, "records": records, "cp": cp_rec, "tucker": tk_rec}
 
 
+def _plan_fields(plan):
+    return None if plan is None else [type(plan).__name__, *plan.__dict__.values()]
+
+
+def cp_dist(a, b) -> tuple[float, float, float]:
+    """Two CP results ``(fit, weights, factors)`` apart: |fit gap|, and the
+    weights' and the factors' largest difference relative to the second's
+    largest magnitude (``rel_err``)."""
+    return (abs(a[0] - b[0]), rel_err(a[1], b[1])[0],
+            max(rel_err(p, q)[0] for p, q in zip(a[2], b[2])))
+
+
+def serve_once(cache_dir: str) -> int:
+    """The cold or warm start of phase 11, in a process of its own: a
+    server whose context builds into and loads from ``cache_dir`` serves
+    SERVE_START's bucket; prints one JSON line with the time from the
+    server's creation to the first result and the libraries it loaded."""
+    t0 = time.perf_counter()
+    import torch
+    import repro_torch
+    from repro_torch.kernels import build
+    from repro_torch.launch.serve import DecompositionServer
+
+    t_import = time.perf_counter()
+    count, (lo, hi), rank, iters = SERVE_START
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    xs = [noisy_low_rank(gen, tuple(torch.randint(lo, hi + 1, (3,), generator=gen,
+                                                  device="cuda").tolist()), rank)
+          for _ in range(count)]
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    server = DecompositionServer(
+        repro_torch.ExecutionContext.create("cuda", compilation_cache=cache_dir),
+        n_iters=iters)
+    for i, x in enumerate(xs):
+        server.submit(x, rank, request_id=f"s{i}")
+    results = server.flush()
+    t2 = time.perf_counter()
+    emit({"serve_once": cache_dir, "first_result_s": t2 - t1, "import_s": t_import - t0,
+          "process_s": t2 - t0, "loaded": {k: str(v) for k, v in build.loaded().items()},
+          "fits": [r.fit for r in results.values()]})
+    return 0
+
+
+def serve_phase(gen, smi: str) -> dict:
+    """Phase 11: the decomposition server on the batched engine. One flush
+    of a mixed queue (two buckets) and one of a 4-way queue: one
+    ``cp_als_batched`` call a bucket, N MTTKRP launches an iteration run,
+    every request against a direct ``cp_als`` from the same start, the
+    flush's requests/s against the loop of direct calls; then the cold and
+    the warm start, each in a process of its own on one fresh build
+    directory. Returns the flushes' launches and the records."""
+    import shutil
+    import tempfile
+
+    import torch
+    import repro_torch
+    from repro_torch.core.tensor import random_factors
+    from repro_torch.engine import batch as batch_mod
+    from repro_torch.launch.serve import DecompositionServer
+    from repro_torch.tune.cache import isolated_cache
+
+    kernels = counters()
+    calls = []
+    real = batch_mod.cp_als_batched
+
+    def counted(xs, *a, **kw):
+        """``cp_als_batched``, with the launches of each call."""
+        before = {name: k.launches for name, k in kernels.items()}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = real(xs, *a, **kw)
+        torch.cuda.synchronize()
+        calls.append({"batch": int(xs.shape[0]), "padded": list(xs.shape[1:]),
+                      "seconds": time.perf_counter() - t0,
+                      "iters_run": int(res.n_iters.max()),
+                      "launches": {name: k.launches - before[name]
+                                   for name, k in kernels.items()
+                                   if k.launches != before[name]}})
+        return res
+
+    out = {"launches": {k: 0 for k in kernels}, "records": []}
+    auto = repro_torch.ExecutionContext.create("auto")
+    cuda_ctx = repro_torch.ExecutionContext.create("cuda")
+    ein_ctx = repro_torch.ExecutionContext.create("einsum")
+    with isolated_cache():  # auto on an empty cache: every contraction a miss, cuda
+        for label, queue in (("mixed", SERVE_QUEUE), ("4-way", SERVE_4WAY)):
+            server = DecompositionServer(auto, n_iters=SERVE_ITERS)
+            data = []
+            for count, (lo, hi), rank, ways in queue:
+                for _ in range(count):
+                    shape = tuple(torch.randint(lo, hi + 1, (ways,), generator=gen,
+                                                device="cuda").tolist())
+                    data.append((noisy_low_rank(gen, shape, rank), rank))
+
+            def submit_all(tag):
+                return [(server.submit(x, rank, request_id=f"{label}{tag}{i}"), x, rank)
+                        for i, (x, rank) in enumerate(data)]
+
+            # the buckets' first flush, untimed: a server's steady state is
+            # what its clients see (cold is the per-process start, below)
+            submit_all("warm")
+            server.flush()
+            reqs = submit_all("")
+            torch.cuda.synchronize()
+            for k in kernels.values():
+                k.launches = 0
+            calls.clear()
+            batch_mod.cp_als_batched = counted
+            try:
+                t0 = time.perf_counter()
+                results = server.flush()
+                flush_s = time.perf_counter() - t0
+            finally:
+                batch_mod.cp_als_batched = real
+            launches = {name: k.launches for name, k in kernels.items()}
+            for name, n in launches.items():
+                out["launches"][name] += n
+            if len({r.bucket for r in results.values()}) != len(queue) or len(calls) != len(
+                    queue):
+                raise AssertionError(f"serve {label}: {len(calls)} cp_als_batched calls for "
+                                     f"{len(queue)} buckets")
+            for call, (_, _, _, ways) in zip(calls, queue):
+                kern = "mttkrp3" if ways == 3 else "mttkrpn"
+                got = {k: n for k, n in call["launches"].items() if k != "splitk_reduce"}
+                if got != {kern: ways * call["iters_run"]}:
+                    raise AssertionError(f"serve {label}: bucket {call['padded']} launched "
+                                         f"{call['launches']}, expected {ways} {kern} an "
+                                         f"iteration for {call['iters_run']} iterations")
+            # the loop a client would run instead: a direct cp_als a request,
+            # from the same start (the server's i-th request is seeded i + 1;
+            # the untimed flush took the first len(data) seeds) and for the
+            # iterations the server ran it; one untimed call first
+            inits = [random_factors(torch.Generator(device="cuda").manual_seed(
+                len(data) + i + 1), tuple(x.shape), rank) for i, (_, x, rank) in enumerate(reqs)]
+            repro_torch.cp_als(reqs[0][1], reqs[0][2], 1, init_factors=inits[0], ctx=cuda_ctx)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            direct = [repro_torch.cp_als(x, rank, results[rid].n_iters, init_factors=init,
+                                         ctx=cuda_ctx)
+                      for (rid, x, rank), init in zip(reqs, inits)]
+            torch.cuda.synchronize()
+            loop_s = time.perf_counter() - t0
+            # each request against its direct run, and both against the same
+            # run in float64: over 10 iterations fp32 ALS can amplify rounding
+            # (served and direct runs of one request differed by up to 7.1e-3
+            # in factors, PERF.md), so the 1e-4 check holds where the direct
+            # run is sound and float64 judges the rest (SERVE_SOUND)
+            worst = {"served_vs_direct": [0.0] * 3, "served_vs_float64": [0.0] * 3,
+                     "direct_vs_float64": [0.0] * 3}
+            beyond, held, per_request, problems = 0, [0, 0, 0], [], []
+            for (rid, x, rank), d, init in zip(reqs, direct, inits):
+                r = results[rid]
+                if [tuple(f.shape) for f in r.factors] != [tuple(f.shape) for f in d.factors]:
+                    raise AssertionError(f"serve {rid}: not cropped to {tuple(x.shape)}")
+                f64 = repro_torch.cp_als(x.double(), rank, r.n_iters,
+                                         init_factors=[f.double() for f in init], ctx=ein_ctx)
+                served = (r.fit, r.weights, r.factors)
+                dd = (d.final_fit, d.weights, d.factors)
+                ff = (f64.final_fit, f64.weights, f64.factors)
+                sd, s64, d64 = cp_dist(served, dd), cp_dist(served, ff), cp_dist(dd, ff)
+                beyond += any(v > SERVE_TOL for v in sd)
+                per_request.append({"id": rid, "shape": list(x.shape), "served_vs_direct": sd,
+                                    "served_vs_float64": s64, "direct_vs_float64": d64})
+                for name, v in (("served_vs_direct", sd), ("served_vs_float64", s64),
+                                ("direct_vs_float64", d64)):
+                    worst[name] = [max(a, b) for a, b in zip(worst[name], v)]
+                for k, what in enumerate(("fit", "weights", "factors")):
+                    if d64[k] <= SERVE_SOUND:
+                        held[k] += 1
+                        if sd[k] > SERVE_TOL:
+                            problems.append(f"{rid}: {what} {sd[k]:.3e} from its direct run "
+                                            f"(sound: {d64[k]:.3e} from float64; limit "
+                                            f"{SERVE_TOL})")
+                    if s64[k] > min(2 * d64[k] + SERVE_TOL, SERVE_CAP[k]):
+                        problems.append(f"{rid}: {what} {s64[k]:.3e} from float64, the direct "
+                                        f"run {d64[k]:.3e} (limit twice it + {SERVE_TOL}, at "
+                                        f"most {SERVE_CAP[k]})")
+            # exactness over SERVE_EXACT_ITERS iteration (tol 0): a fresh
+            # server (seeds 1..n) against direct runs, fit, weights and
+            # factors within 1e-4
+            exact = DecompositionServer(auto, n_iters=SERVE_EXACT_ITERS, tol=0.0)
+            ids = [(exact.submit(x, rank, request_id=f"{label}exact{i}"), x, rank)
+                   for i, (x, rank) in enumerate(data)]
+            got = exact.flush()
+            exact_gap = [0.0] * 3
+            for i, (rid, x, rank) in enumerate(ids):
+                init = random_factors(torch.Generator(device="cuda").manual_seed(i + 1),
+                                      tuple(x.shape), rank)
+                d = repro_torch.cp_als(x, rank, SERVE_EXACT_ITERS, init_factors=init,
+                                       ctx=cuda_ctx)
+                v = cp_dist((got[rid].fit, got[rid].weights, got[rid].factors),
+                         (d.final_fit, d.weights, d.factors))
+                exact_gap = [max(a, b) for a, b in zip(exact_gap, v)]
+            if max(exact_gap) > SERVE_TOL:
+                problems.append(f"after {SERVE_EXACT_ITERS} iterations the served results "
+                                f"differ from direct runs by {exact_gap} (fit, weights, "
+                                f"factors; limit {SERVE_TOL})")
+            del got, exact
+            fit_gap, weight_err, factor_err = worst["served_vs_direct"]
+            rec = {"serve": label, "requests": len(reqs), "buckets": calls,
+                   "flush_s": flush_s, "requests_per_s": len(reqs) / flush_s,
+                   "loop_s": loop_s, "loop_requests_per_s": len(reqs) / loop_s,
+                   "max_fit_gap": fit_gap, "max_weight_rel_err": weight_err,
+                   "max_factor_rel_err": factor_err,
+                   "worst_fit_weights_factors": worst, "requests_beyond_1e-4": beyond,
+                   "held_to_1e-4_fit_weights_factors": held, "per_request": per_request,
+                   "exact_iters": SERVE_EXACT_ITERS, "exact_fit_weights_factors": exact_gap,
+                   "converged": sum(r.converged for r in results.values()),
+                   "cold": sum(r.cold for r in results.values()),
+                   "launches": launches, "gpu": smi}
+            emit(rec)
+            out["records"].append(rec)
+            if problems:
+                raise AssertionError(f"serve {label}: " + "; ".join(problems))
+            del results, direct, reqs, inits, server, data
+            torch.cuda.empty_cache()
+
+    # the cold and the warm start: two processes in turn on one fresh directory
+    cache_dir = tempfile.mkdtemp(prefix="repro-torch-serve-")
+    try:
+        starts = []
+        for run in ("cold", "warm"):
+            t0 = time.perf_counter()
+            proc = subprocess.run([sys.executable, os.path.abspath(__file__), "--serve-once",
+                                   cache_dir], capture_output=True, text=True)
+            wall = time.perf_counter() - t0
+            if proc.returncode != 0:
+                raise AssertionError(f"serve {run} start failed:\n{proc.stdout}\n{proc.stderr}")
+            rec = json.loads(proc.stdout.strip().splitlines()[-1])
+            rec.update({"start": run, "wall_s": wall, "gpu": smi,
+                        "libraries": sorted(os.listdir(cache_dir))})
+            starts.append(rec)
+            emit(rec)
+        cold, warm = starts
+        lib = cold["loaded"].get("mttkrp.cu", "")
+        if os.path.dirname(lib) != os.path.realpath(cache_dir) or warm["loaded"] != cold[
+                "loaded"] or not os.path.exists(lib):
+            raise AssertionError(f"serve starts: libraries {cold['loaded']} then "
+                                 f"{warm['loaded']}, expected mttkrp.cu from {cache_dir}")
+        if not warm["first_result_s"] < cold["first_result_s"]:
+            raise AssertionError(f"serve starts: warm {warm['first_result_s']:.2f} s is not "
+                                 f"faster than cold {cold['first_result_s']:.2f} s")
+        out["starts"] = starts
+    finally:
+        shutil.rmtree(cache_dir, ignore_errors=True)
+    return out
+
+
+def tune_phase(gen, smi: str) -> dict:
+    """Phase 12: the four searches at 1000^3 on an isolated cache, every
+    candidate recorded; the winner the fastest measured, the chooser's plan
+    among the candidates, every key a hit from a fresh ``PlanCache``; then
+    CP-ALS on ``auto`` (per_mode, and ``sweep="auto"``) against ``cuda``,
+    the host's cost a call on a cache hit against ``cuda``, and the
+    calibration. Returns the auto runs' launches and the records."""
+    import torch
+    import repro_torch
+    from repro_torch.core.tensor import random_factors
+    from repro_torch.engine.plan import (
+        choose_mttkrp_kernel_blocks,
+        choose_multi_ttm_kernel_blocks,
+        choose_pair_kernel_blocks,
+    )
+    from repro_torch.kernels import partial as partial_mod
+    from repro_torch.tune import cache as tcache
+    from repro_torch.tune import search
+    from repro_torch.tune.calibrate import calibrate, calibration_report
+
+    kernels = counters()
+    auto = repro_torch.ExecutionContext.create("auto")
+    cuda_ctx = repro_torch.ExecutionContext.create("cuda")
+    dims, rank, trank = TUNE_PROBLEM
+    out = {"launches": {k: 0 for k in kernels}, "searches": []}
+    with tcache.isolated_cache() as path:
+        x = noisy_low_rank(gen, dims, rank)
+        fs = random_factors(gen, dims, rank)
+        node = repro_torch.contract_partial(x, fs, (0, 1, 2), (2,), False, ctx=cuda_ctx)
+        mats = [f[:, :trank].contiguous() for f in fs]
+        # the fused sweep's k = 1 edge: P's mode 0 dropped for mode 1's B, the
+        # node read in place as the permuted view (I1, I0, R)
+        view = node.permute(1, 0, 2)
+        searches = [
+            ("tune_mttkrp", lambda: search.tune_mttkrp(x, fs, 0, ctx=auto),
+             choose_mttkrp_kernel_blocks(dims, rank, 4)),
+            ("tune_partial", lambda: search.tune_partial(node, fs, (0, 1), (0,), True,
+                                                         ctx=auto),
+             partial_mod.default_plan(view, [fs[0]])),
+            ("tune_multi_ttm", lambda: search.tune_multi_ttm(x, mats, 0, ctx=auto),
+             choose_multi_ttm_kernel_blocks(dims, (trank, trank), 4)),
+            ("tune_sweep", lambda: search.tune_sweep(x, rank, ctx=auto, factors=fs),
+             choose_pair_kernel_blocks(dims, rank, 4)),
+        ]
+        keys = []
+        for name, run, chooser in searches:
+            t0 = time.perf_counter()
+            res = run()
+            torch.cuda.synchronize()
+            took = time.perf_counter() - t0
+            ok = [m for m in res.measurements if m.ok and math.isfinite(m.walltime_us)]
+            fastest = min(ok, key=lambda m: m.walltime_us).candidate
+            rec = {"tune": name, "key": res.key, "metric": res.metric, "search_s": took,
+                   "winner": res.winner.label, "winner_plan": _plan_fields(res.winner.plan),
+                   "chooser_plan": _plan_fields(chooser),
+                   "candidates": [{"label": m.candidate.label,
+                                   "backend": m.candidate.backend,
+                                   "plan": _plan_fields(m.candidate.plan),
+                                   "variant": m.candidate.variant, "block": m.candidate.block,
+                                   "us": m.walltime_us, "ok": m.ok, "error": m.error}
+                                  for m in res.measurements], "gpu": smi}
+            emit(rec)
+            out["searches"].append(rec)
+            if res.cache_hit or res.metric != "walltime" or res.winner != fastest:
+                raise AssertionError(f"{name}: winner {res.winner.label} is not the fastest "
+                                     f"measured candidate {fastest.label}")
+            if chooser not in [m.candidate.plan for m in res.measurements]:
+                raise AssertionError(f"{name}: the chooser's plan {chooser} is no candidate")
+            keys.append(res.key)
+        keys.append(tcache.cache_key(dims, rank, -1, torch.float32, repro_torch.Memory.h100_smem(),
+                                     kind="pair"))
+        fresh = tcache.PlanCache(path)
+        name = torch.cuda.get_device_name(0)
+        for key in keys:
+            if fresh.get(key) is None or f"|platform={name}|" not in key or (
+                    f"|torch={torch.__version__}" not in key):
+                raise AssertionError(f"tune: key {key!r} is no hit from a fresh PlanCache on "
+                                     f"{path}, or lacks platform={name} / torch=")
+        out["keys"] = keys
+        del node, mats
+
+        # CP-ALS on auto against cuda, from the same factors
+        init = random_factors(gen, dims, rank)
+        runs = {}
+        for label, ctx, sweep in (("cuda", cuda_ctx, "per_mode"), ("auto", auto, "per_mode"),
+                                  ("sweep_auto", auto, "auto")):
+            for k in kernels.values():
+                k.launches = 0
+            t0 = time.perf_counter()
+            res = repro_torch.cp_als(x, rank, AUTO_ITERS, init_factors=init, sweep=sweep,
+                                     ctx=ctx)
+            torch.cuda.synchronize()
+            runs[label] = (res, {name: k.launches for name, k in kernels.items()},
+                           (time.perf_counter() - t0) / AUTO_ITERS * 1e3)
+        for label in ("auto", "sweep_auto"):
+            for name, n in runs[label][1].items():
+                out["launches"][name] += n
+        resolved = {"per_mode": []}
+        for m in range(3):
+            r = search.resolve((dims[m],) + tuple(d for k, d in enumerate(dims) if k != m),
+                               rank, m, torch.float32, device="cuda")
+            resolved["per_mode"].append({"mode": m, "backend": r.backend, "variant": r.variant,
+                                         "plan": _plan_fields(r.plan), "hit": r.cache_hit})
+        r = search.resolve_sweep(dims, rank, torch.float32, device="cuda")
+        resolved["sweep"] = {"variant": r.variant, "plan": _plan_fields(r.plan),
+                             "hit": r.cache_hit}
+        # the launches the resolved decisions call for: an MTTKRP kernel
+        # launch a mode an iteration where a mode resolved to cuda; fused,
+        # the pair, the partial and mode 2's mttkrp3 once an iteration each
+        expected = {"auto": {}}
+        for d in resolved["per_mode"]:
+            if d["backend"] == "cuda":
+                kern = "mttkrpn" if d["variant"] == "generic" else "mttkrp3"
+                expected["auto"][kern] = expected["auto"].get(kern, 0) + AUTO_ITERS
+        expected["sweep_auto"] = ({k: AUTO_ITERS for k in ("mttkrp3", "fused_pair",
+                                                           "mttkrp_partial")}
+                                  if r.variant == "fused" else expected["auto"])
+        gaps = {label: max(abs(a - b) for a, b in zip(runs[label][0].fits,
+                                                      runs["cuda"][0].fits))
+                for label in ("auto", "sweep_auto")}
+        rec = {"cp_als_auto": list(dims), "rank": rank, "iters": AUTO_ITERS,
+               "fits": {k: v[0].fits for k, v in runs.items()},
+               "launches": {k: v[1] for k, v in runs.items()},
+               "iter_ms": {k: v[2] for k, v in runs.items()},
+               "max_fit_gap_vs_cuda": gaps, "resolved": resolved,
+               "expected_launches": expected, "gpu": smi}
+        emit(rec)
+        out["auto"] = rec
+        if max(gaps.values()) > 1e-4:
+            raise AssertionError(f"cp_als on auto: fits {rec['fits']} (gaps {gaps}, limit 1e-4)")
+        for label, want in expected.items():
+            got = {k: n for k, n in runs[label][1].items() if n and k != "splitk_reduce"}
+            if got != want or not want:
+                raise AssertionError(f"cp_als on {label}: launched {got}, the resolved "
+                                     f"decisions {resolved} call for {want}")
+        del runs, x, fs, init
+        torch.cuda.empty_cache()
+
+        # the host's cost a call: auto on a cache hit (the chooser's plan, as
+        # cuda runs it) against cuda, interleaved rounds, each at its best
+        hdims, hrank, n = HOST_PROBE
+        hx = torch.randn(hdims, generator=gen, device="cuda")
+        hfs = [torch.randn((d, hrank), generator=gen, device="cuda") for d in hdims]
+        key = tcache.cache_key(hdims, hrank, 0, torch.float32, repro_torch.Memory.h100_smem())
+        tcache.default_cache().put(key, tcache.CacheEntry("cuda", tcache.plan_to_dict(
+            choose_mttkrp_kernel_blocks(hdims, hrank, 4))), persist=False)
+        on_path = repro_torch.ExecutionContext.create("auto", cache_path=path)
+        probes = (("cuda", cuda_ctx), ("auto", auto), ("auto_cache_path", on_path))
+        per_call = {label: float("inf") for label, _ in probes}
+        for _ in range(5):
+            for label, ctx in probes:
+                for _ in range(20):
+                    repro_torch.mttkrp(hx, hfs, 0, ctx=ctx)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for _ in range(n):
+                    repro_torch.mttkrp(hx, hfs, 0, ctx=ctx)
+                torch.cuda.synchronize()
+                per_call[label] = min(per_call[label], (time.perf_counter() - t0) / n * 1e6)
+        if not all(search.resolve(hdims, hrank, 0, torch.float32, device="cuda",
+                                  cache=c).cache_hit for c in (None, on_path.plan_cache())):
+            raise AssertionError("host probe: the auto calls missed the cache")
+        rec = {"host_us_per_call": per_call, "shape": list(hdims), "rank": hrank,
+               "lookup_us": per_call["auto"] - per_call["cuda"],
+               "cache_path_lookup_us": per_call["auto_cache_path"] - per_call["cuda"],
+               "gpu": smi}
+        emit(rec)
+        out["host"] = rec
+        if max(per_call["auto"], per_call["auto_cache_path"]) > 1.3 * per_call["cuda"]:
+            raise AssertionError(f"auto's lookup costs the host {per_call} us a call")
+
+        # the calibration, on the card
+        cal = calibrate(CALIBRATION, device="cuda")
+        print(calibration_report(cal), flush=True)
+        out["calibration"] = cal.to_dict()
+        emit({"calibration": out["calibration"], "gpu": smi})
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--serve-once", metavar="DIR", default=None,
+                    help="phase 11's cold or warm start: serve one bucket, building into DIR")
     args = ap.parse_args()
 
     import torch
@@ -1613,6 +2106,8 @@ def main() -> int:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
     sys.path.insert(0, os.path.join(ROOT, "src"))
+    if args.serve_once is not None:
+        return serve_once(args.serve_once)
     from repro_torch.kernels import build
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1649,8 +2144,10 @@ def main() -> int:
     ssd_kernel_phase(gen, smi, records)  # phase 9a
     mamba = mamba_phase(gen, smi)  # phases 9b, 9c
     batched = batched_phase(gen, smi)  # phase 10
+    served = serve_phase(gen, smi)  # phase 11
+    tuned = tune_phase(gen, smi)  # phase 12
     for counted in (matrix["launches"], tucker["launches"], mamba["launches"],
-                    batched["launches"]):
+                    batched["launches"], served["launches"], tuned["launches"]):
         for name, n in counted.items():
             main_path["launches"][name] += n
 
@@ -1668,8 +2165,8 @@ def main() -> int:
         if main_path["launches"][name] == 0:
             raise AssertionError(f"{name} was never launched on the main paths")
         kernels.append({  # launches: summed over the main-path runs (CP-ALS, CP-ALS on a
-            # matrix, Tucker, the Mamba2 prefill and the batched CP-ALS and HOOI
-            # drivers), each counted from 0
+            # matrix, Tucker, the Mamba2 prefill, the batched CP-ALS and HOOI
+            # drivers, the server's flushes and the auto runs), each counted from 0
             "name": name, "route": "cuda", "source": CSRC + SOURCE[name],
             "replaces": REPLACES[name],
             "launches": main_path["launches"][name],

@@ -13,7 +13,11 @@ multilinear rank (32, 32, 32) and 180^4 of rank (16, 16, 16, 16), each
 plus 10 % noise) one untimed HOOI sweep from HOSVD factors, then two
 profiled sweeps; for ``chip_smoke.py``'s Mamba2 serving cell
 (``mamba2-2.7b`` at full width and depth in bf16, 4 prompts x 4096 tokens)
-one untimed prefill, then two profiled. Each prints one JSON line:
+one untimed prefill, then two profiled. With ``--serve`` it profiles
+only the server's buckets (``chip_smoke.py`` phase 11: 16 x 256^3 at R=32,
+64 x 96^3 and 8 x 64^4 at R=16): one ``cp_als_batched`` iteration untimed,
+then two profiled (``backend="auto"``, as the server runs them). Each
+prints one JSON line:
 
 * ``wall_ms``: host time per iteration, between two synchronizations;
 * ``busy_ms``: the device time per iteration of every kernel and copy the
@@ -116,6 +120,7 @@ def under(prof, label: str, iters: int) -> dict[str, float]:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--serve", action="store_true", help="only the server's buckets")
     args = ap.parse_args()
 
     import torch
@@ -140,6 +145,8 @@ def main() -> int:
     ctx = repro_torch.ExecutionContext.create("cuda")
     gen = torch.Generator(device="cuda").manual_seed(args.seed)
     iters = 2
+    if args.serve:
+        return profile_buckets(gen, gpu, iters)
     for dims, rank in [((1000, 1000, 1000), 64), ((180, 180, 180, 180), 32)]:
         x = noisy_low_rank(gen, dims, rank)
         init = random_factors(gen, dims, rank)
@@ -208,6 +215,38 @@ def main() -> int:
         "prompt_tokens": PREFILL[1], "wall_ms": wall, "busy_ms": busy,
         "idle_share": 1.0 - busy / wall, "groups_ms": groups, "top": top, "gpu": gpu,
     }), flush=True)
+    return 0
+
+
+def profile_buckets(gen, gpu: str, iters: int) -> int:
+    """The server's buckets (``chip_smoke.SERVE_QUEUE``, ``SERVE_4WAY``) as
+    one ``cp_als_batched`` run each on ``backend="auto"``, the elements at
+    the bucket shape."""
+    import torch
+
+    import repro_torch
+    from chip_smoke import SERVE_4WAY, SERVE_QUEUE, noisy_low_rank
+    from repro_torch.core.tensor import random_factors
+    from repro_torch.tune.cache import isolated_cache
+
+    auto = repro_torch.ExecutionContext.create("auto")
+    with isolated_cache():
+        for count, (_, hi), rank, ways in SERVE_QUEUE + SERVE_4WAY:
+            dims = (hi,) * ways
+            xs = torch.stack([noisy_low_rank(gen, dims, rank) for _ in range(count)])
+            init = [torch.stack(f) for f in zip(*(random_factors(gen, dims, rank)
+                                                  for _ in range(count)))]
+            repro_torch.cp_als_batched(xs, rank, 1, init_factors=init, ctx=auto)
+            torch.cuda.synchronize()
+            wall, busy, groups, top, _ = profiled(lambda: repro_torch.cp_als_batched(
+                xs, rank, iters, init_factors=init, ctx=auto), iters)
+            print(json.dumps({
+                "profile_bucket": [count, *dims], "rank": rank, "wall_ms": wall,
+                "busy_ms": busy, "idle_share": 1.0 - busy / wall, "groups_ms": groups,
+                "top": top, "gpu": gpu,
+            }), flush=True)
+            del xs, init
+            torch.cuda.empty_cache()
     return 0
 
 

@@ -18,6 +18,16 @@ axis of B same-shaped tensors is one kernel launch a contraction::
     xs = torch.randn(16, 96, 96, 96, device="cuda")              # a batch of 16
     cps = repro_torch.cp_als_batched(xs, rank=16, n_iters=10, ctx=ctx)
 
+``backend="auto"`` resolves each contraction through the tune cache
+(:mod:`repro_torch.tune`), and :class:`~repro_torch.launch.serve.
+DecompositionServer` buckets CP requests into batched runs::
+
+    from repro_torch.launch.serve import DecompositionServer
+
+    server = DecompositionServer(repro_torch.ExecutionContext.create("auto"))
+    server.submit(torch.randn(90, 95, 93, device="cuda"), rank=16)
+    results = server.flush()
+
 The JAX package ``repro`` is the reference; this package never imports it.
 """
 

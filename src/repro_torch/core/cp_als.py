@@ -101,8 +101,12 @@ def cp_als(
     ``"fused"`` (two tensor passes a sweep; one fused pair kernel launch on
     ``cuda``) or ``"dimtree"``; ``use_dimension_tree=True`` is the
     reference's alias of ``sweep="dimtree"`` (passing another ``sweep``
-    beside it raises). ``mttkrp_fn(x, factors, mode)`` replaces the engine's
-    MTTKRP on the ``per_mode`` schedule, as in the reference."""
+    beside it raises), or ``"auto"``: the schedule (and the fused pair
+    kernel's plan) resolved through the tune cache under ``kind="sweep"``,
+    searched first when ``ctx.tune`` (a miss: ``"fused"`` for 3-way tensors
+    and up). ``mttkrp_fn(x, factors, mode)`` replaces the engine's MTTKRP on
+    the ``per_mode`` schedule, as in the reference. ``ctx.backend="auto"``
+    resolves every contraction through the tune cache."""
     ctx = ctx if ctx is not None else ExecutionContext()
     if sweep is not None:
         if sweep not in _SWEEPS + ("auto",):
@@ -112,16 +116,20 @@ def cp_als(
                 f"sweep={sweep!r} conflicts with use_dimension_tree=True (pass only one of "
                 f"the two)"
             )
+    ctx.check_tensor("repro_torch.cp_als", x, *(init_factors or ()))
     schedule = sweep if sweep is not None else ("dimtree" if use_dimension_tree else "per_mode")
+    pair_plan = None
     if schedule == "auto":
-        raise ValueError(
-            "sweep='auto' resolves through the autotuner, which comes with the tuning "
-            "slice (ROADMAP Queue 1 item 9)"
-        )
+        from ..tune.search import resolve_sweep, tune_sweep  # call-time: tune imports us
+
+        if ctx.tune:
+            tune_sweep(x, rank, ctx=ctx)
+        resolved = resolve_sweep(x.shape, rank, x.dtype, ctx.memory, cache=ctx.plan_cache(),
+                                 device=ctx.device)
+        schedule, pair_plan = resolved.variant, resolved.plan
     if mttkrp_fn is None:
         def mttkrp_fn(t, fs, mode):
             return engine_execute.mttkrp(t, fs, mode, ctx=ctx)
-    ctx.check_tensor("repro_torch.cp_als", x, *(init_factors or ()))
     n = x.ndim
     if init_factors is not None:
         factors = [f.to(x.dtype) for f in init_factors]
@@ -152,7 +160,7 @@ def cp_als(
 
     for it in range(n_iters):
         if schedule == "fused":
-            fused_als_sweep(x, factors, update, ctx=ctx)
+            fused_als_sweep(x, factors, update, ctx=ctx, pair_plan=pair_plan)
         elif schedule == "dimtree":
             dimtree_als_sweep(x, factors, update, ctx=ctx)
         else:

@@ -127,7 +127,9 @@ def tucker_hooi(
     then ``A_k`` = the top-``R_k`` eigenvectors of ``Y_(k) Y_(k)^T``. Every
     Multi-TTM goes through the engine under ``ctx`` (default
     ``ExecutionContext()``: the Hopper kernel on the card, one launch per
-    mode). The reference routes a distributed context to its
+    mode); on ``backend="auto"`` each resolves through the tune cache
+    (``resolve_multi_ttm``; a context from ``ExecutionContext.for_problem``
+    with the Tucker ranks replays its pinned decisions). The reference routes a distributed context to its
     stationary-tensor sweep driver; a port context cannot be distributed
     yet (``ExecutionContext.create(distributed=True)`` raises, ROADMAP
     Queue 1 item 12).

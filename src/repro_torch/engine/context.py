@@ -6,36 +6,47 @@ points run on. It is validated once, eagerly (``__post_init__``), and
 round-trips through JSON under its own schema tag.
 
 Backends: ``einsum`` (``torch.einsum``), ``blocked_host`` (Algorithm 2 as a
-host-level einsum) and ``cuda`` (the hand-written Hopper kernels). On a
-CUDA tensor ``cuda`` launches the kernels or raises; only a tensor that
-lies on the CPU takes the kernels' plain versions.
+host-level einsum), ``cuda`` (the hand-written Hopper kernels) and ``auto``
+(each contraction resolved through the tune cache, :mod:`repro_torch.tune`:
+a hit replays the tuned backend and plan exactly, a miss takes ``cuda``
+with the kernel's own plan on a CUDA tensor and ``einsum`` on the host;
+``tune=True`` searches on a miss and persists the winner). On a CUDA
+tensor ``cuda`` launches the kernels or raises; only a tensor that lies on
+the CPU takes the kernels' plain versions.
 
 The device defaults to ``"cuda"``: a context built on a host without CUDA
 raises unless the caller asks for ``device="cpu"``.
 
-Tuning (``backend="auto"``, ``tune``), the distributed path and the
-observability layer come with later slices and are rejected here with a
-message that names the slice.
+:meth:`ExecutionContext.for_problem` resolves every ``"auto"`` choice of
+one problem once (:class:`ProblemSpec`, :class:`PlanDecision`), so the
+drivers replay decisions instead of looking them up a call.
+``compilation_cache`` names the directory the kernels are built into and
+loaded from (:meth:`ExecutionContext.ensure_compilation_cache`), the port's
+counterpart of the reference's XLA compilation cache.
+
+The distributed path and the observability layer come with later slices
+and are rejected here with a message that names the slice.
 """
 
 from __future__ import annotations
 
+import functools
 import json
-from dataclasses import dataclass
-from typing import Mapping
+import os
+from dataclasses import dataclass, replace
+from typing import Mapping, Sequence
 
 import torch
 
-from .plan import Memory
+from .plan import Memory, keep_first
 
 SCHEMA = "repro_torch.ExecutionContext/1"
 
-VALID_BACKENDS = ("einsum", "blocked_host", "cuda")
+#: The executors, and ``auto``, which resolves to one of them.
+CONCRETE_BACKENDS = ("einsum", "blocked_host", "cuda")
+VALID_BACKENDS = CONCRETE_BACKENDS + ("auto",)
 _LATER = {
-    "auto": "backend='auto' resolves through the autotuner, which comes with the "
-            "tuning slice (ROADMAP Queue 1 item 9)",
     "pallas": "the TPU kernels' counterparts here are backend='cuda'",
-    "tune": "tune=True comes with the tuning slice (ROADMAP Queue 1 item 9)",
     "distributed": "the distributed drivers come with their slice (ROADMAP Queue 1 item 12)",
     "observe": "observe=True comes with the observability slice (ROADMAP Queue 1 item 10)",
 }
@@ -47,7 +58,10 @@ def check_backend(backend: str) -> None:
     if backend in _LATER:
         raise ValueError(f"backend={backend!r} is not available: {_LATER[backend]}")
     if backend not in VALID_BACKENDS:
-        raise ValueError(f"unknown backend {backend!r}; expected one of {VALID_BACKENDS}")
+        raise ValueError(
+            f"unknown backend {backend!r}; expected one of {VALID_BACKENDS} "
+            f"(einsum/blocked_host/cuda run directly, 'auto' resolves through the tune cache)"
+        )
 
 
 def dtype_name(dtype: str | torch.dtype) -> str:
@@ -78,14 +92,93 @@ def check_device(device: str | torch.device, api: str) -> torch.device:
 
 
 @dataclass(frozen=True)
+class ProblemSpec:
+    """The (shape, rank, dtype) a context's decisions were resolved for;
+    ``rank`` is the CP rank or the tuple of per-mode Tucker ranks."""
+
+    shape: tuple[int, ...]
+    rank: int | tuple[int, ...]
+    dtype: str = "float32"
+
+    def __post_init__(self):
+        object.__setattr__(self, "shape", tuple(int(s) for s in self.shape))
+        if isinstance(self.rank, (tuple, list)):
+            object.__setattr__(self, "rank", tuple(int(r) for r in self.rank))
+        object.__setattr__(self, "dtype", dtype_name(self.dtype))
+
+    def to_dict(self) -> dict:
+        rank = list(self.rank) if isinstance(self.rank, tuple) else self.rank
+        return {"shape": list(self.shape), "rank": rank, "dtype": self.dtype}
+
+    @classmethod
+    def from_dict(cls, d: Mapping) -> "ProblemSpec":
+        rank = d["rank"]
+        rank = tuple(int(r) for r in rank) if isinstance(rank, list) else int(rank)
+        return cls(tuple(d["shape"]), rank, str(d["dtype"]))
+
+
+@dataclass(frozen=True)
+class PlanDecision:
+    """One replayed ``backend="auto"`` resolution: how mode ``mode`` of the
+    pinned problem runs (a concrete backend, its exact plan, kernel variant,
+    host block), and whether it came from the tune cache."""
+
+    mode: int
+    backend: str
+    plan: object = None
+    variant: str | None = None
+    block: int | None = None
+    cache_hit: bool = False
+
+    def __post_init__(self):
+        # a decision is a RESOLVED choice: a hand-edited "auto" or "pallas"
+        # here would otherwise reach the dispatch layer's kernel branch
+        if self.backend not in CONCRETE_BACKENDS:
+            raise ValueError(
+                f"PlanDecision backend must be a concrete executor {CONCRETE_BACKENDS}, "
+                f"got {self.backend!r}"
+            )
+
+    def to_dict(self) -> dict:
+        from ..tune.cache import plan_to_dict  # call-time: tune imports the engine
+
+        return {"mode": self.mode, "backend": self.backend,
+                "plan": plan_to_dict(self.plan) if self.plan is not None else None,
+                "variant": self.variant, "block": self.block, "cache_hit": self.cache_hit}
+
+    @classmethod
+    def from_dict(cls, d: Mapping) -> "PlanDecision":
+        from ..tune.cache import plan_from_dict  # call-time: tune imports the engine
+
+        plan = d.get("plan")
+        return cls(mode=int(d["mode"]), backend=str(d["backend"]),
+                   plan=plan_from_dict(plan) if plan is not None else None,
+                   variant=d.get("variant"), block=d.get("block"),
+                   cache_hit=bool(d.get("cache_hit", False)))
+
+
+@dataclass(frozen=True)
 class ExecutionContext:
-    """The execution environment, as one immutable, hashable value."""
+    """The execution environment, as one immutable, hashable value.
+
+    Prefer the constructors: :meth:`create` (validate everything),
+    :meth:`for_problem` (also resolve every ``"auto"`` choice of one
+    problem once), :meth:`from_json` (replay a recorded setup)."""
 
     backend: str = "cuda"
     memory: Memory | None = None
     out_dtype: str | None = None
     compute_dtype: str | None = None
     device: str = "cuda"
+    tune: bool = False
+    cache_path: str | None = None
+    problem: ProblemSpec | None = None
+    decisions: tuple[PlanDecision, ...] = ()
+    #: Directory the Hopper kernels are built into and loaded from
+    #: (:meth:`ensure_compilation_cache`): a second process serving the
+    #: same buckets loads the libraries a first one built. None leaves
+    #: ``kernels/_build/`` in use.
+    compilation_cache: str | None = None
 
     def __post_init__(self):
         check_backend(self.backend)
@@ -105,6 +198,22 @@ class ExecutionContext:
                 )
             object.__setattr__(self, "compute_dtype", name)
         object.__setattr__(self, "device", str(check_device(self.device, "ExecutionContext")))
+        if self.tune and self.backend != "auto":
+            raise ValueError(
+                f"tune=True requires backend='auto' (the search persists winners the auto "
+                f"path replays); got backend={self.backend!r}"
+            )
+        object.__setattr__(self, "decisions", tuple(self.decisions))
+        if self.decisions and self.problem is None:
+            raise ValueError(
+                "decisions without a problem spec: use for_problem(...) to pin plan "
+                "resolutions"
+            )
+        if self.compilation_cache is not None and not isinstance(self.compilation_cache, str):
+            raise ValueError(
+                f"compilation_cache must be a directory path (str) or None, got "
+                f"{type(self.compilation_cache).__name__}"
+            )
 
     @classmethod
     def create(
@@ -116,12 +225,14 @@ class ExecutionContext:
         compute_dtype: str | torch.dtype | None = None,
         device: str | torch.device = "cuda",
         tune: bool = False,
+        cache_path: str | None = None,
+        compilation_cache: str | None = None,
         distributed: bool = False,
         observe: bool = False,
     ) -> "ExecutionContext":
-        """Build and validate a context. ``tune``, ``distributed`` and
-        ``observe`` exist to reject a reference call that sets them."""
-        for key, on in (("tune", tune), ("distributed", distributed), ("observe", observe)):
+        """Build and validate a context. ``distributed`` and ``observe``
+        exist to reject a reference call that sets them."""
+        for key, on in (("distributed", distributed), ("observe", observe)):
             if on:
                 raise ValueError(_LATER[key])
         return cls(
@@ -130,7 +241,100 @@ class ExecutionContext:
             out_dtype=None if out_dtype is None else dtype_name(out_dtype),
             compute_dtype=None if compute_dtype is None else dtype_name(compute_dtype),
             device=str(device),
+            tune=bool(tune),
+            cache_path=cache_path,
+            compilation_cache=compilation_cache,
         )
+
+    @classmethod
+    def for_problem(cls, shape: Sequence[int], rank, dtype="float32",
+                    **kwargs) -> "ExecutionContext":
+        """:meth:`create` and then :meth:`resolve_for` the problem: the
+        per-mode ``"auto"`` decisions are resolved once against the tune
+        cache. ``rank`` may be the tuple of Tucker ranks."""
+        return cls.create(**kwargs).resolve_for(shape, rank, dtype)
+
+    def resolve_for(self, shape, rank, dtype="float32") -> "ExecutionContext":
+        """Pin this context to one problem. For ``backend="auto"`` without
+        ``tune``: one decision a mode (``kind="mttkrp"``, the mode first),
+        or for Tucker ranks one a kept mode and one for the full core
+        (``kind="multi_ttm"``, keyed ``mode=-1``). With ``tune=True``
+        nothing is pinned: the search needs data, so it runs at the first
+        driver call and later calls replay the cache."""
+        from ..tune.search import resolve, resolve_multi_ttm  # call-time: tune imports us
+
+        shape = tuple(int(s) for s in shape)
+        is_tucker = isinstance(rank, (tuple, list))
+        rank = tuple(int(r) for r in rank) if is_tucker else int(rank)
+        problem = ProblemSpec(shape, rank, dtype_name(dtype))
+        if is_tucker and len(rank) != len(shape):
+            raise ValueError(
+                f"Tucker ranks {rank} must give one rank per tensor mode "
+                f"({len(shape)} for shape {shape})"
+            )
+        if self.backend != "auto" or self.tune:
+            return replace(self, problem=problem, decisions=())
+        cache = self.plan_cache()
+        out = []
+        if is_tucker:
+            for keep_key in (-1,) + tuple(range(len(shape))):
+                contracted = tuple(r for k, r in enumerate(rank) if k != keep_key)
+                r = resolve_multi_ttm(keep_first(shape, max(keep_key, 0)), contracted,
+                                      keep_key, problem.dtype, self.memory, cache=cache,
+                                      device=self.device)
+                out.append(PlanDecision(keep_key, r.backend, r.plan, r.variant, r.block,
+                                        r.cache_hit))
+        else:
+            for mode in range(len(shape)):
+                r = resolve(keep_first(shape, mode), rank, mode, problem.dtype, self.memory,
+                            cache=cache, device=self.device)
+                out.append(PlanDecision(mode, r.backend, r.plan, r.variant, r.block,
+                                        r.cache_hit))
+        return replace(self, problem=problem, decisions=tuple(out))
+
+    def decision_for(self, shape, rank, mode: int, dtype=None) -> PlanDecision | None:
+        """The pinned decision for ``mode``, or None when this context was
+        not resolved for exactly this (shape, rank, dtype)."""
+        if self.problem is None:
+            return None
+        rank = tuple(int(r) for r in rank) if isinstance(rank, (tuple, list)) else int(rank)
+        if self.problem.shape != tuple(int(s) for s in shape) or self.problem.rank != rank:
+            return None
+        if dtype is not None and dtype_name(dtype) != self.problem.dtype:
+            return None
+        return next((d for d in self.decisions if d.mode == mode), None)
+
+    def plan_cache(self):
+        """The tune cache this context reads and writes (``cache_path``,
+        else the process default), one instance a file in a process."""
+        from ..tune.cache import shared_cache  # call-time: tune imports us
+
+        return shared_cache(self.cache_path)
+
+    def concrete(self, backend: str) -> "ExecutionContext":
+        """This context on one resolved executor: no tuning, no pinned
+        problem (the engine's ``auto`` branches dispatch through it, on
+        every call: memoized)."""
+        if self.backend == backend and not self.tune and self.problem is None:
+            return self
+        return _on_executor(self, backend)
+
+    def ensure_compilation_cache(self) -> str | None:
+        """Point the kernels' builds and loads at ``compilation_cache``
+        (created if missing): every library this process builds from now
+        on goes there, and one found there (same source hash) is loaded
+        without ``nvcc``. Returns the directory in use; None when the field
+        is None, and on a CPU context, which builds nothing.
+
+        A library already loaded in this process stays loaded, from the
+        directory it was built in, as the reference's memoized programs
+        stay compiled (``repro_torch.kernels.build.loaded``)."""
+        if self.compilation_cache is None or self.torch_device.type != "cuda":
+            return None
+        from ..kernels import build  # call-time: no kernel import for a CPU context
+
+        os.makedirs(self.compilation_cache, exist_ok=True)
+        return str(build.set_build_dir(self.compilation_cache))
 
     @property
     def torch_device(self) -> torch.device:
@@ -164,6 +368,11 @@ class ExecutionContext:
             "out_dtype": self.out_dtype,
             "compute_dtype": self.compute_dtype,
             "device": self.device,
+            "tune": self.tune,
+            "cache_path": self.cache_path,
+            "problem": self.problem.to_dict() if self.problem is not None else None,
+            "decisions": [d.to_dict() for d in self.decisions],
+            "compilation_cache": self.compilation_cache,
         }
 
     @classmethod
@@ -176,12 +385,18 @@ class ExecutionContext:
                 f"unsupported ExecutionContext schema {schema!r} (this build reads {SCHEMA!r})"
             )
         mem = d.get("memory")
+        prob = d.get("problem")
         return cls(
             backend=str(d.get("backend", "cuda")),
             memory=memory_from_dict(mem) if mem is not None else None,
             out_dtype=d.get("out_dtype"),
             compute_dtype=d.get("compute_dtype"),
             device=str(d.get("device", "cuda")),
+            tune=bool(d.get("tune", False)),
+            cache_path=d.get("cache_path"),
+            problem=ProblemSpec.from_dict(prob) if prob is not None else None,
+            decisions=tuple(PlanDecision.from_dict(x) for x in d.get("decisions", ())),
+            compilation_cache=d.get("compilation_cache"),
         )
 
     def to_json(self, *, indent: int | None = None) -> str:
@@ -191,3 +406,10 @@ class ExecutionContext:
     def from_json(cls, s: str) -> "ExecutionContext":
         """Inverse of :meth:`to_json`: ``from_json(ctx.to_json()) == ctx``."""
         return cls.from_dict(json.loads(s))
+
+
+@functools.lru_cache(maxsize=64)
+def _on_executor(ctx: ExecutionContext, backend: str) -> ExecutionContext:
+    """:meth:`ExecutionContext.concrete`'s new context, memoized: ``replace``
+    validates every field again, and ``auto`` asks on every engine call."""
+    return replace(ctx, backend=backend, tune=False, problem=None, decisions=())

@@ -11,6 +11,14 @@ Counterpart of ``repro.engine.execute.mttkrp`` / ``_mttkrp_impl``,
 ``cuda``          — the hand-written Hopper kernels
                     (:mod:`repro_torch.kernels.ops`), planned by
                     :mod:`repro_torch.engine.plan`.
+``auto``          — resolved through the autotuner (:mod:`repro_torch.tune`):
+                    a context pinned by ``ExecutionContext.for_problem``
+                    replays its decision; else a tune-cache hit replays the
+                    tuned backend and plan exactly, and a miss takes
+                    ``cuda`` with the kernel's own plan on a CUDA tensor,
+                    ``einsum`` on the host. ``tune=True`` searches on a
+                    miss first (unbatched calls) and persists the winner.
+                    A batched call resolves once, on the element's key.
 
 Configuration comes in as one :class:`~.context.ExecutionContext`;
 ``plan``, ``block``, ``kernel_variant`` and ``out_dtype`` pin one
@@ -45,7 +53,77 @@ from .plan import (
     MultiTTMKernelPlan,
     PartialKernelPlan,
     best_uniform_block,
+    keep_first,
 )
+
+
+def _compute_dtype(ctx: ExecutionContext, dtype: torch.dtype) -> torch.dtype:
+    """The dtype a contraction runs in: the compute-dtype policy's, else
+    the input's (the tune-cache key's dtype)."""
+    return torch_dtype(ctx.compute_dtype) if ctx.compute_dtype is not None else dtype
+
+
+def _cast(arrays, dtype):
+    return [a.to(dtype) if a is not None else None for a in arrays]
+
+
+def _auto_mttkrp(ctx, x, factors, mode, elem_shape, batched, plan, block, variant):
+    """``backend="auto"`` for an MTTKRP: the pinned decision, else the tune
+    cache (``kind="mttkrp"``, the mode-first element shape), after a search
+    when ``ctx.tune`` (unbatched calls). Returns ``(ctx, plan, block,
+    variant)`` on the resolved executor; explicit arguments win."""
+    from ..tune import search  # call-time: tune imports the engine
+
+    rank = next(int(f.shape[-1]) for k, f in enumerate(factors) if k != mode)
+    dtype = _compute_dtype(ctx, x.dtype)
+    decision = ctx.decision_for(elem_shape, rank, mode, dtype)
+    if decision is None:
+        if ctx.tune and not batched:
+            search.tune_mttkrp(x.to(dtype), _cast(factors, dtype), mode, ctx=ctx)
+        decision = search.resolve(keep_first(elem_shape, mode), rank, mode, dtype, ctx.memory,
+                                  cache=ctx.plan_cache(), device=ctx.device)
+    return (ctx.concrete(decision.backend), plan if plan is not None else decision.plan,
+            block if block is not None else decision.block, variant or decision.variant)
+
+
+def _auto_partial(ctx, node, factors, modes, drop, has_rank, elem_shape, batched, plan):
+    """``backend="auto"`` for a dimension-tree edge (``kind="partial"``,
+    the canonical element shape), after a search when ``ctx.tune``
+    (unbatched calls). Returns ``(ctx, plan)``."""
+    from ..tune import search  # call-time: tune imports the engine
+
+    dtype = _compute_dtype(ctx, node.dtype)
+    if ctx.tune and not batched:
+        search.tune_partial(node.to(dtype), _cast(factors, dtype), modes, drop, has_rank,
+                            ctx=ctx)
+    r = search.resolve(search.partial_canon_shape(elem_shape, modes, drop),
+                       int(factors[drop[0]].shape[-1]), 0, dtype, ctx.memory, kind="partial",
+                       x_has_rank=has_rank, cache=ctx.plan_cache(), device=ctx.device)
+    return ctx.concrete(r.backend), plan if plan is not None else r.plan
+
+
+def _auto_multi_ttm(ctx, x, matrices, keep, elem_shape, batched, plan, block):
+    """``backend="auto"`` for a Multi-TTM: the pinned decision (keyed by
+    every Tucker rank, so a ``None`` kept matrix resolves live), else the
+    tune cache (``kind="multi_ttm"``, kept mode first), after a search when
+    ``ctx.tune`` (unbatched calls). Returns ``(ctx, plan, block)``."""
+    from ..tune import search  # call-time: tune imports the engine
+
+    dtype = _compute_dtype(ctx, x.dtype)
+    keep_key = -1 if keep is None else keep
+    decision = None
+    if all(m is not None for m in matrices):
+        decision = ctx.decision_for(elem_shape, tuple(int(m.shape[-1]) for m in matrices),
+                                    keep_key, dtype)
+    if decision is None:
+        if ctx.tune and not batched:
+            search.tune_multi_ttm(x.to(dtype), _cast(matrices, dtype), keep, ctx=ctx)
+        ranks = tuple(int(m.shape[-1]) for k, m in enumerate(matrices) if k != keep)
+        decision = search.resolve_multi_ttm(
+            keep_first(elem_shape, max(keep_key, 0)), ranks, keep_key, dtype, ctx.memory,
+            cache=ctx.plan_cache(), device=ctx.device)
+    return (ctx.concrete(decision.backend), plan if plan is not None else decision.plan,
+            block if block is not None else decision.block)
 
 
 def _cast_compute(ctx: ExecutionContext, x, arrays, out_dtype):
@@ -133,6 +211,9 @@ def mttkrp(
 
 
 def _mttkrp_impl(x, factors, mode, ctx, plan, block, out_dtype, kernel_variant):
+    if ctx.backend == "auto":
+        ctx, plan, block, kernel_variant = _auto_mttkrp(
+            ctx, x, factors, mode, tuple(x.shape), False, plan, block, kernel_variant)
     memory = ctx.memory
     if out_dtype is None and ctx.out_dtype is not None:
         out_dtype = torch_dtype(ctx.out_dtype)
@@ -166,6 +247,9 @@ def _mttkrp_batched(x, factors, mode, ctx, plan, block, out_dtype, kernel_varian
         raise ValueError(f"mode {mode} out of range for batched {n}-way tensor")
     rank = next(int(f.shape[-1]) for k, f in enumerate(factors) if k != mode)
     axes = _batch_axes("repro_torch.mttkrp", factors, batch, elem_shape, [rank] * n, "factor")
+    if ctx.backend == "auto":  # one resolution for the batch, on the element's key
+        ctx, plan, block, kernel_variant = _auto_mttkrp(
+            ctx, x, factors, mode, elem_shape, True, plan, block, kernel_variant)
     if out_dtype is None and ctx.out_dtype is not None:
         out_dtype = torch_dtype(ctx.out_dtype)
     x, factors, out_dtype, mixed = _cast_compute(ctx, x, factors, out_dtype)
@@ -227,6 +311,9 @@ def contract_partial(
 
 
 def _contract_partial_impl(node, factors, modes, drop, has_rank, ctx, plan):
+    if ctx.backend == "auto":
+        ctx, plan = _auto_partial(ctx, node, factors, modes, drop, has_rank, tuple(node.shape),
+                                  False, plan)
     out_dtype = torch_dtype(ctx.out_dtype) if ctx.out_dtype is not None else None
     node, factors, out_dtype, mixed = _cast_compute(ctx, node, factors, out_dtype)
     keep = tuple(m for m in modes if m not in drop)
@@ -283,6 +370,9 @@ def _contract_partial_batched(node, factors, modes, drop, has_rank, ctx, plan):
             for k, f in enumerate(factors)]
     axes = _batch_axes("repro_torch.contract_partial", factors, batch, dims,
                        [rank] * len(factors), "factor")
+    if ctx.backend == "auto":  # one resolution for the batch, on the element's key
+        ctx, plan = _auto_partial(ctx, node, factors, modes, drop, has_rank, elem_shape, True,
+                                  plan)
     out_dtype = torch_dtype(ctx.out_dtype) if ctx.out_dtype is not None else None
     node, factors, out_dtype, mixed = _cast_compute(ctx, node, factors, out_dtype)
     if ctx.backend != "cuda":
@@ -312,15 +402,17 @@ def _contract_partial_batched(node, factors, modes, drop, has_rank, ctx, plan):
 
 
 def fused_pair(
-    x: torch.Tensor, factors: Sequence[torch.Tensor], ctx: ExecutionContext
+    x: torch.Tensor, factors: Sequence[torch.Tensor], ctx: ExecutionContext,
+    plan: MTTKRPKernelPlan | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """The fused sweep's opening ``(B0, P)`` pair in one launch of the
     fused pair kernel (the ``cuda`` backend): ``factors`` is the full
     factor list; both outputs come back in ``x``'s dtype, as the reference
-    returns them. The kernel plans itself against its own shared memory
-    (``choose_pair_kernel_blocks``); ``ctx.memory`` does not pick its plan."""
+    returns them. ``plan`` pins the kernel's blocks; else it plans itself
+    against its own shared memory (``choose_pair_kernel_blocks``);
+    ``ctx.memory`` does not pick its plan."""
     x, fs, out_dtype, _ = _cast_compute(ctx, x, list(factors[1:]), x.dtype)
-    return fused_pair_canonical(x, fs, out_dtype=out_dtype)
+    return fused_pair_canonical(x, fs, plan=plan, out_dtype=out_dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -339,12 +431,6 @@ def _multi_ttm_einsum(x, matrices, keep, f32_acc=False):
     if f32_acc:  # fp32 accumulation under a compute-dtype policy
         ops = [o.float() for o in ops]
     return torch.einsum(",".join(subs) + "->" + out, *ops)
-
-
-def _keep_first(shape: Sequence[int], keep: int) -> tuple[int, ...]:
-    """Canonical Multi-TTM problem shape: kept mode first (mode 0 when the
-    full core is computed; every mode is contracted either way)."""
-    return (shape[keep],) + tuple(s for k, s in enumerate(shape) if k != keep)
 
 
 def _looks_batched_multi_ttm(x, matrices, keep) -> bool:
@@ -425,6 +511,9 @@ def multi_ttm(
 
 
 def _multi_ttm_impl(x, matrices, keep, ctx, plan, block, out_dtype):
+    if ctx.backend == "auto":
+        ctx, plan, block = _auto_multi_ttm(ctx, x, matrices, keep, tuple(x.shape), False, plan,
+                                           block)
     n = x.ndim
     if out_dtype is None and ctx.out_dtype is not None:
         out_dtype = torch_dtype(ctx.out_dtype)
@@ -437,7 +526,7 @@ def _multi_ttm_impl(x, matrices, keep, ctx, plan, block, out_dtype):
             # the oracle's convention is kept-mode-first; for the full core
             # the lead mode plays the kept role (N-1 contracted ranks)
             ranks = tuple(m.shape[1] for k, m in enumerate(matrices) if k != keep)
-            canon = _keep_first(x.shape, 0 if keep is None else keep)
+            canon = keep_first(x.shape, 0 if keep is None else keep)
             mem = ctx.memory or Memory.abstract(2 ** 20)
             block = multi_ttm_best_block_size(
                 canon, ranks[1:] if keep is None else ranks, mem.budget_words)
@@ -488,6 +577,8 @@ def _multi_ttm_batched(x, matrices, keep, ctx, plan, block, out_dtype):
             )
     axes = _batch_axes("repro_torch.multi_ttm", matrices, batch, elem_shape,
                        [None if m is None else int(m.shape[-1]) for m in matrices], "matrix")
+    if ctx.backend == "auto":  # one resolution for the batch, on the element's key
+        ctx, plan, block = _auto_multi_ttm(ctx, x, matrices, keep, elem_shape, True, plan, block)
     if out_dtype is None and ctx.out_dtype is not None:
         out_dtype = torch_dtype(ctx.out_dtype)
     x, matrices, out_dtype, mixed = _cast_compute(ctx, x, matrices, out_dtype)
@@ -507,7 +598,7 @@ def _multi_ttm_batched(x, matrices, keep, ctx, plan, block, out_dtype):
     if ctx.backend == "blocked_host":
         if block is None:
             ranks = tuple(m.shape[-1] for k, m in enumerate(matrices) if k != keep)
-            canon = _keep_first(elem_shape, 0 if keep is None else keep)
+            canon = keep_first(elem_shape, 0 if keep is None else keep)
             mem = ctx.memory or Memory.abstract(2 ** 20)
             block = multi_ttm_best_block_size(
                 canon, ranks[1:] if keep is None else ranks, mem.budget_words)

@@ -29,7 +29,8 @@ Counterpart of ``repro.engine.plan``:
     :class:`PartialKernelPlan` (:func:`choose_partial_kernel_blocks`, from
     the node's strides) for the streaming partial kernel.
 
-Formula provenance stays in :mod:`repro_torch.core.bounds`.
+:func:`keep_first` gives a problem's canonical shape (the output or kept
+mode first). Formula provenance stays in :mod:`repro_torch.core.bounds`.
 """
 
 from __future__ import annotations
@@ -68,6 +69,13 @@ SMEM_BUDGET = SMEM_PER_SM // 2 - 1024
 
 def _round_up(x: int, m: int) -> int:
     return ((x + m - 1) // m) * m
+
+
+def keep_first(shape: Sequence[int], lead: int) -> tuple[int, ...]:
+    """``shape`` with axis ``lead`` first and the rest in order: a problem's
+    canonical shape (the output mode of an MTTKRP, the kept mode of a
+    Multi-TTM, mode 0 for the full core)."""
+    return (shape[lead],) + tuple(s for k, s in enumerate(shape) if k != lead)
 
 
 @dataclass(frozen=True)

@@ -13,12 +13,21 @@ a hash of its source and the shared headers, so an edited source is rebuilt
 and an unchanged one is loaded as it is. :func:`build_all` starts one
 ``nvcc`` per source at once. A build that fails raises; nothing falls back
 to another implementation.
+
+That directory is the port's warm start, in place of the reference's XLA
+compilation cache: :func:`set_build_dir` (what
+``ExecutionContext.ensure_compilation_cache`` calls) points the builds and
+loads of this process at another directory, so a second process given the
+same directory loads the libraries a first one built instead of running
+``nvcc``. A library already loaded in the process stays loaded, from the
+directory it was built in (:func:`loaded`): a later redirect affects only
+sources not loaded yet, and each build writes its library and report into
+one directory.
 """
 
 from __future__ import annotations
 
 import ctypes
-import functools
 import hashlib
 import os
 import shutil
@@ -29,6 +38,7 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
+_build_dir = BUILD_DIR
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-I", str(CSRC),
@@ -83,22 +93,37 @@ def nvcc_path() -> str:
     raise KernelBuildError("nvcc not found (set CUDA_HOME or put nvcc on PATH)")
 
 
+def build_dir() -> Path:
+    """The directory this process builds into and loads from."""
+    return _build_dir
+
+
+def set_build_dir(path: str | os.PathLike | None) -> Path:
+    """Build into and load from ``path`` from now on (``None``: the default
+    ``_build/`` beside this file); returns the directory in use. Libraries
+    already loaded stay loaded (:func:`loaded`)."""
+    global _build_dir
+    _build_dir = BUILD_DIR if path is None else Path(path).expanduser().resolve()
+    return _build_dir
+
+
 def build(source: str = "mttkrp.cu") -> tuple[Path, str]:
-    """Compile ``csrc/<source>`` into ``_build/`` unless a library of the
-    same source hash is there already. Returns the library's path and the
-    compiler's report (``-Xptxas -v``: registers, shared memory, spills),
-    kept beside the library."""
+    """Compile ``csrc/<source>`` into :func:`build_dir` unless a library of
+    the same source hash is there already. Returns the library's path and
+    the compiler's report (``-Xptxas -v``: registers, shared memory,
+    spills), kept beside the library."""
+    out_dir = _build_dir  # one directory for the whole build
     src = CSRC / source
     h = hashlib.sha1(src.read_bytes())
     for header in sorted(CSRC.glob("*.cuh")):
         h.update(header.read_bytes())
     digest = h.hexdigest()[:12]
-    lib = BUILD_DIR / f"lib{src.stem}_{digest}.so"
+    lib = out_dir / f"lib{src.stem}_{digest}.so"
     report = lib.with_suffix(".log")
     if lib.exists():
         return lib, report.read_text() if report.exists() else ""
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    out_dir.mkdir(parents=True, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=out_dir)
     os.close(fd)
     cmd = [nvcc_path(), *NVCC_FLAGS, "-o", tmp, str(src)]
     proc = subprocess.run(cmd, capture_output=True, text=True)
@@ -119,17 +144,26 @@ def build_all() -> dict[str, tuple[Path, str]]:
         return dict(zip(SOURCES, pool.map(build, SOURCES)))
 
 
-@functools.cache
+_LOADED: dict[str, tuple[ctypes.CDLL, Path]] = {}
+
+
 def library(source: str = "mttkrp.cu") -> ctypes.CDLL:
     """The kernel library of ``csrc/<source>``, built on first use and
-    loaded once."""
-    path, _ = build(source)
-    lib = ctypes.CDLL(str(path))
-    for name, (restype, argtypes) in SIGNATURES[source].items():
-        fn = getattr(lib, name)
-        fn.restype = restype
-        fn.argtypes = argtypes
-    return lib
+    loaded once a process."""
+    if source not in _LOADED:
+        path, _ = build(source)
+        lib = ctypes.CDLL(str(path))
+        for name, (restype, argtypes) in SIGNATURES[source].items():
+            fn = getattr(lib, name)
+            fn.restype = restype
+            fn.argtypes = argtypes
+        _LOADED[source] = (lib, path)
+    return _LOADED[source][0]
+
+
+def loaded() -> dict[str, Path]:
+    """``{source: path}`` of every library this process has loaded."""
+    return {source: path for source, (_, path) in _LOADED.items()}
 
 
 def check(err: int, what: str) -> None:

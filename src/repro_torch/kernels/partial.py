@@ -43,6 +43,7 @@ import torch
 
 from ..core.krp import khatri_rao
 from ..engine.plan import (
+    H100_SMS,
     PARTIAL_LAYOUTS,
     PARTIAL_VEC_BYTES,
     PartialKernelPlan,
@@ -127,11 +128,12 @@ def default_plan(node: torch.Tensor, factors: Sequence[torch.Tensor],
                  batched: bool = False) -> PartialKernelPlan:
     """The plan :func:`mttkrp_partial` chooses for a CUDA ``node`` (rank axis
     at unit stride; ``batched``: a batch of nodes along axis 0) and its
-    factors."""
+    factors; for a CPU ``node``, the plan it would get on an H100."""
     ksizes, kstrides, csizes, cstrides, _, _, _, aligned = _kernel_view(node, factors, batched)
+    sms = _sms(node.device.index or 0) if node.is_cuda else H100_SMS
     return choose_partial_kernel_blocks(
         (*ksizes, *csizes), (*kstrides, *cstrides), node.shape[-1], node.element_size(),
-        _sms(node.device.index or 0), nkeep=len(ksizes), aligned=aligned,
+        sms, nkeep=len(ksizes), aligned=aligned,
         batch=node.shape[0] if batched else 1)
 
 

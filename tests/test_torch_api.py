@@ -75,10 +75,10 @@ def test_context_json_round_trip(kw):
 
 
 @pytest.mark.parametrize("kw,match", [
-    ({"backend": "auto"}, "tuning slice"),
+    ({"backend": "auto", "tune": True, "compilation_cache": 3}, "directory path"),
     ({"backend": "pallas"}, "backend='cuda'"),
     ({"backend": "fast"}, "unknown backend"),
-    ({"tune": True}, "tuning slice"),
+    ({"tune": True}, "requires backend='auto'"),
     ({"distributed": True}, "distributed drivers"),
     ({"observe": True}, "observability slice"),
     ({"compute_dtype": "int32"}, "float dtype"),

@@ -16,7 +16,7 @@ of the port's unbatched drivers at the reference's tolerances
 fits ``1e-5``). The kernels' batched plans and grids, the batch-stride
 width rule and the one-launch-per-call structure are checked here in pure
 Python; the launches themselves on the card (``tests/test_torch_cuda.py``).
-The reference's tune-cache test waits for the tuning slice.
+The reference's tune-cache amortization test is in ``tests/test_torch_tune.py``.
 """
 
 import math

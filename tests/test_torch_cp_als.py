@@ -77,8 +77,17 @@ def test_cp_als_tol_stops_early_and_random_init_runs():
 
 
 @pytest.mark.parametrize("sweep", ["auto", "nope"])
-def test_later_sweeps_are_rejected_by_name(sweep):
+def test_later_sweeps_are_rejected_by_name(sweep, tmp_path, monkeypatch):
+    """An unknown sweep is rejected by name; ``"auto"``, which the tuning
+    slice brought, resolves (a miss on a 3-way tensor: ``"fused"``)."""
+    monkeypatch.setenv("REPRO_TORCH_TUNE_CACHE", str(tmp_path / "plans.json"))
     x, init = _problem((4, 4, 4), 2, 5)
     ctx = repro_torch.ExecutionContext.create("einsum", device="cpu")
-    with pytest.raises(ValueError, match="tuning slice" if sweep != "nope" else "unknown"):
+    if sweep == "auto":
+        kw = dict(init_factors=factors_from_numpy(init, "cpu"), ctx=ctx)
+        auto = repro_torch.cp_als(torch.from_numpy(x), 2, 1, sweep=sweep, **kw)
+        assert auto.fits == repro_torch.cp_als(torch.from_numpy(x), 2, 1, sweep="fused",
+                                               **kw).fits
+        return
+    with pytest.raises(ValueError, match="unknown"):
         repro_torch.cp_als(torch.from_numpy(x), 2, 1, sweep=sweep, ctx=ctx)

@@ -1181,3 +1181,182 @@ def test_batched_hooi_sweep_launches_n_a_sweep(card):
     ref = repro_torch.tucker_hooi_batched(x, (4, 3, 2), 2,
                                           ctx=repro_torch.ExecutionContext.create("einsum"))
     assert float((res.fits - ref.fits).abs().max()) < 1e-4
+
+
+# ---------------------------------------------------------------------------
+# serving and tuning on the card
+# ---------------------------------------------------------------------------
+
+@pytest.fixture
+def tune_cache(tmp_path, monkeypatch):
+    """A throwaway port tune cache for the test."""
+    path = str(tmp_path / "plans.json")
+    monkeypatch.setenv("REPRO_TORCH_TUNE_CACHE", path)
+    return path
+
+
+def test_server_makes_one_batched_launch_a_contraction_a_bucket(card, monkeypatch):
+    from repro_torch.engine import batch as batch_mod
+    from repro_torch.launch.serve import DecompositionServer
+
+    per_call = []
+    real = batch_mod.cp_als_batched
+
+    def counted(xs, *a, **kw):
+        before = (mttkrp3.launches, mttkrpn.launches)
+        res = real(xs, *a, **kw)
+        per_call.append((xs.ndim - 1, int(res.n_iters.max()),
+                         mttkrp3.launches - before[0], mttkrpn.launches - before[1]))
+        return res
+
+    monkeypatch.setattr(batch_mod, "cp_als_batched", counted)
+    rng = np.random.default_rng(3)
+    shapes = [(30, 27, 25), (32, 29, 31), (25, 32, 28), (14, 15, 13, 16), (16, 10, 15, 12)]
+    xs = [torch.as_tensor(rng.standard_normal(s, dtype=np.float32)).to(card) for s in shapes]
+    outs = {}
+    for backend in ("cuda", "einsum"):
+        srv = DecompositionServer(repro_torch.ExecutionContext.create(backend), n_iters=4,
+                                  tol=0.0)
+        for i, x in enumerate(xs):
+            srv.submit(x, 3, request_id=f"r{i}")
+        outs[backend] = srv.flush()
+    # the cuda server's two buckets: one batched call each, N launches an iteration
+    assert sorted(per_call[:2]) == [(3, 4, 12, 0), (4, 4, 0, 16)]
+    for rid, r in outs["cuda"].items():
+        assert abs(r.fit - outs["einsum"][rid].fit) < 1e-4
+
+
+def test_auto_on_a_miss_launches_the_kernel_with_the_choosers_plan(card, tune_cache,
+                                                                   monkeypatch):
+    seen = []
+    real = ops.mttkrp
+
+    def spy(*a, **kw):
+        seen.append(kw.get("plan"))
+        return real(*a, **kw)
+
+    monkeypatch.setattr(ops, "mttkrp", spy)
+    x = torch.randn((40, 30, 20), device=card)
+    fs = [torch.randn((d, 8), device=card) for d in x.shape]
+    auto = repro_torch.ExecutionContext.create("auto")
+    before = mttkrp3.launches
+    got = repro_torch.mttkrp(x, fs, 1, ctx=auto)
+    assert mttkrp3.launches == before + 1
+    assert seen == [choose_mttkrp_kernel_blocks((30, 40, 20), 8, 4)]
+    _close(got, repro_torch.mttkrp(x, fs, 1, ctx=repro_torch.ExecutionContext.create("einsum")))
+    before = multi_ttm_keep.launches
+    repro_torch.multi_ttm(x, [f[:, :4] for f in fs], 0, ctx=auto)
+    assert multi_ttm_keep.launches == before + 1
+    before = (sweep.fused_pair.launches, mttkrp_partial.launches)
+    repro_torch.cp_als(x, 8, 1, sweep="auto", ctx=auto)  # a miss: fused
+    assert (sweep.fused_pair.launches, mttkrp_partial.launches) == (before[0] + 1,
+                                                                    before[1] + 1)
+
+
+def test_a_cached_kernel_plan_is_replayed_exactly(card, tune_cache, monkeypatch):
+    from repro_torch.tune import cache as tcache
+
+    x = torch.randn((70, 30, 20), device=card)
+    fs = [torch.randn((d, 8), device=card) for d in x.shape]
+    pinned = MTTKRPKernelPlan(64, 32, 16, 2)
+    assert pinned != choose_mttkrp_kernel_blocks(tuple(x.shape), 8, 4)
+    key = tcache.cache_key(tuple(x.shape), 8, 0, torch.float32, Memory.h100_smem())
+    tcache.default_cache().put(key, tcache.CacheEntry("cuda", tcache.plan_to_dict(pinned),
+                                                      variant="generic"))
+    seen = []
+    real = ops.mttkrp
+
+    def spy(*a, **kw):
+        seen.append((kw.get("plan"), kw.get("variant")))
+        return real(*a, **kw)
+
+    monkeypatch.setattr(ops, "mttkrp", spy)
+    before = (mttkrp3.launches, mttkrpn.launches)
+    got = repro_torch.mttkrp(x, fs, 0, ctx=repro_torch.ExecutionContext.create("auto"))
+    assert seen == [(pinned, "generic")]
+    assert (mttkrp3.launches, mttkrpn.launches) == (before[0], before[1] + 1)
+    _close(got, mttkrp3_plain(x, fs[1], fs[2]))
+
+
+@pytest.mark.parametrize("plan,error", [(MTTKRPKernelPlan(96, 32, 16, 2), ValueError),
+                                        (MTTKRPKernelPlan(64, 32, 16, 7), ValueError),
+                                        (BlockPlan(8, (8, 8), 8), TypeError)])
+def test_a_cached_invalid_plan_is_refused_before_launch(card, tune_cache, plan, error):
+    from repro_torch.tune import cache as tcache
+
+    x = torch.randn((70, 30, 20), device=card)
+    fs = [torch.randn((d, 8), device=card) for d in x.shape]
+    key = tcache.cache_key(tuple(x.shape), 8, 0, torch.float32, Memory.h100_smem())
+    tcache.default_cache().put(key, tcache.CacheEntry("cuda", tcache.plan_to_dict(plan)))
+    before = (mttkrp3.launches, mttkrpn.launches)
+    with pytest.raises(error):
+        repro_torch.mttkrp(x, fs, 0, ctx=repro_torch.ExecutionContext.create("auto"))
+    assert (mttkrp3.launches, mttkrpn.launches) == before
+
+
+@pytest.mark.parametrize("fault", ["build", "launch"])
+def test_a_failing_kernel_raises_out_of_the_tuner(card, tune_cache, tmp_path, monkeypatch,
+                                                  fault):
+    """A kernel that does not build or launch raises out of ``tune_mttkrp``:
+    no plain executor wins in its place, and nothing is persisted."""
+    from repro_torch.kernels import build
+    from repro_torch.tune import cache as tcache
+    from repro_torch.tune import search
+
+    if fault == "build":  # the library not loaded yet, and no nvcc to build it
+        def no_nvcc():
+            raise build.KernelBuildError("nvcc not found")
+
+        monkeypatch.delitem(build._LOADED, "mttkrp.cu", raising=False)
+        monkeypatch.setattr(build, "_build_dir", tmp_path / "empty")
+        monkeypatch.setattr(build, "nvcc_path", no_nvcc)
+        error = build.KernelBuildError
+    else:  # the launch returns a CUDA error
+        def failed(err, what):
+            raise RuntimeError(f"{what}: CUDA error 700 at launch")
+
+        monkeypatch.setattr(splitk, "check", failed)
+        error = RuntimeError
+    x = torch.randn((40, 30, 20), device=card)
+    fs = [torch.randn((d, 8), device=card) for d in x.shape]
+    with pytest.raises(error):
+        search.tune_mttkrp(x, fs, 0, ctx=repro_torch.ExecutionContext.create("auto"),
+                           reps=1, warmup=0)
+    assert len(tcache.PlanCache(tune_cache)) == 0
+
+
+def test_ensure_compilation_cache_builds_into_and_loads_from_the_directory(card, tmp_path):
+    """Two fresh processes on one directory: the first builds
+    ``mttkrp.cu`` there, the second loads that library without ``nvcc``
+    (its file is not rewritten)."""
+    import json
+    import os
+    import subprocess
+    import sys
+
+    root = Path(__file__).resolve().parents[1]
+    cc = tmp_path / "cc"
+    code = (
+        "import json, sys, torch, repro_torch\n"
+        "from repro_torch.kernels import build\n"
+        f"ctx = repro_torch.ExecutionContext.create('cuda', compilation_cache={str(cc)!r})\n"
+        "used = ctx.ensure_compilation_cache()\n"
+        "x = torch.randn((20, 18, 16), device='cuda')\n"
+        "fs = [torch.randn((d, 4), device='cuda') for d in x.shape]\n"
+        "repro_torch.mttkrp(x, fs, 0, ctx=ctx)\n"
+        "print(json.dumps({'used': used, 'loaded': {k: str(v) for k, v in "
+        "build.loaded().items()}}))\n"
+    )
+    env = {**os.environ, "PYTHONPATH": str(root / "src")}
+    runs = []
+    for _ in range(2):
+        out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                             env=env, check=True).stdout.strip().splitlines()[-1]
+        runs.append(json.loads(out))
+        if len(runs) == 1:
+            libs = {p: p.stat().st_mtime_ns for p in cc.glob("libmttkrp_*.so")}
+    assert runs[0]["used"] == str(cc.resolve())
+    assert list(runs[0]["loaded"]) == ["mttkrp.cu"]
+    assert Path(runs[0]["loaded"]["mttkrp.cu"]).parent == cc.resolve()
+    assert runs[1]["loaded"] == runs[0]["loaded"]
+    assert len(libs) == 1 and {p: p.stat().st_mtime_ns for p in libs} == libs
