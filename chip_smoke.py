@@ -131,9 +131,41 @@ Phases (any failure raises, and the script exits non-zero):
     ``cache_path``, against ``cuda`` (at most 1.3x); ``calibrate`` on
     ``CALIBRATION`` and
     its report;
-13. one JSON line per kernel and shape (times from CUDA events), the
-    ``nvidia-smi`` line, and one ``{"kernels": [...]}`` line;
-14. the last line, ``{"ok": true, "device": {...}}``.
+13. observability (``OBSERVE_CP``, ``SPAN_PROBE``, ``AUDITS``,
+    ``OBSERVE_TUNE``): (a) CP-ALS at 1000^3, R = 64, 3 iterations on each
+    schedule and HOOI at ranks 32, 2 sweeps, with ``observe=True`` inside
+    one ``repro_torch.Trace`` exported as JSONL: the dispatch events equal
+    the contractions an iteration (``SPANS_PER_ITER``) times the
+    iterations, by kind; each is ``cuda`` with the plan its wrapper launched
+    (read back through ``plan_from_dict``), ``modeled_words`` the model
+    plan's against ``Memory.h100_smem`` and the bound under it; the
+    iteration events carry the fits; ``engine.cuda_dispatches`` rose by the
+    dispatch events; the fits and factors equal untraced runs from the same
+    factors bit for bit; ``python -m repro_torch.observe.report`` on the
+    file exits 0 (its table printed); (b) the host µs of one engine call at
+    64^3, R = 16 with no trace against a trace whose gate refuses the
+    call, then against traced calls, 200 calls of each state, the pair
+    interleaved call by call: the first two within ``GATE_TOL`` 5 %
+    (medians of the per-call times); and ``per_mode``'s ms an iteration at
+    1000^3 with and without a trace; (c) one traced ``per_mode``
+    iteration under ``torch.profiler``: every Hopper kernel it launches lies
+    under its dispatch's ``record_function`` range, one MTTKRP kernel a
+    range, with the device ms under each; a CUDA graph captured under an
+    active trace records no event and replays to the eager result; (d)
+    ``audit_mttkrp`` at 1000^3 (modes 0 and 1) and 180^4 (mode 0),
+    ``audit_multi_ttm`` at 1000^3, ranks 32 (keep 0 and the core): each
+    row's triple and ratios, measured at least the operands and the output
+    once; (e) phase 11's mixed flush of 80 requests under a trace: one
+    ``serve_bucket`` event a bucket, one ``serve_request`` a request, one
+    ``cp_als_batched_iter`` an iteration a bucket ran; ``tune_mttkrp`` at
+    256^3, R = 32 on an isolated cache: one ``tune_search`` event,
+    ``tune.candidates_measured`` up by its candidates, one
+    ``tune.search_time_us`` observation, one ``tune.cache_hits`` on the
+    replay;
+14. the seconds each phase took, one JSON line per kernel and shape (times
+    from CUDA events), the ``nvidia-smi`` line, and one ``{"kernels":
+    [...]}`` line;
+15. the last line, ``{"ok": true, "device": {...}}``.
 
 All data are made on the card from ``--seed`` with a ``torch.Generator``.
 Matmuls run in full fp32 (TF32 off), so the plain versions and the einsum
@@ -152,6 +184,7 @@ import sys
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
+START = time.perf_counter()
 
 # Published H100 SXM peaks (dense): fp32 outside the tensor cores, tf32 and
 # bf16 on them, and HBM3 bandwidth.
@@ -263,6 +296,29 @@ TUNE_PROBLEM = ((1000, 1000, 1000), 64, 32)
 AUTO_ITERS = 3
 HOST_PROBE = ((64, 64, 64), 16, 400)
 CALIBRATION = (((256, 256, 256), 32), ((384, 320, 256), 32), ((512, 384, 256), 16))
+#: Phase 13, observability: the traced CP-ALS runs (shape, R, iterations a
+#: schedule) and HOOI on the same shape (Tucker rank, sweeps); the span-cost
+#: probe (shape, R, rounds, calls a round: each state 200 calls, the states
+#: interleaved round by round) and the limit on the refused gate's cost
+#: against no trace; the audits (kind, shape, R, mode or keep); the tuner's
+#: problem on an isolated cache.
+OBSERVE_CP = ((1000, 1000, 1000), 64, 3)
+OBSERVE_TUCKER = (32, 2)
+SPAN_PROBE = ((64, 64, 64), 16, 200)
+GATE_TOL = 0.05
+AUDITS = [("mttkrp", (1000, 1000, 1000), 64, 0), ("mttkrp", (1000, 1000, 1000), 64, 1),
+          ("mttkrp", (180, 180, 180, 180), 32, 0), ("multi_ttm", (1000, 1000, 1000), 32, 0),
+          ("multi_ttm", (1000, 1000, 1000), 32, None)]
+OBSERVE_TUNE = ((256, 256, 256), 32)
+#: Contractions an iteration of each schedule dispatches on a 3-way tensor,
+#: by span kind (engine/sweep.py:fused_als_sweep, engine/tree.py:_solve_tree).
+SPANS_PER_ITER = {"per_mode": {"mttkrp": 3},
+                  "fused": {"fused_pair": 1, "contract_partial": 1, "mttkrp": 1},
+                  "dimtree": {"contract_partial": 4}}
+DISPATCH_KINDS = ("mttkrp", "contract_partial", "multi_ttm", "fused_pair")
+#: The Hopper kernels' device names, as the profiler reports them.
+HOPPER_KERNEL = re.compile(r"mttkrp_mma_kernel|splitk_reduce_kernel|fused_pair_mma_kernel|"
+                           r"streaming_partial_kernel|multi_ttm_mma_kernel")
 
 
 def nvidia_smi() -> str:
@@ -2093,6 +2149,432 @@ def tune_phase(gen, smi: str) -> dict:
     return out
 
 
+def _dispatch_checks(events, launched, mem) -> list:
+    """Phase 13a's checks of each dispatch event: backend ``cuda``, the plan
+    its wrapper launched (``launched``: the kernel launches of the same
+    runs, in order), ``modeled_words`` the Eq-10 words (or the Multi-TTM
+    model's) of the model plan against ``mem``, the bound under the model."""
+    from repro_torch.engine.plan import choose_blocks, choose_multi_ttm_blocks, keep_first
+    from repro_torch.tune.cache import plan_from_dict
+
+    problems = []
+    plans = [k.plan for k in launched if k.plan is not None]
+    spans = [e for e in events if e["kind"] in DISPATCH_KINDS]
+    if len(plans) != len(spans):
+        problems.append(f"{len(spans)} dispatch events for {len(plans)} kernel launches")
+    for e, plan in zip(spans, plans):
+        if e["backend"] != "cuda" or e["plan"] is None or plan_from_dict(e["plan"]) != plan:
+            problems.append(f"{e['kind']} #{e['seq']}: backend {e['backend']}, plan {e['plan']} "
+                            f"where the wrapper launched {plan}")
+        if e["kind"] == "fused_pair":
+            continue
+        if e["kind"] == "multi_ttm":
+            canon = keep_first(e["shape"], e["keep"] if e["keep"] is not None else 0)
+            kranks = e["ranks"][1:] if e["keep"] is None else e["ranks"]
+            want = choose_multi_ttm_blocks(canon, kranks, 4, memory=mem).model_words(canon)
+        else:
+            canon = keep_first(e["shape"], e["mode"]) if e["kind"] == "mttkrp" else e["shape"]
+            want = choose_blocks(canon, e["rank"], 4, memory=mem,
+                                 x_has_rank=bool(e.get("has_rank"))).eq10_words(canon, e["rank"])
+        if e["modeled_words"] != want or not e["lower_bound_words"] <= e["modeled_words"]:
+            problems.append(f"{e['kind']} #{e['seq']}: modeled {e['modeled_words']} (the model "
+                            f"plan's {want}), bound {e['lower_bound_words']}")
+    return problems
+
+
+def _span_summary(events) -> dict:
+    """Per dispatch kind: count, mean host µs, and the model's and the
+    kernel's bytes summed."""
+    out: dict = {}
+    for e in events:
+        if e["kind"] not in DISPATCH_KINDS:
+            continue
+        d = out.setdefault(e["kind"], {"events": 0, "wall_time_us": 0.0, "modeled_bytes": 0,
+                                       "kernel_modeled_bytes": 0})
+        d["events"] += 1
+        d["wall_time_us"] += e["wall_time_us"]
+        d["modeled_bytes"] += e.get("modeled_words", 0) * e["itemsize"]
+        d["kernel_modeled_bytes"] += e.get("kernel_modeled_bytes", 0)
+    for d in out.values():
+        d["wall_time_us"] /= d["events"]
+    return out
+
+
+def observe_phase(gen, smi: str) -> dict:
+    """Phase 13: the observability layer on the main path. (a) CP-ALS on
+    every schedule and HOOI, traced; (b) what a span costs; (c) the spans'
+    ranges in the profiler, and nothing recorded during a graph capture;
+    (d) the bounds audits; (e) the server's and the tuner's spans and
+    counters. Returns the traced runs' launches and the records."""
+    import shutil
+    import tempfile
+
+    import torch
+    import repro_torch
+    from repro_torch.core.tensor import random_factors
+
+    kernels = counters()
+    plain = repro_torch.ExecutionContext.create("cuda")
+    obs = repro_torch.ExecutionContext.create("cuda", observe=True)
+    dims, rank, _ = OBSERVE_CP
+    x = noisy_low_rank(gen, dims, rank)
+    init = random_factors(gen, dims, rank)
+    out = {"launches": {k: 0 for k in kernels}, "records": []}
+    tmp = tempfile.mkdtemp(prefix="repro-torch-trace-")
+    try:
+        for k in kernels.values():
+            k.launches = 0
+        out["records"].append(observe_main_path(x, init, plain, obs, tmp, smi))
+        out["launches"] = {name: k.launches for name, k in kernels.items()}
+        out["records"].append(observe_span_cost(gen, x, init, plain, obs, smi))
+        out["records"].append(observe_profiler(gen, x, init, obs, smi))
+        del x
+        torch.cuda.empty_cache()
+        out["records"].append(observe_audits(gen, plain, tmp, smi))
+        out["records"].append(observe_serve_and_tune(gen, smi))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return out
+
+
+def observe_main_path(x, init, plain, obs, tmp: str, smi: str) -> dict:
+    """13a: CP-ALS on every schedule and HOOI with ``observe=True`` in one
+    trace, against the same runs untraced."""
+    import torch
+    import repro_torch
+    from repro_torch.core.tucker import hosvd_init
+    from repro_torch.engine.plan import Memory
+    from repro_torch.observe import Trace, collect, load_trace, registry
+    from repro_torch.observe.metrics import CUDA_DISPATCHES
+
+    _, rank, iters = OBSERVE_CP
+    trank, sweeps = OBSERVE_TUCKER
+    tinit = hosvd_init(x, (trank,) * x.ndim)
+    order = list(SPANS_PER_ITER) + ["tucker"]
+
+    def run(name, ctx):
+        if name == "tucker":
+            return repro_torch.tucker_hooi(x, (trank,) * x.ndim, sweeps, init_factors=tinit,
+                                           ctx=ctx)
+        return repro_torch.cp_als(x, rank, iters, init_factors=init, sweep=name, ctx=ctx)
+
+    untraced = {name: run(name, plain) for name in order}
+    torch.cuda.synchronize()
+    path = os.path.join(tmp, "main_path.jsonl")
+    before = registry().snapshot()
+    traced, launched, problems = {}, {}, []
+    with Trace(path=path) as tr:
+        for name in order:
+            with collect.collecting() as launched[name]:
+                traced[name] = run(name, obs)
+    torch.cuda.synchronize()
+    dispatched = registry().delta(before).get(CUDA_DISPATCHES, 0)
+    events = load_trace(path)
+    if events != tr.events:
+        problems.append("the JSONL file does not read back as the trace's events")
+    # split the events by run: each run ends with its last iteration's event
+    runs: dict = {}
+    cur: list = []
+    for e in events:
+        cur.append(e)
+        if e["kind"] in ("cp_als_iter", "tucker_iter") and e["it"] == (
+                iters if e["kind"] == "cp_als_iter" else sweeps) - 1:
+            runs[order[len(runs)]] = cur
+            cur = []
+    mem = Memory.h100_smem(itemsize=4)
+    per_run = {}
+    for name in order:
+        evs = runs.get(name, [])
+        kinds = {k: sum(e["kind"] == k for e in evs) for k in DISPATCH_KINDS}
+        want = {k: 0 for k in DISPATCH_KINDS}
+        if name == "tucker":
+            want["multi_ttm"] = x.ndim * sweeps
+            it_kind, n_it = "tucker_iter", sweeps
+        else:
+            want.update({k: n * iters for k, n in SPANS_PER_ITER[name].items()})
+            it_kind, n_it = "cp_als_iter", iters
+        its = [e for e in evs if e["kind"] == it_kind]
+        if kinds != want:
+            problems.append(f"{name}: dispatch events {kinds}, expected {want}")
+        if [e["fit"] for e in its] != traced[name].fits or len(its) != n_it:
+            problems.append(f"{name}: {len(its)} {it_kind} events, fits "
+                            f"{[e['fit'] for e in its]} against {traced[name].fits}")
+        problems += [f"{name}: {p}" for p in _dispatch_checks(evs, launched[name], mem)]
+        a, b = traced[name], untraced[name]
+        same = a.fits == b.fits and all(torch.equal(f, g) for f, g in zip(a.factors, b.factors))
+        if not same:
+            problems.append(f"{name}: traced fits {a.fits} differ from untraced {b.fits}")
+        per_run[name] = {"dispatch_events": kinds, "fits": a.fits,
+                         "bit_identical_to_untraced": same, "spans": _span_summary(evs)}
+    n_dispatch = sum(e["kind"] in DISPATCH_KINDS for e in events)
+    if dispatched != n_dispatch:
+        problems.append(f"engine.cuda_dispatches rose by {dispatched}, {n_dispatch} events")
+    proc = subprocess.run([sys.executable, "-m", "repro_torch.observe.report", path],
+                          capture_output=True, text=True,
+                          env={**os.environ, "PYTHONPATH": os.path.join(ROOT, "src")})
+    print(proc.stdout, end="", flush=True)
+    if proc.returncode != 0:
+        problems.append(f"the report exited {proc.returncode}: {proc.stderr}")
+    rec = {"observe": "main_path", "shape": list(x.shape), "rank": rank, "iters": iters,
+           "tucker_rank": trank, "sweeps": sweeps, "events": len(events),
+           "cuda_dispatches": dispatched, "runs": per_run, "report_rc": proc.returncode,
+           "gpu": smi}
+    emit(rec)
+    if problems:
+        raise AssertionError("observe 13a: " + "; ".join(problems))
+    return rec
+
+
+def observe_span_cost(gen, x, init, plain, obs, smi: str) -> dict:
+    """13b: the host µs of one engine call with no trace against a trace
+    that refuses it, then against a traced call, each pair interleaved call
+    by call (both see the host's noise alike; medians of the per-call
+    times), and
+    ``per_mode``'s ms an iteration with and without a trace."""
+    import torch
+    import repro_torch
+    from repro_torch.observe import Trace
+
+    pdims, prank, calls = SPAN_PROBE
+    px = torch.randn(pdims, generator=gen, device="cuda")
+    pf = [torch.randn((d, prank), generator=gen, device="cuda") for d in pdims]
+    gated = Trace(capture="observed")
+    traced = Trace(capture="observed", capacity=2 * calls)
+
+    def one(ctx, trace) -> float:
+        if trace is not None:
+            trace.__enter__()
+        t0 = time.perf_counter()
+        repro_torch.mttkrp(px, pf, 0, ctx=ctx)
+        dt = time.perf_counter() - t0
+        if trace is not None:
+            trace.__exit__(None, None, None)
+        return dt * 1e6
+
+    def paired(a, b) -> tuple:
+        """Per-call µs of two states alternated A B B A, after 20 warm calls
+        each: each state follows the other as often as itself."""
+        out: tuple = ([], [])
+        for i in range(calls + 20):
+            for k in ((0, 1) if i % 2 == 0 else (1, 0)):
+                t = one(*(a, b)[k])
+                if i >= 20:
+                    out[k].append(t)
+            if i % 20 == 19:
+                torch.cuda.synchronize()
+        torch.cuda.synchronize()
+        return out
+
+    # the zero-overhead contract: no trace against a trace that refuses the
+    # call; then the cost of a span: no trace against traced
+    none_a, gate = paired((plain, None), (plain, gated))
+    none_b, span = paired((plain, None), (obs, traced))
+    samples = {"no_trace": none_a, "gate_refuses": gate, "no_trace_2": none_b, "traced": span}
+    quart = {name: [sorted(v)[len(v) * q // 4] for q in (1, 2, 3)]
+             for name, v in samples.items()}
+    med = {name: q[1] for name, q in quart.items()}
+    gate_ratio = med["gate_refuses"] / med["no_trace"]
+    if len(gated) != 0 or len(traced) != calls + 20:
+        raise AssertionError(f"observe 13b: the refused gate recorded {len(gated)} events, "
+                             f"the trace {len(traced)}")
+    _, rank, iters = OBSERVE_CP
+    iter_ms: dict = {"untraced": [], "traced": []}
+    for label in ("untraced", "traced", "traced", "untraced"):
+        trace = Trace() if label == "traced" else None
+        if trace is not None:
+            trace.__enter__()
+        try:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            repro_torch.cp_als(x, rank, iters, init_factors=init,
+                               ctx=obs if trace is not None else plain)
+            torch.cuda.synchronize()
+            iter_ms[label].append((time.perf_counter() - t0) / iters * 1e3)
+        finally:
+            if trace is not None:
+                trace.__exit__(None, None, None)
+    rec = {"observe": "span_cost", "shape": list(pdims), "rank": prank, "calls_each": calls,
+           "host_us_median": med, "host_us_quartiles": quart,
+           "gate_over_no_trace": gate_ratio,
+           "span_us_per_dispatch": med["traced"] - med["no_trace_2"],
+           "per_mode_ms_per_iter": {k: sum(v) / len(v) for k, v in iter_ms.items()},
+           "per_mode_ms_runs": iter_ms, "gpu": smi}
+    emit(rec)
+    if abs(gate_ratio - 1.0) > GATE_TOL:
+        raise AssertionError(f"observe 13b: a trace that refuses the call costs "
+                             f"{gate_ratio:.3f}x no trace (limit 1 +- {GATE_TOL})")
+    return rec
+
+
+def observe_profiler(gen, x, init, obs, smi: str) -> dict:
+    """13c: one traced ``per_mode`` iteration under ``torch.profiler``: every
+    Hopper kernel under its dispatch's ``record_function`` range, one MTTKRP
+    kernel a range, the device ms under each; then a CUDA graph captured
+    under an active trace: no event, the eager result on replay."""
+    import torch
+    import repro_torch
+    from repro_torch.observe import Trace
+    from torch.profiler import ProfilerActivity, profile
+
+    rank = OBSERVE_CP[1]
+    with Trace():
+        repro_torch.cp_als(x, rank, 1, init_factors=init, ctx=obs)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            repro_torch.cp_als(x, rank, 1, init_factors=init, ctx=obs)
+            torch.cuda.synchronize()
+    # kineto puts each record_function range on the device timeline too, over
+    # the kernels launched inside it: each kernel is attributed to the range
+    # whose device interval holds it
+    device = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    spans = [e for e in device if e.is_user_annotation and e.name.startswith("repro_torch.")]
+    ranges: dict = {}
+    ours, outside = 0, []
+    for k in device:
+        if k.is_user_annotation:
+            continue
+        mine = HOPPER_KERNEL.search(k.name)
+        ours += bool(mine)
+        span = next((a for a in spans if a.time_range.start <= k.time_range.start
+                     and k.time_range.end <= a.time_range.end), None)
+        if span is None:
+            if mine:
+                outside.append(k.name)
+            continue
+        d = ranges.setdefault(span.name, {"device_ms": 0.0, "kernels": {}})
+        d["device_ms"] += k.time_range.elapsed_us() / 1e3
+        short = mine.group(0) if mine else k.name[:60]
+        d["kernels"][short] = d["kernels"].get(short, 0) + 1
+    problems = []
+    want_ranges = {f"repro_torch.mttkrp.mode{m}" for m in range(x.ndim)}
+    if ours == 0 or outside or set(ranges) != want_ranges:
+        problems.append(f"{ours} Hopper kernels in the profile, {len(outside)} outside a "
+                        f"dispatch range ({outside[:3]}); ranges {sorted(ranges)}")
+    for name, d in ranges.items():
+        if d["kernels"].get("mttkrp_mma_kernel") != 1:
+            problems.append(f"{name}: kernels {d['kernels']}, expected one mttkrp kernel")
+    gx = torch.randn((256, 256, 256), generator=gen, device="cuda")
+    gf = [torch.randn((256, 32), generator=gen, device="cuda") for _ in range(3)]
+    with Trace() as gt:
+        want = repro_torch.mttkrp(gx, gf, 1, ctx=obs)
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            repro_torch.mttkrp(gx, gf, 1, ctx=obs)
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, capture_error_mode="relaxed"):
+            got = repro_torch.mttkrp(gx, gf, 1, ctx=obs)
+        captured = len(gt) - 2  # the two eager calls recorded, the capture nothing
+        got.zero_()
+        graph.replay()
+        torch.cuda.synchronize()
+    replay_equal = bool(torch.equal(got, want))
+    if captured != 0 or not replay_equal:
+        problems.append(f"graph capture under a trace: {captured} events recorded, replay "
+                        f"equal to the eager call: {replay_equal}")
+    rec = {"observe": "profiler", "hopper_kernels": ours, "ranges": ranges,
+           "graph_capture_events": captured, "graph_replay_equal": replay_equal, "gpu": smi}
+    emit(rec)
+    if problems:
+        raise AssertionError("observe 13c: " + "; ".join(problems))
+    return rec
+
+
+def observe_audits(gen, plain, tmp: str, smi: str) -> dict:
+    """13d: each audit's triple and ratios; measured at least the operands
+    and the output once."""
+    import torch
+    from repro_torch.core.tensor import random_factors
+    from repro_torch.observe import Trace, audit_mttkrp, audit_multi_ttm
+
+    rows, x = [], None
+    with Trace(path=os.path.join(tmp, "audit.jsonl")):
+        for kind, dims, rank, which in AUDITS:
+            if x is None or tuple(x.shape) != tuple(dims):
+                x = None  # free the last shape's tensor before making the next
+                x = noisy_low_rank(gen, dims, rank)
+            if kind == "mttkrp":
+                fs = random_factors(gen, dims, rank)
+                row = audit_mttkrp(x, fs, which, ctx=plain)
+                once = x.nbytes + sum(f.nbytes for k, f in enumerate(fs) if k != which) \
+                    + dims[which] * rank * 4
+            else:
+                mats = [torch.linalg.qr(torch.randn((d, rank), generator=gen,
+                                                    device="cuda"))[0] for d in dims]
+                row = audit_multi_ttm(x, mats, which, ctx=plain)
+                out_words = rank ** len(dims) if which is None else \
+                    dims[which] * rank ** (len(dims) - 1)
+                once = x.nbytes + sum(m.nbytes for k, m in enumerate(mats) if k != which) \
+                    + out_words * 4
+            d = {"observe": "audit", **row.to_dict(), "operands_and_output_once": once,
+                 "gpu": smi}
+            emit(d)
+            rows.append(d)
+            if row.measured_bytes < once:
+                raise AssertionError(f"observe 13d: {row.name} measured {row.measured_bytes} "
+                                     f"bytes, below the operands and the output once ({once})")
+    return {"observe": "audits", "rows": rows}
+
+
+def observe_serve_and_tune(gen, smi: str) -> dict:
+    """13e: phase 11's mixed flush under a trace, and ``tune_mttkrp`` on an
+    isolated cache: the spans and the registry's tune counters."""
+    import torch
+    import repro_torch
+    from repro_torch.core.tensor import random_factors
+    from repro_torch.launch.serve import DecompositionServer
+    from repro_torch.observe import Trace, registry
+    from repro_torch.observe.metrics import TUNE_CACHE_HITS, TUNE_CANDIDATES, TUNE_SEARCH_TIME_US
+    from repro_torch.tune import search
+    from repro_torch.tune.cache import isolated_cache
+
+    with isolated_cache():
+        server = DecompositionServer(repro_torch.ExecutionContext.create("auto", observe=True),
+                                     n_iters=SERVE_ITERS)
+        n_req = 0
+        for count, (lo, hi), rank, ways in SERVE_QUEUE:
+            for _ in range(count):
+                shape = tuple(torch.randint(lo, hi + 1, (ways,), generator=gen,
+                                            device="cuda").tolist())
+                server.submit(noisy_low_rank(gen, shape, rank), rank, request_id=f"obs{n_req}")
+                n_req += 1
+        with Trace(capture="observed") as st:
+            results = server.flush()
+        kinds = [e["kind"] for e in st.events]
+        iters_run: dict = {}
+        for r in results.values():
+            iters_run[r.bucket] = max(iters_run.get(r.bucket, 0), r.n_iters)
+        serve_ok = (kinds.count("serve_bucket") == len(SERVE_QUEUE)
+                    and kinds.count("serve_request") == n_req
+                    and kinds.count("cp_als_batched_iter") == sum(iters_run.values()))
+        dims, rank = OBSERVE_TUNE
+        tx = noisy_low_rank(gen, dims, rank)
+        tfs = random_factors(gen, dims, rank)
+        hist = len(registry().histogram(TUNE_SEARCH_TIME_US))
+        before = registry().snapshot()
+        with Trace() as tt:
+            res = search.tune_mttkrp(tx, tfs, 0, ctx=repro_torch.ExecutionContext.create("auto"))
+        measured = registry().delta(before).get(TUNE_CANDIDATES, 0)
+        searches = [e for e in tt.events if e["kind"] == "tune_search"]
+        observed = len(registry().histogram(TUNE_SEARCH_TIME_US)) - hist
+        before = registry().snapshot()
+        replay = search.resolve(dims, rank, 0, torch.float32, device=tx.device)
+        hits = registry().delta(before).get(TUNE_CACHE_HITS, 0)
+        tune_ok = (len(searches) == 1 and measured == searches[0]["timed"] and observed == 1
+                   and hits == 1 and replay.cache_hit)
+    rec = {"observe": "serve_and_tune", "requests": n_req,
+           "events": {k: kinds.count(k) for k in sorted(set(kinds))},
+           "iterations_by_bucket": list(iters_run.values()),
+           "tune_search_events": len(searches), "candidates": len(res.measurements),
+           "candidates_measured": measured,
+           "search_time_us": searches[0]["search_time_us"] if searches else None,
+           "search_time_observations": observed, "replay_cache_hits": hits, "gpu": smi}
+    emit(rec)
+    if not (serve_ok and tune_ok):
+        raise AssertionError(f"observe 13e: {rec}")
+    return rec
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2133,21 +2615,32 @@ def main() -> int:
                                           "multi_ttm_mma_kernel"))
     PARTIAL_REGS.update(parse_partial_registers(built["sweep.cu"][1]))
 
+    seconds = {"2": time.perf_counter() - t0}
+
+    def phase(name, fn, *fn_args):
+        """Run one phase; its wall time goes into ``seconds``."""
+        t = time.perf_counter()
+        out = fn(*fn_args)
+        seconds[name] = time.perf_counter() - t
+        return out
+
     gen = torch.Generator(device="cuda").manual_seed(args.seed)
     records: dict = {}
-    kernel_phases(gen, smi, records)  # phases 3 and 4
-    sweep_kernel_phases(gen, smi, records)  # phase 5
-    main_path = cp_phase(gen)  # phase 6
-    matrix = matrix_phase(gen)  # phase 6b
-    multi_ttm_phase(gen, smi, records)  # phase 7
-    tucker = tucker_phase(gen)  # phase 8
-    ssd_kernel_phase(gen, smi, records)  # phase 9a
-    mamba = mamba_phase(gen, smi)  # phases 9b, 9c
-    batched = batched_phase(gen, smi)  # phase 10
-    served = serve_phase(gen, smi)  # phase 11
-    tuned = tune_phase(gen, smi)  # phase 12
+    phase("3-4", kernel_phases, gen, smi, records)
+    phase("5", sweep_kernel_phases, gen, smi, records)
+    main_path = phase("6", cp_phase, gen)
+    matrix = phase("6b", matrix_phase, gen)
+    phase("7", multi_ttm_phase, gen, smi, records)
+    tucker = phase("8", tucker_phase, gen)
+    phase("9a", ssd_kernel_phase, gen, smi, records)
+    mamba = phase("9b-9c", mamba_phase, gen, smi)
+    batched = phase("10", batched_phase, gen, smi)
+    served = phase("11", serve_phase, gen, smi)
+    tuned = phase("12", tune_phase, gen, smi)
+    observed = phase("13", observe_phase, gen, smi)
     for counted in (matrix["launches"], tucker["launches"], mamba["launches"],
-                    batched["launches"], served["launches"], tuned["launches"]):
+                    batched["launches"], served["launches"], tuned["launches"],
+                    observed["launches"]):
         for name, n in counted.items():
             main_path["launches"][name] += n
 
@@ -2166,7 +2659,8 @@ def main() -> int:
             raise AssertionError(f"{name} was never launched on the main paths")
         kernels.append({  # launches: summed over the main-path runs (CP-ALS, CP-ALS on a
             # matrix, Tucker, the Mamba2 prefill, the batched CP-ALS and HOOI
-            # drivers, the server's flushes and the auto runs), each counted from 0
+            # drivers, the server's flushes, the auto runs and the traced runs),
+            # each counted from 0
             "name": name, "route": "cuda", "source": CSRC + SOURCE[name],
             "replaces": REPLACES[name],
             "launches": main_path["launches"][name],
@@ -2178,6 +2672,7 @@ def main() -> int:
             # events, or (kernels of a few microseconds) launches in a CUDA graph
             "timing": head.get("timing", "cuda_events"),
         })
+    emit({"phase_seconds": seconds, "total_s": time.perf_counter() - START})
     print(smi, flush=True)
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

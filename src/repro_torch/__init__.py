@@ -28,6 +28,13 @@ DecompositionServer` buckets CP requests into batched runs::
     server.submit(torch.randn(90, 95, 93, device="cuda"), rank=16)
     results = server.flush()
 
+:class:`Trace` records a span event for every engine dispatch, driver
+iteration and served request inside it (``python -m
+repro_torch.observe.report TRACE.jsonl`` tables them)::
+
+    with repro_torch.Trace(path="run.jsonl"):
+        repro_torch.cp_als(x, rank=16, ctx=ctx)
+
 The JAX package ``repro`` is the reference; this package never imports it.
 """
 
@@ -42,6 +49,7 @@ from .engine.batch import (
 from .engine.context import ExecutionContext
 from .engine.execute import contract_partial, mttkrp, multi_ttm
 from .engine.plan import BlockPlan, Memory, MultiTTMPlan
+from .observe.trace import Trace
 
 __all__ = [
     "ExecutionContext",
@@ -60,4 +68,5 @@ __all__ = [
     "TuckerResult",
     "tucker_hooi_batched",
     "BatchedTuckerResult",
+    "Trace",
 ]

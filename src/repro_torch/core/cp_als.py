@@ -31,6 +31,7 @@ from ..engine import execute as engine_execute
 from ..engine.context import ExecutionContext
 from ..engine.sweep import fused_als_sweep
 from ..engine.tree import dimtree_als_sweep
+from ..observe import trace as _otrace
 from .tensor import frob_norm, random_factors, tensor_from_factors
 
 MttkrpFn = Callable[[torch.Tensor, Sequence[torch.Tensor], int], torch.Tensor]
@@ -92,7 +93,7 @@ def cp_als(
     ctx: ExecutionContext | None = None,
 ) -> CPResult:
     """CP-ALS with every MTTKRP through the engine under ``ctx`` (default
-    ``ExecutionContext()``: the Hopper kernels on the card).
+    ``ExecutionContext.default()``: the Hopper kernels on the card).
 
     ``init_factors`` start the iteration (tests pass the reference's); else
     the factors are drawn from ``generator`` (default: seed 0 on the
@@ -107,7 +108,7 @@ def cp_als(
     and up). ``mttkrp_fn(x, factors, mode)`` replaces the engine's MTTKRP on
     the ``per_mode`` schedule, as in the reference. ``ctx.backend="auto"``
     resolves every contraction through the tune cache."""
-    ctx = ctx if ctx is not None else ExecutionContext()
+    ctx = ctx if ctx is not None else ExecutionContext.default()
     if sweep is not None:
         if sweep not in _SWEEPS + ("auto",):
             raise ValueError(f"unknown sweep {sweep!r}; expected one of {_SWEEPS + ('auto',)}")
@@ -167,8 +168,17 @@ def cp_als(
             for mode in range(n):
                 factors[mode] = update(mode, mttkrp_fn(x, factors, mode))
         gram_full = _hadamard_except(grams, -1) * torch.outer(weights, weights)
-        fits.append(float(_fit(normx, last["b"], last["a"], gram_full)))
-        if tol and it > 0 and abs(fits[-1] - fits[-2]) < tol:
+        fit = float(_fit(normx, last["b"], last["a"], gram_full))
+        fits.append(fit)
+        delta = abs(fits[-1] - fits[-2]) if it > 0 else None
+        converged = bool(tol and it > 0 and delta < tol)
+        # float(_fit) above waits for the device: never under graph capture
+        if _otrace.should_record(ctx.observe):
+            _otrace.record_event("cp_als_iter", shape=list(x.shape), rank=int(rank),
+                                 schedule=schedule, it=it, fit=fit, fit_delta=delta,
+                                 weights=[float(w) for w in weights.tolist()],
+                                 converged=converged)
+        if converged:
             break
     return CPResult(factors, weights, fits)
 
@@ -191,7 +201,7 @@ def cp_gradient(
     drawn from ``generator`` (default: seed 0 on the context's device). A fit
     is recorded every 10 steps and at the last. The result's ``weights`` are
     ones (the factors carry the scale)."""
-    ctx = ctx if ctx is not None else ExecutionContext()
+    ctx = ctx if ctx is not None else ExecutionContext.default()
     ctx.check_tensor("repro_torch.cp_gradient", x, *(init_factors or ()))
     n = x.ndim
     if mttkrp_fn is None:

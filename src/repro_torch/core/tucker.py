@@ -23,6 +23,7 @@ import torch
 
 from ..engine import execute as engine_execute
 from ..engine.context import ExecutionContext
+from ..observe import trace as _otrace
 from .tensor import frob_norm
 
 
@@ -126,7 +127,7 @@ def tucker_hooi(
     One sweep = for each mode k: ``Y = multi_ttm(x, factors, keep=k)``,
     then ``A_k`` = the top-``R_k`` eigenvectors of ``Y_(k) Y_(k)^T``. Every
     Multi-TTM goes through the engine under ``ctx`` (default
-    ``ExecutionContext()``: the Hopper kernel on the card, one launch per
+    ``ExecutionContext.default()``: the Hopper kernel on the card, one launch per
     mode); on ``backend="auto"`` each resolves through the tune cache
     (``resolve_multi_ttm``; a context from ``ExecutionContext.for_problem``
     with the Tucker ranks replays its pinned decisions). The reference routes a distributed context to its
@@ -139,7 +140,7 @@ def tucker_hooi(
     ``tol`` stops early when the fit changes by less between sweeps. The
     core comes out of the last mode update, with no extra pass over X.
     Returns a :class:`TuckerResult`."""
-    ctx = ctx if ctx is not None else ExecutionContext()
+    ctx = ctx if ctx is not None else ExecutionContext.default()
     ctx.check_tensor("repro_torch.tucker_hooi", x, *(init_factors or ()))
     ranks = _check_ranks(x.shape, ranks)
     n = x.ndim
@@ -160,7 +161,13 @@ def tucker_hooi(
         # the core falls out of the last mode update: contract mode N-1 of
         # its Y with the fresh A_{N-1} (no extra pass over X)
         core = ttm(y, factors[n - 1], n - 1)
-        fits.append(_fit(normx, core))
-        if tol and it > 0 and abs(fits[-1] - fits[-2]) < tol:
+        fit = _fit(normx, core)
+        fits.append(fit)
+        delta = abs(fits[-1] - fits[-2]) if it > 0 else None
+        converged = bool(tol and it > 0 and delta < tol)
+        if _otrace.should_record(ctx.observe):
+            _otrace.record_event("tucker_iter", shape=list(x.shape), ranks=list(ranks), it=it,
+                                 fit=fit, fit_delta=delta, converged=converged)
+        if converged:
             break
     return TuckerResult(core, factors, fits)

@@ -27,6 +27,7 @@ import torch
 from ..core.cp_als import CPResult
 from ..core.tensor import random_factors
 from ..core.tucker import TuckerResult, _check_ranks
+from ..observe import trace as _otrace
 from . import execute as engine_execute
 from .context import ExecutionContext
 from .plan import batched_choose_blocks
@@ -130,7 +131,7 @@ def cp_als_batched(
 ) -> BatchedCPResult:
     """CP-ALS over a stack of B same-shaped tensors ``x (B, I_0, ...,
     I_{N-1})``, per-mode schedule, with every MTTKRP one batched engine
-    call under ``ctx`` (default ``ExecutionContext()``: on the card, one
+    call under ``ctx`` (default ``ExecutionContext.default()``: on the card, one
     kernel launch a mode for the whole batch).
 
     ``init_factors[k]`` is ``(B, I_k, R)``; else element b's factors are
@@ -140,7 +141,7 @@ def cp_als_batched(
     sweep); the loop ends when every element has. Each element follows the
     trajectory of :func:`repro_torch.cp_als` from its start, to fp32
     rounding."""
-    ctx = ctx if ctx is not None else ExecutionContext()
+    ctx = ctx if ctx is not None else ExecutionContext.default()
     if x.ndim < 3:
         raise ValueError(
             f"cp_als_batched needs a batch of >=2-way tensors (B, I_0, ..., I_N-1); got "
@@ -201,8 +202,12 @@ def cp_als_batched(
         iters_run = iters_run + active.to(torch.int32)
         if tol and it > 0:
             converged = converged | (active & (delta < tol))
-            if bool(converged.all()):
-                break
+        if _otrace.should_record(ctx.observe):
+            _otrace.record_event("cp_als_batched_iter", batch=batch, shape=list(dims),
+                                 rank=int(rank), it=it, fits=fits.tolist(),
+                                 converged=converged.tolist())
+        if tol and it > 0 and bool(converged.all()):
+            break
     return BatchedCPResult(factors, weights, fits, iters_run, converged, fit_history)
 
 
@@ -273,7 +278,7 @@ def tucker_hooi_batched(
     batched full-core Multi-TTM), as :func:`repro_torch.tucker_hooi` does.
     Each element follows the trajectory of :func:`repro_torch.tucker_hooi`,
     to fp32 rounding."""
-    ctx = ctx if ctx is not None else ExecutionContext()
+    ctx = ctx if ctx is not None else ExecutionContext.default()
     if x.ndim < 3:
         raise ValueError(
             f"tucker_hooi_batched needs a batch of >=2-way tensors (B, I_1, ..., I_N); got "
@@ -319,6 +324,10 @@ def tucker_hooi_batched(
         iters_run = iters_run + active.to(torch.int32)
         if tol and it > 0:
             converged = converged | (active & (delta < tol))
-            if bool(converged.all()):
-                break
+        if _otrace.should_record(ctx.observe):
+            _otrace.record_event("tucker_batched_iter", batch=batch, shape=list(dims),
+                                 ranks=list(ranks), it=it, fits=fits.tolist(),
+                                 converged=converged.tolist())
+        if tol and it > 0 and bool(converged.all()):
+            break
     return BatchedTuckerResult(core, factors, fits, iters_run, converged)

@@ -22,10 +22,20 @@ one problem once (:class:`ProblemSpec`, :class:`PlanDecision`), so the
 drivers replay decisions instead of looking them up a call.
 ``compilation_cache`` names the directory the kernels are built into and
 loaded from (:meth:`ExecutionContext.ensure_compilation_cache`), the port's
-counterpart of the reference's XLA compilation cache.
+counterpart of the reference's XLA compilation cache. ``observe=True`` opts
+a context's calls into the span events of an active
+:class:`repro_torch.observe.Trace`.
 
-The distributed path and the observability layer come with later slices
-and are rejected here with a message that names the slice.
+:meth:`ExecutionContext.default` is what every driver called without
+``ctx`` runs under: the context that ``REPRO_TORCH_CONTEXT`` (a path to a
+context JSON file, or the JSON text itself) seeds, else
+``ExecutionContext()``. The port reads its own variable, not the
+reference's ``REPRO_CONTEXT``: a reference context names
+``backend="pallas"``, which this port refuses, and both packages may run
+in one process.
+
+The distributed path comes with a later slice and is rejected here with a
+message that names the slice.
 """
 
 from __future__ import annotations
@@ -41,6 +51,7 @@ import torch
 from .plan import Memory, keep_first
 
 SCHEMA = "repro_torch.ExecutionContext/1"
+ENV_CONTEXT = "REPRO_TORCH_CONTEXT"
 
 #: The executors, and ``auto``, which resolves to one of them.
 CONCRETE_BACKENDS = ("einsum", "blocked_host", "cuda")
@@ -48,7 +59,6 @@ VALID_BACKENDS = CONCRETE_BACKENDS + ("auto",)
 _LATER = {
     "pallas": "the TPU kernels' counterparts here are backend='cuda'",
     "distributed": "the distributed drivers come with their slice (ROADMAP Queue 1 item 12)",
-    "observe": "observe=True comes with the observability slice (ROADMAP Queue 1 item 10)",
 }
 
 
@@ -105,6 +115,10 @@ class ProblemSpec:
         if isinstance(self.rank, (tuple, list)):
             object.__setattr__(self, "rank", tuple(int(r) for r in self.rank))
         object.__setattr__(self, "dtype", dtype_name(self.dtype))
+
+    @property
+    def is_multi_ttm(self) -> bool:
+        return isinstance(self.rank, tuple)
 
     def to_dict(self) -> dict:
         rank = list(self.rank) if isinstance(self.rank, tuple) else self.rank
@@ -174,6 +188,11 @@ class ExecutionContext:
     cache_path: str | None = None
     problem: ProblemSpec | None = None
     decisions: tuple[PlanDecision, ...] = ()
+    #: Opt this context's calls into the observability layer: span events
+    #: into the active :class:`repro_torch.observe.Trace` (every call
+    #: records under a ``capture="all"`` trace; only observed ones under
+    #: ``capture="observed"``). Off by default.
+    observe: bool = False
     #: Directory the Hopper kernels are built into and loaded from
     #: (:meth:`ensure_compilation_cache`): a second process serving the
     #: same buckets loads the libraries a first one built. None leaves
@@ -230,11 +249,10 @@ class ExecutionContext:
         distributed: bool = False,
         observe: bool = False,
     ) -> "ExecutionContext":
-        """Build and validate a context. ``distributed`` and ``observe``
-        exist to reject a reference call that sets them."""
-        for key, on in (("distributed", distributed), ("observe", observe)):
-            if on:
-                raise ValueError(_LATER[key])
+        """Build and validate a context. ``distributed`` exists to reject a
+        reference call that sets it."""
+        if distributed:
+            raise ValueError(_LATER["distributed"])
         return cls(
             backend=backend,
             memory=memory,
@@ -243,6 +261,7 @@ class ExecutionContext:
             device=str(device),
             tune=bool(tune),
             cache_path=cache_path,
+            observe=bool(observe),
             compilation_cache=compilation_cache,
         )
 
@@ -372,6 +391,7 @@ class ExecutionContext:
             "cache_path": self.cache_path,
             "problem": self.problem.to_dict() if self.problem is not None else None,
             "decisions": [d.to_dict() for d in self.decisions],
+            "observe": self.observe,
             "compilation_cache": self.compilation_cache,
         }
 
@@ -396,6 +416,7 @@ class ExecutionContext:
             cache_path=d.get("cache_path"),
             problem=ProblemSpec.from_dict(prob) if prob is not None else None,
             decisions=tuple(PlanDecision.from_dict(x) for x in d.get("decisions", ())),
+            observe=bool(d.get("observe", False)),
             compilation_cache=d.get("compilation_cache"),
         )
 
@@ -406,6 +427,45 @@ class ExecutionContext:
     def from_json(cls, s: str) -> "ExecutionContext":
         """Inverse of :meth:`to_json`: ``from_json(ctx.to_json()) == ctx``."""
         return cls.from_dict(json.loads(s))
+
+    def save(self, path: str) -> None:
+        with open(path, "w") as f:
+            f.write(self.to_json(indent=1))
+
+    @classmethod
+    def load(cls, path: str) -> "ExecutionContext":
+        with open(path) as f:
+            return cls.from_json(f.read())
+
+    @classmethod
+    def from_env(cls) -> "ExecutionContext | None":
+        """The ``REPRO_TORCH_CONTEXT`` seed: a path to a context JSON file,
+        or the JSON text itself. None when the variable is unset."""
+        raw = os.environ.get(ENV_CONTEXT)
+        if not raw:
+            return None
+        if os.path.exists(raw):
+            return cls.load(raw)
+        return cls.from_json(raw)
+
+    @classmethod
+    def default(cls) -> "ExecutionContext":
+        """What a driver uses when handed no ``ctx``: the
+        ``REPRO_TORCH_CONTEXT`` seed if set, else ``ExecutionContext()``
+        (the card). Memoized on the raw value of the variable, so bare calls
+        in a loop neither re-read a file nor re-parse JSON; a new value
+        replaces the memo."""
+        raw = os.environ.get(ENV_CONTEXT) or ""
+        cached = _DEFAULT_MEMO.get(raw)
+        if cached is None:
+            cached = cls.from_env() or cls()
+            _DEFAULT_MEMO.clear()  # the variable changed: the old seed is stale
+            _DEFAULT_MEMO[raw] = cached
+        return cached
+
+
+#: :meth:`ExecutionContext.default`'s memo, keyed by the raw variable.
+_DEFAULT_MEMO: dict[str, ExecutionContext] = {}
 
 
 @functools.lru_cache(maxsize=64)

@@ -30,22 +30,41 @@ batch is the kernels' grid z dimension), plus at most one
 ``splitk_reduce``. Each kernel wrapper counts its own launches
 (``mttkrp3.launches``, ``mttkrpn.launches``, ``mttkrp_partial.launches``,
 ``fused_pair.launches``, ``multi_ttm_keep.launches``,
-``splitk_reduce.launches``).
+``splitk_reduce.launches``); the metrics registry counts the contractions
+dispatched to them, once each (``engine.cuda_dispatches``).
+
+Under an active :class:`repro_torch.observe.Trace` that admits the call
+(:func:`repro_torch.observe.trace.should_record`) each entry point records
+one span event, as the reference's do: the resolved backend, the plan its
+kernel ran under (the tune cache's codec; the plan the card would launch on
+a CPU tensor), the model plan's words (Eq 10, or
+``MultiTTMPlan.model_words``) and the sequential lower bound against
+``ctx.memory`` or ``Memory.h100_smem``, the dtype policy and the host's
+time for the dispatch; on ``cuda`` also ``kernel_modeled_bytes``, the
+kernel's own model of the bytes it moves under that plan
+(``tune.search.kernel_plan_bytes``). With no trace, or one that refuses
+the call, none of that work runs.
 """
 
 from __future__ import annotations
 
+import functools
 import math
+import time
+from contextlib import contextmanager
 from typing import Sequence
 
 import torch
 
 from ..core.blocked import mttkrp_blocked, multi_ttm_blocked
-from ..core.bounds import multi_ttm_best_block_size
+from ..core.bounds import multi_ttm_best_block_size, multi_ttm_seq_lb_memory, seq_lb_memory
 from ..core.mttkrp import mttkrp as _einsum_mttkrp
 from ..kernels import ops as kernel_ops
 from ..kernels.ref import mttkrp_ref
 from ..kernels.sweep import fused_pair_canonical
+from ..observe import collect
+from ..observe import trace as _otrace
+from ..observe.metrics import CUDA_DISPATCHES, registry
 from .context import ExecutionContext, torch_dtype
 from .plan import (
     Memory,
@@ -53,8 +72,164 @@ from .plan import (
     MultiTTMKernelPlan,
     PartialKernelPlan,
     best_uniform_block,
+    choose_blocks,
+    choose_multi_ttm_blocks,
     keep_first,
 )
+
+
+def _count_cuda() -> None:
+    # how many contractions were dispatched to the Hopper kernels (each
+    # wrapper counts its own launches, splitk_reduce's included)
+    registry().inc(CUDA_DISPATCHES)
+
+
+# ---------------------------------------------------------------------------
+# Span events (repro_torch.observe), recorded only when should_record admits
+# ---------------------------------------------------------------------------
+
+@contextmanager
+def _observed(name: str, span: dict, *arrays):
+    """One observed dispatch: a profiler range around it, the kernel
+    launches it makes collected into ``span["launched"]`` and its host time
+    into ``span["wall_time_us"]`` (no device synchronization)."""
+    t0 = time.perf_counter()
+    with _otrace.annotated(name, *arrays), collect.collecting() as launched:
+        yield
+    span["wall_time_us"] = (time.perf_counter() - t0) * 1e6
+    span["launched"] = launched
+
+
+def _span_plan(plan) -> dict | None:
+    """A plan as a span records it: the tune cache's codec, tagged by type,
+    so span plans and cached plans never drift apart."""
+    return None if plan is None else dict(_plan_dict(plan))
+
+
+@functools.lru_cache(maxsize=1024)
+def _plan_dict(plan) -> dict:
+    from ..tune.cache import plan_to_dict  # call-time: tune imports the engine
+
+    return plan_to_dict(plan)
+
+
+def _dtype_policy(ctx: ExecutionContext) -> dict:
+    return {"compute_dtype": ctx.compute_dtype, "out_dtype": ctx.out_dtype}
+
+
+def _span_memory(ctx: ExecutionContext, itemsize: int) -> Memory:
+    """The memory a span's model and bound are taken against: the
+    context's, else the Hopper kernels' shared memory (the tune key's
+    default), where the reference takes ``Memory.tpu_vmem``."""
+    return ctx.memory or Memory.h100_smem(itemsize=itemsize)
+
+
+# The span's models are pure functions of the problem, and a span recurs on
+# every iteration: memoized, so a traced dispatch does not re-plan in Python.
+
+@functools.lru_cache(maxsize=1024)
+def _kernel_bytes(plan, shape: tuple, rank, itemsize: int) -> int:
+    from ..tune.search import kernel_plan_bytes  # call-time: tune imports the engine
+
+    return int(kernel_plan_bytes(plan, shape, rank, itemsize))
+
+
+@functools.lru_cache(maxsize=1024)
+def _mttkrp_model(shape: tuple, mode_first: tuple, rank: int, itemsize: int, mem: Memory,
+                  x_has_rank: bool) -> tuple[int, float]:
+    """(Eq-10 words of the model plan, the Thm-4.1 bound clamped at 0)."""
+    model = choose_blocks(mode_first, rank, itemsize, memory=mem, x_has_rank=x_has_rank)
+    return (int(model.eq10_words(mode_first, rank)),
+            max(seq_lb_memory(shape, rank, mem.budget_words), 0.0))
+
+
+@functools.lru_cache(maxsize=1024)
+def _multi_ttm_model(shape: tuple, canon: tuple, ranks: tuple, kernel_ranks: tuple,
+                     itemsize: int, mem: Memory) -> tuple[int, float]:
+    """(``MultiTTMPlan.model_words`` of the model plan, the HBL bound
+    clamped at 0)."""
+    model = choose_multi_ttm_blocks(canon, kernel_ranks, itemsize, memory=mem)
+    return (int(model.model_words(canon)),
+            max(multi_ttm_seq_lb_memory(shape, ranks, mem.budget_words), 0.0))
+
+
+def _kernel_fields(span: dict, shape, rank, itemsize: int, batch: int = 1) -> tuple:
+    """``(plan, extra)``: the plan the dispatch's first kernel ran under
+    and, on ``cuda``, ``kernel_modeled_bytes`` (the kernel's model of the
+    bytes it moves under that plan, for each element of a batch)."""
+    plan = next((k.plan for k in span.get("launched", ()) if k.plan is not None), None)
+    if span.get("backend") != "cuda" or plan is None:
+        return plan, {}
+    nbytes = _kernel_bytes(plan, tuple(shape), rank, itemsize) + span.get("other_written", 0)
+    return plan, {"kernel_modeled_bytes": nbytes * batch}
+
+
+def _record_mttkrp_span(kind: str, ctx, shape, rank, mode, itemsize, span, **extra) -> None:
+    """One MTTKRP-shaped dispatch event: the resolved backend, the plan its
+    kernel ran under, the Eq-10 words of the model plan against the span's
+    memory, and the Thm-4.1 lower bound, clamped at 0."""
+    mem = _span_memory(ctx, itemsize)
+    shape = tuple(int(s) for s in shape)
+    mode_first = keep_first(shape, mode) if kind == "mttkrp" else shape
+    modeled, bound = _mttkrp_model(shape, mode_first, int(rank), itemsize, mem,
+                                   bool(span.get("x_has_rank", False)))
+    plan, kernel = _kernel_fields(span, mode_first, rank, span["kernel_itemsize"],
+                                  extra.get("batch", 1))
+    _otrace.record_event(
+        kind,
+        shape=list(shape),
+        rank=int(rank),
+        mode=int(mode),
+        backend=span.get("backend"),
+        plan=_span_plan(plan),
+        modeled_words=modeled,
+        lower_bound_words=bound,
+        memory_words=mem.budget_words,
+        itemsize=int(itemsize),
+        wall_time_us=span["wall_time_us"],
+        **_dtype_policy(ctx),
+        **extra,
+        **kernel,
+    )
+
+
+def _record_multi_ttm_span(ctx, shape, ranks, keep, itemsize, span, **extra) -> None:
+    """One Multi-TTM dispatch event: the resolved backend, the plan its
+    kernel ran under, the blocked model's words (``MultiTTMPlan.model_words``)
+    and the HBL sequential lower bound, clamped at 0."""
+    mem = _span_memory(ctx, itemsize)
+    shape, ranks = tuple(int(s) for s in shape), tuple(int(r) for r in ranks)
+    canon = keep_first(shape, 0 if keep is None else keep)
+    kernel_ranks = ranks[1:] if keep is None else ranks
+    modeled, bound = _multi_ttm_model(shape, canon, ranks, kernel_ranks, itemsize, mem)
+    plan, kernel = _kernel_fields(span, canon, kernel_ranks, span["kernel_itemsize"],
+                                  extra.get("batch", 1))
+    _otrace.record_event(
+        "multi_ttm",
+        shape=list(shape),
+        ranks=list(ranks),
+        keep=keep,
+        backend=span.get("backend"),
+        plan=_span_plan(plan),
+        modeled_words=modeled,
+        lower_bound_words=bound,
+        memory_words=mem.budget_words,
+        itemsize=int(itemsize),
+        wall_time_us=span["wall_time_us"],
+        **_dtype_policy(ctx),
+        **extra,
+        **kernel,
+    )
+
+
+def _note_backend(span: dict | None, ctx: ExecutionContext, dtype: torch.dtype) -> None:
+    """Record the resolved executor (and the width its operands run at)
+    into an observed dispatch's span; count a ``cuda`` dispatch."""
+    if ctx.backend == "cuda":
+        _count_cuda()
+    if span is not None:
+        span["backend"] = ctx.backend
+        span["kernel_itemsize"] = _compute_dtype(ctx, dtype).itemsize
 
 
 def _compute_dtype(ctx: ExecutionContext, dtype: torch.dtype) -> torch.dtype:
@@ -196,24 +371,35 @@ def mttkrp(
 ) -> torch.Tensor:
     """MTTKRP through the engine: ``B^(mode)(i, r)``.
 
-    ``ctx`` defaults to ``ExecutionContext()`` (the ``cuda`` backend on the
+    ``ctx`` defaults to ``ExecutionContext.default()`` (the ``cuda`` backend on the
     card). ``plan`` pins block sizes for ``cuda``; ``block`` the uniform
     host-blocking size of ``blocked_host``; ``kernel_variant`` the 3-way
     specialized or N-way generic kernel."""
-    ctx = ctx if ctx is not None else ExecutionContext()
+    ctx = ctx if ctx is not None else ExecutionContext.default()
     ctx.check_tensor("repro_torch.mttkrp", x, *factors)
-    if x.ndim == len(factors) + 1:
-        # leading batch axis: B independent MTTKRPs in one call
-        return _mttkrp_batched(x, factors, mode, ctx, plan, block, out_dtype, kernel_variant)
-    if x.ndim != len(factors):
+    # a leading batch axis: B independent MTTKRPs in one call
+    batched = x.ndim == len(factors) + 1
+    if x.ndim != len(factors) and not batched:
         raise ValueError(f"{x.ndim}-way tensor with {len(factors)} factors")
-    return _mttkrp_impl(x, factors, mode, ctx, plan, block, out_dtype, kernel_variant)
+    impl = _mttkrp_batched if batched else _mttkrp_impl
+    args = (x, factors, mode, ctx, plan, block, out_dtype, kernel_variant)
+    if not _otrace.should_record(ctx.observe, x, *factors):
+        return impl(*args)
+    span: dict = {}
+    with _observed(f"repro_torch.mttkrp{'.batched' if batched else ''}.mode{mode}", span, x):
+        out = impl(*args, _span=span)
+    rank = next(int(f.shape[-1]) for k, f in enumerate(factors) if k != mode)
+    extra = {"batch": int(x.shape[0])} if batched else {}
+    _record_mttkrp_span("mttkrp", ctx, tuple(x.shape[int(batched):]), rank, mode,
+                        x.element_size(), span, **extra)
+    return out
 
 
-def _mttkrp_impl(x, factors, mode, ctx, plan, block, out_dtype, kernel_variant):
+def _mttkrp_impl(x, factors, mode, ctx, plan, block, out_dtype, kernel_variant, _span=None):
     if ctx.backend == "auto":
         ctx, plan, block, kernel_variant = _auto_mttkrp(
             ctx, x, factors, mode, tuple(x.shape), False, plan, block, kernel_variant)
+    _note_backend(_span, ctx, x.dtype)
     memory = ctx.memory
     if out_dtype is None and ctx.out_dtype is not None:
         out_dtype = torch_dtype(ctx.out_dtype)
@@ -235,7 +421,8 @@ def _mttkrp_impl(x, factors, mode, ctx, plan, block, out_dtype, kernel_variant):
     )
 
 
-def _mttkrp_batched(x, factors, mode, ctx, plan, block, out_dtype, kernel_variant):
+def _mttkrp_batched(x, factors, mode, ctx, plan, block, out_dtype, kernel_variant,
+                    _span=None):
     """B MTTKRPs as one call: ``x`` is ``(B, I_0, ..., I_{N-1})``,
     ``factors[k]`` is ``(B, I_k, R)`` (per element) or ``(I_k, R)``
     (shared). ``einsum`` takes one einsum with a batch letter,
@@ -250,6 +437,7 @@ def _mttkrp_batched(x, factors, mode, ctx, plan, block, out_dtype, kernel_varian
     if ctx.backend == "auto":  # one resolution for the batch, on the element's key
         ctx, plan, block, kernel_variant = _auto_mttkrp(
             ctx, x, factors, mode, elem_shape, True, plan, block, kernel_variant)
+    _note_backend(_span, ctx, x.dtype)
     if out_dtype is None and ctx.out_dtype is not None:
         out_dtype = torch_dtype(ctx.out_dtype)
     x, factors, out_dtype, mixed = _cast_compute(ctx, x, factors, out_dtype)
@@ -296,7 +484,7 @@ def contract_partial(
     MTTKRP kernels as a canonical copy, kept modes flattened. ``plan`` pins
     the kernel's blocks: a ``PartialKernelPlan`` for the partial kernel, an
     ``MTTKRPKernelPlan`` for the MTTKRP kernels; a CPU tensor ignores it."""
-    ctx = ctx if ctx is not None else ExecutionContext()
+    ctx = ctx if ctx is not None else ExecutionContext.default()
     ctx.check_tensor("repro_torch.contract_partial", node, *factors)
     modes, drop = tuple(modes), tuple(drop)
     batched = node.ndim == len(modes) + int(has_rank) + 1
@@ -304,16 +492,30 @@ def contract_partial(
         raise ValueError(f"node of {node.ndim} axes for modes {modes} (has_rank={has_rank})")
     if not drop or any(m not in modes for m in drop):
         raise ValueError(f"drop {drop} must be a non-empty subset of modes {modes}")
-    if batched:
-        # leading batch axis: B tree-node contractions in one call
-        return _contract_partial_batched(node, factors, modes, drop, has_rank, ctx, plan)
-    return _contract_partial_impl(node, factors, modes, drop, has_rank, ctx, plan)
+    # a leading batch axis: B tree-node contractions in one call
+    impl = _contract_partial_batched if batched else _contract_partial_impl
+    args = (node, factors, modes, drop, has_rank, ctx, plan)
+    if not _otrace.should_record(ctx.observe, node, *factors):
+        return impl(*args)
+    span: dict = {"x_has_rank": bool(has_rank)}
+    with _observed(f"repro_torch.contract_partial{'.batched' if batched else ''}", span,
+                   node):
+        out = impl(*args, _span=span)
+    from ..tune.search import partial_canon_shape  # call-time: tune imports the engine
+
+    extra = {"batch": int(node.shape[0])} if batched else {}
+    _record_mttkrp_span(
+        "contract_partial", ctx, partial_canon_shape(node.shape[int(batched):], modes, drop),
+        int(factors[drop[0]].shape[-1]), 0, node.element_size(), span,
+        modes=list(modes), drop=list(drop), has_rank=bool(has_rank), **extra)
+    return out
 
 
-def _contract_partial_impl(node, factors, modes, drop, has_rank, ctx, plan):
+def _contract_partial_impl(node, factors, modes, drop, has_rank, ctx, plan, _span=None):
     if ctx.backend == "auto":
         ctx, plan = _auto_partial(ctx, node, factors, modes, drop, has_rank, tuple(node.shape),
                                   False, plan)
+    _note_backend(_span, ctx, node.dtype)
     out_dtype = torch_dtype(ctx.out_dtype) if ctx.out_dtype is not None else None
     node, factors, out_dtype, mixed = _cast_compute(ctx, node, factors, out_dtype)
     keep = tuple(m for m in modes if m not in drop)
@@ -352,7 +554,7 @@ def _contract_partial_impl(node, factors, modes, drop, has_rank, ctx, plan):
     return out.to(out_dtype) if out_dtype is not None else out
 
 
-def _contract_partial_batched(node, factors, modes, drop, has_rank, ctx, plan):
+def _contract_partial_batched(node, factors, modes, drop, has_rank, ctx, plan, _span=None):
     """B dimension-tree contractions as one call: ``node`` carries a leading
     batch axis ahead of its tensor modes (and trailing rank axis when
     ``has_rank``); ``factors[m]`` for each dropped mode is ``(B, I_m, R)``
@@ -373,6 +575,7 @@ def _contract_partial_batched(node, factors, modes, drop, has_rank, ctx, plan):
     if ctx.backend == "auto":  # one resolution for the batch, on the element's key
         ctx, plan = _auto_partial(ctx, node, factors, modes, drop, has_rank, elem_shape, True,
                                   plan)
+    _note_backend(_span, ctx, node.dtype)
     out_dtype = torch_dtype(ctx.out_dtype) if ctx.out_dtype is not None else None
     node, factors, out_dtype, mixed = _cast_compute(ctx, node, factors, out_dtype)
     if ctx.backend != "cuda":
@@ -410,9 +613,31 @@ def fused_pair(
     factor list; both outputs come back in ``x``'s dtype, as the reference
     returns them. ``plan`` pins the kernel's blocks; else it plans itself
     against its own shared memory (``choose_pair_kernel_blocks``);
-    ``ctx.memory`` does not pick its plan."""
+    ``ctx.memory`` does not pick its plan. One contraction dispatched to the
+    kernels, and one ``fused_pair`` span under an admitting trace."""
     x, fs, out_dtype, _ = _cast_compute(ctx, x, list(factors[1:]), x.dtype)
-    return fused_pair_canonical(x, fs, plan=plan, out_dtype=out_dtype)
+    _count_cuda()
+    if not _otrace.should_record(ctx.observe, x, *fs):
+        return fused_pair_canonical(x, fs, plan=plan, out_dtype=out_dtype)
+    rank = int(fs[0].shape[1])
+    span: dict = {"backend": "cuda",
+                  # the pair writes P beside the MTTKRP kernel's output
+                  "other_written": math.prod(x.shape[:-1]) * rank * 4}
+    with _observed("repro_torch.fused_pair", span, x):
+        out = fused_pair_canonical(x, fs, plan=plan, out_dtype=out_dtype)
+    launched_plan, kernel = _kernel_fields(span, tuple(x.shape), rank, x.element_size())
+    _otrace.record_event(
+        "fused_pair",
+        shape=list(x.shape),
+        rank=rank,
+        backend="cuda",
+        plan=_span_plan(launched_plan),
+        itemsize=int(x.element_size()),
+        wall_time_us=span["wall_time_us"],
+        **_dtype_policy(ctx),
+        **kernel,
+    )
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -470,7 +695,7 @@ def multi_ttm(
     workhorse ``Y^(k) = X x_{j != k} A_j^T`` with the kept mode in place:
     ``(R_1, ..., I_k, ..., R_N)``.
 
-    ``ctx`` (default ``ExecutionContext()``: the ``cuda`` backend on the
+    ``ctx`` (default ``ExecutionContext.default()``: the ``cuda`` backend on the
     card) selects ``einsum``, ``blocked_host`` (the uniform-b blocked
     schedule; ``block`` overrides the Eq-9 optimum) or ``cuda`` (the
     Hopper Multi-TTM kernel; ``plan``, a ``MultiTTMKernelPlan``, pins its
@@ -481,11 +706,12 @@ def multi_ttm(
     beside the kept one, so ``cuda`` takes tensors of two or more modes. A
     leading batch axis, every matrix ``(B, I_k, R_k)`` or shared
     ``(I_k, R_k)``, is one batched call (one kernel launch on ``cuda``)."""
-    ctx = ctx if ctx is not None else ExecutionContext()
+    ctx = ctx if ctx is not None else ExecutionContext.default()
     ctx.check_tensor("repro_torch.multi_ttm", x, *matrices)
     if x.ndim == len(matrices) + 1 and _looks_batched_multi_ttm(x, matrices, keep):
         # leading batch axis: B Multi-TTMs in one call
-        return _multi_ttm_batched(x, matrices, keep, ctx, plan, block, out_dtype)
+        return _observed_multi_ttm(_multi_ttm_batched, x, matrices, keep, ctx, plan, block,
+                                   out_dtype, True)
     n = x.ndim
     if keep is not None and not 0 <= keep < n:
         raise ValueError(f"keep mode {keep} out of range for {n}-way tensor")
@@ -507,13 +733,34 @@ def multi_ttm(
                 f"matrix {k} has {m.shape[0]} rows but tensor mode {k} "
                 f"has extent {x.shape[k]}"
             )
-    return _multi_ttm_impl(x, matrices, keep, ctx, plan, block, out_dtype)
+    return _observed_multi_ttm(_multi_ttm_impl, x, matrices, keep, ctx, plan, block,
+                               out_dtype, False)
 
 
-def _multi_ttm_impl(x, matrices, keep, ctx, plan, block, out_dtype):
+def _observed_multi_ttm(impl, x, matrices, keep, ctx, plan, block, out_dtype, batched):
+    """``impl`` (unbatched or batched), with its span under an admitting
+    trace."""
+    args = (x, matrices, keep, ctx, plan, block, out_dtype)
+    concrete = [m for m in matrices if m is not None]
+    if not _otrace.should_record(ctx.observe, x, *concrete):
+        return impl(*args)
+    span: dict = {}
+    with _observed(f"repro_torch.multi_ttm{'.batched' if batched else ''}.keep{keep}", span,
+                   x):
+        out = impl(*args, _span=span)
+    extra = {"batch": int(x.shape[0])} if batched else {}
+    _record_multi_ttm_span(
+        ctx, tuple(x.shape[int(batched):]),
+        tuple(int(m.shape[-1]) for k, m in enumerate(matrices) if k != keep), keep,
+        x.element_size(), span, **extra)
+    return out
+
+
+def _multi_ttm_impl(x, matrices, keep, ctx, plan, block, out_dtype, _span=None):
     if ctx.backend == "auto":
         ctx, plan, block = _auto_multi_ttm(ctx, x, matrices, keep, tuple(x.shape), False, plan,
                                            block)
+    _note_backend(_span, ctx, x.dtype)
     n = x.ndim
     if out_dtype is None and ctx.out_dtype is not None:
         out_dtype = torch_dtype(ctx.out_dtype)
@@ -557,7 +804,7 @@ def _multi_ttm_impl(x, matrices, keep, ctx, plan, block, out_dtype):
     return out.to(out_dtype) if out_dtype is not None else out
 
 
-def _multi_ttm_batched(x, matrices, keep, ctx, plan, block, out_dtype):
+def _multi_ttm_batched(x, matrices, keep, ctx, plan, block, out_dtype, _span=None):
     """B Multi-TTMs as one call: ``x`` is ``(B, I_1, ..., I_N)``,
     ``matrices[k]`` is ``(B, I_k, R_k)`` (per element), ``(I_k, R_k)``
     (shared), or ``None`` at the kept mode. ``einsum`` takes one einsum
@@ -579,6 +826,7 @@ def _multi_ttm_batched(x, matrices, keep, ctx, plan, block, out_dtype):
                        [None if m is None else int(m.shape[-1]) for m in matrices], "matrix")
     if ctx.backend == "auto":  # one resolution for the batch, on the element's key
         ctx, plan, block = _auto_multi_ttm(ctx, x, matrices, keep, elem_shape, True, plan, block)
+    _note_backend(_span, ctx, x.dtype)
     if out_dtype is None and ctx.out_dtype is not None:
         out_dtype = torch_dtype(ctx.out_dtype)
     x, matrices, out_dtype, mixed = _cast_compute(ctx, x, matrices, out_dtype)

@@ -16,6 +16,8 @@ Counterpart of ``repro.engine.plan``:
     the plan of a batch, is the element's.
   * :func:`choose_sweep_blocks` (with :func:`fused_pair_working_set_words`)
     — the fused (B0, P) pair's plan, unchanged from the reference.
+  * :func:`mttkrp_traffic_model` — the functional spelling of
+    :meth:`BlockPlan.traffic_model`, as the reference exports it.
   * :func:`best_uniform_block` / :func:`uniform_block_feasible` /
     :func:`uniform_plan` — the paper's exact uniform-b selection (Eq 9).
   * :class:`MultiTTMPlan`, :func:`choose_multi_ttm_blocks`,
@@ -405,6 +407,13 @@ def choose_sweep_blocks(
         dims[j] //= 2
         plan = BlockPlan(dims[0], tuple(dims[1:-1]), dims[-1])
     return plan
+
+
+def mttkrp_traffic_model(
+    shape: Sequence[int], rank: int, plan: BlockPlan, itemsize: int = 4
+) -> dict[str, int]:
+    """The reference's functional spelling of :meth:`BlockPlan.traffic_model`."""
+    return plan.traffic_model(shape, rank, itemsize)
 
 
 # ---------------------------------------------------------------------------

@@ -73,7 +73,7 @@ def fused_als_sweep(
     own side state; ``factors`` is updated in place. Tensors with fewer than
     3 modes take the per-mode chain (nothing to reuse). ``pair_plan`` pins
     the fused pair kernel's blocks where the pair runs on it."""
-    ctx = ctx if ctx is not None else ExecutionContext()
+    ctx = ctx if ctx is not None else ExecutionContext.default()
     n = x.ndim
     if n < 3:
         for mode in range(n):

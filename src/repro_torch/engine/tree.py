@@ -17,6 +17,7 @@ from typing import Callable, Sequence
 
 import torch
 
+from ..observe import trace as _otrace
 from .context import ExecutionContext
 from .execute import contract_partial, mttkrp
 
@@ -57,12 +58,16 @@ def all_mode_mttkrp(
 ) -> list[torch.Tensor]:
     """MTTKRP in every mode: ``[B^(0), ..., B^(N-1)]``. ``"independent"``
     runs N separate MTTKRPs; ``"dimtree"`` shares the upper tree's partial
-    contractions."""
-    ctx = ctx if ctx is not None else ExecutionContext()
+    contractions (and records a ``dimtree_sweep`` span under an admitting
+    trace, beside each edge's ``contract_partial`` span)."""
+    ctx = ctx if ctx is not None else ExecutionContext.default()
     if method == "independent":
         return [mttkrp(x, factors, m, ctx=ctx) for m in range(x.ndim)]
     if method != "dimtree":
         raise ValueError(f"unknown method {method!r}; expected 'dimtree' or 'independent'")
+    if _otrace.should_record(ctx.observe, x, *factors):
+        _otrace.record_event("dimtree_sweep", shape=list(x.shape),
+                             rank=int(factors[0].shape[1]), backend=ctx.backend, n_modes=x.ndim)
     results: dict[int, torch.Tensor] = {}
     _solve_tree(x, factors, results.__setitem__, ctx)
     return [results[m] for m in range(x.ndim)]
@@ -78,7 +83,7 @@ def dimtree_als_sweep(
     """One ALS sweep with dimension-tree reuse, in exactly the Gauss-Seidel
     order of plain ALS. ``update_fn(mode, b)`` returns the new factor and
     may keep its own side state; ``factors`` is updated in place."""
-    ctx = ctx if ctx is not None else ExecutionContext()
+    ctx = ctx if ctx is not None else ExecutionContext.default()
 
     def leaf(mode: int, b: torch.Tensor) -> None:
         factors[mode] = update_fn(mode, b)

@@ -9,7 +9,7 @@ fused-sweep pair and the streaming rank-augmented partial contraction,
 the intra-chunk SSD term of the Mamba2 prefill; the first three share the
 ``cp.async`` ring and tensor-core code of ``ring.cuh``. Each library
 goes into ``_build/`` beside this file (listed in ``.gitignore``), named by
-a hash of its source and the shared headers, so an edited source is rebuilt
+a hash of its source, the shared headers and the flags, so an edited source is rebuilt
 and an unchanged one is loaded as it is. :func:`build_all` starts one
 ``nvcc`` per source at once. A build that fails raises; nothing falls back
 to another implementation.
@@ -39,9 +39,14 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
 _build_dir = BUILD_DIR
+#: ``-cudart shared``: the libraries launch through the CUDA runtime that
+#: PyTorch loads, so the profiler's runtime tracing sees their launches and
+#: attributes each kernel to the ``record_function`` range around it (with
+#: the static runtime it records the kernels but links none to a range).
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-I", str(CSRC),
+    "-shared", "-Xcompiler", "-fPIC", "-cudart", "shared", "-Xptxas", "-v",
+    "-I", str(CSRC),
 )
 SOURCES = ("mttkrp.cu", "sweep.cu", "multi_ttm.cu", "ssd_intra.cu")
 
@@ -117,6 +122,7 @@ def build(source: str = "mttkrp.cu") -> tuple[Path, str]:
     h = hashlib.sha1(src.read_bytes())
     for header in sorted(CSRC.glob("*.cuh")):
         h.update(header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS[:-2]).encode())  # the flags, the include path apart
     digest = h.hexdigest()[:12]
     lib = out_dir / f"lib{src.stem}_{digest}.so"
     report = lib.with_suffix(".log")

@@ -30,7 +30,8 @@ import torch
 
 from ..core.krp import khatri_rao
 from ..engine.plan import MTTKRPKernelPlan
-from .splitk import launch_tile
+from ..observe import collect
+from .splitk import launch_tile, report_tile_plain
 
 
 def mttkrp3_plain(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -60,7 +61,8 @@ def mttkrp3(
     if x.ndim not in (3, 4):
         raise ValueError(f"mttkrp3: a 3-way tensor or a batch of them, got {x.ndim}-way")
     if x.device.type == "cpu":
-        return mttkrp3_plain(x, a, b)
+        return collect.stand_in(lambda: mttkrp3_plain(x, a, b),
+                                lambda: report_tile_plain("mttkrp3", x, [a, b], plan))
     out = launch_tile(x, [a, b], plan, specialized=True, name="mttkrp3")
     mttkrp3.launches += 1
     return out

@@ -31,7 +31,8 @@ import torch
 
 from ..core.krp import khatri_rao
 from ..engine.plan import MTTKRPKernelPlan
-from .splitk import launch_tile
+from ..observe import collect
+from .splitk import launch_tile, report_tile_plain
 
 
 def mttkrpn_plain(x: torch.Tensor, factors: Sequence[torch.Tensor]) -> torch.Tensor:
@@ -61,7 +62,8 @@ def mttkrpn(
     if len(factors) not in (x.ndim - 1, x.ndim - 2) or not factors:
         raise ValueError(f"mttkrpn: {x.ndim}-way tensor with {len(factors)} factors")
     if x.device.type == "cpu":
-        return mttkrpn_plain(x, factors)
+        return collect.stand_in(lambda: mttkrpn_plain(x, factors),
+                                lambda: report_tile_plain("mttkrpn", x, factors, plan))
     out = launch_tile(x, factors, plan, specialized=False, name="mttkrpn")
     mttkrpn.launches += 1
     return out

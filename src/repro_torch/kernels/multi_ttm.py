@@ -38,11 +38,13 @@ from typing import Sequence
 import torch
 
 from ..engine.plan import (
+    H100_SMS,
     MultiTTMKernelPlan,
     choose_multi_ttm_kernel_blocks,
     multi_ttm_kernel_grid,
     multi_ttm_kernel_smem_bytes,
 )
+from ..observe import collect
 from .build import check, library
 from .splitk import (
     batch_stride,
@@ -131,7 +133,8 @@ def multi_ttm_keep(
                              f"expected ({rows}, R_{d + 1})"
                              + (f" or ({x.shape[0]}, {rows}, R_{d + 1})" if batched else ""))
     if x.device.type == "cpu":
-        return multi_ttm_keep_plain(x, matrices, batched)
+        return collect.stand_in(lambda: multi_ttm_keep_plain(x, matrices, batched),
+                                lambda: _report_plain(x, matrices, plan, batched))
     _check_operands(x, matrices, batched)
     shape = tuple(x.shape[lead:])
     batch = x.shape[0] if batched else 1
@@ -163,9 +166,24 @@ def multi_ttm_keep(
             (ll * k)(*ptrs), ws.data_ptr(), stream)
     check(err, "multi_ttm_keep")
     multi_ttm_keep.launches += 1
+    if collect.SINKS:
+        collect.report("multi_ttm_keep", plan, collect.nbytes(x, *matrices), collect.nbytes(ws))
     if splits > 1:
         splitk_reduce(ws, out)
     return out if batched else out[0]
 
 
 multi_ttm_keep.launches = 0  # type: ignore[attr-defined]
+
+
+def _report_plain(x: torch.Tensor, matrices, plan, batched: bool) -> None:
+    """The launches :func:`multi_ttm_keep` would make on an H100 for a CPU
+    ``x`` (:mod:`repro_torch.observe.collect`)."""
+    shape = tuple(x.shape[int(batched):])
+    batch = x.shape[0] if batched else 1
+    ranks = tuple(int(m.shape[-1]) for m in matrices)
+    if not isinstance(plan, MultiTTMKernelPlan):
+        plan = choose_multi_ttm_kernel_blocks(shape, ranks, x.element_size())
+    splits = multi_ttm_kernel_grid(shape, ranks, plan, H100_SMS, batch)[2]
+    collect.report_split("multi_ttm_keep", plan, collect.nbytes(x, *matrices),
+                         batch * shape[0] * math.prod(ranks) * 4, splits)

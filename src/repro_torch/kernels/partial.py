@@ -50,6 +50,7 @@ from ..engine.plan import (
     choose_partial_kernel_blocks,
     partial_kernel_smem_bytes,
 )
+from ..observe import collect
 from .build import check, library
 from .splitk import batch_stride, check_batch, check_smem, splitk_reduce
 
@@ -160,7 +161,8 @@ def mttkrp_partial(
         raise ValueError(f"mttkrp_partial: node of shape {tuple(node.shape)} with "
                          f"{k} factors (batched={batched})")
     if node.device.type == "cpu":
-        return mttkrp_partial_plain(node, factors, batched)
+        return collect.stand_in(lambda: mttkrp_partial_plain(node, factors, batched),
+                                lambda: _report_plain(node, factors, plan, batched))
     name = "mttkrp_partial"
     if node.device.type != "cuda":
         raise ValueError(f"{name}: the kernel needs a CUDA tensor, got {node.device}")
@@ -219,9 +221,23 @@ def mttkrp_partial(
             (ll * nc)(*(f.data_ptr() for f in fs)), ws.data_ptr(), stream)
     check(err, name)
     mttkrp_partial.launches += 1
+    if collect.SINKS:
+        collect.report(name, plan, collect.nbytes(node, *factors), collect.nbytes(ws))
     if plan.splits > 1:
         splitk_reduce(ws, out)
     return out
 
 
 mttkrp_partial.launches = 0  # type: ignore[attr-defined]
+
+
+def _report_plain(node: torch.Tensor, factors, plan, batched: bool) -> None:
+    """The launches :func:`mttkrp_partial` would make on an H100 for a CPU
+    ``node`` (:mod:`repro_torch.observe.collect`): the node is read in
+    place, so its elements count once."""
+    if not isinstance(plan, PartialKernelPlan):
+        plan = default_plan(node, factors, batched)
+    rows = math.prod(node.shape[int(batched):node.ndim - 1 - len(factors)])
+    batch = node.shape[0] if batched else 1
+    collect.report_split("mttkrp_partial", plan, collect.nbytes(node, *factors),
+                         batch * rows * node.shape[-1] * 4, plan.splits)

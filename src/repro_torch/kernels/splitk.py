@@ -28,6 +28,7 @@ import torch
 
 from ..engine.plan import CTAS_PER_SM as CTAS_PER_SM  # re-exported with the split rule
 from ..engine.plan import (
+    H100_SMS,
     SMEM_PER_CTA_MAX,
     MTTKRPKernelPlan,
     choose_mttkrp_kernel_blocks,
@@ -35,6 +36,7 @@ from ..engine.plan import (
     mttkrp_kernel_smem_bytes,
 )
 from ..engine.plan import n_splits as n_splits  # re-exported: the split rule
+from ..observe import collect
 from .build import check, library
 
 
@@ -48,7 +50,9 @@ def splitk_reduce(ws: torch.Tensor, out: torch.Tensor) -> torch.Tensor:
     or ``(S, B, I, R)`` for a batch), in slab order. A CPU tensor takes the
     plain version; a CUDA tensor launches the kernel."""
     if ws.device.type == "cpu":
-        out.copy_(splitk_reduce_plain(ws))
+        collect.stand_in(lambda: out.copy_(splitk_reduce_plain(ws)),
+                          lambda: collect.report("splitk_reduce", None, collect.nbytes(ws),
+                                                  collect.nbytes(out)))
         return out
     if ws.device.type != "cuda" or out.device != ws.device:
         raise ValueError(f"splitk_reduce: needs CUDA tensors, got {ws.device}, {out.device}")
@@ -66,6 +70,8 @@ def splitk_reduce(ws: torch.Tensor, out: torch.Tensor) -> torch.Tensor:
         )
     check(err, "splitk_reduce")
     splitk_reduce.launches += 1
+    if collect.SINKS:
+        collect.report("splitk_reduce", None, collect.nbytes(ws), collect.nbytes(out))
     return out
 
 
@@ -223,6 +229,26 @@ def launch_tile(
             ws.data_ptr(), stream,
         )
     check(err, name)
+    if collect.SINKS:
+        collect.report(name, plan, collect.nbytes(x, *factors), collect.nbytes(ws))
     if splits > 1:
         splitk_reduce(ws, out)
     return out if batched else out[0]
+
+
+def report_tile_plain(name: str, x: torch.Tensor, factors: Sequence[torch.Tensor],
+                      plan) -> None:
+    """For a CPU operand, report the launches :func:`launch_tile` would
+    make on an H100 (:mod:`repro_torch.observe.collect`): the kernel under
+    ``plan`` (the chooser's where ``plan`` is not an ``MTTKRPKernelPlan``,
+    since a CPU tensor ignores it) and, where that plan splits, the
+    reduction."""
+    rank = int(factors[0].shape[-1])
+    batched = x.ndim == len(factors) + 2
+    shape = tuple(x.shape[1:]) if batched else tuple(x.shape)
+    batch = x.shape[0] if batched else 1
+    if not isinstance(plan, MTTKRPKernelPlan):
+        plan = choose_mttkrp_kernel_blocks(shape, rank, x.element_size())
+    splits = mttkrp_kernel_grid(shape, rank, plan, H100_SMS, batch)[2]
+    collect.report_split(name, plan, collect.nbytes(x, *factors),
+                         batch * shape[0] * rank * 4, splits)

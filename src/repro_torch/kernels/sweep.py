@@ -29,6 +29,7 @@ Ragged edges are masked; nothing is padded.
 from __future__ import annotations
 
 import ctypes
+import math
 from typing import Sequence
 
 import torch
@@ -39,6 +40,7 @@ from ..engine.plan import (
     pair_kernel_grid,
     pair_kernel_smem_bytes,
 )
+from ..observe import collect
 from .build import check, library
 from .mttkrpn import mttkrpn_plain
 from .splitk import (
@@ -86,9 +88,10 @@ def fused_pair(
     if x.ndim < 3 or len(factors) != x.ndim - 1:
         raise ValueError(f"fused_pair: a tensor of 3 or more axes with one factor per "
                          f"contraction axis, got {tuple(x.shape)} and {len(factors)} factors")
-    if x.device.type == "cpu":
-        return fused_pair_plain(x, factors)
     rank = factors[0].shape[1]
+    if x.device.type == "cpu":
+        return collect.stand_in(lambda: fused_pair_plain(x, factors),
+                                lambda: _report_plain(x, factors, rank, plan))
     check_operands("fused_pair", x, factors, rank)
     check_extents("fused_pair", x.shape)
     plan = kernel_plan("fused_pair", x, rank, plan, choose=choose_pair_kernel_blocks)
@@ -113,12 +116,25 @@ def fused_pair(
             x.data_ptr(), (ctypes.c_longlong * nc)(*ptrs), ws.data_ptr(), p.data_ptr(), stream)
     check(err, "fused_pair")
     fused_pair.launches += 1
+    if collect.SINKS:
+        collect.report("fused_pair", plan, collect.nbytes(x, *factors),
+                       collect.nbytes(ws, p) if splits > 1 else collect.nbytes(b0, p))
     if splits > 1:
         splitk_reduce(ws, b0)
     return b0, p
 
 
 fused_pair.launches = 0  # type: ignore[attr-defined]
+
+
+def _report_plain(x: torch.Tensor, factors, rank: int, plan) -> None:
+    """The launches :func:`fused_pair` would make on an H100 for a CPU
+    ``x`` (:mod:`repro_torch.observe.collect`)."""
+    if not isinstance(plan, MTTKRPKernelPlan):
+        plan = choose_pair_kernel_blocks(tuple(x.shape), rank, x.element_size())
+    splits = pair_kernel_grid(x.shape, rank, plan)[2]
+    collect.report_split("fused_pair", plan, collect.nbytes(x, *factors), x.shape[0] * rank * 4,
+                         splits, other_written=math.prod(x.shape[:-1]) * rank * 4)
 
 
 def fused_pair_canonical(

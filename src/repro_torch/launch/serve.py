@@ -46,6 +46,7 @@ import torch
 
 from ..engine.context import ExecutionContext
 from ..engine.plan import Memory
+from ..observe import trace as _otrace
 
 #: Default bucket quantum: extents round up to the next multiple.
 DEFAULT_PAD_TO = 8
@@ -137,10 +138,11 @@ class DecompositionServer:
     Per-element convergence masks freeze the requests of a bucket that
     converge early while the rest iterate.
 
-    ``ctx`` defaults to ``ExecutionContext()`` (the Hopper kernels on the
-    card). ``observe=True`` (the reference's ``serve_request`` and
-    ``serve_bucket`` spans) comes with the observability slice: its context
-    cannot be built yet."""
+    ``ctx`` defaults to ``ExecutionContext.default()`` (the Hopper kernels on the
+    card). With ``ctx.observe`` on and an active
+    :class:`repro_torch.observe.Trace`, each flush records a ``serve_bucket``
+    event a bucket and a ``serve_request`` event a request, as the
+    reference's server does, beside the engine's own spans."""
 
     def __init__(
         self,
@@ -150,7 +152,7 @@ class DecompositionServer:
         n_iters: int = 20,
         tol: float = 1e-4,
     ):
-        self.ctx = ctx if ctx is not None else ExecutionContext()
+        self.ctx = ctx if ctx is not None else ExecutionContext.default()
         self.pad_to = int(pad_to)
         bucket_shape((1,), self.pad_to)  # validate the quantum now
         self.n_iters = int(n_iters)
@@ -238,8 +240,13 @@ class DecompositionServer:
             if self.ctx.torch_device.type == "cuda":
                 torch.cuda.synchronize(self.ctx.torch_device)
             execute_s = time.perf_counter() - t0
+            observed = _otrace.should_record(self.ctx.observe)
+            if observed:
+                _otrace.record_event("serve_bucket", bucket=key, batch=len(reqs),
+                                     padded_shape=list(padded), rank=rank, cold=cold,
+                                     execute_s=execute_s)
             for b, r in enumerate(reqs):
-                out[r.request_id] = ServeResult(
+                out[r.request_id] = sr = ServeResult(
                     request_id=r.request_id,
                     factors=[f[b, : r.x.shape[k]] for k, f in enumerate(res.factors)],
                     weights=res.weights[b],
@@ -252,6 +259,12 @@ class DecompositionServer:
                     execute_s=execute_s,
                     cold=cold,
                 )
+                if observed:
+                    _otrace.record_event(
+                        "serve_request", request_id=r.request_id, bucket=key, batch=sr.batch,
+                        shape=list(r.x.shape), rank=rank, queue_s=sr.queue_s,
+                        execute_s=sr.execute_s, fit=sr.fit, n_iters=sr.n_iters,
+                        converged=sr.converged, cold=cold)
         return out
 
 

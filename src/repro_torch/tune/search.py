@@ -35,8 +35,13 @@ launch raises, so a plain executor never wins in its place. Scoring:
 is the ``backend="auto"`` entry: a cache hit returns the persisted winner
 exactly, its kernel plan checked (``check()``) so a hand-edited cache never
 hands a kernel a bad plan; a miss returns ``cuda`` with the kernel's own
-plan on a CUDA device and ``einsum`` on the host. ``cache_counts`` counts
-hits and misses (a plain module counter until the metrics registry comes).
+plan on a CUDA device and ``einsum`` on the host.
+
+The metrics registry (:mod:`repro_torch.observe.metrics`) counts each
+resolution's hit or miss (``tune.cache_hits``, ``tune.cache_misses``) and
+each candidate measured (``tune.candidates_measured``), and observes each
+MTTKRP search's wall time (``tune.search_time_us``), which an admitting
+trace also records as a ``tune_search`` span, as in the reference.
 """
 
 from __future__ import annotations
@@ -75,15 +80,20 @@ from ..engine.plan import (
     partial_kernel_threads,
     uniform_plan,
 )
+from ..observe import trace as _otrace
+from ..observe.metrics import (
+    TUNE_CACHE_HITS,
+    TUNE_CACHE_MISSES,
+    TUNE_CANDIDATES,
+    TUNE_SEARCH_TIME_US,
+    registry,
+)
 from .cache import CacheEntry, PlanCache, cache_key, default_cache, plan_to_dict
 
 KERNEL_VARIANTS = ("specialized", "generic")
 #: Chunk widths (bytes of an X row) and ring depths the tuner walks.
 RING_CHUNK_BYTES = (64, 128, 256)
 RING_STAGES = (2, 3, 4)
-
-#: ``backend="auto"`` resolutions that hit and missed the tune cache.
-cache_counts = {"hit": 0, "miss": 0}
 
 
 @dataclass(frozen=True)
@@ -360,6 +370,7 @@ def _measure_one(cand: Candidate, call, device: torch.device, *, reference=None,
     A wrong answer or a plan the kernel refuses (``ValueError``) is
     recorded as a loser; anything else (a kernel that fails to build or
     launch) is raised, so no plain executor wins in its place."""
+    registry().inc(TUNE_CANDIDATES)
     m = Measurement(cand, modeled_bytes=modeled_bytes)
     try:
         got = call()
@@ -508,9 +519,12 @@ def search(
 ) -> TuneResult:
     """Measure the candidate space of one MTTKRP problem and return the
     winner, the fastest measured candidate (:func:`tune_mttkrp` persists
-    it). ``ctx`` supplies ``memory`` (explicit arguments win)."""
+    it). ``ctx`` supplies ``memory`` (explicit arguments win). The search's
+    wall time goes to ``tune.search_time_us``, and to a ``tune_search``
+    span under an admitting trace."""
     from ..core.mttkrp import mttkrp as einsum_oracle
 
+    t0 = time.perf_counter()
     if ctx is not None and memory is None:
         memory = ctx.memory
     metric = _resolve_metric(metric, x.device)
@@ -520,10 +534,21 @@ def search(
     mem = _memory(memory, itemsize)
     key = cache_key(perm, rank, mode, x.dtype, mem, device=x.device)
     cands = generate_candidates(perm, rank, mem, itemsize, max_plans=max_plans)
+
+    def tm_bytes(c):
+        return kernel_plan_bytes(c.plan, perm, rank, itemsize)
+
     best, measurements = _run_candidates(
-        key, cands, metric, lambda c: kernel_plan_bytes(c.plan, perm, rank, itemsize),
-        lambda c: _mttkrp_call(x, factors, mode, c), einsum_oracle(x, factors, mode),
-        x.device, warmup=warmup, reps=reps)
+        key, cands, metric, tm_bytes, lambda c: _mttkrp_call(x, factors, mode, c),
+        einsum_oracle(x, factors, mode), x.device, warmup=warmup, reps=reps)
+    search_us = (time.perf_counter() - t0) * 1e6
+    registry().observe(TUNE_SEARCH_TIME_US, search_us)
+    if _otrace.should_record(ctx.observe if ctx is not None else False):
+        _otrace.record_event(
+            "tune_search", shape=list(perm), rank=int(rank), mode=int(mode), metric=metric,
+            candidates=len(measurements),
+            timed=len(_split_for_metric(cands, metric, tm_bytes)[0]),
+            winner=best.candidate.label, search_time_us=search_us)
     return TuneResult(key, best.candidate, measurements, metric)
 
 
@@ -551,7 +576,7 @@ def tune_mttkrp(
     hit = _hit(cache, key, force)
     if hit is not None:
         return hit
-    result = search(x, factors, mode, memory=mem, metric=metric, **search_kwargs)
+    result = search(x, factors, mode, ctx=ctx, memory=mem, metric=metric, **search_kwargs)
     _persist(cache, key, result.best, result.metric, len(result.measurements), persist)
     return result
 
@@ -730,7 +755,7 @@ def _lookup(cache: PlanCache | None, key: str, itemsize: int, rank, *,
     reaches a kernel with a bad plan."""
     cache = cache if cache is not None else default_cache()
     entry = cache.get(key)
-    cache_counts["hit" if entry is not None else "miss"] += 1
+    registry().inc(TUNE_CACHE_HITS if entry is not None else TUNE_CACHE_MISSES)
     if entry is None:
         return None
     if concrete and entry.backend not in CONCRETE_BACKENDS:

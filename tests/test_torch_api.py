@@ -33,7 +33,7 @@ def test_public_surface():
         ["ExecutionContext", "Memory", "BlockPlan", "mttkrp", "contract_partial", "cp_als",
          "CPResult", "multi_ttm", "MultiTTMPlan", "tucker_hooi", "TuckerResult",
          "cp_gradient", "cp_als_batched", "tucker_hooi_batched", "BatchedCPResult",
-         "BatchedTuckerResult"])
+         "BatchedTuckerResult", "Trace"])
     for name in repro_torch.__all__:  # the reference's names for the same things
         assert name in repro.__all__
 
@@ -80,12 +80,17 @@ def test_context_json_round_trip(kw):
     ({"backend": "fast"}, "unknown backend"),
     ({"tune": True}, "requires backend='auto'"),
     ({"distributed": True}, "distributed drivers"),
-    ({"observe": True}, "observability slice"),
+    # observe=True is accepted since the observability slice (match None)
+    pytest.param({"observe": True}, None, id="kw5-observability slice"),
     ({"compute_dtype": "int32"}, "float dtype"),
     ({"out_dtype": "float99"}, "not a torch dtype"),
     ({"device": "meta"}, "'cuda' or 'cpu'"),
 ])
 def test_context_rejects_eagerly(kw, match):
+    if match is None:
+        ctx = ExecutionContext.create(**{"device": "cpu", **kw})
+        assert ctx.observe and ctx != ExecutionContext.create(device="cpu")
+        return
     with pytest.raises(ValueError, match=match):
         ExecutionContext.create(**{"device": "cpu", **kw})
 

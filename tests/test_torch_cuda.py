@@ -1360,3 +1360,110 @@ def test_ensure_compilation_cache_builds_into_and_loads_from_the_directory(card,
     assert Path(runs[0]["loaded"]["mttkrp.cu"]).parent == cc.resolve()
     assert runs[1]["loaded"] == runs[0]["loaded"]
     assert len(libs) == 1 and {p: p.stat().st_mtime_ns for p in libs} == libs
+
+
+# ---------------------------------------------------------------------------
+# observability on the card
+# ---------------------------------------------------------------------------
+
+def _contraction_launches() -> dict:
+    return {"mttkrp3": mttkrp3.launches, "mttkrpn": mttkrpn.launches,
+            "fused_pair": fused_pair.launches, "mttkrp_partial": mttkrp_partial.launches,
+            "multi_ttm_keep": multi_ttm_keep.launches}
+
+
+def test_a_traced_dispatch_records_the_launched_plan(card):
+    """A traced ``cuda`` dispatch records the plan its wrapper launched and
+    ``kernel_modeled_bytes`` of that plan; the partial kernel's plan is the
+    one it chose for the view ``contract_partial`` handed it."""
+    from repro_torch.observe import Trace
+    from repro_torch.tune.cache import plan_from_dict
+    from repro_torch.tune.search import kernel_plan_bytes, partial_canon_shape
+
+    dims, rank = (70, 60, 50), 8
+    x = torch.randn(dims, device=card)
+    fs = [torch.randn((d, rank), device=card) for d in dims]
+    ctx = repro_torch.ExecutionContext.create("cuda")
+    node = repro_torch.contract_partial(x, fs, (0, 1, 2), (0,), False, ctx=ctx)
+    with Trace() as t:
+        for mode in range(3):
+            repro_torch.mttkrp(x, fs, mode, ctx=ctx)
+        repro_torch.contract_partial(node, fs, (1, 2), (2,), True, ctx=ctx)
+        repro_torch.multi_ttm(x, [f[:, :4] for f in fs], 1, ctx=ctx)
+    events = t.events
+    for mode, e in enumerate(events[:3]):
+        canon = (dims[mode],) + tuple(d for k, d in enumerate(dims) if k != mode)
+        plan = plan_from_dict(e["plan"])
+        assert plan == choose_mttkrp_kernel_blocks(canon, rank, 4)
+        assert e["kernel_modeled_bytes"] == kernel_plan_bytes(plan, canon, rank, 4)
+    view = node.permute(0, 1, 2)
+    want = partial.default_plan(view, [fs[2]])
+    assert plan_from_dict(events[3]["plan"]) == want
+    assert events[3]["kernel_modeled_bytes"] == kernel_plan_bytes(
+        want, partial_canon_shape(node.shape, (1, 2), (2,)), rank, 4)
+    assert plan_from_dict(events[4]["plan"]) == choose_multi_ttm_kernel_blocks(
+        (60, 70, 50), (4, 4), 4)
+
+
+def test_a_graph_captured_under_a_trace_records_nothing(card):
+    from repro_torch.observe import Trace
+
+    x = torch.randn((64, 48, 40), device=card)
+    fs = [torch.randn((d, 8), device=card) for d in x.shape]
+    ctx = repro_torch.ExecutionContext.create("cuda", observe=True)
+    with Trace() as t:
+        want = repro_torch.mttkrp(x, fs, 1, ctx=ctx)
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            repro_torch.mttkrp(x, fs, 1, ctx=ctx)
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, capture_error_mode="relaxed"):
+            out = repro_torch.mttkrp(x, fs, 1, ctx=ctx)
+        assert len(t) == 2  # the eager calls; the capture recorded nothing
+        out.zero_()
+        graph.replay()
+        torch.cuda.synchronize()
+    assert torch.equal(out, want)
+
+
+def test_audit_on_the_card_counts_the_wrappers_bytes(card):
+    """The op-boundary count is the same on the card as on CPU copies of
+    the operands: the kernels' reports stand where the plain versions ran."""
+    from repro_torch.observe import audit_mttkrp, audit_multi_ttm
+    from repro_torch.observe.bounds_audit import OpBoundaries
+
+    dims, rank = (70, 60, 50), 8
+    x = torch.randn(dims, device=card)
+    fs = [torch.randn((d, rank), device=card) for d in dims]
+    on = repro_torch.ExecutionContext.create("cuda")
+    off = repro_torch.ExecutionContext.create("cuda", device="cpu")
+    for mode in range(3):
+        row = audit_mttkrp(x, fs, mode, ctx=on)
+        assert row.to_dict() == audit_mttkrp(x.cpu(), [f.cpu() for f in fs], mode,
+                                             ctx=off).to_dict()
+    mats = [f[:, :4].contiguous() for f in fs]  # .cpu() of a slice would copy it dense
+    assert audit_multi_ttm(x, mats, 0, ctx=on).measured_bytes == audit_multi_ttm(
+        x.cpu(), [m.cpu() for m in mats], 0, ctx=off).measured_bytes
+    with OpBoundaries() as ops:
+        repro_torch.mttkrp(x, fs, 0, ctx=on)
+    assert [k.name for k in ops.kernels][0] == "mttkrp3" and ops.kernel_bytes >= x.nbytes
+
+
+@pytest.mark.parametrize("dims,rank", [((40, 36, 32), 8), ((14, 12, 10, 9), 6)])
+@pytest.mark.parametrize("sweep", ["per_mode", "fused", "dimtree"])
+def test_cuda_dispatches_equal_the_launch_counters(card, dims, rank, sweep):
+    """``engine.cuda_dispatches`` counts one a contraction: every launch of
+    a contraction kernel (``splitk_reduce`` apart, which follows a split
+    one)."""
+    from repro_torch.observe import registry
+    from repro_torch.observe.metrics import CUDA_DISPATCHES
+
+    x = torch.randn(dims, device=card)
+    init = [torch.randn((d, rank), device=card) for d in dims]
+    before, counts = registry().snapshot(), _contraction_launches()
+    repro_torch.cp_als(x, rank, 2, init_factors=init, sweep=sweep,
+                       ctx=repro_torch.ExecutionContext.create("cuda"))
+    launched = sum(n - counts[k] for k, n in _contraction_launches().items())
+    assert registry().delta(before).get(CUDA_DISPATCHES, 0) == launched > 0

@@ -136,8 +136,27 @@ def test_submit_refuses_what_it_cannot_serve():
 
 
 def test_observe_is_refused_by_name():
-    with pytest.raises(ValueError, match="observability slice"):
-        _ctx(observe=True)
+    """Refused until the observability slice; now ``observe=True`` builds,
+    and an observed server records the reference's serving spans under a
+    ``capture="observed"`` trace: one ``serve_bucket`` a bucket, one
+    ``serve_request`` a request."""
+    from repro.observe import Trace as JTrace
+    from repro_torch.observe import Trace
+
+    shapes = [(7, 6, 5), (8, 5, 6), (7, 7, 4)]
+    kinds = []
+    for make, trace, new in ((lambda x: torch.from_numpy(x), Trace, DecompositionServer),
+                             (jnp.asarray, JTrace, jserve.DecompositionServer)):
+        ctx = _ctx(observe=True) if new is DecompositionServer else _jctx(observe=True)
+        srv = new(ctx, n_iters=2)
+        for i, shape in enumerate(shapes):
+            srv.submit(make(_low_rank(shape, 2, 40 + i)), 2, request_id=f"r{i}")
+        with trace(capture="observed") as t:
+            out = srv.flush()
+        kinds.append(sorted(e["kind"] for e in t.events if e["kind"].startswith("serve_")))
+        requests = [e for e in t.events if e["kind"] == "serve_request"]
+        assert sorted(e["request_id"] for e in requests) == sorted(out)
+    assert kinds[0] == kinds[1] == ["serve_bucket"] + ["serve_request"] * 3
 
 
 # ---------------------------------------------------------------------------

@@ -46,6 +46,7 @@ from repro_torch.engine.plan import (
 from repro_torch.engine.tree import all_mode_mttkrp
 from repro_torch.kernels import ops as kernel_ops
 from repro_torch.kernels import partial as partial_mod
+from repro_torch.observe.metrics import TUNE_CACHE_HITS, TUNE_CACHE_MISSES, registry
 from repro_torch.tune import cache as tcache
 from repro_torch.tune import search
 from repro_torch.tune.calibrate import (
@@ -57,6 +58,12 @@ from repro_torch.tune.calibrate import (
 )
 
 from _torch_parity import assert_same_cp, close, data, problem
+
+
+def _cache_counts(before) -> dict:
+    """The tune cache's hits and misses since ``before`` (a registry snapshot)."""
+    delta = registry().delta(before)
+    return {"hit": delta.get(TUNE_CACHE_HITS, 0), "miss": delta.get(TUNE_CACHE_MISSES, 0)}
 
 KINDS = ("mttkrp", "partial", "multi_ttm", "sweep", "serve")
 
@@ -347,14 +354,14 @@ def test_a_kernel_that_fails_to_launch_raises_out_of_the_tuner(caches, monkeypat
 
 def test_resolve_on_a_miss_and_after_a_tune(caches):
     x, fs = _tp()
-    search.cache_counts.update(hit=0, miss=0)
+    before = registry().snapshot()
     r = search.resolve((16, 12, 8), 4, 0, torch.float32, device="cpu")
     assert (r.backend, r.plan, r.cache_hit) == ("einsum", None, False)
-    assert search.cache_counts == {"hit": 0, "miss": 1}
+    assert _cache_counts(before) == {"hit": 0, "miss": 1}
     res = search.tune_mttkrp(x, fs, 0, reps=1, warmup=0)
     assert not res.cache_hit and res.key == r.key
     r = search.resolve((16, 12, 8), 4, 0, torch.float32, device="cpu")
-    assert r.cache_hit and search.cache_counts == {"hit": 1, "miss": 1}
+    assert r.cache_hit and _cache_counts(before) == {"hit": 1, "miss": 1}
     assert (r.backend, r.plan, r.variant, r.block) == (
         res.winner.backend, res.winner.plan, res.winner.variant, res.winner.block)
     again = search.tune_mttkrp(x, fs, 0)
@@ -498,9 +505,9 @@ def test_auto_batched_calls_resolve_once_and_match_the_reference(caches):
     rng = np.random.default_rng(11)
     x = rng.standard_normal((3, 8, 7, 6), dtype=np.float32)
     fs = [rng.standard_normal((3, d, 2), dtype=np.float32) for d in (8, 7, 6)]
-    search.cache_counts.update(hit=0, miss=0)
+    before = registry().snapshot()
     got = repro_torch.mttkrp(_t(x), [_t(f) for f in fs], 1, ctx=_ctx())
-    assert search.cache_counts == {"hit": 0, "miss": 1}  # one lookup for the batch
+    assert _cache_counts(before) == {"hit": 0, "miss": 1}  # one lookup for the batch
     close(got, repro.mttkrp(_j(x), [_j(f) for f in fs], 1, ctx=_jctx()))
     mats = [f[..., :2] for f in fs]
     close(repro_torch.multi_ttm(_t(x), [_t(m) for m in mats], None, ctx=_ctx()),
@@ -534,9 +541,10 @@ def test_tune_true_searches_once_and_replays(caches):
     tuned = repro_torch.cp_als(_t(x), 3, 3, ctx=_ctx(tune=True), **kw)
     keys = tcache.PlanCache(caches).keys()
     assert any(k.startswith("partial|") for k in keys)
-    search.cache_counts.update(hit=0, miss=0)
+    before = registry().snapshot()
     replay = repro_torch.cp_als(_t(x), 3, 3, ctx=_ctx(), **kw)
-    assert search.cache_counts["miss"] == 0 and search.cache_counts["hit"] > 0
+    counts = _cache_counts(before)
+    assert counts["miss"] == 0 and counts["hit"] > 0
     np.testing.assert_allclose(replay.fits, tuned.fits, rtol=0, atol=1e-6)
     ref = repro.cp_als(_j(x), 3, 3, ctx=_jctx("einsum"), use_dimension_tree=True,
                        init_factors=[_j(f) for f in init])
@@ -592,10 +600,15 @@ def test_plan_decisions_are_concrete():
 
 @pytest.mark.parametrize("kw,match", [
     ({"backend": "einsum", "tune": True}, "requires backend='auto'"),
-    ({"backend": "auto", "observe": True}, "observability slice"),
+    # observe=True is accepted since the observability slice (match None)
+    pytest.param({"backend": "auto", "observe": True}, None, id="kw1-observability slice"),
     ({"compilation_cache": 7}, "directory path"),
 ])
 def test_the_new_options_are_validated(kw, match):
+    if match is None:
+        ctx = ExecutionContext.create(**{"device": "cpu", **kw})
+        assert ctx.observe and ExecutionContext.from_json(ctx.to_json()) == ctx
+        return
     with pytest.raises(ValueError, match=match):
         ExecutionContext.create(**{"device": "cpu", **kw})
 
@@ -671,13 +684,13 @@ def test_tune_cache_consulted_once_a_batched_call(caches):
     x = _t(rng.standard_normal((batch, *dims), dtype=np.float32))
     fs = [_t(rng.standard_normal((batch, d, rank), dtype=np.float32)) for d in dims]
     ctx = _ctx()
-    search.cache_counts.update(hit=0, miss=0)
+    before = registry().snapshot()
     repro_torch.mttkrp(x, fs, 0, ctx=ctx)
-    assert search.cache_counts == {"hit": 0, "miss": 1}
+    assert _cache_counts(before) == {"hit": 0, "miss": 1}
     for b in range(batch):
         repro_torch.mttkrp(x[b], [f[b] for f in fs], 0, ctx=ctx)
-    assert search.cache_counts == {"hit": 0, "miss": 1 + batch}
+    assert _cache_counts(before) == {"hit": 0, "miss": 1 + batch}
     key = tcache.cache_key(dims, rank, 0, x.dtype, Memory.h100_smem(), device="cpu")
     tcache.default_cache().put(key, tcache.CacheEntry(backend="einsum"), persist=False)
     repro_torch.mttkrp(x, fs, 0, ctx=ctx)
-    assert search.cache_counts == {"hit": 1, "miss": 1 + batch}
+    assert _cache_counts(before) == {"hit": 1, "miss": 1 + batch}
