@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py [--seed N]
     python3 chip_smoke.py --serve-once DIR   # phase 11's cold or warm start alone
+    python3 chip_smoke.py --dist-rank R DIR  # one rank of phase 14 (phase 14 starts them)
 
 Phases (any failure raises, and the script exits non-zero):
 
@@ -162,10 +163,30 @@ Phases (any failure raises, and the script exits non-zero):
     ``tune.candidates_measured`` up by its candidates, one
     ``tune.search_time_us`` observation, one ``tune.cache_hits`` on the
     replay;
-14. the seconds each phase took, one JSON line per kernel and shape (times
+14. the distributed path (``DIST_RANKS`` = 4 ranks on the one card, each a
+    ``--dist-rank`` process on a gloo group over a file store; the ranks
+    load the libraries phase 2 built, with no ``nvcc`` on their path):
+    (a) ``repro_torch.cp_als`` on a distributed ``cuda`` context at 1000^3,
+    R = 64, 10 iterations after one untimed, on the grid ``choose_cp_grid``
+    picks for 4 ranks, against the sequential ``cuda`` ``per_mode`` run
+    from the same factors (made by this process meanwhile): fits within
+    ``DIST_TOL`` 1e-4 a step, the gathered factors and weights within 1e-4
+    of their largest magnitude, every rank's gathered result the same, a
+    sweep's counted collective bytes ``stationary_sweep_words`` x 4 plus
+    the fit's all-reduce exactly on every rank, exactly 3 ``mttkrp3``
+    launches a rank an iteration and no other counted kernel; ms an
+    iteration split into collectives and local work (no speed figure:
+    four ranks share one card); (b) the same with ``overlap="ring"``
+    (launches: one a ring arrival); (c) Alg 3 at 180^4, R = 32 on
+    (1, 1, 2, 2), mode 0 (one ``mttkrpn`` a rank), and Alg 4 at 1000^3,
+    R = 64, p0 = 2, (2, 1, 1), mode 0 (one ``mttkrp3`` a rank), each rank's
+    block against the plain MTTKRP on the card within ``ALG_TOL`` 1e-5
+    and its bytes Eq (12) / Eq (16) x 4 exactly;
+15. the seconds each phase took, one JSON line per kernel and shape (times
     from CUDA events), the ``nvidia-smi`` line, and one ``{"kernels":
-    [...]}`` line;
-15. the last line, ``{"ok": true, "device": {...}}``.
+    [...]}`` line, its launches summed over the main paths and phase 14's
+    ranks;
+16. the last line, ``{"ok": true, "device": {...}}``.
 
 All data are made on the card from ``--seed`` with a ``torch.Generator``.
 Matmuls run in full fp32 (TF32 off), so the plain versions and the einsum
@@ -179,25 +200,19 @@ import json
 import math
 import os
 import re
+import shutil
 import subprocess
 import sys
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 START = time.perf_counter()
+sys.path.insert(0, os.path.join(ROOT, "src"))
 
-# Published H100 SXM peaks (dense): fp32 outside the tensor cores, tf32 and
-# bf16 on them, and HBM3 bandwidth.
-PEAK_FLOPS = {"float32": 67e12, "tf32": 495e12, "bfloat16": 989e12}
-PEAK_BYTES = 3.35e12
-#: The MTTKRP kernel's products run on the tensor cores: fp32 as 3xTF32
-#: (three tf32 products each), bf16 as one bf16 product. By input dtype:
-#: (products the kernel does for each, the type whose peak rate they run at).
-MMA_OPS = {"float32": (3, "tf32"), "bfloat16": (1, "bfloat16")}
-#: The SSD kernel's products on the tensor cores: the Gram C B^T as 3xTF32;
-#: W X as two bf16 products for bf16 X (W split into bf16 hi and lo) or
-#: 3xTF32 for fp32 X. By X's itemsize: (products, the type of their rate).
-SSD_WX_OPS = {2: (2, "bfloat16"), 4: (3, "tf32")}
+# The H100's published peaks and the bound rule every ``bound_ms`` is taken
+# by (bytes at the HBM rate, operations at the type's peak rate, the
+# MTTKRP's and the SSD term's products as the tensor cores run them).
+from repro_torch.analysis.roofline import H100, bound, mma_bound, ssd_bound  # noqa: E402
 CSRC = "src/repro_torch/kernels/csrc/"
 SOURCE = {"mttkrp3": "mttkrp.cu", "mttkrpn": "mttkrp.cu", "splitk_reduce": "mttkrp.cu",
           "fused_pair": "sweep.cu", "mttkrp_partial": "sweep.cu",
@@ -316,6 +331,21 @@ SPANS_PER_ITER = {"per_mode": {"mttkrp": 3},
                   "fused": {"fused_pair": 1, "contract_partial": 1, "mttkrp": 1},
                   "dimtree": {"contract_partial": 4}}
 DISPATCH_KINDS = ("mttkrp", "contract_partial", "multi_ttm", "fused_pair")
+#: Phase 14, the distributed path: DIST_RANKS ranks on the one card over
+#: gloo (NCCL refuses two ranks on one device), each a process of its own
+#: (``--dist-rank``). The CP sweep (shape, R, iterations) on the grid
+#: ``choose_cp_grid`` picks; Alg 3 (shape, R, grid, mode) through
+#: ``mttkrpn``; Alg 4 (shape, R, p0, grid, mode). DIST_TOL bounds the
+#: fits a step and the factors (of their largest magnitude) against the
+#: sequential ``cuda`` run; ALG_TOL the Alg 3/4 outputs against the plain
+#: MTTKRP. The seed of the phase's data, on top of ``--seed``.
+DIST_RANKS = 4
+DIST_CP = ((1000, 1000, 1000), 64, 10)
+DIST_ALG3 = ((180, 180, 180, 180), 32, (1, 1, 2, 2), 0)
+DIST_ALG4 = ((1000, 1000, 1000), 64, 2, (2, 1, 1), 0)
+DIST_TOL = 1e-4
+ALG_TOL = 1e-5
+DIST_SEED = 14
 #: The Hopper kernels' device names, as the profiler reports them.
 HOPPER_KERNEL = re.compile(r"mttkrp_mma_kernel|splitk_reduce_kernel|fused_pair_mma_kernel|"
                            r"streaming_partial_kernel|multi_ttm_mma_kernel")
@@ -376,23 +406,6 @@ def graph_ms(fn, reps: int = 50, rounds: int = 4) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / (reps * rounds)
-
-
-def bound(n_x: int, itemsize: int, factor_words: int, out_words: int,
-          flops: float, dtype: str) -> tuple[float, str]:
-    """Least time in ms: each input read once and the fp32 output written
-    once at the HBM rate, or the operations at the type's peak rate."""
-    t_bytes = (n_x * itemsize + factor_words * itemsize + out_words * 4) / PEAK_BYTES
-    t_ops = flops / PEAK_FLOPS[dtype]
-    return (max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations")
-
-
-def mma_bound(n_x: int, itemsize: int, factor_words: int, out_words: int,
-              flops: float, dtype: str) -> tuple[float, str]:
-    """:func:`bound` for the MTTKRP kernel: ``flops`` counted as the tensor
-    cores run them for ``dtype`` inputs (``MMA_OPS``)."""
-    times, rate = MMA_OPS[dtype]
-    return bound(n_x, itemsize, factor_words, out_words, times * flops, rate)
 
 
 def rel_err(got, want) -> tuple[float, float]:
@@ -1243,20 +1256,6 @@ def tucker_phase(gen) -> dict:
     return out
 
 
-def ssd_bound(bcn: int, q: int, n: int, h: int, p: int, x_itemsize: int) -> tuple[float, str]:
-    """Least time in ms of the intra-chunk SSD term: C, B, cum and dt (fp32)
-    read once, X read and Y written once in X's dtype, at the HBM rate; or
-    the causal half's operations as the kernel runs them on the tensor
-    cores: the Gram's ``2 BC q(q+1)/2 N`` as three tf32 products, and W X's
-    ``2 BC q(q+1)/2 H P`` as ``SSD_WX_OPS`` gives for X's dtype."""
-    t_bytes = (bcn * q * (2 * n + 2 * h) * 4 + 2 * bcn * q * h * p * x_itemsize) / PEAK_BYTES
-    causal = bcn * q * (q + 1) / 2
-    times, rate = SSD_WX_OPS[x_itemsize]
-    t_ops = (3 * 2.0 * causal * n / PEAK_FLOPS["tf32"]
-             + times * 2.0 * causal * h * p / PEAK_FLOPS[rate])
-    return (max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations")
-
-
 #: The limit on the bf16 mix's reading on :func:`ssd_cancelling` operands:
 #: above the sound kernel's (its bf16 output's own rounding, about 2^-9) and
 #: far below the bf16-once control's (the weights' own rounding, 2^-9, about
@@ -1526,7 +1525,7 @@ def batched_phase(gen, smi: str) -> dict:
                "launches": launches, "loop_launches": loop_launches, "max_rel_err": rel,
                "max_abs_err": diff, "max_rel_err_vs_loop": rel_loop, **extra, "gpu": smi}
         if time_it:
-            b_ms = bytes_moved / PEAK_BYTES * 1e3
+            b_ms = bytes_moved / H100.hbm_bw * 1e3
             rec.update({
                 "batched_ms": cuda_ms(call), "looped_ms": cuda_ms(loop_call, reps=3, warm=1),
                 "timing": "cuda_events, back to back: host and device",
@@ -2575,11 +2574,262 @@ def observe_serve_and_tune(gen, smi: str) -> dict:
         raise AssertionError(f"observe 13e: {rec}")
     return rec
 
+def dist_cp_problem(seed: int):
+    """Phase 14's CP problem, the same in every process from ``seed``: a
+    1000^3 tensor of CP rank 64 plus noise, and the initial factors."""
+    import torch
+    from repro_torch.core.tensor import random_factors
+
+    dims, rank, _ = DIST_CP
+    gen = torch.Generator(device="cuda").manual_seed(seed + DIST_SEED)
+    x = noisy_low_rank(gen, dims, rank)
+    return x, random_factors(gen, dims, rank)
+
+
+def _alg_problem(seed: int, dims, rank: int, salt: int):
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(seed + DIST_SEED + salt)
+    x = torch.randn(dims, generator=gen, device="cuda")
+    return x, [torch.randn((d, rank), generator=gen, device="cuda") for d in dims]
+
+
+def dist_rank(rank: int, tmp: str, seed: int) -> int:
+    """One rank of phase 14, in a process of its own: joins the gloo group
+    on ``tmp``'s file store, runs 14a-14c on its blocks (counts set to 0
+    before each run and read after) and writes ``rank{rank}.json`` (and
+    rank 0 the gathered factors) into ``tmp``."""
+    import torch
+    import torch.distributed as dist
+    import repro_torch
+    from repro_torch.core.bounds import par_general_cost, par_stationary_cost
+    from repro_torch.distributed import collectives
+    from repro_torch.distributed.grid_select import stationary_sweep_words
+    from repro_torch.distributed.mesh import make_grid_mesh
+    from repro_torch.distributed.mttkrp_parallel import (
+        mttkrp_general, mttkrp_stationary, output_block, place_inputs)
+    from repro_torch.kernels import build
+    from repro_torch.kernels.mttkrp3 import mttkrp3_plain
+    from repro_torch.kernels.mttkrpn import mttkrpn_plain
+    from repro_torch.observe.metrics import SWEEP_COLLECTIVE_BYTES, registry
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dist.init_process_group("gloo", store=dist.FileStore(os.path.join(tmp, "store"),
+                                                         DIST_RANKS),
+                            rank=rank, world_size=DIST_RANKS)
+    kernels = counters()
+    out: dict = {"rank": rank, "device": torch.cuda.get_device_name(0), "cp": {}}
+
+    def zero():
+        for k in kernels.values():
+            k.launches = 0
+
+    def launches():
+        return {name: k.launches for name, k in kernels.items()}
+
+    try:
+        x, init = dist_cp_problem(seed)
+        dims, r, iters = DIST_CP
+        for overlap in ("none", "ring"):
+            ctx = repro_torch.ExecutionContext.create("cuda", distributed=True, overlap=overlap,
+                                                      observe=True)
+            # one untimed iteration first: the first call of a process pays
+            # one-time set-up (the groups' connections, the solver library)
+            repro_torch.cp_als(x, r, 1, init_factors=init, ctx=ctx)
+            hist0 = len(registry().histogram(SWEEP_COLLECTIVE_BYTES))
+            before = collectives.COUNTER.snapshot()
+            zero()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with repro_torch.Trace() as tr:
+                res = repro_torch.cp_als(x, r, iters, init_factors=init, ctx=ctx)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            by_kind = collectives.COUNTER.delta(before)
+            (event,) = [e for e in tr.events if e["kind"] == "cp_sweep_collectives"]
+            iter_ms = wall / iters * 1e3
+            coll_ms = collectives.seconds_total(by_kind) / iters * 1e3
+            out["cp"][overlap] = {
+                "grid": event["grid"], "fits": res.fits, "launches": launches(),
+                "sweep_bytes": list(registry().histogram(SWEEP_COLLECTIVE_BYTES)[hist0:]),
+                "model_bytes": stationary_sweep_words(dims, r, event["grid"]) * 4,
+                "fit_allreduce_bytes": event["fit_allreduce_bytes"],
+                "collectives_by_kind": event["collectives_by_kind"],
+                "transport": event["transport"],
+                "factor_digest": [float(f.double().abs().sum()) for f in res.factors],
+                "iter_ms": iter_ms, "collective_ms": coll_ms, "local_ms": iter_ms - coll_ms,
+            }
+            if rank == 0:
+                torch.save({"factors": [f.cpu() for f in res.factors],
+                            "weights": res.weights.cpu()},
+                           os.path.join(tmp, f"factors_{overlap}.pt"))
+            del res
+        del x, init
+        torch.cuda.empty_cache()
+        ctx = repro_torch.ExecutionContext.create("cuda")
+        for name, (dims, r, p0, grid, mode), salt in (
+                ("alg3", (DIST_ALG3[0], DIST_ALG3[1], 1, DIST_ALG3[2], DIST_ALG3[3]), 1),
+                ("alg4", DIST_ALG4, 2)):
+            xf, fs = _alg_problem(seed, dims, r, salt)
+            rest = [f for k, f in enumerate(fs) if k != mode]
+            want = (mttkrp3_plain(xf, *rest) if len(dims) == 3 else mttkrpn_plain(xf, rest))
+            mesh = make_grid_mesh(grid, p0=p0, dims=dims, rank=r)
+            want = output_block(want, mesh, mode, rank_axis=p0 > 1)
+            xs, fl = place_inputs(mesh, xf, fs, mode, rank_axis=p0 > 1)
+            del xf, fs, rest
+            torch.cuda.empty_cache()
+            fn = (mttkrp_general if p0 > 1 else mttkrp_stationary)(mesh, mode, len(dims),
+                                                                     ctx=ctx)
+            zero()
+            before = collectives.COUNTER.snapshot()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            got = fn(xs, *fl)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+            by_kind = collectives.COUNTER.delta(before)
+            model = (par_general_cost(dims, r, grid, p0, mode) if p0 > 1
+                     else par_stationary_cost(dims, r, grid, mode)) * 4
+            rel, diff = rel_err(got, want)
+            out[name] = {"shape": list(dims), "rank": r, "p0": p0, "grid": list(grid),
+                         "mode": mode, "launches": launches(), "max_rel_err": rel,
+                         "max_abs_err": diff, "bytes": collectives.ring_total(by_kind),
+                         "model_bytes": model, "collectives_by_kind": by_kind,
+                         "call_ms": ms, "finite": bool(torch.isfinite(got).all())}
+            del xs, fl, got, want
+            torch.cuda.empty_cache()
+        out["loaded"] = {k: str(v) for k, v in build.loaded().items()}
+    finally:
+        dist.destroy_process_group()
+    with open(os.path.join(tmp, f"rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+    return 0
+
+
+def _ring_launches(grid, ndim: int) -> int:
+    """``mttkrp3`` launches of one ``overlap="ring"`` sweep: mode 0 one;
+    every later mode one a ring arrival of the mode before, whose
+    hyperslice holds P/P_{m-1} ranks."""
+    procs = math.prod(grid)
+    return 1 + sum(procs // grid[m - 1] for m in range(1, ndim))
+
+
+def dist_phase(seed: int, smi: str, built: dict) -> dict:
+    """Phase 14: the distributed path, DIST_RANKS ranks on the one card.
+    The ranks start first; meanwhile this process runs the sequential
+    ``cuda`` CP-ALS from the same factors, the yardstick of 14a and 14b.
+    Then every rank's readings are checked: fits and gathered factors
+    against the sequential run, the sweep's counted bytes against
+    ``stationary_sweep_words`` x 4 plus the fit's all-reduce exactly, the
+    launches exactly, Alg 3 and Alg 4 against the plain MTTKRP and their
+    bytes against Eq (12) and Eq (16) exactly; each rank loaded the
+    libraries phase 2 built (it has no ``nvcc`` to build with)."""
+    import tempfile
+
+    import torch
+    import repro_torch
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_dist_")
+    nvcc_dirs = {os.path.dirname(p) for p in (shutil.which("nvcc"),) if p}
+    env = {**os.environ, "GLOO_SOCKET_IFNAME": os.environ.get("GLOO_SOCKET_IFNAME", "lo"),
+           "CUDA_HOME": os.path.join(tmp, "no-nvcc"),
+           "PATH": os.pathsep.join(d for d in os.environ.get("PATH", "").split(os.pathsep)
+                                   if d not in nvcc_dirs)}
+    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--seed", str(seed),
+                               "--dist-rank", str(r), tmp], env=env, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for r in range(DIST_RANKS)]
+    try:
+        x, init = dist_cp_problem(seed)
+        dims, rank, iters = DIST_CP
+        ctx = repro_torch.ExecutionContext.create("cuda")
+        seq = repro_torch.cp_als(x, rank, iters, init_factors=init, sweep="per_mode", ctx=ctx)
+        seq_fits, seq_weights = seq.fits, seq.weights.cpu()
+        seq_factors = [f.cpu() for f in seq.factors]
+        del x, init, seq
+        torch.cuda.empty_cache()
+        logs = []
+        for p in procs:
+            logs.append(p.communicate(timeout=300)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for r, (p, log) in enumerate(zip(procs, logs)):
+        if p.returncode != 0:
+            raise AssertionError(f"phase 14: rank {r} exited {p.returncode}:\n{log[-4000:]}")
+    ranks = [json.load(open(os.path.join(tmp, f"rank{r}.json"))) for r in range(DIST_RANKS)]
+    want_loaded = {src: str(path) for src, (path, _) in built.items()}
+    out = {"launches": {name: 0 for name in KERNELS}, "ranks": DIST_RANKS}
+    for r, rec in enumerate(ranks):
+        if any(want_loaded[src] != path for src, path in rec["loaded"].items()):
+            raise AssertionError(f"phase 14: rank {r} loaded {rec['loaded']}, not phase 2's "
+                                 f"{want_loaded}")
+    for overlap in ("none", "ring"):
+        saved = torch.load(os.path.join(tmp, f"factors_{overlap}.pt"))
+        gaps = [max(abs(a - b) for a, b in zip(rec["cp"][overlap]["fits"], seq_fits))
+                for rec in ranks]
+        ferr = max(rel_err(f, g)[0] for f, g in zip(saved["factors"], seq_factors))
+        werr = rel_err(saved["weights"], seq_weights)[0]
+        per_iter = 3 if overlap == "none" else _ring_launches(ranks[0]["cp"][overlap]["grid"], 3)
+        for r, rec in enumerate(ranks):
+            c = rec["cp"][overlap]
+            want_bytes = c["model_bytes"] + c["fit_allreduce_bytes"]
+            if c["sweep_bytes"] != [want_bytes] * iters:
+                raise AssertionError(f"14 {overlap}: rank {r} sweep bytes {c['sweep_bytes']}, "
+                                     f"model {want_bytes}")
+            if c["launches"]["mttkrp3"] != per_iter * iters or any(
+                    c["launches"][k] for k in COUNTED if k != "mttkrp3"):
+                raise AssertionError(f"14 {overlap}: rank {r} launches {c['launches']}, "
+                                     f"expected {per_iter} mttkrp3 an iteration")
+            if c["factor_digest"] != ranks[0]["cp"][overlap]["factor_digest"]:
+                raise AssertionError(f"14 {overlap}: rank {r}'s gathered factors differ")
+            for name, n in c["launches"].items():
+                out["launches"][name] += n
+        if max(gaps) > DIST_TOL or ferr > DIST_TOL or werr > DIST_TOL:
+            raise AssertionError(f"14 {overlap}: fit gap {max(gaps):.2e}, factors {ferr:.2e}, "
+                                 f"weights {werr:.2e} against the sequential run")
+        row = {"distributed_cp": list(dims), "rank": rank, "iters": iters, "overlap": overlap,
+               "ranks": DIST_RANKS, "grid": ranks[0]["cp"][overlap]["grid"],
+               "transport": ranks[0]["cp"][overlap]["transport"],
+               "fits": ranks[0]["cp"][overlap]["fits"], "sequential_fits": seq_fits,
+               "max_fit_gap": max(gaps), "factor_rel_err": ferr, "weights_rel_err": werr,
+               "sweep_bytes": ranks[0]["cp"][overlap]["sweep_bytes"][0],
+               "collectives_by_kind": ranks[0]["cp"][overlap]["collectives_by_kind"],
+               "mttkrp3_per_rank_iter": per_iter,
+               "iter_ms": [rec["cp"][overlap]["iter_ms"] for rec in ranks],
+               "local_ms": [rec["cp"][overlap]["local_ms"] for rec in ranks],
+               "collective_ms": [rec["cp"][overlap]["collective_ms"] for rec in ranks],
+               "timing": f"{DIST_RANKS} ranks share one card: no speed figure", "gpu": smi}
+        emit(row)
+        out["cp_" + overlap] = row
+    for name, kernel in (("alg3", "mttkrpn"), ("alg4", "mttkrp3")):
+        for r, rec in enumerate(ranks):
+            a = rec[name]
+            if not a["finite"] or a["max_rel_err"] > ALG_TOL or a["bytes"] != a["model_bytes"] \
+                    or a["launches"][kernel] != 1:
+                raise AssertionError(f"14c {name}: rank {r}: {a}")
+            for k, n in a["launches"].items():
+                out["launches"][k] += n
+        emit({"distributed_" + name: ranks[0][name]["shape"], "rank": ranks[0][name]["rank"],
+              "p0": ranks[0][name]["p0"], "grid": ranks[0][name]["grid"],
+              "mode": ranks[0][name]["mode"], "kernel": kernel,
+              "max_rel_err": max(rec[name]["max_rel_err"] for rec in ranks),
+              "bytes": ranks[0][name]["bytes"], "model_bytes": ranks[0][name]["model_bytes"],
+              "call_ms": [rec[name]["call_ms"] for rec in ranks],
+              "timing": f"{DIST_RANKS} ranks share one card: no speed figure", "gpu": smi})
+    return out
+
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--serve-once", metavar="DIR", default=None,
                     help="phase 11's cold or warm start: serve one bucket, building into DIR")
+    ap.add_argument("--dist-rank", nargs=2, metavar=("RANK", "DIR"), default=None,
+                    help="one rank of phase 14, on DIR's file store")
     args = ap.parse_args()
 
     import torch
@@ -2587,9 +2837,10 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
-    sys.path.insert(0, os.path.join(ROOT, "src"))
     if args.serve_once is not None:
         return serve_once(args.serve_once)
+    if args.dist_rank is not None:
+        return dist_rank(int(args.dist_rank[0]), args.dist_rank[1], args.seed)
     from repro_torch.kernels import build
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -2638,9 +2889,10 @@ def main() -> int:
     served = phase("11", serve_phase, gen, smi)
     tuned = phase("12", tune_phase, gen, smi)
     observed = phase("13", observe_phase, gen, smi)
+    distributed = phase("14", dist_phase, args.seed, smi, built)
     for counted in (matrix["launches"], tucker["launches"], mamba["launches"],
                     batched["launches"], served["launches"], tuned["launches"],
-                    observed["launches"]):
+                    observed["launches"], distributed["launches"]):
         for name, n in counted.items():
             main_path["launches"][name] += n
 
@@ -2659,8 +2911,8 @@ def main() -> int:
             raise AssertionError(f"{name} was never launched on the main paths")
         kernels.append({  # launches: summed over the main-path runs (CP-ALS, CP-ALS on a
             # matrix, Tucker, the Mamba2 prefill, the batched CP-ALS and HOOI
-            # drivers, the server's flushes, the auto runs and the traced runs),
-            # each counted from 0
+            # drivers, the server's flushes, the auto runs, the traced runs and
+            # the distributed ranks' runs, summed over ranks), each counted from 0
             "name": name, "route": "cuda", "source": CSRC + SOURCE[name],
             "replaces": REPLACES[name],
             "launches": main_path["launches"][name],

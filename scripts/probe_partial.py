@@ -22,7 +22,7 @@ plan is checked against ``mttkrp_partial_plain`` (1e-5 of the largest
 magnitude; bf16 nodes against the fp32 plain version within 2e-2) before it
 is timed as device time by CUDA graphs (``chip_smoke.graph_ms``), the
 split-K reduction included; ``torch.einsum`` is timed the same way, and the
-bytes bound (``chip_smoke.bound``) is given beside. JSON lines with the
+bytes bound (``repro_torch.analysis.roofline.bound``) is given beside. JSON lines with the
 card's name and power limit, after the compiler's register and spill count
 of each kernel instantiation.
 """
@@ -116,7 +116,8 @@ def main() -> int:
         return 2
     sys.path.insert(0, os.path.join(ROOT, "src"))
     sys.path.insert(0, ROOT)
-    from chip_smoke import TOL, bound, graph_ms, nvidia_smi, rel_err
+    from chip_smoke import TOL, graph_ms, nvidia_smi, rel_err
+    from repro_torch.analysis.roofline import bound
     from repro_torch.engine.plan import choose_partial_kernel_blocks
     from repro_torch.kernels import build
     from repro_torch.kernels.partial import mttkrp_partial, mttkrp_partial_plain, node_view

@@ -61,7 +61,8 @@ def main() -> int:
         return 2
     sys.path.insert(0, os.path.join(ROOT, "src"))
     sys.path.insert(0, ROOT)
-    from chip_smoke import PEAK_BYTES, graph_ms, nvidia_smi
+    from chip_smoke import graph_ms, nvidia_smi
+    from repro_torch.analysis.roofline import H100
     from repro_torch.kernels import build, splitk
 
     gpu = nvidia_smi()
@@ -109,7 +110,7 @@ def main() -> int:
                 ms[name].append(graph_ms(reduce_with(name, ws, out)))
             lib_ms.append(graph_ms(lambda: torch.sum(ws, 0)))
         mean = {name: sum(t) / len(t) for name, t in ms.items()}
-        bound_ms = (s + 1) * i * r * 4 / PEAK_BYTES * 1e3
+        bound_ms = (s + 1) * i * r * 4 / H100.hbm_bw * 1e3
         print(json.dumps({"probe": "splitk", "where": where, "workspace": [s, i, r],
                           "order": order, "graph_ms": ms, "mean_ms": mean,
                           "torch_sum_ms": lib_ms, "torch_sum_mean_ms": sum(lib_ms) / 3,

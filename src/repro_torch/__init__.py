@@ -35,6 +35,13 @@ repro_torch.observe.report TRACE.jsonl`` tables them)::
     with repro_torch.Trace(path="run.jsonl"):
         repro_torch.cp_als(x, rank=16, ctx=ctx)
 
+A distributed context runs the stationary-tensor CP sweep on an
+initialized ``torch.distributed`` group, every rank calling with the whole
+tensor and cutting its own block (:mod:`repro_torch.distributed`)::
+
+    ctx = repro_torch.ExecutionContext.create("cuda", distributed=True)
+    cp = repro_torch.cp_als(x, rank=16, n_iters=10, ctx=ctx)   # on every rank
+
 The JAX package ``repro`` is the reference; this package never imports it.
 """
 
@@ -46,13 +53,17 @@ from .engine.batch import (
     cp_als_batched,
     tucker_hooi_batched,
 )
-from .engine.context import ExecutionContext
+from .distributed.grid_select import select_grid, select_tucker_grid
+from .engine.context import Distribution, ExecutionContext
 from .engine.execute import contract_partial, mttkrp, multi_ttm
 from .engine.plan import BlockPlan, Memory, MultiTTMPlan
 from .observe.trace import Trace
 
 __all__ = [
     "ExecutionContext",
+    "Distribution",
+    "select_grid",
+    "select_tucker_grid",
     "Memory",
     "BlockPlan",
     "mttkrp",

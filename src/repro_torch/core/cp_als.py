@@ -28,7 +28,7 @@ from typing import Callable, Sequence
 import torch
 
 from ..engine import execute as engine_execute
-from ..engine.context import ExecutionContext
+from ..engine.context import ExecutionContext, check_driver_options
 from ..engine.sweep import fused_als_sweep
 from ..engine.tree import dimtree_als_sweep
 from ..observe import trace as _otrace
@@ -107,8 +107,13 @@ def cp_als(
     searched first when ``ctx.tune`` (a miss: ``"fused"`` for 3-way tensors
     and up). ``mttkrp_fn(x, factors, mode)`` replaces the engine's MTTKRP on
     the ``per_mode`` schedule, as in the reference. ``ctx.backend="auto"``
-    resolves every contraction through the tune cache."""
+    resolves every contraction through the tune cache. A distributed
+    context (``ctx.distribution``) runs the stationary-tensor sweep of
+    :func:`repro_torch.distributed.cp_als_parallel.cp_als_parallel` on the
+    initialized ``torch.distributed`` group instead (``sweep`` may only be
+    ``"per_mode"`` there, and ``mttkrp_fn`` is refused)."""
     ctx = ctx if ctx is not None else ExecutionContext.default()
+    check_driver_options(ctx, mttkrp_fn=mttkrp_fn, use_dimension_tree=use_dimension_tree)
     if sweep is not None:
         if sweep not in _SWEEPS + ("auto",):
             raise ValueError(f"unknown sweep {sweep!r}; expected one of {_SWEEPS + ('auto',)}")
@@ -117,6 +122,17 @@ def cp_als(
                 f"sweep={sweep!r} conflicts with use_dimension_tree=True (pass only one of "
                 f"the two)"
             )
+        if ctx.is_distributed and sweep != "per_mode":
+            raise ValueError(
+                f"sweep={sweep!r} is not supported on the distributed path "
+                f"(the stationary sweep already amortizes factor gathers; "
+                f"overlap='ring' is its comm/compute-overlap knob)"
+            )
+    if ctx.is_distributed:
+        from ..distributed.cp_als_parallel import cp_als_parallel  # call-time: layer cycle
+
+        return cp_als_parallel(x, rank, n_iters, generator=generator,
+                               init_factors=init_factors, ctx=ctx, tol=tol)
     ctx.check_tensor("repro_torch.cp_als", x, *(init_factors or ()))
     schedule = sweep if sweep is not None else ("dimtree" if use_dimension_tree else "per_mode")
     pair_plan = None

@@ -131,9 +131,8 @@ def tucker_hooi(
     mode); on ``backend="auto"`` each resolves through the tune cache
     (``resolve_multi_ttm``; a context from ``ExecutionContext.for_problem``
     with the Tucker ranks replays its pinned decisions). The reference routes a distributed context to its
-    stationary-tensor sweep driver; a port context cannot be distributed
-    yet (``ExecutionContext.create(distributed=True)`` raises, ROADMAP
-    Queue 1 item 12).
+    stationary-tensor sweep driver; here a distributed context raises
+    until the Tucker half of ROADMAP Queue 1 item 12 brings that driver.
 
     Initialization is HOSVD (``init_factors`` overrides). ``n_iters < 1``
     projects onto the initial factors only (one full-core Multi-TTM).
@@ -141,6 +140,11 @@ def tucker_hooi(
     core comes out of the last mode update, with no extra pass over X.
     Returns a :class:`TuckerResult`."""
     ctx = ctx if ctx is not None else ExecutionContext.default()
+    if ctx.is_distributed:
+        raise NotImplementedError(
+            "tucker_hooi on a distributed context: the distributed Tucker sweep "
+            "(tucker_parallel) comes with the next slice (ROADMAP Queue 1 item 12, Tucker half)"
+        )
     ctx.check_tensor("repro_torch.tucker_hooi", x, *(init_factors or ()))
     ranks = _check_ranks(x.shape, ranks)
     n = x.ndim

@@ -34,8 +34,12 @@ reference's ``REPRO_CONTEXT``: a reference context names
 ``backend="pallas"``, which this port refuses, and both packages may run
 in one process.
 
-The distributed path comes with a later slice and is rejected here with a
-message that names the slice.
+A :class:`Distribution` (``create(distributed=True)``, or ``grid=``,
+``procs=``, ``p0=``, ``overlap=``, ``mesh=``) selects the distributed
+path: ``repro_torch.cp_als`` then runs the stationary sweep of
+:mod:`repro_torch.distributed.cp_als_parallel` on the initialized
+``torch.distributed`` default group, one rank a grid position
+(``docs/PORT.md``).
 """
 
 from __future__ import annotations
@@ -43,8 +47,8 @@ from __future__ import annotations
 import functools
 import json
 import os
-from dataclasses import dataclass, replace
-from typing import Mapping, Sequence
+from dataclasses import dataclass, field, replace
+from typing import Any, Mapping, Sequence
 
 import torch
 
@@ -58,7 +62,6 @@ CONCRETE_BACKENDS = ("einsum", "blocked_host", "cuda")
 VALID_BACKENDS = CONCRETE_BACKENDS + ("auto",)
 _LATER = {
     "pallas": "the TPU kernels' counterparts here are backend='cuda'",
-    "distributed": "the distributed drivers come with their slice (ROADMAP Queue 1 item 12)",
 }
 
 
@@ -99,6 +102,85 @@ def check_device(device: str | torch.device, api: str) -> torch.device:
             "pass device='cpu' to run on the host"
         )
     return dev
+
+
+def check_driver_options(ctx: "ExecutionContext", *, mttkrp_fn: Any = None,
+                         use_dimension_tree: bool = False) -> None:
+    """Validate per-call driver arguments that are not part of the context
+    (callables are not serialized) against it: the reference's errors."""
+    if ctx.is_distributed:
+        if mttkrp_fn is not None:
+            raise ValueError(
+                "mttkrp_fn cannot be combined with the distributed path "
+                "(the sweep driver owns the collectives); drop mttkrp_fn or the "
+                "distributed options (distributed/mesh/grid/procs)"
+            )
+        if use_dimension_tree:
+            raise ValueError(
+                "use_dimension_tree is not supported with distributed=True "
+                "(the stationary sweep already amortizes factor gathers across "
+                "all modes); drop one of the two options"
+            )
+
+
+@dataclass(frozen=True)
+class Distribution:
+    """The parallel machine (§V): the processor grid, the processor count,
+    the rank-axis extent ``p0`` (Algorithm 4), and the sweep's collectives
+    (``overlap``: ``"none"`` or ``"ring"``).
+
+    ``check_rep`` is kept for the reference's dict and is inert: it steers
+    ``shard_map``'s replication check there, and the port replicates
+    nothing behind the caller's back. ``mesh`` is a process-local handle
+    (a :class:`~repro_torch.distributed.mesh.GridMesh`), excluded from
+    equality, hashing and serialization: a context round-trips by its grid
+    and the mesh is rebuilt where it runs."""
+
+    grid: tuple[int, ...] | None = None
+    procs: int | None = None
+    p0: int = 1
+    check_rep: bool | None = None
+    overlap: str = "none"
+    mesh: Any = field(default=None, compare=False, repr=False)
+
+    def __post_init__(self):
+        if self.overlap not in ("none", "ring"):
+            raise ValueError(
+                f"overlap must be 'none' or 'ring' (ring = point-to-point "
+                f"ring collectives feeding the local MTTKRP chunk by chunk), got "
+                f"{self.overlap!r}"
+            )
+        if self.grid is not None:
+            object.__setattr__(self, "grid", tuple(int(g) for g in self.grid))
+            from ..distributed.mesh import validate_grid  # call-time: layer cycle
+
+            # the process count is checked when the mesh is built (the
+            # context itself stays portable across machines)
+            validate_grid(self.grid, self.p0, check_devices=False)
+        if self.procs is not None and self.procs < 1:
+            raise ValueError(f"procs must be >= 1, got {self.procs}")
+        if self.p0 < 1:
+            raise ValueError(f"p0 must be >= 1, got {self.p0}")
+
+    def to_dict(self) -> dict:
+        return {
+            "grid": list(self.grid) if self.grid is not None else None,
+            "procs": self.procs,
+            "p0": self.p0,
+            "check_rep": self.check_rep,
+            "overlap": self.overlap,
+        }
+
+    @classmethod
+    def from_dict(cls, d: Mapping) -> "Distribution":
+        grid = d.get("grid")
+        return cls(
+            grid=tuple(grid) if grid is not None else None,
+            procs=d.get("procs"),
+            p0=int(d.get("p0", 1)),
+            check_rep=d.get("check_rep"),
+            overlap=str(d.get("overlap", "none")),
+        )
 
 
 @dataclass(frozen=True)
@@ -188,6 +270,8 @@ class ExecutionContext:
     cache_path: str | None = None
     problem: ProblemSpec | None = None
     decisions: tuple[PlanDecision, ...] = ()
+    #: The distributed path's machine (None: one device).
+    distribution: Distribution | None = None
     #: Opt this context's calls into the observability layer: span events
     #: into the active :class:`repro_torch.observe.Trace` (every call
     #: records under a ``capture="all"`` trace; only observed ones under
@@ -217,6 +301,13 @@ class ExecutionContext:
                 )
             object.__setattr__(self, "compute_dtype", name)
         object.__setattr__(self, "device", str(check_device(self.device, "ExecutionContext")))
+        if self.tune and self.is_distributed:
+            raise ValueError(
+                "tune=True is not supported on the distributed path (a rank's local "
+                "problem is not measured inside the sweep); pre-tune the local block "
+                "shapes with mttkrp(..., ctx=ExecutionContext.create(backend='auto', "
+                "tune=True)), then run distributed with backend='auto' to replay the cache"
+            )
         if self.tune and self.backend != "auto":
             raise ValueError(
                 f"tune=True requires backend='auto' (the search persists winners the auto "
@@ -247,12 +338,27 @@ class ExecutionContext:
         cache_path: str | None = None,
         compilation_cache: str | None = None,
         distributed: bool = False,
+        mesh=None,
+        grid: Sequence[int] | None = None,
+        procs: int | None = None,
+        p0: int = 1,
+        check_rep: bool | None = None,
+        overlap: str = "none",
         observe: bool = False,
     ) -> "ExecutionContext":
-        """Build and validate a context. ``distributed`` exists to reject a
-        reference call that sets it."""
-        if distributed:
-            raise ValueError(_LATER["distributed"])
+        """Build and validate a context. Any of ``distributed=True``,
+        ``mesh``, ``grid``, ``procs`` or ``overlap`` selects the distributed
+        path (a :class:`Distribution` is attached); an explicit ``mesh``
+        (a :class:`~repro_torch.distributed.mesh.GridMesh`) wins over
+        ``grid``, which wins over the Eq (12) choice for ``procs``
+        processors (default: the world size)."""
+        dist = None
+        if distributed or mesh is not None or grid is not None or procs is not None \
+                or overlap != "none":
+            if mesh is not None and grid is None:
+                grid, p0 = mesh.grid, mesh.p0
+            dist = Distribution(grid=tuple(grid) if grid is not None else None, procs=procs,
+                                p0=p0, check_rep=check_rep, overlap=overlap, mesh=mesh)
         return cls(
             backend=backend,
             memory=memory,
@@ -263,6 +369,7 @@ class ExecutionContext:
             cache_path=cache_path,
             observe=bool(observe),
             compilation_cache=compilation_cache,
+            distribution=dist,
         )
 
     @classmethod
@@ -291,6 +398,11 @@ class ExecutionContext:
                 f"Tucker ranks {rank} must give one rank per tensor mode "
                 f"({len(shape)} for shape {shape})"
             )
+        if self.distribution is not None:
+            # a distributed context pins the grid only: its engine work runs
+            # on each rank's block shapes, where global decisions never replay
+            return replace(self, distribution=self._resolve_grid(shape, rank, is_tucker),
+                           problem=problem, decisions=())
         if self.backend != "auto" or self.tune:
             return replace(self, problem=problem, decisions=())
         cache = self.plan_cache()
@@ -310,6 +422,58 @@ class ExecutionContext:
                 out.append(PlanDecision(mode, r.backend, r.plan, r.variant, r.block,
                                         r.cache_hit))
         return replace(self, problem=problem, decisions=tuple(out))
+
+    def _resolve_grid(self, shape, rank, is_tucker: bool) -> Distribution:
+        """The distribution with its grid chosen (Eq 12 sweep-optimal, or
+        the Multi-TTM sweep objective for Tucker ranks) and validated
+        against the extents; ``procs`` defaults to the world size."""
+        from ..distributed import grid_select  # call-time: layer cycle
+        from ..distributed.mesh import validate_grid, validate_tucker_grid, world_size
+
+        dist = self.distribution
+        grid = dist.grid
+        if grid is None:
+            procs = dist.procs if dist.procs is not None else world_size("resolve_for")
+            grid = (grid_select.choose_tucker_grid(shape, rank, procs) if is_tucker
+                    else grid_select.choose_cp_grid(shape, rank, procs)).grid
+        if is_tucker:
+            validate_tucker_grid(grid, dims=shape, check_devices=False)
+        else:
+            validate_grid(grid, dist.p0, dims=shape, rank=rank, check_devices=False)
+        return replace(dist, grid=tuple(grid))
+
+    @property
+    def is_distributed(self) -> bool:
+        return self.distribution is not None
+
+    def local(self) -> "ExecutionContext":
+        """A rank's view of a distributed context: the same engine knobs, no
+        distribution (the collectives are owned by the driver; inside each
+        block the problem is the sequential one)."""
+        if self.distribution is None:
+            return self
+        return replace(self, distribution=None, problem=None, decisions=())
+
+    def build_mesh(self, shape=None, rank: int | None = None):
+        """The process-group mesh of the distributed path (an explicit mesh
+        wins; else built from the resolved grid over the default group:
+        collective, every rank calls it)."""
+        if self.distribution is None:
+            raise ValueError(
+                "build_mesh() on a non-distributed context; pass "
+                "distributed=True / grid= / procs= to create()"
+            )
+        if self.distribution.mesh is not None:
+            return self.distribution.mesh
+        if self.distribution.grid is None:
+            raise ValueError(
+                "no grid resolved yet: call resolve_for(shape, rank) / "
+                "for_problem(...) first, or pass grid= explicitly"
+            )
+        from ..distributed.mesh import make_grid_mesh  # call-time: layer cycle
+
+        return make_grid_mesh(self.distribution.grid, p0=self.distribution.p0, dims=shape,
+                              rank=rank, device=self.device)
 
     def decision_for(self, shape, rank, mode: int, dtype=None) -> PlanDecision | None:
         """The pinned decision for ``mode``, or None when this context was
@@ -393,6 +557,8 @@ class ExecutionContext:
             "decisions": [d.to_dict() for d in self.decisions],
             "observe": self.observe,
             "compilation_cache": self.compilation_cache,
+            "distribution": (self.distribution.to_dict()
+                             if self.distribution is not None else None),
         }
 
     @classmethod
@@ -406,6 +572,7 @@ class ExecutionContext:
             )
         mem = d.get("memory")
         prob = d.get("problem")
+        dist = d.get("distribution")
         return cls(
             backend=str(d.get("backend", "cuda")),
             memory=memory_from_dict(mem) if mem is not None else None,
@@ -418,6 +585,7 @@ class ExecutionContext:
             decisions=tuple(PlanDecision.from_dict(x) for x in d.get("decisions", ())),
             observe=bool(d.get("observe", False)),
             compilation_cache=d.get("compilation_cache"),
+            distribution=Distribution.from_dict(dist) if dist is not None else None,
         )
 
     def to_json(self, *, indent: int | None = None) -> str:

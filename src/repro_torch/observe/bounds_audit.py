@@ -177,9 +177,15 @@ class OpBoundaries(TorchDispatchMode):
 def _audit(call, *, name: str, itemsize: int, modeled_words: float,
            lower_bound_words: float) -> AuditRow:
     """Run ``call`` once under an :class:`OpBoundaries` count and build
-    (and record) the row."""
+    (and record) the row. ``measured_collective_bytes`` is what the
+    collective wrappers counted during the call
+    (:mod:`repro_torch.distributed.collectives`; 0 on one device)."""
+    from ..distributed.collectives import COUNTER, ring_total  # call-time: layer cycle
+
+    before = COUNTER.snapshot()
     with OpBoundaries() as counted:
         call()
+    collective = ring_total(COUNTER.delta(before))
     row = AuditRow(name=name, itemsize=int(itemsize), measured_bytes=float(counted.nbytes),
                    modeled_words=float(modeled_words),
                    lower_bound_words=float(lower_bound_words))
@@ -195,6 +201,7 @@ def _audit(call, *, name: str, itemsize: int, modeled_words: float,
         measured_by=row.measured_by,
         aten_bytes=float(counted.aten_bytes),
         kernel_bytes=float(counted.kernel_bytes),
+        measured_collective_bytes=float(collective),
     )
     return row
 

@@ -7,6 +7,11 @@ of ``repro``), with the dispatch counter named for the port's backend:
 ``tune.cache_hits`` / ``_misses``   counters — tune-cache resolution
 ``tune.candidates_measured``        counter — autotune measurements run
 ``tune.search_time_us``             histogram — wall time of each search
+``distributed.sweep_collective_bytes`` histogram — a distributed CP sweep's
+                                    collective bytes, one observation a
+                                    sweep (counted at the collective
+                                    wrappers; the reference's is HLO's,
+                                    once a driver call)
 ``trace.events_dropped``            counter — ring-buffer evictions
 
 The contraction counter is not the kernel wrappers' ``launches``
@@ -34,6 +39,7 @@ TUNE_CACHE_HITS = "tune.cache_hits"
 TUNE_CACHE_MISSES = "tune.cache_misses"
 TUNE_CANDIDATES = "tune.candidates_measured"
 TUNE_SEARCH_TIME_US = "tune.search_time_us"
+SWEEP_COLLECTIVE_BYTES = "distributed.sweep_collective_bytes"
 TRACE_EVENTS_DROPPED = "trace.events_dropped"
 
 

@@ -28,9 +28,10 @@ import argparse
 import sys
 
 #: Event kinds that are dispatch-like (one engine contraction or one
-#: measured sweep/audit) and hence rows in the report. The port records no
-#: collective sweeps or static verdicts yet (ROADMAP Queue 1 items 12 and
-#: 13); their kinds stay, so a trace of either renders when they come.
+#: measured sweep/audit) and hence rows in the report. The port records
+#: the CP sweep's collectives; no Tucker sweep or static verdict yet (ROADMAP
+#: Queue 1 items 12 and 13): their kinds stay, so a trace of either renders
+#: when they come.
 DISPATCH_KINDS = (
     "mttkrp",
     "contract_partial",

@@ -33,7 +33,7 @@ def test_public_surface():
         ["ExecutionContext", "Memory", "BlockPlan", "mttkrp", "contract_partial", "cp_als",
          "CPResult", "multi_ttm", "MultiTTMPlan", "tucker_hooi", "TuckerResult",
          "cp_gradient", "cp_als_batched", "tucker_hooi_batched", "BatchedCPResult",
-         "BatchedTuckerResult", "Trace"])
+         "BatchedTuckerResult", "Trace", "Distribution", "select_grid", "select_tucker_grid"])
     for name in repro_torch.__all__:  # the reference's names for the same things
         assert name in repro.__all__
 
@@ -79,8 +79,8 @@ def test_context_json_round_trip(kw):
     ({"backend": "pallas"}, "backend='cuda'"),
     ({"backend": "fast"}, "unknown backend"),
     ({"tune": True}, "requires backend='auto'"),
-    ({"distributed": True}, "distributed drivers"),
-    # observe=True is accepted since the observability slice (match None)
+    # distributed=True and observe=True are accepted since their slices (match None)
+    pytest.param({"distributed": True}, None, id="kw4-distributed drivers"),
     pytest.param({"observe": True}, None, id="kw5-observability slice"),
     ({"compute_dtype": "int32"}, "float dtype"),
     ({"out_dtype": "float99"}, "not a torch dtype"),
@@ -89,7 +89,9 @@ def test_context_json_round_trip(kw):
 def test_context_rejects_eagerly(kw, match):
     if match is None:
         ctx = ExecutionContext.create(**{"device": "cpu", **kw})
-        assert ctx.observe and ctx != ExecutionContext.create(device="cpu")
+        assert ctx.observe == kw.get("observe", False)
+        assert ctx.is_distributed == kw.get("distributed", False)
+        assert ctx != ExecutionContext.create(device="cpu")
         return
     with pytest.raises(ValueError, match=match):
         ExecutionContext.create(**{"device": "cpu", **kw})
@@ -184,6 +186,6 @@ def test_ssd_bound_counts_the_tensor_cores(itemsize, want_ms):
                     * 2 * causal * h * p)
     assert ops_ms == pytest.approx({2: 0.04687, 4: 0.13397}[itemsize], abs=5e-5)
     assert ops_ms < ms
-    fp32_cores_ms = 1e3 * 2 * causal * (n + h * p) / cs.PEAK_FLOPS["float32"]
+    fp32_cores_ms = 1e3 * 2 * causal * (n + h * p) / cs.H100.peak_flops["float32"]
     assert fp32_cores_ms == pytest.approx(0.330, abs=1e-3)
 

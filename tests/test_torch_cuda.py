@@ -16,6 +16,7 @@ products at other places).
 """
 
 import importlib.util
+import json
 from pathlib import Path
 
 import numpy as np
@@ -1467,3 +1468,45 @@ def test_cuda_dispatches_equal_the_launch_counters(card, dims, rank, sweep):
                        ctx=repro_torch.ExecutionContext.create("cuda"))
     launched = sum(n - counts[k] for k, n in _contraction_launches().items())
     assert registry().delta(before).get(CUDA_DISPATCHES, 0) == launched > 0
+
+
+def _dist_tests():
+    """``tests/test_torch_distributed.py`` as a module: its worker runs the
+    ranks (it imports no JAX at module level)."""
+    path = Path(__file__).with_name("test_torch_distributed.py")
+    spec = importlib.util.spec_from_file_location("_torch_distributed_worker", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def test_distributed_alg3_and_cp_sweep_on_the_card(card, tmp_path):
+    """Two gloo ranks on the card (CUDA payloads staged through the host):
+    Alg 3 on a (2, 1, 1) grid with the ``cuda`` local MTTKRP against the
+    sequential ``cuda`` MTTKRP (1e-5), its bytes Eq (12) exactly, and one
+    ``cp_als`` sweep on a distributed context against the sequential
+    ``cuda`` run from the same factors (fit 1e-5, factors 1e-4)."""
+    from repro_torch.core.bounds import par_stationary_cost
+
+    dt = _dist_tests()
+    dt.wait_all(dt.spawn_group(str(tmp_path), device="cuda", world=2, cases="card"))
+    ranks = [(json.load(open(tmp_path / f"rank{r}.json")),
+              dict(np.load(tmp_path / f"rank{r}.npz"))) for r in range(2)]
+    data = dict(np.load(tmp_path / "inputs.npz"))
+    ctx = repro_torch.ExecutionContext.create("cuda")
+    x, fs = dt._factors(data, "a3")
+    xt, ft = torch.from_numpy(x).to(card), [torch.from_numpy(f).to(card) for f in fs]
+    for mode in range(3):
+        key = f"card-alg3-2x1x1-m{mode}"
+        got = dt._assemble({"ranks": ranks}, key, (x.shape[mode], fs[0].shape[1]))
+        dt._close(got, repro_torch.mttkrp(xt, ft, mode, ctx=ctx).cpu().numpy())
+        assert all(m[key]["bytes"] == par_stationary_cost(x.shape, 8, (2, 1, 1), mode) * 4
+                   for m, _ in ranks)
+    x, init = dt._factors(data, "cp")
+    seq = repro_torch.cp_als(torch.from_numpy(x).to(card), dt.CP_RANK, 1, ctx=ctx,
+                             init_factors=[torch.from_numpy(f).to(card) for f in init])
+    for meta, arrays in ranks:
+        np.testing.assert_allclose(meta["card-cp"]["fits"], seq.fits, rtol=0, atol=1e-5)
+        assert meta["card-cp"]["launches"]["mttkrp3"] == 3  # one sweep, three modes
+        for k in range(3):
+            dt._close(arrays[f"card-cp-f{k}"], seq.factors[k].cpu().numpy(), 1e-4)
