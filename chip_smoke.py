@@ -181,12 +181,31 @@ Phases (any failure raises, and the script exits non-zero):
     (1, 1, 2, 2), mode 0 (one ``mttkrpn`` a rank), and Alg 4 at 1000^3,
     R = 64, p0 = 2, (2, 1, 1), mode 0 (one ``mttkrp3`` a rank), each rank's
     block against the plain MTTKRP on the card within ``ALG_TOL`` 1e-5
-    and its bytes Eq (12) / Eq (16) x 4 exactly;
-15. the seconds each phase took, one JSON line per kernel and shape (times
+    and its bytes Eq (12) / Eq (16) x 4 exactly; (d) ``repro_torch.tucker_hooi``
+    on a distributed ``cuda`` context (``DIST_TUCKER``: 1000^3, ranks 32,
+    5 sweeps after one untimed, from HOSVD), ``overlap`` none and ring,
+    against the sequential ``cuda`` run from the same HOSVD (made by this
+    process): the grid ``choose_tucker_grid`` picks, a sweep's counted
+    bytes ``multi_ttm_sweep_words`` x 4 exactly on every rank, exactly 3
+    ``multi_ttm_keep`` launches a rank a sweep and no other counted kernel,
+    every rank's factors and core the same bits, fits within ``DIST_TOL``
+    a sweep, factors and core within ``DIST_CORE_TOL`` 1e-3 of their
+    largest magnitude; ms a sweep split into collectives and local work;
+    (e) ``cp_compressed_mean`` (``DIST_COMPRESS``: a 4096 x 14336 fp32
+    gradient a rank, rank 6, 25 sweeps) over the whole group: every rank's
+    reconstruction the same bits, its relative error against the true mean
+    under ``COMPRESS_TOL`` 0.05, the all-reduce's operand bytes
+    ``sweeps * sum(dims) * rank * 4`` exactly and no operand as large as the
+    gradient; one ``compressed_gradient`` step at rank 8, one sweep
+    (``COMPRESS_STEP``): 589,856 operand bytes, ``compression_ratio`` 398.2;
+15. the plan verifier: ``verify_plans()`` and ``check_kernel_plans()`` give
+    no finding, and every kernel-plan case's shared-memory mirror equals
+    the built library's own count;
+16. the seconds each phase took, one JSON line per kernel and shape (times
     from CUDA events), the ``nvidia-smi`` line, and one ``{"kernels":
     [...]}`` line, its launches summed over the main paths and phase 14's
     ranks;
-16. the last line, ``{"ok": true, "device": {...}}``.
+17. the last line, ``{"ok": true, "device": {...}}``.
 
 All data are made on the card from ``--seed`` with a ``torch.Generator``.
 Matmuls run in full fp32 (TF32 off), so the plain versions and the einsum
@@ -346,6 +365,18 @@ DIST_ALG4 = ((1000, 1000, 1000), 64, 2, (2, 1, 1), 0)
 DIST_TOL = 1e-4
 ALG_TOL = 1e-5
 DIST_SEED = 14
+#: 14d: the Tucker sweep (shape, ranks, sweeps) on the grid
+#: ``choose_tucker_grid`` picks, from HOSVD; DIST_CORE_TOL bounds the
+#: factors and the core (of their largest magnitude) against the sequential
+#: ``cuda`` run, the fits a sweep DIST_TOL. 14e: CP gradient compression of
+#: an MLP gradient (shape, rank, sweeps) a rank, the relative error of the
+#: reconstruction against the true mean under COMPRESS_TOL; one
+#: ``compressed_gradient`` step at (rank, sweeps) COMPRESS_STEP.
+DIST_TUCKER = ((1000, 1000, 1000), (32, 32, 32), 5)
+DIST_CORE_TOL = 1e-3
+DIST_COMPRESS = ((4096, 14336), 6, 25)
+COMPRESS_STEP = (8, 1)
+COMPRESS_TOL = 0.05
 #: The Hopper kernels' device names, as the profiler reports them.
 HOPPER_KERNEL = re.compile(r"mttkrp_mma_kernel|splitk_reduce_kernel|fused_pair_mma_kernel|"
                            r"streaming_partial_kernel|multi_ttm_mma_kernel")
@@ -2586,6 +2617,23 @@ def dist_cp_problem(seed: int):
     return x, random_factors(gen, dims, rank)
 
 
+def dist_tucker_problem(seed: int):
+    """Phase 14d's Tucker problem, the same in every process from ``seed``:
+    a 1000^3 tensor of multilinear rank 32 plus 10 % noise."""
+    import torch
+
+    dims, ranks, _ = DIST_TUCKER
+    gen = torch.Generator(device="cuda").manual_seed(seed + DIST_SEED + 3)
+    return noisy_tucker(gen, dims, ranks)
+
+
+def _digest(t) -> str:
+    """The bytes of a tensor, hashed: equal digests are equal bits."""
+    import hashlib
+
+    return hashlib.sha256(t.detach().contiguous().cpu().numpy().tobytes()).hexdigest()
+
+
 def _alg_problem(seed: int, dims, rank: int, salt: int):
     import torch
 
@@ -2596,15 +2644,21 @@ def _alg_problem(seed: int, dims, rank: int, salt: int):
 
 def dist_rank(rank: int, tmp: str, seed: int) -> int:
     """One rank of phase 14, in a process of its own: joins the gloo group
-    on ``tmp``'s file store, runs 14a-14c on its blocks (counts set to 0
+    on ``tmp``'s file store, runs 14a-14e on its blocks (counts set to 0
     before each run and read after) and writes ``rank{rank}.json`` (and
-    rank 0 the gathered factors) into ``tmp``."""
+    rank 0 the gathered factors and the Tucker results) into ``tmp``."""
     import torch
     import torch.distributed as dist
     import repro_torch
     from repro_torch.core.bounds import par_general_cost, par_stationary_cost
+    from repro_torch.core.tensor import random_low_rank_tensor, relative_error
+    from repro_torch.core.tucker import hosvd_init
     from repro_torch.distributed import collectives
-    from repro_torch.distributed.grid_select import stationary_sweep_words
+    from repro_torch.distributed.compression import (
+        compressed_gradient, compression_ratio, cp_compressed_mean, init_compression_state,
+        pick_3way_shape)
+    from repro_torch.distributed.grid_select import multi_ttm_sweep_words, stationary_sweep_words
+    from repro_torch.distributed.mesh import world_group
     from repro_torch.distributed.mesh import make_grid_mesh
     from repro_torch.distributed.mttkrp_parallel import (
         mttkrp_general, mttkrp_stationary, output_block, place_inputs)
@@ -2666,6 +2720,48 @@ def dist_rank(rank: int, tmp: str, seed: int) -> int:
             del res
         del x, init
         torch.cuda.empty_cache()
+        # 14d: HOOI from HOSVD on the grid choose_tucker_grid picks
+        x = dist_tucker_problem(seed)
+        dims, ranks, sweeps = DIST_TUCKER
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        init = hosvd_init(x, ranks)
+        torch.cuda.synchronize()
+        out["tucker_hosvd_ms"] = (time.perf_counter() - t0) * 1e3
+        out["tucker"] = {}
+        for overlap in ("none", "ring"):
+            ctx = repro_torch.ExecutionContext.create("cuda", distributed=True, overlap=overlap,
+                                                      observe=True)
+            repro_torch.tucker_hooi(x, ranks, 1, init_factors=init, ctx=ctx)  # untimed
+            hist0 = len(registry().histogram(SWEEP_COLLECTIVE_BYTES))
+            before = collectives.COUNTER.snapshot()
+            zero()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with repro_torch.Trace() as tr:
+                res = repro_torch.tucker_hooi(x, ranks, sweeps, init_factors=init, ctx=ctx)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            by_kind = collectives.COUNTER.delta(before)
+            (event,) = [e for e in tr.events if e["kind"] == "tucker_sweep_collectives"]
+            sweep_ms = wall / sweeps * 1e3
+            coll_ms = collectives.seconds_total(by_kind) / sweeps * 1e3
+            out["tucker"][overlap] = {
+                "grid": event["grid"], "fits": res.fits, "launches": launches(),
+                "sweep_bytes": list(registry().histogram(SWEEP_COLLECTIVE_BYTES)[hist0:]),
+                "model_bytes": multi_ttm_sweep_words(dims, ranks, event["grid"]) * 4,
+                "event_bytes": [event["measured_collective_bytes"], event["modeled_bytes"]],
+                "collectives_by_kind": event["collectives_by_kind"],
+                "transport": event["transport"],
+                "factor_digest": [_digest(f) for f in res.factors] + [_digest(res.core)],
+                "sweep_ms": sweep_ms, "collective_ms": coll_ms, "local_ms": sweep_ms - coll_ms,
+            }
+            if rank == 0:
+                torch.save({"factors": [f.cpu() for f in res.factors], "core": res.core.cpu()},
+                           os.path.join(tmp, f"tucker_{overlap}.pt"))
+            del res
+        del x, init
+        torch.cuda.empty_cache()
         ctx = repro_torch.ExecutionContext.create("cuda")
         for name, (dims, r, p0, grid, mode), salt in (
                 ("alg3", (DIST_ALG3[0], DIST_ALG3[1], 1, DIST_ALG3[2], DIST_ALG3[3]), 1),
@@ -2698,6 +2794,51 @@ def dist_rank(rank: int, tmp: str, seed: int) -> int:
                          "call_ms": ms, "finite": bool(torch.isfinite(got).all())}
             del xs, fl, got, want
             torch.cuda.empty_cache()
+        # 14e: CP gradient compression of an MLP gradient, one a rank (the
+        # reference check's construction: a rank-3 base plus rank x 0.01 of
+        # a rank-2 delta), against the true mean
+        shape, r, sweeps = DIST_COMPRESS
+        dims = pick_3way_shape(shape)
+        gen = torch.Generator(device="cuda").manual_seed(seed + DIST_SEED + 4)
+        base, _ = random_low_rank_tensor(gen, dims, 3)
+        delta, _ = random_low_rank_tensor(gen, dims, 2)
+        g = base + rank * 0.01 * delta
+        g_mean = base + 0.01 * (sum(range(DIST_RANKS)) / DIST_RANKS) * delta
+        group = world_group()
+        zero()
+        before = collectives.COUNTER.snapshot()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        recon, _ = cp_compressed_mean(
+            g, group, r, sweeps,
+            generator=torch.Generator(device="cuda").manual_seed(seed + DIST_SEED + 5))
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        by_kind = collectives.COUNTER.delta(before)
+        step_r, step_sweeps = COMPRESS_STEP
+        state = init_compression_state(
+            torch.Generator(device="cuda").manual_seed(seed + DIST_SEED + 6), shape, step_r)
+        step_before = collectives.COUNTER.snapshot()
+        approx, state = compressed_gradient(g.reshape(shape), state, group, sweeps=step_sweeps)
+        step_kind = collectives.COUNTER.delta(step_before)
+        out["compress"] = {
+            "shape": list(shape), "dims": list(dims), "rank": r, "sweeps": sweeps,
+            "rel_err": float(relative_error(g_mean, recon)), "digest": _digest(recon),
+            "finite": bool(torch.isfinite(recon).all()), "launches": launches(),
+            "collectives_by_kind": by_kind,
+            "operand_bytes": by_kind["all-reduce"]["operand_bytes"],
+            "model_operand_bytes": sweeps * sum(dims) * r * 4,
+            "gradient_bytes": g.numel() * g.element_size(), "call_ms": ms,
+            "collective_ms": collectives.seconds_total(by_kind) * 1e3,
+            "step": {"rank": step_r, "sweeps": step_sweeps,
+                     "operand_bytes": step_kind["all-reduce"]["operand_bytes"],
+                     "model_operand_bytes": step_sweeps * sum(dims) * step_r * 4,
+                     "ratio": compression_ratio(shape, step_r, step_sweeps),
+                     "finite": bool(torch.isfinite(approx).all()),
+                     "approx_digest": _digest(approx)},
+        }
+        del base, delta, g, g_mean, recon, approx, state
+        torch.cuda.empty_cache()
         out["loaded"] = {k: str(v) for k, v in build.loaded().items()}
     finally:
         dist.destroy_process_group()
@@ -2728,6 +2869,8 @@ def dist_phase(seed: int, smi: str, built: dict) -> dict:
 
     import torch
     import repro_torch
+    from repro_torch.core.tucker import hosvd_init
+    from repro_torch.distributed.grid_select import choose_tucker_grid
 
     tmp = tempfile.mkdtemp(prefix="chip_smoke_dist_")
     nvcc_dirs = {os.path.dirname(p) for p in (shutil.which("nvcc"),) if p}
@@ -2748,9 +2891,18 @@ def dist_phase(seed: int, smi: str, built: dict) -> dict:
         seq_factors = [f.cpu() for f in seq.factors]
         del x, init, seq
         torch.cuda.empty_cache()
+        # 14d's yardstick: the sequential cuda HOOI from the same HOSVD
+        x = dist_tucker_problem(seed)
+        tdims, tranks, tsweeps = DIST_TUCKER
+        tseq = repro_torch.tucker_hooi(x, tranks, tsweeps, init_factors=hosvd_init(x, tranks),
+                                       ctx=ctx)
+        tseq_fits, tseq_core = tseq.fits, tseq.core.cpu()
+        tseq_factors = [f.cpu() for f in tseq.factors]
+        del x, tseq
+        torch.cuda.empty_cache()
         logs = []
         for p in procs:
-            logs.append(p.communicate(timeout=300)[0])
+            logs.append(p.communicate(timeout=420)[0])
     finally:
         for p in procs:
             if p.poll() is None:
@@ -2804,6 +2956,72 @@ def dist_phase(seed: int, smi: str, built: dict) -> dict:
                "timing": f"{DIST_RANKS} ranks share one card: no speed figure", "gpu": smi}
         emit(row)
         out["cp_" + overlap] = row
+    # 14d: the Tucker sweep against the sequential run
+    want_grid = list(choose_tucker_grid(tdims, tranks, DIST_RANKS).grid)
+    for overlap in ("none", "ring"):
+        saved = torch.load(os.path.join(tmp, f"tucker_{overlap}.pt"))
+        gaps = [max(abs(a - b) for a, b in zip(rec["tucker"][overlap]["fits"], tseq_fits))
+                for rec in ranks]
+        ferr = max(rel_err(f, g)[0] for f, g in zip(saved["factors"], tseq_factors))
+        cerr = rel_err(saved["core"], tseq_core)[0]
+        for r, rec in enumerate(ranks):
+            t = rec["tucker"][overlap]
+            if t["grid"] != want_grid:
+                raise AssertionError(f"14d {overlap}: rank {r} grid {t['grid']}, "
+                                     f"choose_tucker_grid {want_grid}")
+            if t["sweep_bytes"] != [t["model_bytes"]] * tsweeps \
+                    or t["event_bytes"] != [t["model_bytes"]] * 2:
+                raise AssertionError(f"14d {overlap}: rank {r} sweep bytes {t['sweep_bytes']}, "
+                                     f"event {t['event_bytes']}, model {t['model_bytes']}")
+            if t["launches"]["multi_ttm_keep"] != len(tdims) * tsweeps or any(
+                    n for k, n in t["launches"].items() if k != "multi_ttm_keep"):
+                raise AssertionError(f"14d {overlap}: rank {r} launches {t['launches']}, "
+                                     f"expected {len(tdims)} multi_ttm_keep a sweep")
+            if t["factor_digest"] != ranks[0]["tucker"][overlap]["factor_digest"]:
+                raise AssertionError(f"14d {overlap}: rank {r}'s factors or core differ from "
+                                     f"rank 0's")
+            for name, n in t["launches"].items():
+                out["launches"][name] += n
+        if max(gaps) > DIST_TOL or ferr > DIST_CORE_TOL or cerr > DIST_CORE_TOL:
+            raise AssertionError(f"14d {overlap}: fit gap {max(gaps):.2e}, factors {ferr:.2e}, "
+                                 f"core {cerr:.2e} against the sequential run")
+        first = ranks[0]["tucker"][overlap]
+        row = {"distributed_tucker": list(tdims), "ranks": list(tranks), "sweeps": tsweeps,
+               "overlap": overlap, "procs": DIST_RANKS, "grid": first["grid"],
+               "transport": first["transport"], "fits": first["fits"],
+               "sequential_fits": tseq_fits, "max_fit_gap": max(gaps),
+               "factor_rel_err": ferr, "core_rel_err": cerr, "sweep_bytes": first["sweep_bytes"][0],
+               "collectives_by_kind": first["collectives_by_kind"],
+               "multi_ttm_keep_per_rank_sweep": len(tdims), "factor_digests_equal": True,
+               "hosvd_ms": [rec["tucker_hosvd_ms"] for rec in ranks],
+               "sweep_ms": [rec["tucker"][overlap]["sweep_ms"] for rec in ranks],
+               "local_ms": [rec["tucker"][overlap]["local_ms"] for rec in ranks],
+               "collective_ms": [rec["tucker"][overlap]["collective_ms"] for rec in ranks],
+               "timing": f"{DIST_RANKS} ranks share one card: no speed figure", "gpu": smi}
+        emit(row)
+        out["tucker_" + overlap] = row
+    # 14e: the compressed mean, the same on every rank, near the true mean
+    comp = [rec["compress"] for rec in ranks]
+    for r, c in enumerate(comp):
+        st = c["step"]
+        if (not c["finite"] or c["rel_err"] > COMPRESS_TOL or c["digest"] != comp[0]["digest"]
+                or c["operand_bytes"] != c["model_operand_bytes"]
+                or set(c["collectives_by_kind"]) != {"all-reduce"}
+                or c["operand_bytes"] >= c["gradient_bytes"] or any(c["launches"].values())
+                or st["operand_bytes"] != st["model_operand_bytes"] or not st["finite"]
+                or st["approx_digest"] != comp[0]["step"]["approx_digest"]
+                or round(st["ratio"], 1) != round(comp[0]["step"]["ratio"], 1)):
+            raise AssertionError(f"14e: rank {r}: {json.dumps(c)}")
+    emit({"distributed_compression": comp[0]["shape"], "dims": comp[0]["dims"],
+          "rank": comp[0]["rank"], "sweeps": comp[0]["sweeps"], "procs": DIST_RANKS,
+          "rel_err": [c["rel_err"] for c in comp], "reconstructions_equal": True,
+          "operand_bytes": comp[0]["operand_bytes"], "gradient_bytes": comp[0]["gradient_bytes"],
+          "step_operand_bytes": comp[0]["step"]["operand_bytes"],
+          "step_rank": comp[0]["step"]["rank"], "step_ratio": comp[0]["step"]["ratio"],
+          "call_ms": [c["call_ms"] for c in comp],
+          "collective_ms": [c["collective_ms"] for c in comp],
+          "timing": f"{DIST_RANKS} ranks share one card: no speed figure", "gpu": smi})
+    out["compress"] = comp[0]
     for name, kernel in (("alg3", "mttkrpn"), ("alg4", "mttkrp3")):
         for r, rec in enumerate(ranks):
             a = rec[name]
@@ -2821,6 +3039,53 @@ def dist_phase(seed: int, smi: str, built: dict) -> dict:
               "timing": f"{DIST_RANKS} ranks share one card: no speed figure", "gpu": smi})
     return out
 
+
+
+def verify_phase(smi: str) -> dict:
+    """Phase 15: the plan verifier. ``verify_plans()`` (the reference's
+    checks over its lattice and ``Memory.h100_smem``) and
+    ``check_kernel_plans()`` (the Hopper kernels' choosers over the port's
+    cells) give no finding, and for every case of the kernel-plan lattice
+    the Python mirror of the chosen plan's shared memory equals the count of
+    the library phase 2 built (``repro_*_smem_bytes``)."""
+    import torch
+    from repro_torch.kernels import multi_ttm as multi_ttm_mod
+    from repro_torch.kernels import partial as partial_mod
+    from repro_torch.kernels import splitk
+    from repro_torch.kernels import sweep as sweep_mod
+    from repro_torch.verify.plans import (
+        check_kernel_plans, choose_kernel_plan, default_kernel_cases, kernel_smem_bytes,
+        verify_plans)
+
+    t0 = time.perf_counter()
+    plan_findings, kernel_findings = verify_plans(), check_kernel_plans()
+    host_s = time.perf_counter() - t0
+    library = {"mttkrp": lambda c, p, dt: splitk.smem_bytes(p, dt, len(c.shape) - 1),
+               "pair": lambda c, p, dt: sweep_mod.smem_bytes(p, dt, len(c.shape) - 1),
+               "multi_ttm": lambda c, p, dt: multi_ttm_mod.smem_bytes(p, dt, c.rank),
+               "partial": lambda c, p, dt: partial_mod.smem_bytes(p, dt, c.rank)}
+    cases = default_kernel_cases()
+    unequal = []
+    by_kernel: dict = {}
+    for case in cases:
+        plan = choose_kernel_plan(case)
+        dtype = torch.float32 if case.itemsize == 4 else torch.bfloat16
+        mirror, lib = kernel_smem_bytes(case, plan), library[case.kernel](case, plan, dtype)
+        by_kernel[case.kernel] = by_kernel.get(case.kernel, 0) + 1
+        if mirror != lib:
+            unequal.append({"case": str(case), "plan": repr(plan), "mirror": mirror,
+                            "library": lib})
+    rec = {"plan_verifier": {"verify_plans_findings": len(plan_findings),
+                             "kernel_plan_findings": len(kernel_findings),
+                             "kernel_cases": len(cases), "cases_by_kernel": by_kernel,
+                             "mirror_equal_library": len(cases) - len(unequal),
+                             "host_s": host_s},
+           "gpu": smi}
+    emit(rec)
+    if plan_findings or kernel_findings or unequal:
+        raise AssertionError(f"15: {[str(f) for f in plan_findings + kernel_findings]}; "
+                             f"mirrors against the libraries: {unequal}")
+    return rec
 
 
 def main() -> int:
@@ -2890,6 +3155,7 @@ def main() -> int:
     tuned = phase("12", tune_phase, gen, smi)
     observed = phase("13", observe_phase, gen, smi)
     distributed = phase("14", dist_phase, args.seed, smi, built)
+    phase("15", verify_phase, smi)
     for counted in (matrix["launches"], tucker["launches"], mamba["launches"],
                     batched["launches"], served["launches"], tuned["launches"],
                     observed["launches"], distributed["launches"]):

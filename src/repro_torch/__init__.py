@@ -35,12 +35,14 @@ repro_torch.observe.report TRACE.jsonl`` tables them)::
     with repro_torch.Trace(path="run.jsonl"):
         repro_torch.cp_als(x, rank=16, ctx=ctx)
 
-A distributed context runs the stationary-tensor CP sweep on an
-initialized ``torch.distributed`` group, every rank calling with the whole
-tensor and cutting its own block (:mod:`repro_torch.distributed`)::
+A distributed context runs the stationary-tensor CP and Tucker/HOOI
+sweeps on an initialized ``torch.distributed`` group, every rank calling
+with the whole tensor and cutting its own block
+(:mod:`repro_torch.distributed`)::
 
     ctx = repro_torch.ExecutionContext.create("cuda", distributed=True)
     cp = repro_torch.cp_als(x, rank=16, n_iters=10, ctx=ctx)   # on every rank
+    tk = repro_torch.tucker_hooi(x, (16, 12, 8), n_iters=5, ctx=ctx)
 
 The JAX package ``repro`` is the reference; this package never imports it.
 """

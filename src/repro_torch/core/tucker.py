@@ -130,9 +130,11 @@ def tucker_hooi(
     ``ExecutionContext.default()``: the Hopper kernel on the card, one launch per
     mode); on ``backend="auto"`` each resolves through the tune cache
     (``resolve_multi_ttm``; a context from ``ExecutionContext.for_problem``
-    with the Tucker ranks replays its pinned decisions). The reference routes a distributed context to its
-    stationary-tensor sweep driver; here a distributed context raises
-    until the Tucker half of ROADMAP Queue 1 item 12 brings that driver.
+    with the Tucker ranks replays its pinned decisions). A distributed
+    context routes to the stationary-tensor sweep driver
+    (:func:`repro_torch.distributed.tucker_parallel.tucker_hooi_parallel`):
+    X is block-distributed over a Multi-TTM-sweep-optimal grid of the
+    initialized default group, every rank calling with the whole tensor.
 
     Initialization is HOSVD (``init_factors`` overrides). ``n_iters < 1``
     projects onto the initial factors only (one full-core Multi-TTM).
@@ -140,13 +142,13 @@ def tucker_hooi(
     core comes out of the last mode update, with no extra pass over X.
     Returns a :class:`TuckerResult`."""
     ctx = ctx if ctx is not None else ExecutionContext.default()
-    if ctx.is_distributed:
-        raise NotImplementedError(
-            "tucker_hooi on a distributed context: the distributed Tucker sweep "
-            "(tucker_parallel) comes with the next slice (ROADMAP Queue 1 item 12, Tucker half)"
-        )
-    ctx.check_tensor("repro_torch.tucker_hooi", x, *(init_factors or ()))
     ranks = _check_ranks(x.shape, ranks)
+    if ctx.is_distributed:
+        from ..distributed.tucker_parallel import tucker_hooi_parallel  # call-time: layer cycle
+
+        return tucker_hooi_parallel(x, ranks, n_iters, ctx=ctx, init_factors=init_factors,
+                                    tol=tol)
+    ctx.check_tensor("repro_torch.tucker_hooi", x, *(init_factors or ()))
     n = x.ndim
     if init_factors is not None:
         factors = [f.to(x.dtype) for f in init_factors]

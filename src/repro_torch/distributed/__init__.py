@@ -1,11 +1,19 @@
 """The distributed runtime on ``torch.distributed``: the parallel MTTKRP
 algorithms (Alg 3 and 4), grid selection, the stationary CP-ALS sweep
 driver, and the counted collectives. Counterpart of ``repro.distributed``
-(its ``hlo.py`` has no counterpart: the collectives count their own bytes,
-:mod:`.collectives`; the Tucker sweep and ``compression.py`` come with the
-next slice)."""
+and of its Tucker/HOOI sweep and CP gradient compression (its ``hlo.py``
+has no counterpart: the collectives count their own bytes,
+:mod:`.collectives`)."""
 
 from .collectives import COUNTER, CollectiveCounter, Group, ring_total
+from .compression import (
+    CompressionState,
+    compressed_gradient,
+    compression_ratio,
+    cp_compressed_mean,
+    init_compression_state,
+    pick_3way_shape,
+)
 from .cp_als_parallel import build_cp_sweep, cp_als_parallel, place_cp_state
 from .grid_select import (
     GridChoice,
@@ -28,6 +36,7 @@ from .mesh import (
     row_sharding_axes,
     validate_grid,
     validate_tucker_grid,
+    world_group,
 )
 from .mttkrp_parallel import (
     engine_local_fn,
@@ -39,6 +48,13 @@ from .mttkrp_parallel import (
     output_block,
     place_inputs,
     tensor_block,
+)
+from .tucker_parallel import (
+    build_tucker_sweep,
+    multi_ttm_stationary,
+    place_multi_ttm_inputs,
+    place_tucker_state,
+    tucker_hooi_parallel,
 )
 
 __all__ = [
@@ -72,6 +88,18 @@ __all__ = [
     "build_cp_sweep",
     "cp_als_parallel",
     "place_cp_state",
+    "build_tucker_sweep",
+    "multi_ttm_stationary",
+    "place_multi_ttm_inputs",
+    "place_tucker_state",
+    "tucker_hooi_parallel",
+    "pick_3way_shape",
+    "cp_compressed_mean",
+    "CompressionState",
+    "init_compression_state",
+    "compressed_gradient",
+    "compression_ratio",
+    "world_group",
     "COUNTER",
     "CollectiveCounter",
     "Group",

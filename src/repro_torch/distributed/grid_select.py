@@ -358,8 +358,7 @@ def _rank_complement_products(ranks: Sequence[int]) -> list[int]:
 
 def _tucker_term(d: int, pk: int, rbar: int, procs: int) -> float:
     """One mode's per-sweep words in the stationary-tensor Tucker/HOOI
-    sweep (the reference's ``distributed/tucker_parallel.py``; the port's
-    comes with the next slice): the partial Y^(k) block-rows are
+    sweep (:mod:`.tucker_parallel`): the partial Y^(k) block-rows are
     all-reduced over the mode-k hyperslice (``2(q-1)/q * w`` with
     ``q = P/p_k``) and then all-gathered over the
     mode-k fiber (``(p_k-1) * w``), where ``w = ceil(I_k/p_k) * R-bar_k``

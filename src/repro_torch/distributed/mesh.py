@@ -54,6 +54,18 @@ def world_size(what: str) -> int:
     return dist.get_world_size()
 
 
+def world_group() -> Group:
+    """The whole initialized default group as one :class:`Group`, ranks in
+    order: data parallelism's all-reduce (:mod:`.compression`). It is the
+    grid group of the one-axis mesh ``(world size,)``, made without binding
+    a device."""
+    import torch.distributed as dist
+
+    world = world_size("world_group")
+    return Group(tuple(range(world)), dist.get_rank(), dist.group.WORLD if world > 1 else None,
+                 str(dist.get_backend()))
+
+
 def validate_grid(
     grid: Sequence[int],
     p0: int = 1,

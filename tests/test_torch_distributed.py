@@ -436,16 +436,6 @@ def test_audit_records_measured_collective_bytes():
     assert event["measured_collective_bytes"] == 0.0
 
 
-def test_tucker_on_a_distributed_context_raises():
-    import torch
-
-    import repro_torch
-
-    ctx = repro_torch.ExecutionContext.create("einsum", device="cpu", distributed=True)
-    with pytest.raises(NotImplementedError, match="next slice"):
-        repro_torch.tucker_hooi(torch.ones(4, 4, 4), (2, 2, 2), ctx=ctx)
-
-
 @pytest.mark.parametrize("kw,match", [
     ({"sweep": "fused"}, "not supported on the distributed path"),
     ({"sweep": "dimtree"}, "not supported on the distributed path"),
