@@ -198,9 +198,21 @@ Phases (any failure raises, and the script exits non-zero):
     ``sweeps * sum(dims) * rank * 4`` exactly and no operand as large as the
     gradient; one ``compressed_gradient`` step at rank 8, one sweep
     (``COMPRESS_STEP``): 589,856 operand bytes, ``compression_ratio`` 398.2;
-15. the plan verifier: ``verify_plans()`` and ``check_kernel_plans()`` give
-    no finding, and every kernel-plan case's shared-memory mirror equals
-    the built library's own count;
+15. the static verifier against the card: (a) ``verify_plans()`` and
+    ``check_kernel_plans()`` give no finding, and every kernel-plan case's
+    shared-memory mirror equals the built library's own count; (b) for
+    every case of ``verify.kernels.kernel_cases()`` the launch grid the C
+    launcher takes (its ``repro_*_grid`` function) equals the Python
+    mirror's; (c) the write probe: every case's wrapper on real inputs,
+    launched from the ``-DREPRO_WRITE_PROBE`` build of its source (built in
+    phase 2 beside the production build) and from the production library:
+    each element of each buffer each launch writes (workspace, P, output,
+    and the split-K reduction's output) counts exactly 1, the overflow slot
+    0, the buffers are the mirror's, the two outputs are bit-equal, and no
+    wrapper's count moves for the probe's launches; one JSON line a case;
+    (d) ``python -m repro_torch.verify`` in a subprocess exits 0 with all
+    five analyzers and no finding, and ``verify_dtypes(device="cuda")``
+    gives no finding, every Hopper launch it records writing float32;
 16. the seconds each phase took, one JSON line per kernel and shape (times
     from CUDA events), the ``nvidia-smi`` line, and one ``{"kernels":
     [...]}`` line, its launches summed over the main paths and phase 14's
@@ -3042,7 +3054,7 @@ def dist_phase(seed: int, smi: str, built: dict) -> dict:
 
 
 def verify_phase(smi: str) -> dict:
-    """Phase 15: the plan verifier. ``verify_plans()`` (the reference's
+    """Phase 15a: the plan verifier. ``verify_plans()`` (the reference's
     checks over its lattice and ``Memory.h100_smem``) and
     ``check_kernel_plans()`` (the Hopper kernels' choosers over the port's
     cells) give no finding, and for every case of the kernel-plan lattice
@@ -3088,6 +3100,64 @@ def verify_phase(smi: str) -> dict:
     return rec
 
 
+def walk_phase(smi: str) -> dict:
+    """Phases 15b-15d: the kernel walks against the kernels (the docstring's
+    item 15)."""
+    import torch
+    from repro_torch.verify.dtypes import verify_dtypes
+    from repro_torch.verify.kernels import kernel_cases
+    from repro_torch.verify.probe import check_grid, probe_case
+
+    dev = torch.device("cuda")
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    cases = kernel_cases()
+    # 15b: each C launcher's grid function against the mirror
+    grids = [check_grid(c, sms) for c in cases]
+    unequal = [g for g in grids if not g["equal"]]
+    emit({"walk_grids": {"cases": len(grids), "equal": len(grids) - len(unequal),
+                         "unequal": unequal}, "gpu": smi})
+    if unequal:
+        raise AssertionError(f"15b: library grids differ from the mirrors: {unequal}")
+    # 15c: the write probe, case by case, each freed before the next
+    t0 = time.perf_counter()
+    failed = []
+    for i, case in enumerate(cases):
+        rec = probe_case(case, dev, seed=1000 + i, sms=sms)
+        emit({"write_probe": rec, "gpu": smi})
+        if not rec["ok"]:
+            failed.append(rec)
+    probe_s = time.perf_counter() - t0
+    if failed:
+        raise AssertionError(f"15c: the write probe disagrees with the mirrors: {failed}")
+    # 15d: the whole verifier in a process of its own, and the dtype policy on the card
+    env = {**os.environ, "PYTHONPATH": os.path.join(ROOT, "src")}
+    proc = subprocess.run([sys.executable, "-m", "repro_torch.verify"], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=600)
+    summary = proc.stdout.strip().splitlines()[-1] if proc.stdout.strip() else ""
+    print(f"15d: python -m repro_torch.verify exited {proc.returncode}: {summary}", flush=True)
+    want = "verify: 0 finding(s) across plans, kernels, lint, comm, dtypes"
+    if proc.returncode != 0 or not summary.startswith(want):
+        raise AssertionError(f"15d: the verifier exited {proc.returncode}:\n"
+                             f"{proc.stdout[-4000:]}\n{proc.stderr[-4000:]}")
+    dtype_findings, dtype_verdicts = verify_dtypes(device="cuda")
+    written = sorted({d for v in dtype_verdicts for d in v["kernel_written_dtypes"]})
+    launched = sum(v["kernel_launches"] for v in dtype_verdicts)
+    rec = {"walks": {"cases": len(cases), "grids_equal": len(grids),
+                     "probes_ok": len(cases), "probe_s": probe_s,
+                     "verifier": summary, "dtype_findings": len(dtype_findings),
+                     "dtype_programs": [{k: v[k] for k in ("name", "accumulations",
+                                                           "kernel_launches",
+                                                           "kernel_written_dtypes")}
+                                        for v in dtype_verdicts],
+                     "dtype_kernel_launches": launched, "dtype_written": written},
+           "gpu": smi}
+    emit(rec)
+    if dtype_findings or written != ["float32"] or launched == 0:
+        raise AssertionError(f"15d: verify_dtypes on the card: {dtype_findings}, written "
+                             f"{written}, {launched} launches")
+    return rec
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3115,11 +3185,12 @@ def main() -> int:
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"device {torch.cuda.get_device_name(0)}", flush=True)
 
-    t0 = time.perf_counter()  # phase 2
-    built = build.build_all()
+    t0 = time.perf_counter()  # phase 2: the production build and the write probe's, at once
+    built = build.build_all(probe=True)
     for source in built:
         build.library(source)
-    print(f"built {len(built)} libraries in {time.perf_counter() - t0:.1f} s", flush=True)
+    print(f"built {len(built)} libraries and their write-probe builds in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
     for source, (path, log) in built.items():
         print(f"built {os.path.relpath(path, ROOT)}", flush=True)
         for line in log.splitlines():
@@ -3155,7 +3226,8 @@ def main() -> int:
     tuned = phase("12", tune_phase, gen, smi)
     observed = phase("13", observe_phase, gen, smi)
     distributed = phase("14", dist_phase, args.seed, smi, built)
-    phase("15", verify_phase, smi)
+    phase("15a", verify_phase, smi)
+    phase("15b-15d", walk_phase, smi)
     for counted in (matrix["launches"], tucker["launches"], mamba["launches"],
                     batched["launches"], served["launches"], tuned["launches"],
                     observed["launches"], distributed["launches"]):

@@ -31,6 +31,16 @@ copied to the host before the call and back after it, explicitly, and its
 bytes are counted once (the collective's, not the copies'). So several
 ranks can share one card over gloo, which NCCL refuses. A collective that
 fails raises; nothing switches transport behind the caller's back.
+
+The ``"abstract"`` backend (:data:`ABSTRACT`, a group with ``pg=None``)
+moves nothing and needs no process group: each call returns the result's
+shape as if every rank of the group held this rank's operand (an
+all-gather q copies, an all-reduce q times the operand, a reduce-scatter q
+times this rank's chunk, a permute the operand) and counts the same ring
+bytes as a real group. So one process runs every rank's program of a grid
+in turn (:func:`~.mesh.abstract_grid_mesh`) and counts each rank's bytes:
+``repro_torch.verify.comm``. Only the shapes and the bytes mean anything
+there; the values stay finite, so the sweeps' solves run.
 """
 
 from __future__ import annotations
@@ -43,6 +53,8 @@ from typing import Mapping
 import torch
 
 KINDS = ("all-gather", "reduce-scatter", "all-reduce", "collective-permute")
+#: The backend of a group that moves nothing (see the module docstring).
+ABSTRACT = "abstract"
 
 
 @dataclass(frozen=True)
@@ -153,11 +165,19 @@ def _back(y: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
     return y.to(like.device) if y.device != like.device else y
 
 
+def _abstract(group: Group) -> bool:
+    return group.backend == ABSTRACT and group.pg is None
+
+
 def all_gather(x: torch.Tensor, group: Group) -> torch.Tensor:
     """``lax.all_gather(x, axes, axis=0, tiled=True)``: every rank's ``x``
     concatenated along dim 0 in the group's order."""
     if group.size == 1:
         return x
+    if _abstract(group):
+        out = torch.cat([x] * group.size, dim=0)
+        _count("all-gather", group, x, out, time.perf_counter())
+        return out
     import torch.distributed as dist
 
     t0 = _start(x, group)
@@ -180,6 +200,11 @@ def reduce_scatter(c: torch.Tensor, group: Group) -> torch.Tensor:
     q = group.size
     if c.shape[0] % q:
         raise ValueError(f"reduce_scatter: {c.shape[0]} rows do not split over {q} ranks")
+    if _abstract(group):
+        rows = c.shape[0] // q
+        out = c[group.me * rows:(group.me + 1) * rows] * q
+        _count("reduce-scatter", group, c, out, time.perf_counter())
+        return out
     t0 = _start(c, group)
     src = _host(c, group)
     out = torch.empty((c.shape[0] // q,) + tuple(c.shape[1:]), dtype=src.dtype,
@@ -194,6 +219,10 @@ def all_reduce(x: torch.Tensor, group: Group) -> torch.Tensor:
     """``lax.psum(x, axes)``: the sum over the group, as a new tensor."""
     if group.size == 1:
         return x
+    if _abstract(group):
+        out = x * group.size
+        _count("all-reduce", group, x, out, time.perf_counter())
+        return out
     import torch.distributed as dist
 
     t0 = _start(x, group)
@@ -211,6 +240,10 @@ def permute(x: torch.Tensor, group: Group) -> torch.Tensor:
     q = group.size
     if q == 1:
         return x
+    if _abstract(group):
+        out = x.clone()
+        _count("collective-permute", group, x, out, time.perf_counter())
+        return out
     import torch.distributed as dist
 
     t0 = _start(x, group)

@@ -17,7 +17,10 @@ order ``all_gather(..., tiled=True)`` concatenates in.
 
 * :class:`GridLayout` — the grid as rank lists, no processes
   (:func:`make_abstract_grid_mesh`, the counterpart of the reference's
-  ``AbstractMesh`` twin).
+  ``AbstractMesh`` twin); :func:`abstract_grid_mesh` makes one rank's
+  :class:`GridMesh` of it over groups that move nothing (the
+  ``"abstract"`` transport of :mod:`.collectives`), so one process can run
+  every rank's program in turn and count its bytes.
 * :class:`GridMesh` — the layout plus this process's groups, built from the
   initialized default group (:func:`make_grid_mesh`): one for each mode-k
   hyperslice, each mode-k fiber, the rank axis (Alg 4) and the whole grid.
@@ -31,7 +34,7 @@ from typing import Sequence
 
 import torch
 
-from .collectives import Group
+from .collectives import ABSTRACT, Group
 
 #: The Alg-4 rank-axis name; mode axes are spelled through :func:`mode_axis`.
 RANK_AXIS = "r"
@@ -390,3 +393,18 @@ def make_abstract_grid_mesh(grid: Sequence[int], p0: int = 1) -> GridLayout:
     lists (:meth:`GridLayout.partition`), with no device-count check."""
     validate_grid(grid, p0, check_devices=False)
     return GridLayout(tuple(int(g) for g in grid), p0)
+
+
+def abstract_grid_mesh(layout: GridLayout, rank: int) -> GridMesh:
+    """Rank ``rank``'s :class:`GridMesh` of ``layout`` on the CPU, its groups
+    on the ``"abstract"`` transport (:data:`~.collectives.ABSTRACT`): the
+    sweep builders run unchanged over it and count this rank's collective
+    bytes, with no process group and no second process."""
+    if not 0 <= rank < layout.size:
+        raise ValueError(f"rank {rank} outside the {layout.size} ranks of grid {layout.grid}")
+    groups: dict[tuple[str, ...], Group] = {}
+    for axes in layout.group_axes():
+        for ranks in layout.partition(axes):
+            if rank in ranks:
+                groups[axes] = Group(ranks, ranks.index(rank), None, ABSTRACT)
+    return GridMesh(layout, rank, torch.device("cpu"), ABSTRACT, groups)

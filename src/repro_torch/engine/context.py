@@ -528,10 +528,12 @@ class ExecutionContext:
         the entry points never move data behind the caller's back."""
         for t in tensors:
             if t is not None and t.device.type != self.torch_device.type:
+                other = (f"build the context with device={t.device.type!r}"
+                         if t.device.type in ("cuda", "cpu")
+                         else "the context takes only device='cuda' or 'cpu'")
                 raise ValueError(
                     f"{api}: tensor on {t.device} but the context runs on {self.device}; "
-                    f"move it with .to({self.device!r}) or build the context with "
-                    f"device={t.device.type!r}"
+                    f"move it with .to({self.device!r}) or {other}"
                 )
 
     # -- serialization -------------------------------------------------------

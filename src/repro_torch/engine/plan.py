@@ -1048,3 +1048,19 @@ def choose_partial_kernel_blocks(shape: Sequence[int], strides: Sequence[int], r
         rows = min(candidates, key=cost)
         splits = one_wave_splits(grid(rows)[0] * rtiles * batch, grid(rows)[2], sms)
     return PartialKernelPlan(layout, block(rows), vec, loads, min(65535, splits))
+
+
+# ---------------------------------------------------------------------------
+# The Mamba2 intra-chunk SSD term (csrc/ssd_intra.cu): its launch grid
+# ---------------------------------------------------------------------------
+
+def ssd_intra_kernel_grid(bcn: int, q: int, h: int, tile: int,
+                          heads: int) -> tuple[int, int, int]:
+    """(CTAs, 1, 1) of the SSD kernel's 1-D launch for ``bcn`` chunks of ``q``
+    rows and ``h`` heads under a plan of ``tile`` rows and ``heads`` heads a
+    CTA (``csrc/ssd_intra.cu:ssd_grid``): one CTA a (row tile, chunk, head
+    block). ``blockIdx.x`` takes the head block fastest, then the chunk,
+    then the row tile, from the last one (the longest CTAs first)."""
+    if h % heads:
+        raise ValueError(f"ssd_intra: {heads} heads a CTA do not divide H={h}")
+    return bcn * (h // heads) * -(-q // tile), 1, 1

@@ -318,8 +318,9 @@ mttkrp_mma_kernel(TileProblem p, const T* __restrict__ x, Factors f, float* __re
       for (int h = 0; h < 2; ++h) {
         const long long gi = (long long)i0 + wm * 16 * MT + mt * 16 + g + 8 * h;
         if (gi >= p.extent_i) continue;
-        if (col < rvalid) o[gi * p.rank + r0 + col] = acc[mt][nt][2 * h];
-        if (col + 1 < rvalid) o[gi * p.rank + r0 + col + 1] = acc[mt][nt][2 * h + 1];
+        if (col < rvalid) store_result(o + (gi * p.rank + r0 + col), acc[mt][nt][2 * h]);
+        if (col + 1 < rvalid)
+          store_result(o + (gi * p.rank + r0 + col + 1), acc[mt][nt][2 * h + 1]);
       }
     }
 }
@@ -330,8 +331,16 @@ __global__ void splitk_reduce_kernel(const float* __restrict__ ws, float* __rest
   for (long long e = (long long)blockIdx.x * blockDim.x + threadIdx.x; e < n; e += stride) {
     float s = 0.f;
     for (int q = 0; q < splits; ++q) s += ws[q * n + e];
-    out[e] = s;
+    store_result(out + e, s);
   }
+}
+
+// splitk_reduce_kernel's grid: 256 threads a CTA, at most 32 CTAs an SM of
+// 132; the grid-stride loop takes the rest.
+static inline void splitk_grid(long long n, long long* dims) {
+  const long long blocks = ceil_div(n, 256);
+  dims[0] = blocks > 132 * 32 ? 132 * 32 : blocks;
+  dims[1] = dims[2] = 1;
 }
 
 template <typename T, int NC>
@@ -343,10 +352,9 @@ static int launch_mma(int block_i, int block_r, const TileProblem& p, const void
     cudaError_t err =
         cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;
-    const long long gi = ceil_div(p.extent_i, 64 * MT);
-    const long long gr = ceil_div(p.rank, 16 * NT);
-    dim3 grid((unsigned)(gi * gr), (unsigned)p.n_splits, (unsigned)p.batch);
-    kern<<<grid, NTHREADS, smem, stream>>>(p, reinterpret_cast<const T*>(x), f, out);
+    long long dims[3];
+    tile_grid(p.extent_i, p.rank, 64 * MT, 16 * NT, p.n_splits, p.batch, dims);
+    kern<<<grid_dim3(dims), NTHREADS, smem, stream>>>(p, reinterpret_cast<const T*>(x), f, out);
     return (int)cudaGetLastError();
   });
 }
@@ -411,11 +419,32 @@ int repro_mttkrp_tile(int specialized, int dtype, int ncontract, const long long
 // out[e] = sum_{q < splits} ws[q * n + e], in q order. Returns a cudaError_t.
 int repro_splitk_reduce(const void* ws, void* out, long long n, int splits, void* stream) {
   if (n < 1 || splits < 1) return (int)cudaErrorInvalidValue;
-  long long blocks = ceil_div(n, 256);
-  if (blocks > 132 * 32) blocks = 132 * 32;
-  splitk_reduce_kernel<<<(unsigned)blocks, 256, 0, reinterpret_cast<cudaStream_t>(stream)>>>(
+  long long dims[3];
+  splitk_grid(n, dims);
+  splitk_reduce_kernel<<<grid_dim3(dims), 256, 0, reinterpret_cast<cudaStream_t>(stream)>>>(
       reinterpret_cast<const float*>(ws), reinterpret_cast<float*>(out), n, splits);
   return (int)cudaGetLastError();
+}
+
+// The launch grid repro_mttkrp_tile takes for these extents and blocks (I,
+// R, the row and rank tiles, the splits and the batch), into dims (x, y, z).
+// Returns a cudaError_t.
+int repro_mttkrp_grid(long long extent_i, int rank, int block_i, int block_r, int n_splits,
+                      int batch, long long* dims) {
+  if (extent_i < 1 || rank < 1 || (block_i != 64 && block_i != 128) ||
+      (block_r != 16 && block_r != 32 && block_r != 64 && block_r != 128) || n_splits < 1 ||
+      batch < 1 || batch > MAX_BATCH)
+    return (int)cudaErrorInvalidValue;
+  tile_grid(extent_i, rank, block_i, block_r, n_splits, batch, dims);
+  return 0;
+}
+
+// The launch grid repro_splitk_reduce takes for n outputs. Returns a
+// cudaError_t.
+int repro_splitk_reduce_grid(long long n, long long* dims) {
+  if (n < 1) return (int)cudaErrorInvalidValue;
+  splitk_grid(n, dims);
+  return 0;
 }
 
 }  // extern "C"

@@ -183,8 +183,8 @@ multi_ttm_mma_kernel(TtmProblem p, const T* __restrict__ x, Factors f, float* __
 #pragma unroll
         for (int nt = 0; nt < NT; ++nt) {
           const int col = wn * 8 * NT + nt * 8 + 2 * t;
-          if (col < rvalid) orow[col] = tt[mt][nt][2 * h];
-          if (col + 1 < rvalid) orow[col + 1] = tt[mt][nt][2 * h + 1];
+          if (col < rvalid) store_result(orow + col, tt[mt][nt][2 * h]);
+          if (col + 1 < rvalid) store_result(orow + (col + 1), tt[mt][nt][2 * h + 1]);
         }
       }
   };
@@ -397,11 +397,38 @@ multi_ttm_mma_kernel(TtmProblem p, const T* __restrict__ x, Factors f, float* __
   for (long long e = tid; e < (long long)p.n_w * rp * rvalid; e += NTHREADS) {
     const long long wr = e / rvalid;  // (w index, r_{k-1})
     const int c = (int)(e - wr * rvalid);
-    o[wr * rl + c] = os[wr * lt.ocols + c];
+    const float v = os[wr * lt.ocols + c];  // read first, as the assignment it replaces
+    store_result(o + (wr * rl + c), v);
   }
 }
 
+// The kernel's launch grid: (units x rank tiles of R_k, splits, batch), a
+// unit one i (k >= 2) or a tile of block_m rows of the m = I rows (k = 1).
+static inline void ttm_grid(int ncontract, long long extent_i, long long m, int rank_last,
+                            int block_m, int block_r, int n_splits, int batch, long long* dims) {
+  const long long units = ncontract >= 2 ? extent_i : ceil_div(m, block_m);
+  dims[0] = units * ceil_div(rank_last, block_r);
+  dims[1] = n_splits;
+  dims[2] = batch;
+}
+
 extern "C" {
+
+// The launch grid repro_multi_ttm takes for these extents (I, C_1..C_k),
+// ranks (R_1..R_k), blocks, splits and batch, into dims (x, y, z). Returns a
+// cudaError_t.
+int repro_multi_ttm_grid(int ncontract, const long long* extents, const int* ranks, int block_m,
+                         int block_r, int n_splits, int batch, long long* dims) {
+  if (ncontract < 1 || ncontract > MAX_CONTRACT || extents[0] < 1 ||
+      (block_m != 64 && block_m != 128 && block_m != 192) ||
+      (block_r != 16 && block_r != 32 && block_r != 64 && block_r != 128) || n_splits < 1 ||
+      (ncontract == 1 && n_splits != 1) || batch < 1 || batch > MAX_BATCH ||
+      ranks[ncontract - 1] < 1)
+    return (int)cudaErrorInvalidValue;
+  ttm_grid(ncontract, extents[0], ncontract >= 2 ? extents[ncontract - 1] : extents[0],
+           ranks[ncontract - 1], block_m, block_r, n_splits, batch, dims);
+  return 0;
+}
 
 // Bytes of dynamic shared memory the kernel takes for these blocks and
 // ranks (R_1..R_k); -1 if the blocks are not ones it takes.
@@ -485,10 +512,10 @@ int repro_multi_ttm(int dtype, int ncontract, const long long* extents, const in
       cudaError_t err =
           cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
       if (err != cudaSuccess) return (int)err;
-      const long long units = ncontract >= 2 ? p.extent_i : p.mtiles;
-      const long long gr = ceil_div(p.rank_last, 16 * NT);
-      dim3 grid((unsigned)(units * gr), (unsigned)p.n_splits, (unsigned)p.batch);
-      kern<<<grid, NTHREADS, smem, s>>>(p, reinterpret_cast<const T*>(x), f, o);
+      long long dims[3];
+      ttm_grid(ncontract, p.extent_i, p.m, p.rank_last, 64 * MT, 16 * NT, p.n_splits, p.batch,
+               dims);
+      kern<<<grid_dim3(dims), NTHREADS, smem, s>>>(p, reinterpret_cast<const T*>(x), f, o);
       return (int)cudaGetLastError();
     };
     if (block_m != 192) return dispatch_tiles(block_m, block_r, launch);

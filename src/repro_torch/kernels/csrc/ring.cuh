@@ -133,6 +133,15 @@ static inline bool make_tile_problem(int ncontract, const long long* extents, in
   return true;
 }
 
+// The MTTKRP and pair kernels' launch grid: (row tiles x rank tiles, splits,
+// batch); blockIdx.x / rank tiles is the row tile, % rank tiles the rank tile.
+static inline void tile_grid(long long extent_i, int rank, int block_i, int block_r,
+                             int n_splits, int batch, long long* dims) {
+  dims[0] = ceil_div(extent_i, block_i) * ceil_div(rank, block_r);
+  dims[1] = n_splits;
+  dims[2] = batch;
+}
+
 // launch(MT, NT) with the tile shape as compile-time constants
 // (std::integral_constant), from the block sizes the plan gives.
 template <typename L>

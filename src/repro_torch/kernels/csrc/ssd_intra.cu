@@ -133,8 +133,10 @@ __device__ __forceinline__ int frag_pos(int j, bool f32) {
   return (j & ~15) | (((m & 7) >> 1) << 2) | ((m >> 3) << 1) | (m & 1);
 }
 
-__device__ __forceinline__ void store_as(float* p, float v) { *p = v; }
-__device__ __forceinline__ void store_as(__nv_bfloat16* p, float v) { *p = __float2bfloat16(v); }
+__device__ __forceinline__ void store_as(float* p, float v) { store_result(p, v); }
+__device__ __forceinline__ void store_as(__nv_bfloat16* p, float v) {
+  store_result(p, __float2bfloat16(v));
+}
 
 // x = hi + lo for 3xTF32: hi rounded to tf32, lo the exact fp32 remainder.
 __device__ __forceinline__ void split_tf32(float x, unsigned& hi, unsigned& lo) {
@@ -467,7 +469,7 @@ __global__ void __launch_bounds__(NTHREADS, 2)
             quad_transpose(a, tq);
             const int nt = 4 * u + tq;  // the n-tile this lane stores
             if (rin && cbw * 64 + nt * 8 < np)
-              *reinterpret_cast<uint4*>(row + nt * 8) = make_uint4(a[0], a[1], a[2], a[3]);
+              store_result(row + nt * 8, make_uint4(a[0], a[1], a[2], a[3]));
           }
         }
       } else {
@@ -480,7 +482,7 @@ __global__ void __launch_bounds__(NTHREADS, 2)
             if (gi < q && col < np) {
               T* o = out + ((c * q + gi) * nh + head) * np + col;
               if (F32 && np % 2 == 0) {
-                *reinterpret_cast<float2*>(o) = make_float2(acc[nt][2 * hr], acc[nt][2 * hr + 1]);
+                store_result(o, make_float2(acc[nt][2 * hr], acc[nt][2 * hr + 1]));
               } else {
                 store_as(o, acc[nt][2 * hr]);
                 if (col + 1 < np) store_as(o + 1, acc[nt][2 * hr + 1]);
@@ -498,6 +500,14 @@ __global__ void __launch_bounds__(NTHREADS, 2)
   cp_async_wait(0);
 }
 
+// The kernel's launch grid: one CTA a (row tile, batch-chunk, block of heads),
+// a 1-D grid (blockIdx.x: the row tile from the last, then the chunk, then the
+// head block, fastest).
+static inline void ssd_grid(long long bcn, int q, int h, int heads, int tile, long long* dims) {
+  dims[0] = bcn * (h / heads) * ceil_div(q, tile);
+  dims[1] = dims[2] = 1;
+}
+
 template <typename T>
 static int launch(const SsdProblem& p, const void* cc, const void* bc, const void* cum,
                   const void* dt, const void* x, void* out, cudaStream_t s) {
@@ -505,8 +515,9 @@ static int launch(const SsdProblem& p, const void* cc, const void* bc, const voi
   cudaError_t err = cudaFuncSetAttribute(ssd_intra_kernel<T>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  const long long ctas = p.bcn * (p.h / p.heads) * ceil_div(p.q, p.tile);
-  ssd_intra_kernel<T><<<(unsigned)ctas, NTHREADS, smem, s>>>(
+  long long dims[3];
+  ssd_grid(p.bcn, p.q, p.h, p.heads, p.tile, dims);
+  ssd_intra_kernel<T><<<grid_dim3(dims), NTHREADS, smem, s>>>(
       p, reinterpret_cast<const float*>(cc), reinterpret_cast<const float*>(bc),
       reinterpret_cast<const float*>(cum), reinterpret_cast<const float*>(dt),
       reinterpret_cast<const T*>(x), reinterpret_cast<T*>(out));
@@ -521,6 +532,16 @@ extern "C" {
 long long repro_ssd_intra_smem_bytes(int q, int p, int tile, int itemsize) {
   if (q < 1 || !valid_ssd_plan(p, tile) || (itemsize != 2 && itemsize != 4)) return -1;
   return make_ssd_layout(q, p, tile, itemsize).total;
+}
+
+// The launch grid repro_ssd_intra takes for BC chunks of q rows and H heads,
+// heads a CTA and rows a tile, into dims (x, y, z). Returns a cudaError_t.
+int repro_ssd_intra_grid(long long bcn, int q, int h, int heads, int tile, long long* dims) {
+  if (bcn < 1 || q < 1 || h < 1 || heads < 1 || h % heads != 0 ||
+      (tile != 16 && tile != 32 && tile != 64))
+    return (int)cudaErrorInvalidValue;
+  ssd_grid(bcn, q, h, heads, tile, dims);
+  return 0;
 }
 
 // One launch. dtype (of x and out): 0 float32, 1 bfloat16; cc, bc

@@ -163,8 +163,8 @@ fused_pair_mma_kernel(TileProblem p, const T* __restrict__ x, Factors f, float* 
 #pragma unroll
         for (int nt = 0; nt < NT; ++nt) {
           const int col = wn * 8 * NT + nt * 8 + 2 * t;
-          if (col < rvalid) prow[col] = pt[mt][nt][2 * h];
-          if (col + 1 < rvalid) prow[col + 1] = pt[mt][nt][2 * h + 1];
+          if (col < rvalid) store_result(prow + col, pt[mt][nt][2 * h]);
+          if (col + 1 < rvalid) store_result(prow + (col + 1), pt[mt][nt][2 * h + 1]);
         }
       }
     const T* lead = reinterpret_cast<const T*>(smem + slot * l.stage + l.lead);
@@ -228,8 +228,15 @@ fused_pair_mma_kernel(TileProblem p, const T* __restrict__ x, Factors f, float* 
         const long long gi = (long long)i0 + wm * 16 * MT + mt * 16 + g + 8 * h;
         if (gi >= p.extent_i) continue;
         const float* a = b0s + ((mt * NT + nt) * 4 + 2 * h) * NTHREADS + tid;
-        if (col < rvalid) o[gi * p.rank + r0 + col] = a[0];
-        if (col + 1 < rvalid) o[gi * p.rank + r0 + col + 1] = a[NTHREADS];
+        // (the shared-memory value read first, as the assignment it replaces reads it)
+        if (col < rvalid) {
+          const float v = a[0];
+          store_result(o + (gi * p.rank + r0 + col), v);
+        }
+        if (col + 1 < rvalid) {
+          const float v = a[NTHREADS];
+          store_result(o + (gi * p.rank + r0 + col + 1), v);
+        }
       }
     }
 }
@@ -434,10 +441,11 @@ streaming_partial_kernel(PartialProblem p, const T* __restrict__ node, Factors f
       if constexpr (V % 4 == 0) {
 #pragma unroll
         for (int q = 0; q < V / 4; ++q)
-          reinterpret_cast<float4*>(dst)[q] =
-              make_float4(acc[j][4 * q], acc[j][4 * q + 1], acc[j][4 * q + 2], acc[j][4 * q + 3]);
+          store_result(reinterpret_cast<float4*>(dst) + q,
+                       make_float4(acc[j][4 * q], acc[j][4 * q + 1], acc[j][4 * q + 2],
+                                   acc[j][4 * q + 3]));
       } else {
-        dst[0] = acc[j][0];
+        store_result(dst, acc[j][0]);
       }
     }
   } else {
@@ -466,7 +474,7 @@ streaming_partial_kernel(PartialProblem p, const T* __restrict__ node, Factors f
       if (i >= p.rows || r >= p.rank) continue;
       float s = 0.f;
       for (int w = 0; w < NWARPS; ++w) s += red[(w * ROWS + j) * width + col];
-      slab[i * p.rank + r] = s;
+      store_result(slab + (i * p.rank + r), s);
     }
   }
 }
@@ -529,6 +537,13 @@ static bool make_partial_problem(int tsize, int layout, int block_rows, int vec,
   return ceil_div(p->rows, block_rows) * p->rtiles < (1LL << 31);
 }
 
+// The partial kernel's launch grid: (row blocks x rank tiles, splits, batch).
+static inline void partial_grid(const PartialProblem& p, long long* dims) {
+  dims[0] = ceil_div(p.rows, p.block_rows) * p.rtiles;
+  dims[1] = p.n_splits;
+  dims[2] = p.batch;
+}
+
 template <typename T, int V, bool ROWL, int ROWS>
 static int launch_partial(const PartialProblem& p, const void* node, const Factors& f, float* out,
                           cudaStream_t s) {
@@ -539,9 +554,9 @@ static int launch_partial(const PartialProblem& p, const void* node, const Facto
         cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;
   }
-  dim3 grid((unsigned)(ceil_div(p.rows, p.block_rows) * p.rtiles), (unsigned)p.n_splits,
-            (unsigned)p.batch);
-  kern<<<grid, NTHREADS, smem, s>>>(p, reinterpret_cast<const T*>(node), f, out);
+  long long dims[3];
+  partial_grid(p, dims);
+  kern<<<grid_dim3(dims), NTHREADS, smem, s>>>(p, reinterpret_cast<const T*>(node), f, out);
   return (int)cudaGetLastError();
 }
 
@@ -589,6 +604,34 @@ long long repro_partial_smem_bytes(int tsize, int layout, int block_rows, int ve
   return partial_smem_bytes(layout == 0, block_rows, p.tr, vec);
 }
 
+// The launch grid repro_fused_pair takes for these extents and blocks (I,
+// R, the row and rank tiles, the splits), into dims (x, y, z). Returns a
+// cudaError_t.
+int repro_fused_pair_grid(long long extent_i, int rank, int block_i, int block_r, int n_splits,
+                          long long* dims) {
+  if (extent_i < 1 || rank < 1 || (block_i != 64 && block_i != 128) ||
+      (block_r != 16 && block_r != 32 && block_r != 64 && block_r != 128) || n_splits < 1)
+    return (int)cudaErrorInvalidValue;
+  tile_grid(extent_i, rank, block_i, block_r, n_splits, 1, dims);
+  return 0;
+}
+
+// The launch grid repro_partial takes for a node of these kept and
+// contraction sizes (the strides do not enter it) under a plan, into dims
+// (x, y, z). Returns a cudaError_t.
+int repro_partial_grid(int tsize, int layout, int block_rows, int vec, int loads, int n_splits,
+                       int nkeep, const long long* keep_sizes, int ncontract,
+                       const long long* c_sizes, int rank, int batch, long long* dims) {
+  const long long zeros[MAX_CONTRACT] = {0, 0, 0, 0, 0, 0, 0};
+  PartialProblem p;
+  if ((tsize != 2 && tsize != 4) || nkeep < 1 || nkeep > MAX_CONTRACT ||
+      !make_partial_problem(tsize, layout, block_rows, vec, loads, n_splits, nkeep, keep_sizes,
+                            zeros, ncontract, c_sizes, zeros, rank, batch, 0, zeros, &p))
+    return (int)cudaErrorInvalidValue;
+  partial_grid(p, dims);
+  return 0;
+}
+
 // One launch of the pair kernel. dtype: 0 float32, 1 bfloat16.
 // extents: I, C_1..C_{N-1}; factors: N-1 device pointers to (C_d, R) in the
 // tensor's dtype. copy_x / copy_f: bytes a cp.async of X's last-axis runs /
@@ -621,10 +664,9 @@ int repro_fused_pair(int dtype, int ncontract, const long long* extents, int blo
       cudaError_t err =
           cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
       if (err != cudaSuccess) return (int)err;
-      const long long gi = ceil_div(p.extent_i, 64 * MT);
-      const long long gr = ceil_div(p.rank, 16 * NT);
-      dim3 grid((unsigned)(gi * gr), (unsigned)p.n_splits);
-      kern<<<grid, NTHREADS, smem, s>>>(p, reinterpret_cast<const T*>(x), f, ob, op);
+      long long dims[3];
+      tile_grid(p.extent_i, p.rank, 64 * MT, 16 * NT, p.n_splits, 1, dims);
+      kern<<<grid_dim3(dims), NTHREADS, smem, s>>>(p, reinterpret_cast<const T*>(x), f, ob, op);
       return (int)cudaGetLastError();
     });
   };

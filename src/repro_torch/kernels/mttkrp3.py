@@ -31,6 +31,7 @@ import torch
 from ..core.krp import khatri_rao
 from ..engine.plan import MTTKRPKernelPlan
 from ..observe import collect
+from .build import count_launch
 from .splitk import launch_tile, report_tile_plain
 
 
@@ -64,7 +65,7 @@ def mttkrp3(
         return collect.stand_in(lambda: mttkrp3_plain(x, a, b),
                                 lambda: report_tile_plain("mttkrp3", x, [a, b], plan))
     out = launch_tile(x, [a, b], plan, specialized=True, name="mttkrp3")
-    mttkrp3.launches += 1
+    count_launch(mttkrp3)
     return out
 
 

@@ -32,6 +32,7 @@ import torch
 from ..core.krp import khatri_rao
 from ..engine.plan import MTTKRPKernelPlan
 from ..observe import collect
+from .build import count_launch
 from .splitk import launch_tile, report_tile_plain
 
 
@@ -65,7 +66,7 @@ def mttkrpn(
         return collect.stand_in(lambda: mttkrpn_plain(x, factors),
                                 lambda: report_tile_plain("mttkrpn", x, factors, plan))
     out = launch_tile(x, factors, plan, specialized=False, name="mttkrpn")
-    mttkrpn.launches += 1
+    count_launch(mttkrpn)
     return out
 
 

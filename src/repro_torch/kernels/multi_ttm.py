@@ -45,7 +45,7 @@ from ..engine.plan import (
     multi_ttm_kernel_smem_bytes,
 )
 from ..observe import collect
-from .build import check, library
+from .build import check, count_launch, launch_library, library
 from .splitk import (
     batch_stride,
     check_batch,
@@ -144,7 +144,6 @@ def multi_ttm_keep(
     plan = kernel_plan("multi_ttm_keep", x[0] if batched else x, ranks, plan,
                        choose=choose_multi_ttm_kernel_blocks, cls=MultiTTMKernelPlan)
     check_smem("multi_ttm_keep", plan, multi_ttm_kernel_smem_bytes(plan, itemsize, ranks))
-    lib = library("multi_ttm.cu")
     sms = torch.cuda.get_device_properties(x.device).multi_processor_count
     _, _, splits = multi_ttm_kernel_grid(shape, ranks, plan, sms, batch)
     i_sz, prod_r = shape[0], math.prod(ranks)
@@ -157,6 +156,7 @@ def multi_ttm_keep(
     m_bs = [batch_stride(m, 2) for m in matrices]
     copy_x = copy_width(shape[-1] * itemsize, [x.data_ptr()], [x_bs * itemsize])
     copy_f = copy_width(ranks[-1] * itemsize, [ptrs[-1]], [m_bs[-1] * itemsize])
+    lib = launch_library("multi_ttm.cu", ws)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = lib.repro_multi_ttm(
@@ -165,9 +165,10 @@ def multi_ttm_keep(
             splits, copy_x, copy_f, batch, x_bs, (ll * k)(*m_bs), x.data_ptr(),
             (ll * k)(*ptrs), ws.data_ptr(), stream)
     check(err, "multi_ttm_keep")
-    multi_ttm_keep.launches += 1
+    count_launch(multi_ttm_keep)
     if collect.SINKS:
-        collect.report("multi_ttm_keep", plan, collect.nbytes(x, *matrices), collect.nbytes(ws))
+        collect.report("multi_ttm_keep", plan, collect.nbytes(x, *matrices), collect.nbytes(ws),
+                       collect.dtype_name(ws))
     if splits > 1:
         splitk_reduce(ws, out)
     return out if batched else out[0]

@@ -51,7 +51,7 @@ from ..engine.plan import (
     partial_kernel_smem_bytes,
 )
 from ..observe import collect
-from .build import check, library
+from .build import check, count_launch, launch_library, library
 from .splitk import batch_stride, check_batch, check_smem, splitk_reduce
 
 
@@ -208,7 +208,7 @@ def mttkrp_partial(
     out = torch.empty(out_shape, device=node.device, dtype=torch.float32)
     ws = out if plan.splits == 1 else torch.empty(
         (plan.splits, *out_shape), device=node.device, dtype=torch.float32)
-    lib = library("sweep.cu")
+    lib = launch_library("sweep.cu", ws)
     ll = ctypes.c_longlong
     nk, nc = len(ksizes), len(csizes)
     with torch.cuda.device(node.device):
@@ -220,9 +220,10 @@ def mttkrp_partial(
             batch, node_bs, (ll * nc)(*f_bs), node.data_ptr(),
             (ll * nc)(*(f.data_ptr() for f in fs)), ws.data_ptr(), stream)
     check(err, name)
-    mttkrp_partial.launches += 1
+    count_launch(mttkrp_partial)
     if collect.SINKS:
-        collect.report(name, plan, collect.nbytes(node, *factors), collect.nbytes(ws))
+        collect.report(name, plan, collect.nbytes(node, *factors), collect.nbytes(ws),
+                       collect.dtype_name(ws))
     if plan.splits > 1:
         splitk_reduce(ws, out)
     return out

@@ -37,7 +37,7 @@ from ..engine.plan import (
 )
 from ..engine.plan import n_splits as n_splits  # re-exported: the split rule
 from ..observe import collect
-from .build import check, library
+from .build import check, count_launch, launch_library, library
 
 
 def splitk_reduce_plain(ws: torch.Tensor) -> torch.Tensor:
@@ -62,16 +62,17 @@ def splitk_reduce(ws: torch.Tensor, out: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"splitk_reduce: shapes {tuple(ws.shape)} -> {tuple(out.shape)}")
     if not (ws.is_contiguous() and out.is_contiguous()):
         raise ValueError("splitk_reduce: tensors must be contiguous")
-    lib = library()
+    lib = launch_library("mttkrp.cu", out)
     with torch.cuda.device(ws.device):
         stream = torch.cuda.current_stream(ws.device).cuda_stream
         err = lib.repro_splitk_reduce(
             ws.data_ptr(), out.data_ptr(), out.numel(), ws.shape[0], stream
         )
     check(err, "splitk_reduce")
-    splitk_reduce.launches += 1
+    count_launch(splitk_reduce)
     if collect.SINKS:
-        collect.report("splitk_reduce", None, collect.nbytes(ws), collect.nbytes(out))
+        collect.report("splitk_reduce", None, collect.nbytes(ws), collect.nbytes(out),
+                       collect.dtype_name(out))
     return out
 
 
@@ -206,7 +207,6 @@ def launch_tile(
     itemsize = x.element_size()
     plan = kernel_plan(name, x[0] if batched else x, rank, plan)
     check_smem(name, plan, mttkrp_kernel_smem_bytes(plan, itemsize, len(shape) - 1))
-    lib = library()
     sms = torch.cuda.get_device_properties(x.device).multi_processor_count
     _, _, splits = mttkrp_kernel_grid(shape, rank, plan, sms, batch)
     i_sz = shape[0]
@@ -220,6 +220,7 @@ def launch_tile(
     f_bs = [batch_stride(f, 2) for f in factors]
     copy_x = copy_width(shape[-1] * itemsize, [x.data_ptr()], [x_bs * itemsize])
     copy_f = copy_width(rank * itemsize, ptrs, [s * itemsize for s in f_bs])
+    lib = launch_library("mttkrp.cu", ws)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = lib.repro_mttkrp_tile(
@@ -230,7 +231,8 @@ def launch_tile(
         )
     check(err, name)
     if collect.SINKS:
-        collect.report(name, plan, collect.nbytes(x, *factors), collect.nbytes(ws))
+        collect.report(name, plan, collect.nbytes(x, *factors), collect.nbytes(ws),
+                       collect.dtype_name(ws))
     if splits > 1:
         splitk_reduce(ws, out)
     return out if batched else out[0]

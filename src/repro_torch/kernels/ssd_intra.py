@@ -33,8 +33,9 @@ from typing import NamedTuple
 
 import torch
 
-from ..engine.plan import H100_SMS, SMEM_BUDGET, SMEM_PER_CTA_MAX
-from .build import check, library
+from ..engine.plan import H100_SMS, SMEM_BUDGET, SMEM_PER_CTA_MAX, ssd_intra_kernel_grid
+from ..observe import collect
+from .build import check, count_launch, launch_library, library
 from .splitk import copy_width
 
 #: The Gram's N chunk, as ``GK`` in ``csrc/ssd_intra.cu``, and the bytes a
@@ -133,8 +134,7 @@ def kernel_plan(q: int, h: int, p: int, itemsize: int, *, bcn: int,
     divisors = [d for d in range(1, min(h, MAX_HEADS) + 1) if h % d == 0]
     hc = heads_at_once(p, tile)
     heads = [d for d in divisors if d % hc == 0] or divisors
-    n_it = -(-q // tile)
-    full = [d for d in heads if bcn * (h // d) * n_it >= sms]
+    full = [d for d in heads if ssd_intra_kernel_grid(bcn, q, h, tile, d)[0] >= sms]
     return SsdPlan(tile, max(full) if full else min(heads))
 
 
@@ -184,6 +184,9 @@ def ssd_intra(cc: torch.Tensor, bc: torch.Tensor, cum: torch.Tensor, dt: torch.T
         plan = kernel_plan(q, h, p, itemsize, bcn=bcn, sms=sms)
     if not valid_tile(p, plan.tile) or plan.heads < 1 or h % plan.heads:
         raise ValueError(f"ssd_intra: plan {plan} does not fit H={h}, P={p}")
+    ctas = ssd_intra_kernel_grid(bcn, q, h, plan.tile, plan.heads)[0]
+    if ctas >= 2 ** 31:
+        raise ValueError(f"ssd_intra: {ctas} CTAs; a 1-D grid takes fewer than 2^31")
     smem = smem_bytes(q, p, plan.tile, itemsize)
     if smem > SMEM_PER_CTA_MAX:
         raise ValueError(f"ssd_intra: plan {plan} needs {smem} bytes of shared memory at q={q}; "
@@ -191,7 +194,7 @@ def ssd_intra(cc: torch.Tensor, bc: torch.Tensor, cum: torch.Tensor, dt: torch.T
     out = torch.empty_like(x)
     copy_cb = copy_width(n * 4, [small[0].data_ptr(), small[1].data_ptr()])
     copy_x = copy_width(p * itemsize, [x.data_ptr()])
-    lib = library("ssd_intra.cu")
+    lib = launch_library("ssd_intra.cu", out)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = lib.repro_ssd_intra(0 if x.dtype == torch.float32 else 1, bcn, q, n, h, p,
@@ -199,7 +202,10 @@ def ssd_intra(cc: torch.Tensor, bc: torch.Tensor, cum: torch.Tensor, dt: torch.T
                                   *(t.data_ptr() for t in small), x.data_ptr(), out.data_ptr(),
                                   stream)
     check(err, "ssd_intra")
-    ssd_intra.launches += 1
+    count_launch(ssd_intra)
+    if collect.SINKS:
+        collect.report("ssd_intra", plan, collect.nbytes(*small, x), collect.nbytes(out),
+                       collect.dtype_name(out))
     return out
 
 

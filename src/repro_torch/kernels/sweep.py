@@ -41,7 +41,7 @@ from ..engine.plan import (
     pair_kernel_smem_bytes,
 )
 from ..observe import collect
-from .build import check, library
+from .build import check, count_launch, launch_library, library
 from .mttkrpn import mttkrpn_plain
 from .splitk import (
     check_extents,
@@ -97,7 +97,6 @@ def fused_pair(
     plan = kernel_plan("fused_pair", x, rank, plan, choose=choose_pair_kernel_blocks)
     nc, itemsize = len(factors), x.element_size()
     check_smem("fused_pair", plan, pair_kernel_smem_bytes(plan, itemsize, nc))
-    lib = library("sweep.cu")
     sms = torch.cuda.get_device_properties(x.device).multi_processor_count
     _, _, splits = pair_kernel_grid(x.shape, rank, plan, sms)
     i_sz = x.shape[0]
@@ -108,6 +107,7 @@ def fused_pair(
     ptrs = [f.data_ptr() for f in factors]
     copy_x = copy_width(x.shape[-1] * itemsize, [x.data_ptr()])
     copy_f = copy_width(rank * itemsize, ptrs)
+    lib = launch_library("sweep.cu", ws, p)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = lib.repro_fused_pair(
@@ -115,10 +115,11 @@ def fused_pair(
             plan.block_i, plan.block_k, plan.block_r, plan.stages, rank, splits, copy_x, copy_f,
             x.data_ptr(), (ctypes.c_longlong * nc)(*ptrs), ws.data_ptr(), p.data_ptr(), stream)
     check(err, "fused_pair")
-    fused_pair.launches += 1
+    count_launch(fused_pair)
     if collect.SINKS:
         collect.report("fused_pair", plan, collect.nbytes(x, *factors),
-                       collect.nbytes(ws, p) if splits > 1 else collect.nbytes(b0, p))
+                       collect.nbytes(ws, p) if splits > 1 else collect.nbytes(b0, p),
+                       collect.dtype_name(ws))
     if splits > 1:
         splitk_reduce(ws, b0)
     return b0, p

@@ -5,7 +5,7 @@ A kernel launched through ``ctypes`` never passes PyTorch's dispatcher, so
 no ``TorchDispatchMode`` sees it. Each wrapper therefore reports its own
 launch here: the kernel's name, the plan it ran under, the bytes of its
 operands (read) and of its result (written), a split-K workspace
-included. On a CPU tensor a wrapper runs its plain version and reports the
+included, and the dtype of the buffer it writes. On a CPU tensor a wrapper runs its plain version and reports the
 launches the card would make for the same call (the plan it would choose
 on an H100, the split-K reduction where that plan splits), with the plain
 version's own operations kept out of any count (:func:`quiet`). So a
@@ -24,12 +24,15 @@ from dataclasses import dataclass
 
 @dataclass(frozen=True)
 class Launch:
-    """One kernel launch: ``plan`` is None for the split-K reduction."""
+    """One kernel launch: ``plan`` is None for the split-K reduction;
+    ``written_dtype`` the dtype of the buffer it writes (``"float32"`` for
+    every kernel but ``ssd_intra``, which writes X's)."""
 
     name: str
     plan: object
     read_bytes: int
     written_bytes: int
+    written_dtype: str = "float32"
 
     @property
     def nbytes(self) -> int:
@@ -41,9 +44,10 @@ SINKS: list[list[Launch]] = []
 _QUIET = [0]
 
 
-def report(name: str, plan, read_bytes: int, written_bytes: int) -> None:
+def report(name: str, plan, read_bytes: int, written_bytes: int,
+           written_dtype: str = "float32") -> None:
     """Hand one launch to every active collector."""
-    launch = Launch(name, plan, int(read_bytes), int(written_bytes))
+    launch = Launch(name, plan, int(read_bytes), int(written_bytes), written_dtype)
     for sink in SINKS:
         sink.append(launch)
 
@@ -101,6 +105,11 @@ def quiet():
 
 def is_quiet() -> bool:
     return _QUIET[0] > 0
+
+
+def dtype_name(t) -> str:
+    """``"float32"`` for a float32 tensor: the name :class:`Launch` keeps."""
+    return str(t.dtype).removeprefix("torch.")
 
 
 def nbytes(*tensors) -> int:

@@ -1,22 +1,44 @@
-"""Static verification: prove the paper's invariants and the port's kernel
-plans without running anything. Counterpart of ``repro.verify``.
+"""Static verification: prove the paper's invariants and the port's kernels,
+plans and collectives without running a kernel. Counterpart of
+``repro.verify``.
 
-One :class:`Finding` currency and one CLI (``python -m
-repro_torch.verify``). Ported so far (ROADMAP Queue 1 item 13):
+Five analyzers, one :class:`Finding` currency, one CLI
+(``python -m repro_torch.verify``):
 
 * :mod:`repro_torch.verify.plans` — pure arithmetic over the planner's
-  ``BlockPlan`` / ``MultiTTMPlan`` objects, the reference's checks over the
-  reference's lattice (plus the port's default memory,
-  ``Memory.h100_smem``), and over the Hopper kernels' own plans
-  (``MTTKRPKernelPlan``, ``MultiTTMKernelPlan``, ``PartialKernelPlan``):
-  each chooser's plan is one the kernel takes, its shared memory within a
-  CTA's limit and the planning budget, its launch grid covering the output
-  minimally, its splits and batch within the grid's limits.
+  ``BlockPlan`` / ``MultiTTMPlan`` objects (the reference's checks over its
+  lattice, plus the port's default memory ``Memory.h100_smem``), and over
+  the Hopper kernels' own plans (``MTTKRPKernelPlan``,
+  ``MultiTTMKernelPlan``, ``PartialKernelPlan``): each chooser's plan is one
+  the kernel takes, its shared memory within a CTA and the budget, its grid
+  covering the output minimally, its splits and batch within the grid's
+  limits.
+* :mod:`repro_torch.verify.kernels` — each Hopper kernel's tile walk in
+  Python (the blocks of every buffer each CTA stores, from the grid
+  mirrors and the kernels' index arithmetic), counted with numpy over a
+  lattice of the port's cells, ragged edges and batches: coverage,
+  write-once, in-bounds boxes, the grid's limits, the written dtype and
+  the shared memory. ``chip_smoke.py`` holds these walks against the
+  kernels on the card (the C launchers' grid functions, and a build of the
+  kernels with a per-element write counter).
+* :mod:`repro_torch.verify.lint` — AST rules over the port's own modules
+  (falsy-or-default, import scope: no ``jax`` and no ``repro`` anywhere
+  and no ``torch`` in the equation layer, mutable defaults, wall clocks
+  outside the measurement layers, raw ``torch.distributed`` collectives
+  outside ``distributed/collectives.py``, mesh-axis literals).
+* :mod:`repro_torch.verify.comm` — every rank's program of the CP and
+  Tucker sweeps and of Alg 3 run in one process over a transport that
+  moves nothing: each rank's counted bytes equal the §V-C3 models exactly
+  and sit above the parallel lower bounds; the ring schedules are
+  deadlock-free single cycles with exact, write-once chunk flow; grid
+  selection matches brute force.
+* :mod:`repro_torch.verify.dtypes` — a dispatch-mode recorder of every
+  accumulating aten op under ``compute_dtype=bfloat16`` on every backend:
+  a narrow-input accumulation must produce fp32 (and on the card every
+  kernel launch writes float32).
 
-The reference's other analyzers (``kernels``, ``lint``, ``comm``,
-``dtypes``) are not ported yet; the CLI refuses to run them rather than
-report them clean. Verdicts ride the span schema (``kind="static_verify"``)
-so ``python -m repro_torch.observe.report`` tables them.
+Verdicts ride the span schema (``kind="static_verify"``) so ``python -m
+repro_torch.observe.report`` tables them.
 """
 
 from __future__ import annotations
@@ -28,10 +50,11 @@ from dataclasses import asdict, dataclass
 class Finding:
     """One static-analysis violation: which analyzer, which rule, where.
 
-    ``analyzer`` is ``"plans"`` (the reference also has ``"kernels"``,
-    ``"lint"``, ``"comm"`` and ``"dtypes"``); ``rule`` is the stable rule
-    code (e.g. ``"eq9-infeasible"``, ``"kernel-grid-cover"``); ``subject``
-    names the object (a plan and its problem); ``detail`` is the
+    ``analyzer`` is ``"plans"`` / ``"kernels"`` / ``"lint"`` / ``"comm"``
+    / ``"dtypes"``; ``rule`` is the stable rule code (e.g.
+    ``"eq9-infeasible"``, ``"write-once"``, ``"RV107"``,
+    ``"byte-model-mismatch"``); ``subject`` names the object (a plan, a
+    kernel case or a ``file:line`` location); ``detail`` is the
     human-readable evidence."""
 
     analyzer: str

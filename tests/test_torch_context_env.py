@@ -229,3 +229,15 @@ def test_mttkrp_traffic_model_equals_the_reference(shape, rank, itemsize, budget
     from repro_torch.engine import mttkrp_traffic_model
 
     assert mttkrp_traffic_model is tplan.mttkrp_traffic_model
+
+
+def test_a_tensor_on_another_device_names_a_device_the_context_takes():
+    ctx = ExecutionContext.create("einsum", device="cpu")
+    with pytest.raises(ValueError) as err:
+        ctx.check_tensor("mttkrp", torch.empty((2, 3), device="meta"))
+    msg = str(err.value)
+    assert "tensor on meta" in msg and "device='meta'" not in msg
+    assert "the context takes only device='cuda' or 'cpu'" in msg
+    # the device it would otherwise have suggested is one the context refuses
+    with pytest.raises(ValueError, match="device must be 'cuda' or 'cpu'"):
+        ExecutionContext.create("einsum", device="meta")

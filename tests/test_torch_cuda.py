@@ -1510,3 +1510,71 @@ def test_distributed_alg3_and_cp_sweep_on_the_card(card, tmp_path):
         assert meta["card-cp"]["launches"]["mttkrp3"] == 3  # one sweep, three modes
         for k in range(3):
             dt._close(arrays[f"card-cp-f{k}"], seq.factors[k].cpu().numpy(), 1e-4)
+
+
+# --------------------------------------------------------------------------
+# the kernel walks against the kernels: grids and the write probe
+# --------------------------------------------------------------------------
+
+def _walk_cases():
+    """The analyzer's cases that are not the full-size cells (``chip_smoke.py``
+    phase 15 probes those): ragged, 2-way, batched, the reference's."""
+    from repro_torch.verify.kernels import kernel_cases
+
+    return [c for c in kernel_cases() if not c.label.startswith("cell")]
+
+
+def _walk_id(case):
+    return f"{case.wrapper}-{case.label}-{'x'.join(map(str, case.shape))}-b{case.batch}" + \
+        ("-shared" if case.shared else "") + f"-i{case.itemsize}"
+
+
+@pytest.mark.parametrize("case", _walk_cases(), ids=_walk_id)
+def test_library_grid_equals_its_mirror(card, case):
+    from repro_torch.verify.probe import check_grid
+
+    sms = torch.cuda.get_device_properties(card).multi_processor_count
+    rec = check_grid(case, sms)
+    assert rec["equal"], rec
+
+
+@pytest.mark.parametrize("case", _walk_cases(), ids=_walk_id)
+def test_write_probe_counts_every_element_once(card, case):
+    from repro_torch.verify.probe import probe_case
+
+    rec = probe_case(case, card, seed=7)
+    assert rec["ok"], rec
+    assert rec["bit_equal"] and rec["overflow"] == 0 and rec["max_count"] == rec["min_count"] == 1
+
+
+def test_write_probe_cases_span_the_kernels_shapes():
+    from repro_torch.verify.kernels import case_plan, case_walk
+
+    cases = _walk_cases()
+    assert {c.wrapper for c in cases} == {"mttkrp3", "mttkrpn", "splitk_reduce", "fused_pair",
+                                          "mttkrp_partial", "multi_ttm_keep", "ssd_intra"}
+    assert {c.batch for c in cases} >= {1, 16, 65535} and any(c.shared for c in cases)
+    assert any(len(c.shape) == 2 for c in cases if c.wrapper == "mttkrpn")
+    splits = {case_walk(c).grid[1] > 1 for c in cases if c.wrapper in ("mttkrp3", "mttkrpn")}
+    assert splits == {True, False}
+    layouts = {case_plan(c).layout for c in cases if c.wrapper == "mttkrp_partial"}
+    assert layouts == {"rows", "contract"}
+
+
+def test_write_probe_reports_a_store_past_the_registered_buffer(card):
+    from repro_torch.kernels import build
+
+    lib = build.probe_library("mttkrp.cu")
+    n = 3000
+    ws = torch.randn((2, n), device=card)
+    out = torch.empty(n, device=card)
+    counts = torch.zeros(n // 2 + 1, dtype=torch.int32, device=card)
+    build.check(lib.repro_write_probe_set(None, 0, 0, None), "probe")
+    build.check(lib.repro_write_probe_set(out.data_ptr(), n // 2, 4, counts.data_ptr()),
+                "probe")  # half of what the reduction writes
+    stream = torch.cuda.current_stream(card).cuda_stream
+    build.check(lib.repro_splitk_reduce(ws.data_ptr(), out.data_ptr(), n, 2, stream), "splitk")
+    torch.cuda.synchronize(card)
+    assert (counts[:-1] == 1).all() and int(counts[-1]) == n - n // 2
+    assert torch.equal(out, ws.sum(0))
+    build.check(lib.repro_write_probe_set(None, 0, 0, None), "probe")

@@ -256,23 +256,77 @@ def test_finding_matches_the_reference_finding():
 # the CLI
 # --------------------------------------------------------------------------
 
-def test_cli_exits_0_on_the_clean_tree(capsys):
+@pytest.fixture(scope="module")
+def default_run(tmp_path_factory):
+    """``python -m repro_torch.verify --trace-out FILE``: its exit code,
+    output and trace, run once for the module."""
+    import contextlib
+    import io
+
     from repro_torch.verify.__main__ import main
 
-    assert main([]) == 0
+    path = str(tmp_path_factory.mktemp("verify") / "v.jsonl")
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = main(["--trace-out", path])
+    return rc, out.getvalue(), path
+
+
+def test_cli_exits_0_on_the_clean_tree(default_run):
+    rc, out, _ = default_run
+    assert rc == 0
+    assert "verify: 0 finding(s) across plans, kernels, lint, comm, dtypes" in out
+    assert "not ported" not in out
+
+
+@pytest.fixture
+def ran(monkeypatch):
+    """Every analyzer replaced by a recorder of its name (the CLI imports
+    each at call time), each clean."""
+    from repro_torch.verify import comm, dtypes, kernels, lint, plans
+
+    seen: list[str] = []
+
+    def clean(name, pair=True):
+        def fn(*a, **k):
+            seen.append(name)
+            return ([], []) if pair else []
+        return fn
+
+    monkeypatch.setattr(plans, "verify_plans", clean("plans", pair=False))
+    monkeypatch.setattr(plans, "kernel_plan_verdicts", lambda *a, **k: ([], []))
+    monkeypatch.setattr(kernels, "verify_kernels", clean("kernels"))
+    monkeypatch.setattr(lint, "lint_tree", clean("lint", pair=False))
+    monkeypatch.setattr(comm, "verify_comm", clean("comm"))
+    monkeypatch.setattr(dtypes, "verify_dtypes", clean("dtypes"))
+    return seen
+
+
+@pytest.mark.parametrize("argv,want", [
+    (["--only", "kernels"], ["kernels"]),
+    (["--only", "plans,lint"], ["plans", "lint"]),
+    (["--comm"], ["comm"]),
+    (["--dtypes"], ["dtypes"]),
+    (["--only", "lint", "--comm"], ["lint", "comm"]),
+    (["--comm", "--dtypes"], ["comm", "dtypes"]),
+    (["--only", "kernels,plans", "--dtypes", "--comm"], ["plans", "kernels", "comm", "dtypes"]),
+    ([], ["plans", "kernels", "lint", "comm", "dtypes"]),
+])
+def test_cli_runs_just_the_analyzers_it_selects(argv, want, ran, capsys):
+    from repro_torch.verify.__main__ import main
+
+    assert main(argv) == 0
+    assert ran == want  # in the reference's order, each once
+    assert "verify: 0 finding(s)" in capsys.readouterr().out
+
+
+def test_cli_rules_prints_the_lint_catalog(capsys):
+    from repro_torch.verify.__main__ import main
+    from repro_torch.verify.lint import RULES
+
+    assert main(["--rules"]) == 0
     out = capsys.readouterr().out
-    assert "verify: 0 finding(s) across plans" in out
-    assert "not run (not ported): kernels, lint, comm, dtypes" in out
-
-
-@pytest.mark.parametrize("argv", [["--only", "kernels"], ["--only", "plans,lint"], ["--comm"],
-                                  ["--dtypes"], ["--rules"]])
-def test_cli_refuses_an_analyzer_that_is_not_ported(argv, capsys):
-    from repro_torch.verify.__main__ import main
-
-    assert main(argv) == 2
-    captured = capsys.readouterr()
-    assert "ROADMAP Queue 1 item 13" in captured.err and "finding" not in captured.out
+    assert all(r.code in out for r in RULES) and out.startswith("| code |")
 
 
 def test_cli_refuses_an_unknown_analyzer(capsys):
@@ -282,11 +336,12 @@ def test_cli_refuses_an_unknown_analyzer(capsys):
     assert "unknown analyzer" in capsys.readouterr().err
 
 
-def test_run_refuses_an_analyzer_that_is_not_ported():
-    from repro_torch.verify.__main__ import run
+def test_run_reports_every_analyzer(ran):
+    from repro_torch.verify.__main__ import ANALYZERS, run
 
-    with pytest.raises(ValueError, match="item 13"):
-        run(("plans", "comm"))
+    assert ANALYZERS == ("plans", "kernels", "lint", "comm", "dtypes")
+    assert run() == ([], [])
+    assert ran == list(ANALYZERS)
 
 
 def test_cli_exits_1_on_a_finding(monkeypatch, capsys):
@@ -299,19 +354,29 @@ def test_cli_exits_1_on_a_finding(monkeypatch, capsys):
     assert "[plans:eq9-infeasible] BlockPlan[x]: seeded" in capsys.readouterr().out
 
 
-def test_cli_trace_out_is_tabled_by_the_report(tmp_path, capsys):
+def test_cli_trace_out_is_tabled_by_the_report(default_run, capsys):
     from repro_torch.observe.report import main as report
-    from repro_torch.verify.__main__ import main
+    from repro_torch.verify.comm import verify_comm
+    from repro_torch.verify.dtypes import verify_dtypes
+    from repro_torch.verify.kernels import kernel_cases
 
-    path = str(tmp_path / "v.jsonl")
-    assert main(["--trace-out", path]) == 0
+    _, _, path = default_run
     events = [json.loads(line) for line in open(path)]
     assert all(e["kind"] == "static_verify" for e in events)
     summary = events[-1]
     assert summary["name"] == "summary" and summary["findings"] == 0
-    assert summary["analyzers"] == ["plans"]
-    assert summary["not_ported"] == ["kernels", "lint", "comm", "dtypes"]
-    assert summary["kernel_plans_checked"] == len(port.default_kernel_cases()) == len(events) - 1
+    assert summary["analyzers"] == ["plans", "kernels", "lint", "comm", "dtypes"]
+    assert "not_ported" not in summary
+    assert summary["kernel_plans_checked"] == len(port.default_kernel_cases())
+    assert summary["kernel_plans_agreeing"] == summary["kernel_plans_checked"]
+    assert summary["kernels_checked"] == summary["kernels_agreeing"] == len(kernel_cases())
+    assert summary["comm_points"] == len(verify_comm()[1])
+    assert summary["dtype_programs"] == len(verify_dtypes()[1]) == 6
+    assert len(events) - 1 == (summary["kernel_plans_checked"] + summary["kernels_checked"]
+                               + summary["comm_points"] + summary["dtype_programs"])
     capsys.readouterr()
     assert report([path, "--kinds", "static_verify"]) == 0
-    assert "| static_verify |" in capsys.readouterr().out
+    out = capsys.readouterr().out
+    assert "| static_verify |" in out
+    # the comm points' byte columns: 144 bytes at Alg 3's (8, 8, 8) rank 4 on (2, 2, 2)
+    assert "| static_verify | 8x8x8 r=4 g=2x2x2 | - | 36 | 32 | 144 | 1.00 |" in out
