@@ -84,7 +84,22 @@ Phases (any failure raises, and the script exits non-zero):
    then 32 greedy ``decode_step``s a prompt, timed per token (no kernel
    launch); (c) the same model in fp32: prefill logits at every position of
    one 512-token prompt (two chunks) against token-by-token ``decode_step``
-   logits, max |d| / max |prefill| within ``DUAL_TOL``;
+   logits, max |d| / max |prefill| within ``DUAL_TOL``; (d) the dense
+   decoders (``DENSE_LAYERS``: ``qwen2-1.5b`` at full depth,
+   ``deepseek-coder-33b``, ``yi-34b`` and ``nemotron-4-340b`` cut to 2
+   layers), each at full width in bf16 with weights drawn on the card:
+   prefill of 2 prompts x 1024 tokens (``DENSE_PREFILL``; ``mode=
+   "prefill"``, ``logits_positions="last"``), timed after one untimed
+   call, counts set to 0 before and read after (no kernel launched),
+   finite logits of shape (2, 1, V), the peak memory; then 32 greedy
+   ``decode_step``s a prompt from ``init_decode_state(max_len=1024)``,
+   timed per token, no kernel launched; each model freed before the next;
+   then ``qwen2-1.5b`` in fp32 at full width and 4 layers (``DENSE_DUAL``)
+   on one 2048-token prompt (``flash_attention`` runs 2 x 2 blocks of 1024,
+   one fully masked): prefill logits at every position and token-by-token
+   ``decode_step`` logits for the first 256 positions, each against the
+   ``mode="train"`` logits, max |d| / max |train| over the real vocabulary
+   within ``DUAL_TOL``. The phase prints its times and asserts none;
 10. the batched engine (``BATCHES``: 16 tensors of 256^3 at R = 32 in fp32
     and bf16, 64 of 96^3 at R = 16, 8 of 64^4 at R = 16): batched
     ``repro_torch.mttkrp`` in every mode with per-element and with shared
@@ -299,6 +314,15 @@ DUAL_LEN = 512
 #: kernel's dt weights scaled by 1.001 read 9.6e-4, its diagonal dropped
 #: 0.57 (PERF.md, section 6).
 DUAL_TOL = 1e-4
+#: Phase 9d, the dense decoders (ROADMAP Queue 1 item 15a): each config's
+#: layers (None: all of them), cut so that each model fits the one card's
+#: 80 GB (nemotron-4-340b's 2 layers and untied 256,000-row table and head
+#: are 16.3 G parameters, 33 GB in bf16) and the phase its 30 s; the prefill
+#: (prompts, tokens) and decode cache length; the fp32 duality check
+#: (config, layers, prompt tokens, decode positions).
+DENSE_LAYERS = {"qwen2-1.5b": None, "deepseek-coder-33b": 2, "yi-34b": 2, "nemotron-4-340b": 2}
+DENSE_PREFILL = (2, 1024)
+DENSE_DUAL = ("qwen2-1.5b", 4, 2048, 256)
 #: Phase 10, the batched engine: (B, element shape, R, dtypes). 16 x 256^3
 #: (1.07 GB in fp32) is a bucket of mid-sized requests, 64 x 96^3 the
 #: small-request bucket where the host's cost a call sets the pace, 8 x 64^4
@@ -1501,6 +1525,139 @@ def mamba_phase(gen, smi: str) -> dict:
     if not dual["finite"] or dual["max_rel_err"] > DUAL_TOL:
         raise AssertionError(f"mamba2 duality: {json.dumps(dual)}")
     return {"launches": launches, "serve": rec, "duality": dual}
+
+
+def _zeroed(kernels) -> None:
+    for k in kernels.values():
+        k.launches = 0
+
+
+def _no_launches(kernels, what: str) -> dict:
+    launches = {name: k.launches for name, k in kernels.items()}
+    if any(launches.values()):
+        raise AssertionError(f"{what}: launches {launches}, expected none")
+    return launches
+
+
+def dense_serve(gen, name: str, layers, smi: str) -> dict:
+    """Phase 9d for one dense decoder in bf16 at full width: prefill, then
+    greedy decode; returns the record."""
+    from dataclasses import replace
+
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import decode_step, forward, init_decode_state, init_params
+
+    full = get_config(name)
+    cfg = replace(full, n_layers=layers) if layers else full
+    kernels = counters()
+    t0 = time.perf_counter()
+    model = init_params(cfg, generator=gen)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(t.numel() for t in model.parameters())
+    batch, seq = DENSE_PREFILL
+    tokens = torch.randint(0, cfg.vocab_size, DENSE_PREFILL, generator=gen, device="cuda")
+    forward(model, cfg, {"tokens": tokens}, mode="prefill", logits_positions="last")  # untimed
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _zeroed(kernels)
+    t0 = time.perf_counter()
+    logits, _ = forward(model, cfg, {"tokens": tokens}, mode="prefill", logits_positions="last")
+    torch.cuda.synchronize()
+    prefill_ms = (time.perf_counter() - t0) * 1e3
+    launches = _no_launches(kernels, f"{name} prefill")
+    if logits.shape != (batch, 1, cfg.padded_vocab) or not bool(torch.isfinite(logits).all()):
+        raise AssertionError(f"{name} prefill: logits {tuple(logits.shape)} or non-finite")
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+
+    # greedy decode from the prefill's next tokens; the caches start empty
+    # (the reference hands no prefill state to decode)
+    first = logits[:, -1, :cfg.vocab_size].argmax(-1, keepdim=True)
+    decode_step(model, cfg, init_decode_state(model, cfg, batch, seq), first)  # untimed
+    state = init_decode_state(model, cfg, batch, seq)
+    tok = first
+    _zeroed(kernels)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out_tokens = []
+    for _ in range(DECODE_STEPS):
+        lg, state = decode_step(model, cfg, state, tok)
+        tok = lg[:, -1, :cfg.vocab_size].argmax(-1, keepdim=True)
+        out_tokens.append(tok)
+    torch.cuda.synchronize()
+    decode_ms = (time.perf_counter() - t0) * 1e3 / DECODE_STEPS
+    _no_launches(kernels, f"{name} decode")
+    if not bool(torch.isfinite(lg).all()):
+        raise AssertionError(f"{name} decode: non-finite logits")
+    rec = {
+        "dense_serve": name, "dtype": cfg.dtype, "layers": cfg.n_layers,
+        "of_layers": full.n_layers, "params": n_params, "init_s": init_s,
+        "prompts": batch, "prompt_tokens": seq, "prefill_ms": prefill_ms,
+        "prefill_tokens_per_s": batch * seq / prefill_ms * 1e3, "prefill_peak_gb": peak_gb,
+        "prefill_launches": launches, "logits_shape": list(logits.shape),
+        "decode_steps": DECODE_STEPS, "decode_cache": seq, "decode_ms_per_token": decode_ms,
+        "decode_tokens_per_s": batch / decode_ms * 1e3,
+        "decoded_sample": torch.cat(out_tokens, 1)[0, :8].tolist(), "gpu": smi,
+    }
+    del model, logits, state, lg
+    torch.cuda.empty_cache()
+    return rec
+
+
+def dense_duality(gen, smi: str) -> dict:
+    """Phase 9d's fp32 check: prefill logits at every position, and
+    token-by-token decode logits, against train logits."""
+    from dataclasses import replace
+
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import decode_step, forward, init_decode_state, init_params
+
+    name, layers, length, steps = DENSE_DUAL
+    cfg = replace(get_config(name), n_layers=layers, dtype="float32")
+    kernels = counters()
+    model = init_params(cfg, generator=gen)
+    tokens = torch.randint(0, cfg.vocab_size, (1, length), generator=gen, device="cuda")
+    _zeroed(kernels)
+    train, _ = forward(model, cfg, {"tokens": tokens})
+    pre, _ = forward(model, cfg, {"tokens": tokens}, mode="prefill")
+    state = init_decode_state(model, cfg, 1, steps)
+    seq = []
+    for t in range(steps):
+        lg, state = decode_step(model, cfg, state, tokens[:, t:t + 1])
+        seq.append(lg[:, 0])
+    launches = _no_launches(kernels, f"{name} duality")
+    v = cfg.vocab_size
+    ref = train[..., :v]
+    pre_rel, pre_diff = rel_err(pre[..., :v], ref)
+    dec_rel, dec_diff = rel_err(torch.stack(seq, 1)[..., :v], ref[:, :steps])
+    out = {"dense_duality": name, "dtype": cfg.dtype, "layers": layers, "tokens": length,
+           "blocks": [length // 1024] * 2, "decode_positions": steps,
+           "prefill_max_rel_err": pre_rel, "prefill_max_abs_err": pre_diff,
+           "decode_max_rel_err": dec_rel, "decode_max_abs_err": dec_diff,
+           "finite": bool(torch.isfinite(train).all() and torch.isfinite(pre).all()
+                          and all(bool(torch.isfinite(x).all()) for x in seq)),
+           "launches": launches, "limit": DUAL_TOL, "gpu": smi}
+    del model, train, pre, state, seq
+    torch.cuda.empty_cache()
+    return out
+
+
+def dense_phase(gen, smi: str) -> dict:
+    """Phase 9d: the four dense decoders' prefill and decode in bf16, then
+    the fp32 duality check. Returns the records."""
+    serve = []
+    for name, layers in DENSE_LAYERS.items():
+        rec = dense_serve(gen, name, layers, smi)
+        emit(rec)
+        serve.append(rec)
+    dual = dense_duality(gen, smi)
+    emit(dual)
+    if not dual["finite"] or max(dual["prefill_max_rel_err"],
+                                 dual["decode_max_rel_err"]) > DUAL_TOL:
+        raise AssertionError(f"dense duality: {json.dumps(dual)}")
+    return {"serve": serve, "duality": dual}
 
 
 def batched_phase(gen, smi: str) -> dict:
@@ -3221,6 +3378,7 @@ def main() -> int:
     tucker = phase("8", tucker_phase, gen)
     phase("9a", ssd_kernel_phase, gen, smi, records)
     mamba = phase("9b-9c", mamba_phase, gen, smi)
+    phase("9d", dense_phase, gen, smi)
     batched = phase("10", batched_phase, gen, smi)
     served = phase("11", serve_phase, gen, smi)
     tuned = phase("12", tune_phase, gen, smi)

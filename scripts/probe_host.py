@@ -14,17 +14,24 @@ median, the quartiles and the minimum of ``--calls`` calls. With no trace
 active this is the path every untraced caller pays. Where the tree has
 ``repro_torch.observe``, it also times the call under a trace whose gate
 refuses it (``capture="observed"``, ``observe=False``) and traced
-(``observe=True``), the states alternated call by call. One JSON line,
-with the card's name and power limit.
+(``observe=True``), and on ``backend="auto"`` on a tune-cache hit for the
+chooser's plan, through the default cache and through a context's
+``cache_path`` (phase 12's probe of ``chip_smoke.py``; both caches are
+throwaway files), the states alternated call by call. One JSON line,
+with the card's name and power limit and each state's median over
+``no_trace``'s.
 """
 
 from __future__ import annotations
 
 import argparse
+import importlib.util
 import json
 import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -58,6 +65,25 @@ def main() -> int:
         states["gate_refuses"] = (plain, repro_torch.Trace(capture="observed"))
         states["traced"] = (obs, repro_torch.Trace(capture="observed",
                                                    capacity=args.calls + 100))
+    if importlib.util.find_spec("repro_torch.tune") is not None:
+        from repro_torch.engine.plan import choose_mttkrp_kernel_blocks
+        from repro_torch.tune import cache as tcache
+        from repro_torch.tune import search
+
+        tmp = tempfile.mkdtemp(prefix="probe-host-")
+        os.environ["REPRO_TORCH_TUNE_CACHE"] = os.path.join(tmp, "default.json")
+        key = tcache.cache_key((64, 64, 64), 16, 0, torch.float32,
+                               repro_torch.Memory.h100_smem())
+        on_path = repro_torch.ExecutionContext.create("auto",
+                                                      cache_path=os.path.join(tmp, "path.json"))
+        for cache in (tcache.default_cache(), on_path.plan_cache()):
+            cache.put(key, tcache.CacheEntry("cuda", tcache.plan_to_dict(
+                choose_mttkrp_kernel_blocks((64, 64, 64), 16, 4))), persist=False)
+            if not search.resolve((64, 64, 64), 16, 0, torch.float32, device="cuda",
+                                  cache=cache).cache_hit:
+                raise AssertionError("probe_host: the auto state misses its cache")
+        states["auto"] = (repro_torch.ExecutionContext.create("auto"), None)
+        states["auto_cache_path"] = (on_path, None)
     samples: dict = {name: [] for name in states}
     for i in range(args.calls + 50):
         for name in (list(states) if i % 2 == 0 else list(states)[::-1]):
@@ -79,6 +105,10 @@ def main() -> int:
         v = sorted(v)
         out[name] = {"median_us": v[len(v) // 2], "q1_us": v[len(v) // 4],
                      "q3_us": v[3 * len(v) // 4], "min_us": v[0]}
+    if "auto" in states:
+        shutil.rmtree(tmp, ignore_errors=True)
+    for v in out.values():
+        v["over_no_trace"] = v["median_us"] / out["no_trace"]["median_us"]
     print(json.dumps({"probe_host": args.label or os.path.abspath(args.src),
                       "shape": [64, 64, 64], "rank": 16, "calls": args.calls, "states": out,
                       "gpu": smi}), flush=True)

@@ -19,7 +19,7 @@ at the peak rate of the type they run in, whichever is larger.
 run them, :func:`ssd_bound` the intra-chunk SSD term's. ``chip_smoke.py``
 and the probes in ``scripts/`` take every ``bound_ms`` from here.
 ``roofline_from_record`` waits for ``launch/dryrun.py`` (ROADMAP Queue 1
-item 15).
+item 15f).
 """
 
 from __future__ import annotations

@@ -1,11 +1,12 @@
 """Architecture registry of the port: ``get_config(name)`` / ``get_smoke(name)``.
 
-The names are the reference's (``repro/configs/__init__.py``). Only
-``mamba2-2.7b`` is ported: its layers are SSM mixers with no FFN, the path
-that runs the SSD kernel. The other nine names are known and raise
-``NotImplementedError`` until their layers (attention, RoPE, MoE, MLP,
-encoder-decoder) are ported (ROADMAP Queue 1 item 15); an unknown name
-raises ``KeyError``, as in the reference.
+The names are the reference's (``repro/configs/__init__.py``). Ported are
+``mamba2-2.7b`` (SSM mixers with no FFN, the path that runs the SSD kernel)
+and the four dense decoders (GQA attention with RoPE and an MLP). The other
+five names are known and raise ``NotImplementedError`` naming the ROADMAP
+Queue 1 sub-slice their layers wait for (MoE: item 15b; M-RoPE positions,
+the vision frontend and the encoder-decoder model: item 15c); an unknown
+name raises ``KeyError``, as in the reference.
 """
 
 from __future__ import annotations
@@ -28,7 +29,10 @@ ARCH_MODULES = {
 }
 
 ARCH_NAMES = tuple(ARCH_MODULES)
-PORTED = ("mamba2-2.7b",)
+PORTED = ("mamba2-2.7b", "qwen2-1.5b", "deepseek-coder-33b", "yi-34b", "nemotron-4-340b")
+#: The sub-slice each unported name waits for.
+WAITS = {"olmoe-1b-7b": "15b", "granite-moe-3b-a800m": "15b", "jamba-v0.1-52b": "15b",
+         "qwen2-vl-72b": "15c", "whisper-tiny": "15c"}
 
 
 def _module(name: str):
@@ -38,8 +42,8 @@ def _module(name: str):
         )
     if name not in PORTED:
         raise NotImplementedError(
-            f"arch {name!r} is not ported yet: its attention, RoPE, MoE, MLP or "
-            f"encoder-decoder layers wait for ROADMAP Queue 1 item 15; ported: {PORTED}"
+            f"arch {name!r} is not ported yet: its layers wait for ROADMAP Queue 1 item "
+            f"{WAITS[name]}; ported: {PORTED}"
         )
     return importlib.import_module(f"{__name__}.{ARCH_MODULES[name]}")
 

@@ -15,9 +15,10 @@ import torch
 from .core.cp_als import CPResult
 from .core.tucker import TuckerResult
 from .engine.plan import BlockPlan, Memory, MultiTTMPlan
+from .models.attention import Attention
 from .models.blocks import Layer, check_ported
 from .models.config import ArchConfig
-from .models.layers import Embedding, Norm
+from .models.layers import MLP, Embedding, Norm
 from .models.model import LM
 from .models.ssm import SSM
 
@@ -122,10 +123,13 @@ def lm_from_numpy(
     as numpy arrays (``jax.tree.map(np.asarray, params)``). The reference
     stacks each period position's leaves over the layer groups
     (``params["blocks"][pos][...]`` has a leading ``n_groups`` axis); layer
-    ``g * period + pos`` takes slice ``g`` of position ``pos``."""
+    ``g * period + pos`` takes slice ``g`` of position ``pos``: its
+    ``norm1``, ``attn`` (``wq``, ``wk``, ``wv``, ``wo`` and, with
+    ``qkv_bias``, ``bq``, ``bk``, ``bv``) or ``ssm``, and ``norm2`` with
+    ``mlp`` (``wi``, ``wo`` and, gated, ``wg``)."""
     if "blocks" not in params:
         raise NotImplementedError("only the decoder-only LM converts; the encoder-decoder "
-                                  "model waits for ROADMAP Queue 1 item 15")
+                                  "model waits for ROADMAP Queue 1 item 15c")
 
     def t(a) -> torch.Tensor:
         return tensor_from_numpy(a, device, dtype)
@@ -134,13 +138,14 @@ def lm_from_numpy(
     n_groups = int(np.shape(params["blocks"][0]["norm1"]["scale"])[0])
     if period * n_groups != cfg.n_layers:
         raise ValueError(f"{period} positions x {n_groups} groups != {cfg.n_layers} layers")
+    parts = {"norm1": Norm, "attn": Attention, "ssm": SSM, "norm2": Norm, "mlp": MLP}
     layers = []
     for layer in range(cfg.n_layers):
         check_ported(cfg, layer)
         g, pos = divmod(layer, period)
         tree = params["blocks"][pos]
-        layers.append(Layer(Norm({k: t(v[g]) for k, v in tree["norm1"].items()}),
-                            SSM({k: t(v[g]) for k, v in tree["ssm"].items()})))
+        layers.append(Layer(**{name: parts[name]({k: t(v[g]) for k, v in tree[name].items()})
+                               for name in tree}))
     return LM(Embedding({k: t(v) for k, v in params["embed"].items()}),
               Norm({k: t(v) for k, v in params["final_norm"].items()}),
               torch.nn.ModuleList(layers))

@@ -89,9 +89,11 @@ def _unfold_rows(z: torch.Tensor, mode: int) -> torch.Tensor:
     return z.movedim(mode, 0).reshape(z.shape[mode], -1)
 
 
-def hosvd_init(x: torch.Tensor, ranks: Sequence[int]) -> list[torch.Tensor]:
+def hosvd_init(x: torch.Tensor, ranks: Sequence[int], dtype=torch.float32
+               ) -> list[torch.Tensor]:
     """HOSVD factors: the top-``R_k`` left singular vectors of every
-    unfolding ``X_(k)``, from the ``I_k x I_k`` Gram's eigendecomposition."""
+    unfolding ``X_(k)``, from the ``I_k x I_k`` Gram's eigendecomposition,
+    in ``x``'s dtype. ``dtype`` is taken and not read, as in the reference."""
     return [_gram_eigvecs(_unfold_rows(x, k), int(r)).to(x.dtype) for k, r in enumerate(ranks)]
 
 

@@ -77,7 +77,8 @@ def keep_first(shape: Sequence[int], lead: int) -> tuple[int, ...]:
     """``shape`` with axis ``lead`` first and the rest in order: a problem's
     canonical shape (the output mode of an MTTKRP, the kept mode of a
     Multi-TTM, mode 0 for the full core)."""
-    return (shape[lead],) + tuple(s for k, s in enumerate(shape) if k != lead)
+    shape = tuple(shape)
+    return (shape[lead],) + shape[:lead] + shape[lead + 1:]
 
 
 @dataclass(frozen=True)

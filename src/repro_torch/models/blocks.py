@@ -1,13 +1,12 @@
 """Layer blocks and the stack of layers: the port of
-``repro/models/blocks.py`` for the SSM mixer with no FFN (the Mamba2
-family).
+``repro/models/blocks.py`` for the attention and SSM mixers and the MLP FFN
+(the dense decoders and the Mamba2 family).
 
 The reference stacks each period position's parameters over the layer
 groups and drives them with ``lax.scan`` (and remat); the port holds one
 :class:`Layer` module per layer in an ``nn.ModuleList`` and runs a plain
-loop. Attention, MoE, MLP and cross-attention layers wait for ROADMAP
-Queue 1 item 15 and raise by name; the reference's arguments that only
-they read (positions, the prefill mode, cross-attention K/V) are not taken.
+loop. The MoE FFN waits for ROADMAP Queue 1 item 15b and cross-attention
+(the encoder-decoder model) for item 15c; both raise by name.
 """
 
 from __future__ import annotations
@@ -15,11 +14,18 @@ from __future__ import annotations
 import torch
 from torch import nn
 
+from .attention import (
+    Attention,
+    KVCache,
+    attention,
+    attention_decode,
+    attention_prefill,
+    init_attn,
+    init_cache,
+)
 from .config import ArchConfig
-from .layers import Norm, apply_norm, init_norm
+from .layers import MLP, Norm, apply_mlp, apply_norm, init_mlp, init_norm
 from .ssm import SSM, SSMCache, apply_ssm, apply_ssm_decode, init_ssm, init_ssm_cache
-
-_WAITS = "waits for ROADMAP Queue 1 item 15"
 
 
 def layer_kind(cfg: ArchConfig, layer: int) -> tuple[str, str]:
@@ -36,33 +42,58 @@ def layer_kind(cfg: ArchConfig, layer: int) -> tuple[str, str]:
 
 def check_ported(cfg: ArchConfig, layer: int) -> None:
     """Raise ``NotImplementedError`` for a layer the port cannot run yet."""
-    mixer, ffn = layer_kind(cfg, layer)
-    if mixer == "attn":
-        raise NotImplementedError(f"{cfg.name} layer {layer}: the attention mixer {_WAITS}")
-    if ffn:
-        raise NotImplementedError(f"{cfg.name} layer {layer}: the {ffn.upper()} FFN {_WAITS}")
+    if cfg.is_encdec:
+        raise NotImplementedError(f"{cfg.name} layer {layer}: cross-attention waits for "
+                                  f"ROADMAP Queue 1 item 15c")
+    if layer_kind(cfg, layer)[1] == "moe":
+        raise NotImplementedError(f"{cfg.name} layer {layer}: the MoE FFN waits for "
+                                  f"ROADMAP Queue 1 item 15b")
 
 
 class Layer(nn.Module):
-    """One SSM layer: ``norm1`` then the ``ssm`` mixer, added to the residual."""
+    """One layer: ``norm1`` then its mixer (``attn`` or ``ssm``), added to
+    the residual; where the FFN is an MLP, ``norm2`` then ``mlp``, added
+    too. Absent parts are None."""
 
-    def __init__(self, norm1: Norm, ssm: SSM):
+    def __init__(self, norm1: Norm, *, attn: Attention | None = None, ssm: SSM | None = None,
+                 norm2: Norm | None = None, mlp: MLP | None = None):
         super().__init__()
-        self.norm1 = norm1
-        self.ssm = ssm
+        if (attn is None) == (ssm is None) or (norm2 is None) != (mlp is None):
+            raise ValueError("a layer has one mixer (attn or ssm), and norm2 with mlp or "
+                             "neither")
+        self.norm1, self.attn, self.ssm, self.norm2, self.mlp = norm1, attn, ssm, norm2, mlp
 
 
 def init_layer(gen: torch.Generator, cfg: ArchConfig, layer: int, dtype, device="cuda"
                ) -> Layer:
     check_ported(cfg, layer)
-    return Layer(init_norm(cfg, dtype, device), init_ssm(gen, cfg, dtype, device))
+    mixer, ffn = layer_kind(cfg, layer)
+    norm1 = init_norm(cfg, dtype, device)
+    mix = ({"attn": init_attn(gen, cfg, dtype, device)} if mixer == "attn"
+           else {"ssm": init_ssm(gen, cfg, dtype, device)})
+    if ffn:
+        mix["norm2"] = init_norm(cfg, dtype, device)
+        mix["mlp"] = init_mlp(gen, cfg, cfg.d_ff, dtype, device)
+    return Layer(norm1, **mix)
 
 
-def apply_layer(p: Layer, x: torch.Tensor, cfg: ArchConfig, layer: int
+def apply_layer(p: Layer, x: torch.Tensor, cfg: ArchConfig, layer: int, positions: torch.Tensor,
+                *, mode: str = "train", causal: bool = True
                 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Returns (x_out, moe_aux_loss); an SSM layer's aux loss is 0."""
+    """Returns (x_out, moe_aux_loss); with no MoE FFN the aux loss is 0.
+    ``mode="prefill"`` runs attention as :func:`flash_attention`."""
     check_ported(cfg, layer)
-    x = x + apply_ssm(p.ssm, apply_norm(p.norm1, x), cfg)
+    h = apply_norm(p.norm1, x)
+    if p.attn is not None:
+        if mode == "prefill":
+            a, _ = attention_prefill(p.attn, h, cfg, positions)
+        else:
+            a = attention(p.attn, h, cfg, positions, causal=causal)
+    else:
+        a = apply_ssm(p.ssm, h, cfg)
+    x = x + a
+    if p.mlp is not None:
+        x = x + apply_mlp(p.mlp, apply_norm(p.norm2, x), cfg)
     return x, torch.zeros((), dtype=torch.float32, device=x.device)
 
 
@@ -72,33 +103,43 @@ def init_stack(gen: torch.Generator, cfg: ArchConfig, dtype, device="cuda") -> n
                          for layer in range(cfg.n_layers))
 
 
-def apply_stack(stack: nn.ModuleList, x: torch.Tensor, cfg: ArchConfig
+def apply_stack(stack: nn.ModuleList, x: torch.Tensor, cfg: ArchConfig, positions: torch.Tensor,
+                *, mode: str = "train", causal: bool = True
                 ) -> tuple[torch.Tensor, torch.Tensor]:
     """The layers in order. Returns (x, total_moe_aux)."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for layer, p in enumerate(stack):
-        x, a = apply_layer(p, x, cfg, layer)
+        x, a = apply_layer(p, x, cfg, layer, positions, mode=mode, causal=causal)
         aux = aux + a
     return x, aux
 
 
-def init_stack_cache(stack: nn.ModuleList, cfg: ArchConfig, batch: int, dtype
-                     ) -> list[SSMCache]:
-    """One zeroed cache per layer."""
-    caches = []
+def init_stack_cache(stack: nn.ModuleList, cfg: ArchConfig, batch: int, max_len: int, dtype
+                     ) -> list[KVCache | SSMCache]:
+    """One zeroed cache per layer: a :class:`KVCache` of ``max_len``
+    positions for an attention layer, an SSM state for an SSM layer."""
+    caches: list[KVCache | SSMCache] = []
     for layer, p in enumerate(stack):
         check_ported(cfg, layer)
-        caches.append(init_ssm_cache(cfg, batch, dtype, p.ssm.wz.device))
+        device = p.norm1.scale.device
+        caches.append(init_cache(cfg, batch, max_len, dtype, device) if p.attn is not None
+                      else init_ssm_cache(cfg, batch, dtype, device))
     return caches
 
 
-def apply_stack_decode(stack: nn.ModuleList, caches: list[SSMCache], x: torch.Tensor,
-                       cfg: ArchConfig) -> tuple[torch.Tensor, list[SSMCache]]:
+def apply_stack_decode(stack: nn.ModuleList, caches: list, x: torch.Tensor, cfg: ArchConfig
+                       ) -> tuple[torch.Tensor, list]:
     """One-token decode through the stack. x: (B, 1, D)."""
     new_caches = []
     for layer, (p, cache) in enumerate(zip(stack, caches)):
         check_ported(cfg, layer)
-        a, cache = apply_ssm_decode(p.ssm, apply_norm(p.norm1, x), cache, cfg)
+        h = apply_norm(p.norm1, x)
+        if p.attn is not None:
+            a, cache = attention_decode(p.attn, h, cache, cfg)
+        else:
+            a, cache = apply_ssm_decode(p.ssm, h, cache, cfg)
         x = x + a
+        if p.mlp is not None:
+            x = x + apply_mlp(p.mlp, apply_norm(p.norm2, x), cfg)
         new_caches.append(cache)
     return x, new_caches

@@ -1,6 +1,7 @@
-"""Shared neural layers of the language models: initializers, norms, token
-embedding and logits. The port of ``repro/models/layers.py``; RoPE and the
-MLP wait for the layers that use them (ROADMAP Queue 1 item 15).
+"""Shared neural layers of the language models: initializers, norms, rotary
+embeddings (RoPE and M-RoPE), token embedding and logits, and the MLP. The
+port of ``repro/models/layers.py``; ``embed_vectors`` (the stub frontend's
+input) waits for ROADMAP Queue 1 item 15c.
 
 Parameters live in :class:`Params` modules whose parameter names are the
 reference's dict keys, so a reference pytree converts leaf by leaf
@@ -16,6 +17,7 @@ import math
 from typing import Mapping
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from .config import ArchConfig
@@ -59,7 +61,8 @@ def dense_init(gen: torch.Generator, shape, in_axis: int = -2, dtype=torch.bfloa
     its bits come from ``jax.random`` and cannot be reproduced)."""
     fan_in = shape[in_axis] if len(shape) > 1 else shape[0]
     std = 1.0 / math.sqrt(fan_in)
-    return (_normal(gen, shape, device) * std).to(dtype)
+    # scaled in place: one f32 copy of a 256,000-row head at a time, not two
+    return _normal(gen, shape, device).mul_(std).to(dtype)
 
 
 def embed_init(gen: torch.Generator, shape, dtype=torch.bfloat16, device="cuda") -> torch.Tensor:
@@ -99,6 +102,37 @@ def apply_norm(p: Norm, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
 
 
 # --------------------------------------------------------------------------
+# rotary embeddings (RoPE + M-RoPE)
+# --------------------------------------------------------------------------
+
+def rope_freqs(hd: int, theta: float, device=None) -> torch.Tensor:
+    return 1.0 / (theta ** (torch.arange(0, hd, 2, dtype=torch.float32, device=device) / hd))
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float,
+               mrope: bool = False) -> torch.Tensor:
+    """x: (..., S, H, hd); positions: (..., S) integers, or (..., S, 3) for
+    M-RoPE (temporal/height/width sections; text repeats one position three
+    times, which reduces exactly to standard RoPE)."""
+    hd = x.shape[-1]
+    freqs = rope_freqs(hd, theta, x.device)  # (hd/2,)
+    if mrope:
+        if positions.dim() == x.dim() - 2:  # text-only: expand to 3 sections
+            positions = torch.stack([positions] * 3, dim=-1)
+        # frequency bands split into 3 sections (t/h/w), qwen2-vl style
+        n = freqs.shape[0]
+        s1, s2 = n // 3, 2 * n // 3
+        section = torch.tensor([0] * s1 + [1] * (s2 - s1) + [2] * (n - s2), device=x.device)
+        pos = positions.float()[..., section]  # (..., S, hd/2): each band's position
+        angles = pos[..., None, :] * freqs  # (..., S, 1, hd/2)
+    else:
+        angles = positions[..., None, None].float() * freqs
+    cos, sin = torch.cos(angles), torch.sin(angles)
+    x1, x2 = x.float().chunk(2, dim=-1)
+    return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1).to(x.dtype)
+
+
+# --------------------------------------------------------------------------
 # embedding + logits
 # --------------------------------------------------------------------------
 
@@ -131,3 +165,37 @@ def logits(p: Embedding, x: torch.Tensor, vocab_size: int | None = None) -> torc
         mask = torch.arange(v_pad, device=out.device) < vocab_size
         out = torch.where(mask, out, torch.tensor(-1e30, dtype=out.dtype, device=out.device))
     return out
+
+
+# --------------------------------------------------------------------------
+# MLP variants
+# --------------------------------------------------------------------------
+
+class MLP(Params):
+    """``wi`` (d, d_ff) and ``wo`` (d_ff, d); the gated ``silu_glu`` also
+    ``wg`` (d, d_ff)."""
+
+    names = ("wi", "wo")
+    optional = ("wg",)
+
+
+def init_mlp(gen: torch.Generator, cfg: ArchConfig, d_ff: int, dtype, device="cuda") -> MLP:
+    d = cfg.d_model
+    p = {"wi": dense_init(gen, (d, d_ff), dtype=dtype, device=device)}
+    if cfg.act == "silu_glu":
+        p["wg"] = dense_init(gen, (d, d_ff), dtype=dtype, device=device)
+    p["wo"] = dense_init(gen, (d_ff, d), dtype=dtype, device=device)
+    return MLP(p)
+
+
+def apply_mlp(p: MLP, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
+    """The activation in f32, cast back to the activations' dtype, as in the
+    reference; ``gelu`` is ``jax.nn.gelu``'s default, the tanh form."""
+    h = x @ p.wi
+    if cfg.act == "silu_glu":
+        h = F.silu((x @ p.wg).float()).to(h.dtype) * h
+    elif cfg.act == "sq_relu":
+        h = F.relu(h.float()).square().to(h.dtype)
+    else:  # gelu
+        h = F.gelu(h.float(), approximate="tanh").to(h.dtype)
+    return h @ p.wo

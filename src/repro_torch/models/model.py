@@ -1,13 +1,14 @@
 """The decoder-only language model's entry points: initialization, the
 train/prefill forward, and the decode step. The port of
-``repro/models/model.py`` for the Mamba2 family.
+``repro/models/model.py`` for the dense decoders and the Mamba2 family.
 
 ``init_params`` puts the model on the card unless the caller passes
 ``device="cpu"``. Forward and decode run without autograd: the port
-serves; ``loss_fn`` waits for the training slice, ``param_specs`` and
-``cache_specs`` for the distributed slice, and the encoder-decoder branch
-for ROADMAP Queue 1 item 15. As in the reference, prefill hands no SSM
-state to decode: ``decode_step`` starts from ``init_decode_state``'s zeros.
+serves; ``loss_fn`` waits for the training slice (ROADMAP Queue 1 item
+15d), ``param_specs`` and ``cache_specs`` for the mesh layer (15f), and the
+encoder-decoder model and ``embeds`` inputs for 15c. As in the reference,
+prefill hands no state to decode: ``decode_step`` starts from
+``init_decode_state``'s zeroed caches.
 """
 
 from __future__ import annotations
@@ -27,7 +28,7 @@ LOGITS_POSITIONS = ("all", "last")
 
 
 class LM(nn.Module):
-    """``embed`` (the token table, tied head), ``final_norm`` and
+    """``embed`` (the token table and, untied, the head), ``final_norm`` and
     ``blocks`` (one layer each), named as the reference's pytree."""
 
     def __init__(self, embed: Embedding, final_norm: Norm, blocks: nn.ModuleList):
@@ -40,7 +41,7 @@ class LM(nn.Module):
 def _check_encdec(cfg: ArchConfig) -> None:
     if cfg.is_encdec:
         raise NotImplementedError(f"{cfg.name}: the encoder-decoder model waits for "
-                                  f"ROADMAP Queue 1 item 15")
+                                  f"ROADMAP Queue 1 item 15c")
 
 
 def init_params(cfg: ArchConfig, *, generator: torch.Generator, device="cuda",
@@ -58,16 +59,25 @@ def init_params(cfg: ArchConfig, *, generator: torch.Generator, device="cuda",
 def forward(params: LM, cfg: ArchConfig, batch: dict, *, mode: str = "train",
             logits_positions: str = "all") -> tuple[torch.Tensor, torch.Tensor]:
     """-> (logits (B, S, V), moe_aux); ``logits_positions="last"`` (what a
-    prefill serves) gives (B, 1, V). ``batch`` carries 'tokens' (B, S). The
-    SSM layers compute the same in both modes; ``mode`` matters to
-    attention, which waits."""
+    prefill serves) gives (B, 1, V). ``batch`` carries 'tokens' (B, S) and
+    optionally 'positions' (B, S), else 0..S-1. ``mode="prefill"`` runs
+    attention blockwise (:func:`~repro_torch.models.attention.flash_attention`);
+    the SSM layers compute the same in both modes."""
     _check_encdec(cfg)
     if mode not in MODES:
         raise ValueError(f"mode must be one of {MODES}, got {mode!r}")
     if logits_positions not in LOGITS_POSITIONS:
         raise ValueError(f"logits_positions must be one of {LOGITS_POSITIONS}, "
                          f"got {logits_positions!r}")
-    x, aux = apply_stack(params.blocks, embed_tokens(params.embed, batch["tokens"]), cfg)
+    if cfg.frontend != "none" or "embeds" in batch:
+        raise NotImplementedError(f"{cfg.name}: 'embeds' inputs (the stub frontend) wait "
+                                  f"for ROADMAP Queue 1 item 15c")
+    x = embed_tokens(params.embed, batch["tokens"])
+    b, s = x.shape[:2]
+    positions = batch.get("positions")
+    if positions is None:
+        positions = torch.arange(s, dtype=torch.int32, device=x.device).expand(b, s)
+    x, aux = apply_stack(params.blocks, x, cfg, positions, mode=mode)
     x = apply_norm(params.final_norm, x)
     if logits_positions == "last":
         x = x[:, -1:, :]
@@ -75,10 +85,11 @@ def forward(params: LM, cfg: ArchConfig, batch: dict, *, mode: str = "train",
 
 
 def init_decode_state(params: LM, cfg: ArchConfig, batch: int, max_len: int) -> dict:
-    """Zeroed caches for ``batch`` sequences; ``max_len`` sizes attention
-    caches, so the SSM layers do not read it."""
+    """Zeroed caches for ``batch`` sequences: ``max_len`` positions for each
+    attention layer's K and V; an SSM layer's state has no length."""
     _check_encdec(cfg)
-    return {"caches": init_stack_cache(params.blocks, cfg, batch, params.embed.table.dtype)}
+    return {"caches": init_stack_cache(params.blocks, cfg, batch, max_len,
+                                       params.embed.table.dtype)}
 
 
 @torch.no_grad()

@@ -1,7 +1,7 @@
 """Mamba2 SSD (state-space duality) mixer: the chunked parallel form for
 prefill, the O(1)-state recurrent form for decode. The port of
 ``repro/models/ssm.py`` (its default path; the ``REPRO_SSD_LEAN`` option
-waits, ROADMAP Queue 1 item 15).
+waits, ROADMAP Queue 1 item 15d).
 
 Math (per head, head_dim P, state N):
     h_t = exp(Δ_t A) · h_{t-1} + Δ_t · B_t x_tᵀ      h ∈ R^{N×P}

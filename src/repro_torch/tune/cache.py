@@ -204,6 +204,11 @@ class PlanCache:
         self.path = resolve_cache_path(path)
         self._entries: dict[str, CacheEntry] | None = None
         self._calibration: dict | None = None
+        #: Hits already checked, by the resolver's arguments
+        #: (``tune.search._checked``): a hit replays one without rebuilding
+        #: and re-checking its plan. Every write empties it, so an entry put,
+        #: dropped or cleared is looked up anew.
+        self.checked: dict = {}
 
     def _load(self) -> dict[str, CacheEntry]:
         if self._entries is not None:
@@ -255,16 +260,19 @@ class PlanCache:
         if not entry.timestamp:
             entry.timestamp = time.time()
         self._load()[key] = entry
+        self.checked.clear()
         if persist:
             self._flush()
 
     def invalidate(self, key: str) -> None:
         self._load().pop(key, None)
+        self.checked.clear()
         self._flush()
 
     def clear(self) -> None:
         self._entries = {}
         self._calibration = None
+        self.checked.clear()
         self._flush()
 
     def keys(self) -> list[str]:
@@ -286,15 +294,23 @@ class PlanCache:
 # process-wide caches, one per resolved path (so a test can redirect
 # REPRO_TORCH_TUNE_CACHE and get a fresh instance)
 _SHARED_CACHES: dict[str, PlanCache] = {}
+#: The same instances by the path as given (absolute, or relative to the
+#: working directory), so an ``auto`` engine call skips ``expanduser``.
+_BY_GIVEN: dict[str, PlanCache] = {}
 
 
 def shared_cache(path: str | None = None) -> PlanCache:
     """This process's one :class:`PlanCache` on ``path`` (the file is read
     once, not on every ``auto`` engine call)."""
-    path = resolve_cache_path(path)
-    cache = _SHARED_CACHES.get(path)
+    given = path if path is not None else os.environ.get(ENV_CACHE_PATH)
+    cache = _BY_GIVEN.get(given) if given is not None else None
     if cache is None:
-        cache = _SHARED_CACHES[path] = PlanCache(path)
+        path = resolve_cache_path(given)
+        cache = _SHARED_CACHES.get(path)
+        if cache is None:
+            cache = _SHARED_CACHES[path] = PlanCache(path)
+        if given is not None and not given.startswith("~"):
+            _BY_GIVEN[given] = cache
     return cache
 
 

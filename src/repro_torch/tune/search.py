@@ -745,15 +745,26 @@ def _default_plan(kind: str, shape: tuple[int, ...], rank, itemsize: int):
     return choose_mttkrp_kernel_blocks(shape, rank, itemsize)
 
 
-def _lookup(cache: PlanCache | None, key: str, itemsize: int, rank, *,
+def _checked(cache: PlanCache, memo: tuple) -> Resolved | None:
+    """The hit ``memo`` (a resolver's own arguments) resolved to since the
+    cache's last write (``PlanCache.checked``), counted as a hit; else None.
+    The engine's ``auto`` branches resolve on every call, and a replayed
+    hit neither rebuilds the key nor rebuilds and re-checks the plan."""
+    done = cache.checked.get(memo)
+    if done is not None:
+        registry().inc(TUNE_CACHE_HITS)
+    return done
+
+
+def _lookup(cache: PlanCache, memo: tuple, key: str, itemsize: int, rank, *,
             concrete: bool = True, plan_type: type | None = None) -> Resolved | None:
     """The cached decision of ``key``, checked, or None on a miss. A hit
     whose backend is not an executor, or whose kernel plan the kernel does
     not take (``check()``), is refused with ``ValueError``, and a ``cuda``
     hit with a plan of another type (a reference ``BlockPlan``, say) with
     the ``TypeError`` the kernel wrappers give: a hand-edited cache never
-    reaches a kernel with a bad plan."""
-    cache = cache if cache is not None else default_cache()
+    reaches a kernel with a bad plan. A hit that passes is kept under
+    ``memo`` for :func:`_checked`; a refused one raises on every call."""
     entry = cache.get(key)
     registry().inc(TUNE_CACHE_HITS if entry is not None else TUNE_CACHE_MISSES)
     if entry is None:
@@ -774,7 +785,9 @@ def _lookup(cache: PlanCache | None, key: str, itemsize: int, rank, *,
             plan.check(itemsize)
     except ValueError as e:
         raise ValueError(f"tune cache entry {key!r} refused: {e}") from None
-    return Resolved(entry.backend, plan, entry.variant, entry.block, True, key)
+    done = cache.checked[memo] = Resolved(entry.backend, plan, entry.variant, entry.block,
+                                          True, key)
+    return done
 
 
 def resolve(
@@ -799,11 +812,16 @@ def resolve(
     strides with ``choose_partial_kernel_blocks``), ``einsum`` on the
     host. ``shape`` is mode-first (the canonical shape of a partial edge,
     the tensor's for a pair)."""
+    cache = cache if cache is not None else default_cache()
+    memo = (kind, tuple(shape), rank, mode, dtype, memory, x_has_rank, device)
+    hit = _checked(cache, memo)
+    if hit is not None:
+        return hit
     itemsize = _itemsize(dtype)
     key = cache_key(shape, rank, mode, dtype, _memory(memory, itemsize), kind=kind,
                     device=device)
     plan_type = PartialKernelPlan if kind == "partial" and x_has_rank else MTTKRPKernelPlan
-    hit = _lookup(cache, key, itemsize, rank, plan_type=plan_type)
+    hit = _lookup(cache, memo, key, itemsize, rank, plan_type=plan_type)
     if hit is not None:
         return hit
     least = 3 if kind == "pair" else 2
@@ -832,11 +850,16 @@ def resolve_multi_ttm(
     kept-mode-first, ``ranks`` every contracted rank, ``keep_key`` the kept
     mode or ``-1`` for the full core (whose kernel contracts the trailing
     modes, so its plan takes ``ranks[1:]``)."""
-    itemsize = _itemsize(dtype)
+    cache = cache if cache is not None else default_cache()
     ranks = tuple(int(r) for r in ranks)
+    memo = ("multi_ttm", tuple(canon_shape), ranks, keep_key, dtype, memory, device)
+    hit = _checked(cache, memo)
+    if hit is not None:
+        return hit
+    itemsize = _itemsize(dtype)
     key = cache_key(canon_shape, ranks, keep_key, dtype, _memory(memory, itemsize),
                     kind="multi_ttm", device=device)
-    hit = _lookup(cache, key, itemsize, ranks, plan_type=MultiTTMKernelPlan)
+    hit = _lookup(cache, memo, key, itemsize, ranks, plan_type=MultiTTMKernelPlan)
     if hit is not None:
         return hit
     if _on_cuda(device) and len(canon_shape) >= 2:
@@ -980,10 +1003,16 @@ def resolve_sweep(
     ``"per_mode"``, with the fused pair kernel's plan where one was tuned);
     miss, ``"fused"`` for 3-way tensors and up (two tensor passes beat N),
     ``"per_mode"`` below."""
+    cache = cache if cache is not None else default_cache()
+    memo = ("sweep", tuple(shape), rank, dtype, memory, device)
+    hit = _checked(cache, memo)
+    if hit is not None:
+        return hit
     itemsize = _itemsize(dtype)
     key = cache_key(shape, rank, -1, dtype, _memory(memory, itemsize), kind="sweep",
                     device=device)
-    hit = _lookup(cache, key, itemsize, rank, concrete=False, plan_type=MTTKRPKernelPlan)
+    hit = _lookup(cache, memo, key, itemsize, rank, concrete=False,
+                  plan_type=MTTKRPKernelPlan)
     if hit is not None:
         return hit
     return Resolved("auto", None, "fused" if len(shape) >= 3 else "per_mode", None, False, key)

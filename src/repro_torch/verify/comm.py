@@ -296,7 +296,7 @@ def check_cp_sweep(
 
 
 def check_tucker_sweep(
-    dims: tuple[int, ...], ranks_: tuple[int, ...], grid: tuple[int, ...], overlap: str,
+    dims: tuple[int, ...], ranks: tuple[int, ...], grid: tuple[int, ...], overlap: str,
 ) -> tuple[list[Finding], dict]:
     """Run one Tucker/HOOI sweep on every rank of ``grid``; byte rules."""
     from ..core.tensor import frob_norm
@@ -304,23 +304,23 @@ def check_tucker_sweep(
     from ..engine.context import ExecutionContext
 
     ctx = ExecutionContext.create("einsum", device="cpu", grid=grid, overlap=overlap)
-    x, factors = _operands(dims, ranks_)
+    x, factors = _operands(dims, ranks)
     normx = frob_norm(x)
 
     def program(mesh):
-        build_tucker_sweep(mesh, len(dims), ranks_, ctx=ctx)(
+        build_tucker_sweep(mesh, len(dims), ranks, ctx=ctx)(
             *place_tucker_state(mesh, x, factors), normx)
 
-    ranks = count_ranks(grid, program)
-    model = tucker_sweep_model_bytes(dims, ranks_, grid)
+    per_rank = count_ranks(grid, program)
+    model = tucker_sweep_model_bytes(dims, ranks, grid)
     # no parallel Multi-TTM lower bound is implemented in core/bounds.py
     # (arXiv:2207.10437's parallel case); the clamped bound is 0 — the
     # byte-equality rule is the binding one here.
     lb = 0
-    subject = f"tucker_sweep dims={dims} ranks={ranks_} grid={grid} overlap={overlap}"
-    findings, measured = _point(subject, ranks, model, lb)
-    return findings, _verdict(f"tucker_sweep/{overlap}", dims, ranks_, grid, overlap, model, lb,
-                              measured, ranks, findings)
+    subject = f"tucker_sweep dims={dims} ranks={ranks} grid={grid} overlap={overlap}"
+    findings, measured = _point(subject, per_rank, model, lb)
+    return findings, _verdict(f"tucker_sweep/{overlap}", dims, ranks, grid, overlap, model, lb,
+                              measured, per_rank, findings)
 
 
 def check_mttkrp_stationary(

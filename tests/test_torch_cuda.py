@@ -12,11 +12,14 @@ orders, so they agree to 1e-5 of the output's largest magnitude; an output
 rounded to bf16 (the SSD kernel's, for bf16 x) within 1e-2 (a bf16 ulp is
 2^-8 of the value). The Mamba2 mixer on the card against the same call on
 CPU copies: 1e-4 in fp32, 5e-2 in bf16 (cuBLAS and the CPU round bf16
-products at other places).
+products at other places); the dense decoders' logits likewise, 1e-4 in
+fp32.
 """
 
+import copy
 import importlib.util
 import json
+from dataclasses import replace
 from pathlib import Path
 
 import numpy as np
@@ -45,6 +48,7 @@ from repro_torch.engine.plan import (
     partial_kernel_smem_bytes,
     partial_kernel_threads,
 )
+from repro_torch.configs import get_smoke
 from repro_torch.engine.sweep import fused_als_sweep
 from repro_torch.engine.tree import dimtree_als_sweep
 from repro_torch.kernels import multi_ttm as multi_ttm_mod
@@ -993,6 +997,44 @@ def test_forward_launches_once_a_layer_and_decode_never(card):
     for t in range(3):
         lg, state = decode_step(model, cfg, state, tokens[:, t:t + 1])
     assert ssd_intra.launches == before + cfg.n_layers
+
+
+def _launch_counts() -> tuple:
+    return (mttkrp3.launches, mttkrpn.launches, splitk.splitk_reduce.launches,
+            fused_pair.launches, mttkrp_partial.launches, multi_ttm_keep.launches,
+            ssd_intra.launches)
+
+
+@pytest.mark.parametrize("name", ["qwen2-1.5b", "deepseek-coder-33b", "yi-34b",
+                                  "nemotron-4-340b"])
+def test_dense_decoder_on_the_card_matches_cpu(card, name):
+    """A smoke-sized dense decoder (GQA, RoPE, the MLP; qwen2's QKV biases
+    made random) in fp32 on the card against the same weights on the CPU:
+    forward in both modes and 8 decode steps within 1e-4, no kernel launched."""
+    cfg = replace(get_smoke(name), dtype="float32")
+    gen = torch.Generator().manual_seed(8)
+    model = init_params(cfg, generator=gen, device="cpu")
+    for layer in model.blocks:
+        for b in ("bq", "bk", "bv"):
+            if b in layer.attn:
+                getattr(layer.attn, b).copy_(torch.randn(getattr(layer.attn, b).shape,
+                                                         generator=gen))
+    tokens = torch.randint(0, cfg.vocab_size, (2, 32), generator=gen)
+    on_card = copy.deepcopy(model).to(card)
+    v = cfg.vocab_size
+    before = _launch_counts()
+    for mode in ("train", "prefill"):
+        want, _ = forward(model, cfg, {"tokens": tokens}, mode=mode)
+        got, _ = forward(on_card, cfg, {"tokens": tokens.to(card)}, mode=mode)
+        _close(got[..., :v].cpu(), want[..., :v], tol=1e-4)
+    state = init_decode_state(model, cfg, 2, 8)
+    card_state = init_decode_state(on_card, cfg, 2, 8)
+    assert card_state["caches"][0].k.device.type == card.type
+    for t in range(8):
+        want, state = decode_step(model, cfg, state, tokens[:, t:t + 1])
+        got, card_state = decode_step(on_card, cfg, card_state, tokens[:, t:t + 1].to(card))
+        _close(got[..., :v].cpu(), want[..., :v], tol=1e-4)
+    assert _launch_counts() == before
 
 
 # -- batched calls: one launch for B problems, the batch the grid's z axis ----

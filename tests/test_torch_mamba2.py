@@ -40,6 +40,7 @@ from repro_torch.models import (
     init_params,
 )
 from repro_torch.models import layers, ssm
+from repro_torch.models.blocks import init_stack_cache
 
 F32_TOL = 1e-4
 BF16_TOL = 5e-2
@@ -106,14 +107,15 @@ def test_arch_config_arithmetic_is_the_reference(name, smoke):
         assert cfg.is_moe_layer(layer) == ref.is_moe_layer(layer)
 
 
-def test_registry_gives_the_reference_configs():
-    assert asdict(configs.get_config(NAME)) == asdict(ref_get_config(NAME))
-    assert asdict(configs.get_smoke(NAME)) == asdict(ref_get_smoke(NAME))
-    assert configs.get_config(NAME).param_count() == ref_get_config(NAME).param_count()
+@pytest.mark.parametrize("name", configs.PORTED)
+def test_registry_gives_the_reference_configs(name):
+    assert asdict(configs.get_config(name)) == asdict(ref_get_config(name))
+    assert asdict(configs.get_smoke(name)) == asdict(ref_get_smoke(name))
+    assert configs.get_config(name).param_count() == ref_get_config(name).param_count()
     assert configs.ARCH_NAMES == ARCH_NAMES
 
 
-@pytest.mark.parametrize("name", [n for n in ARCH_NAMES if n != NAME])
+@pytest.mark.parametrize("name", [n for n in ARCH_NAMES if n not in configs.PORTED])
 def test_other_archs_wait_for_their_layers(name):
     for get in (configs.get_config, configs.get_smoke):
         with pytest.raises(NotImplementedError, match="Queue 1 item 15"):
@@ -313,7 +315,8 @@ def test_entry_points_reject_what_waits():
         forward(model, cfg, {"tokens": torch.zeros((1, 12), dtype=torch.long)})
     with pytest.raises(NotImplementedError, match="encoder-decoder"):
         forward(model, replace(cfg, is_encdec=True), tokens)
-    with pytest.raises(NotImplementedError, match="attention"):
-        forward(model, replace(cfg, family="hybrid", attn_every=2), tokens)
-    with pytest.raises(NotImplementedError, match="MLP"):
-        init_params(replace(cfg, d_ff=128), generator=torch.Generator(), device="cpu")
+    with pytest.raises(NotImplementedError, match="MoE FFN waits for ROADMAP Queue 1 item 15b"):
+        forward(model, replace(cfg, n_experts=4, top_k=2, moe_every=2), tokens)
+    with pytest.raises(NotImplementedError, match="cross-attention waits for ROADMAP Queue 1 "
+                                                  "item 15c"):
+        init_stack_cache(model.blocks, replace(cfg, is_encdec=True), 1, 8, torch.bfloat16)
