@@ -100,6 +100,22 @@ Phases (any failure raises, and the script exits non-zero):
    ``decode_step`` logits for the first 256 positions, each against the
    ``mode="train"`` logits, max |d| / max |train| over the real vocabulary
    within ``DUAL_TOL``. The phase prints its times and asserts none;
+   (e) the MoE models and the hybrid (``MOE_LAYERS``: ``olmoe-1b-7b`` and
+   ``granite-moe-3b-a800m`` at full depth, ``jamba-v0.1-52b`` cut to one
+   period of 8 layers), served as in (d): exactly one ``ssd_intra`` launch
+   for each of jamba's 7 SSM layers a prefill, none a decode step, none for
+   the other two; finite (2, 1, V) logits; the choices capacity dropped in
+   the untimed prefill and the router's smallest margin printed; then the
+   MoE layer of each config at full width in fp32 on ``MOE_TOKENS`` tokens
+   with its routing held fixed (``apply_moe(routing=)``) against a plain
+   loop over the experts that takes the same gates, experts and kept
+   choices, within ``MOE_TOL`` of max |plain|, once as routed and once
+   with the router skewed towards expert 0 until its queue overflows (each
+   expert keeps exactly min(count, cap) choices, the earliest in
+   token-major order); then ``ssd_intra`` at jamba's shape
+   (``JAMBA_SSD``) against its plain version (x bf16 within 1e-2, fp32
+   within 1e-5). No check compares two paths through a router; times are
+   printed, none asserted;
 10. the batched engine (``BATCHES``: 16 tensors of 256^3 at R = 32 in fp32
     and bf16, 64 of 96^3 at R = 16, 8 of 64^4 at R = 16): batched
     ``repro_torch.mttkrp`` in every mode with per-element and with shared
@@ -242,6 +258,7 @@ yardstick are exact fp32.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import math
 import os
@@ -323,6 +340,17 @@ DUAL_TOL = 1e-4
 DENSE_LAYERS = {"qwen2-1.5b": None, "deepseek-coder-33b": 2, "yi-34b": 2, "nemotron-4-340b": 2}
 DENSE_PREFILL = (2, 1024)
 DENSE_DUAL = ("qwen2-1.5b", 4, 2048, 256)
+#: Phase 9e, the MoE models and the hybrid (ROADMAP Queue 1 item 15b),
+#: served at phase 9d's sizes: each config's layers (None: all of them);
+#: jamba-v0.1-52b cut to one period of 8 (13.3 G parameters, 27 GB in bf16;
+#: its 32 layers would need about 104 GB). The MoE layer's check: tokens,
+#: and the limit on max |d| / max |plain| with the routing held fixed. The
+#: SSD kernel at jamba's shape: 2 x 1024 tokens are 8 chunks of 256, N = 16,
+#: H = 128, P = 64.
+MOE_LAYERS = {"olmoe-1b-7b": None, "granite-moe-3b-a800m": None, "jamba-v0.1-52b": 8}
+MOE_TOKENS = 2048
+MOE_TOL = 1e-5
+JAMBA_SSD = {"bcn": 8, "q": 256, "n": 16, "h": 128, "p": 64}
 #: Phase 10, the batched engine: (B, element shape, R, dtypes). 16 x 256^3
 #: (1.07 GB in fp32) is a bucket of mid-sized requests, 64 x 96^3 the
 #: small-request bucket where the host's cost a call sets the pace, 8 x 64^4
@@ -1369,16 +1397,20 @@ def ssd_lo_readings(args, got) -> tuple[float, float]:
     return rel_err(got[:, 1::2], ref)[0], rel_err(once, ref)[0]
 
 
-def ssd_kernel_phase(gen, smi: str, records: dict) -> None:
+def ssd_kernel_phase(gen, smi: str, records: dict, shape: dict = SSD_SHAPE,
+                     cell: str = "mamba2-2.7b") -> None:
     """Phase 9a: ``ssd_intra`` against its plain version at the served shape,
     in the model's dtype mix (x bf16, the rest fp32) and in fp32; in the
     bf16 mix also on :func:`ssd_cancelling` operands, against the limit
-    that a kernel with bf16 weights would exceed."""
+    that a kernel with bf16 weights would exceed. Phase 9e: the same at
+    another ``cell``'s shape, without the cancelling operands; its rows
+    are not the kernel's main row."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.ssd_intra import kernel_plan, smem_bytes, ssd_intra, ssd_intra_plain
 
-    bcn, q, n, h, p = (SSD_SHAPE[k] for k in ("bcn", "q", "n", "h", "p"))
+    served = shape is SSD_SHAPE
+    bcn, q, n, h, p = (shape[k] for k in ("bcn", "q", "n", "h", "p"))
     cc = torch.randn((bcn, q, n), generator=gen, device="cuda")
     bc = torch.randn((bcn, q, n), generator=gen, device="cuda")
     cum = -torch.cumsum(F.softplus(torch.randn((bcn, q, h), generator=gen, device="cuda")), 1)
@@ -1396,7 +1428,7 @@ def ssd_kernel_phase(gen, smi: str, records: dict) -> None:
             raise AssertionError(f"ssd_intra {mix}: max|d|/max|plain| = {rel:.3e} > {tol}")
         b_ms, b_by = ssd_bound(bcn, q, n, h, p, x.element_size())
         lo = {}
-        if mix == "x_bf16":  # the weights stay fp32: the lo product is there
+        if served and mix == "x_bf16":  # the weights stay fp32: the lo product is there
             lo_args = ssd_cancelling(gen, bcn, q, n, h, p)
             reading, control = ssd_lo_readings(lo_args, ssd_intra(*lo_args))
             if not reading <= LO_TOL < control:
@@ -1405,8 +1437,9 @@ def ssd_kernel_phase(gen, smi: str, records: dict) -> None:
             lo = {"lo_check": {"reading": reading, "bf16_once": control, "limit": LO_TOL}}
             del lo_args
         rec = {
-            "kernel": "ssd_intra", "shape": [bcn, q, n, h, p], "mix": mix,
-            "dtype": "bfloat16" if mix == "x_bf16" else "float32", "main": mix == "x_bf16",
+            "kernel": "ssd_intra", "cell": cell, "shape": [bcn, q, n, h, p], "mix": mix,
+            "dtype": "bfloat16" if mix == "x_bf16" else "float32",
+            "main": served and mix == "x_bf16",
             "plan": list(plan), "smem_bytes": smem_bytes(q, p, plan.tile, x.element_size()),
             "max_rel_err": rel, "max_abs_err": diff, "tol": tol,
             "kernel_ms": cuda_ms(lambda: ssd_intra(*args)),
@@ -1539,17 +1572,42 @@ def _no_launches(kernels, what: str) -> dict:
     return launches
 
 
-def dense_serve(gen, name: str, layers, smi: str) -> dict:
-    """Phase 9d for one dense decoder in bf16 at full width: prefill, then
-    greedy decode; returns the record."""
+@contextlib.contextmanager
+def routing_watch():
+    """Every MoE layer's ``apply_moe`` call, watched: the list receives each
+    call's ``routing_stats`` (choices dropped, the router's smallest margin)
+    as tensors on the card."""
+    from repro_torch.models import blocks, moe
+
+    seen, real = [], blocks.apply_moe
+
+    def watched(p, x, cfg, *args, **kw):
+        seen.append(moe.routing_stats(p, x, cfg))
+        return real(p, x, cfg, *args, **kw)
+
+    blocks.apply_moe = watched
+    try:
+        yield seen
+    finally:
+        blocks.apply_moe = real
+
+
+def serve_lm(gen, name: str, layers, smi: str) -> dict:
+    """Phases 9d and 9e for one model in bf16 at full width: prefill, then
+    greedy decode; returns the record. A prefill launches ``ssd_intra`` once
+    for each SSM layer and nothing else, a decode step nothing. For an MoE
+    model the untimed prefill also records what capacity dropped and the
+    router's smallest margin (``routing_watch``)."""
     from dataclasses import replace
 
     import torch
     from repro_torch.configs import get_config
     from repro_torch.models import decode_step, forward, init_decode_state, init_params
+    from repro_torch.models.blocks import layer_kind
 
     full = get_config(name)
     cfg = replace(full, n_layers=layers) if layers else full
+    n_ssm = sum(layer_kind(cfg, layer)[0] == "ssm" for layer in range(cfg.n_layers))
     kernels = counters()
     t0 = time.perf_counter()
     model = init_params(cfg, generator=gen)
@@ -1558,15 +1616,25 @@ def dense_serve(gen, name: str, layers, smi: str) -> dict:
     n_params = sum(t.numel() for t in model.parameters())
     batch, seq = DENSE_PREFILL
     tokens = torch.randint(0, cfg.vocab_size, DENSE_PREFILL, generator=gen, device="cuda")
-    forward(model, cfg, {"tokens": tokens}, mode="prefill", logits_positions="last")  # untimed
+    with routing_watch() as seen:  # untimed
+        forward(model, cfg, {"tokens": tokens}, mode="prefill", logits_positions="last")
+    routing = {}
+    if seen:
+        routing = {"moe_calls": len(seen),
+                   "prefill_dropped": int(sum(int(d) for d, _ in seen)),
+                   "min_router_margin": min(float(m) for _, m in seen)}
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     _zeroed(kernels)
     t0 = time.perf_counter()
-    logits, _ = forward(model, cfg, {"tokens": tokens}, mode="prefill", logits_positions="last")
+    logits, aux = forward(model, cfg, {"tokens": tokens}, mode="prefill",
+                          logits_positions="last")
     torch.cuda.synchronize()
     prefill_ms = (time.perf_counter() - t0) * 1e3
-    launches = _no_launches(kernels, f"{name} prefill")
+    launches = {k: n.launches for k, n in kernels.items()}
+    expected = {k: n_ssm if k == "ssd_intra" else 0 for k in kernels}
+    if launches != expected:
+        raise AssertionError(f"{name} prefill: launches {launches}, expected {expected}")
     if logits.shape != (batch, 1, cfg.padded_vocab) or not bool(torch.isfinite(logits).all()):
         raise AssertionError(f"{name} prefill: logits {tuple(logits.shape)} or non-finite")
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
@@ -1591,11 +1659,12 @@ def dense_serve(gen, name: str, layers, smi: str) -> dict:
     if not bool(torch.isfinite(lg).all()):
         raise AssertionError(f"{name} decode: non-finite logits")
     rec = {
-        "dense_serve": name, "dtype": cfg.dtype, "layers": cfg.n_layers,
-        "of_layers": full.n_layers, "params": n_params, "init_s": init_s,
-        "prompts": batch, "prompt_tokens": seq, "prefill_ms": prefill_ms,
+        "moe_serve" if cfg.n_experts else "dense_serve": name, "dtype": cfg.dtype,
+        "layers": cfg.n_layers, "of_layers": full.n_layers, "params": n_params,
+        "init_s": init_s, "prompts": batch, "prompt_tokens": seq, "prefill_ms": prefill_ms,
         "prefill_tokens_per_s": batch * seq / prefill_ms * 1e3, "prefill_peak_gb": peak_gb,
         "prefill_launches": launches, "logits_shape": list(logits.shape),
+        **({"ssm_layers": n_ssm, "moe_aux": float(aux), **routing} if cfg.n_experts else {}),
         "decode_steps": DECODE_STEPS, "decode_cache": seq, "decode_ms_per_token": decode_ms,
         "decode_tokens_per_s": batch / decode_ms * 1e3,
         "decoded_sample": torch.cat(out_tokens, 1)[0, :8].tolist(), "gpu": smi,
@@ -1649,7 +1718,7 @@ def dense_phase(gen, smi: str) -> dict:
     the fp32 duality check. Returns the records."""
     serve = []
     for name, layers in DENSE_LAYERS.items():
-        rec = dense_serve(gen, name, layers, smi)
+        rec = serve_lm(gen, name, layers, smi)
         emit(rec)
         serve.append(rec)
     dual = dense_duality(gen, smi)
@@ -1658,6 +1727,115 @@ def dense_phase(gen, smi: str) -> dict:
                                  dual["decode_max_rel_err"]) > DUAL_TOL:
         raise AssertionError(f"dense duality: {json.dumps(dual)}")
     return {"serve": serve, "duality": dual}
+
+
+def moe_plain(p, xf, cfg, r, keep):
+    """The MoE layer's plain version on a fixed routing: for each token,
+    for each kept choice, the chosen expert's FFN on the token times the
+    gate, summed (taken expert by expert: each expert's tokens as one
+    matrix; no buffer, no capacity slots)."""
+    import torch
+    import torch.nn.functional as F
+
+    y = torch.zeros_like(xf)
+    for ex in range(cfg.n_experts):
+        tok, j = torch.nonzero((r.ids == ex) & keep, as_tuple=True)
+        if tok.numel() == 0:
+            continue
+        rows = xf[tok]
+        h = rows @ p.wi[ex]
+        if cfg.act == "silu_glu":
+            h = F.silu((rows @ p.wg[ex]).float()).to(h.dtype) * h
+        else:
+            h = F.relu(h.float()).square().to(h.dtype)
+        y.index_add_(0, tok, (h @ p.wo[ex]) * r.gates[tok, j, None].to(h.dtype))
+    return y
+
+
+def earliest_kept(ids, cap: int) -> list:
+    """The kept mask, flattened token-major, by counting on the host: a
+    choice is kept while fewer than ``cap`` earlier choices chose its
+    expert."""
+    seen: dict = {}
+    kept = []
+    for ex in ids.reshape(-1).tolist():
+        kept.append(seen.get(ex, 0) < cap)
+        seen[ex] = seen.get(ex, 0) + 1
+    return kept
+
+
+def moe_layer_check(gen, name: str, smi: str) -> list:
+    """Phase 9e (b): one MoE layer of ``name`` at full width in fp32 on
+    ``MOE_TOKENS`` tokens. The routing is taken once and held fixed:
+    ``apply_moe(routing=)`` against :func:`moe_plain` on the same gates,
+    experts and kept choices, as routed and with the router skewed towards
+    expert 0 (its logit raised by about 4) until its queue overflows."""
+    from dataclasses import replace
+
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import moe
+
+    cfg = replace(get_config(name), dtype="float32")
+    e, k, d = cfg.n_experts, cfg.top_k, cfg.d_model
+    p = moe.init_moe(gen, cfg, torch.float32)
+    x = torch.randn((1, MOE_TOKENS, d), generator=gen, device="cuda")
+    out = []
+    for case in ("routed", "skewed"):
+        if case == "skewed":
+            p.router[:, 0] += 8.0 / d
+            x += 0.5
+        xf = x.reshape(MOE_TOKENS, d)
+        r = moe.route(p, xf, k)
+        cap = moe.capacity(MOE_TOKENS, k, e)
+        _, keep = moe.assign(r.ids, e, cap)
+        got, _ = moe.apply_moe(p, x, cfg, routing=r)
+        want = moe_plain(p, xf, cfg, r, keep)
+        rel, diff = rel_err(got.reshape(MOE_TOKENS, d), want)
+        counts = torch.bincount(r.ids.reshape(-1), minlength=e)
+        kept = torch.bincount(r.ids[keep], minlength=e)
+        earliest = earliest_kept(r.ids, cap) == keep.reshape(-1).tolist()
+        rec = {"moe_layer": name, "case": case, "dtype": "float32", "tokens": MOE_TOKENS,
+               "experts": e, "top_k": k, "d_model": d, "moe_d_ff": cfg.moe_d_ff, "cap": cap,
+               "max_count": int(counts.max()), "dropped": int((~keep).sum()),
+               "kept_is_min_count_cap": bool(torch.equal(kept, counts.clamp_max(cap))),
+               "kept_earliest": earliest, "max_rel_err": rel, "max_abs_err": diff,
+               "limit": MOE_TOL,
+               "moe_ms": cuda_ms(lambda: moe.apply_moe(p, x, cfg, routing=r), reps=3, warm=1),
+               "plain_ms": cuda_ms(lambda: moe_plain(p, xf, cfg, r, keep), reps=3, warm=1),
+               "gpu": smi}
+        emit(rec)
+        out.append(rec)
+        if not bool(torch.isfinite(got).all()) or rel > MOE_TOL:
+            raise AssertionError(f"{name} MoE layer ({case}): max|d|/max|plain| = {rel:.3e} "
+                                 f"> {MOE_TOL}, or non-finite")
+        if not (rec["kept_is_min_count_cap"] and earliest):
+            raise AssertionError(f"{name} MoE layer ({case}): kept {kept.tolist()} of "
+                                 f"{counts.tolist()} at cap {cap}, earliest {earliest}")
+        if case == "skewed" and not int(counts[0]) > cap:
+            raise AssertionError(f"{name} MoE layer: the skewed router sends {int(counts[0])} "
+                                 f"choices to expert 0, not more than its {cap} slots")
+    del p, x
+    torch.cuda.empty_cache()
+    return out
+
+
+def moe_phase(gen, smi: str, records: dict) -> dict:
+    """Phase 9e: the MoE models and the hybrid served in bf16, each MoE
+    layer with its routing held fixed against its plain version, and
+    ``ssd_intra`` at jamba's shape. Returns the records and the prefills'
+    launches."""
+    serve = []
+    launches: dict = {}
+    for name, layers in MOE_LAYERS.items():
+        rec = serve_lm(gen, name, layers, smi)
+        emit(rec)
+        serve.append(rec)
+        for kernel, n in rec["prefill_launches"].items():
+            launches[kernel] = launches.get(kernel, 0) + n
+    layer = [r for name in MOE_LAYERS for r in moe_layer_check(gen, name, smi)]
+    ssd_kernel_phase(gen, smi, records, JAMBA_SSD, "jamba-v0.1-52b")
+    return {"serve": serve, "layer": layer, "launches": launches}
 
 
 def batched_phase(gen, smi: str) -> dict:
@@ -3379,6 +3557,13 @@ def main() -> int:
     phase("9a", ssd_kernel_phase, gen, smi, records)
     mamba = phase("9b-9c", mamba_phase, gen, smi)
     phase("9d", dense_phase, gen, smi)
+    # Phase 9e draws from a generator of its own, so that the phases after
+    # it get the inputs they had before it was added: drawing from ``gen``
+    # moved phase 11's 4-way requests onto one whose direct fp32 run lies
+    # 1.45e-2 from float64 in its factors, past ``SERVE_CAP`` (PERF.md,
+    # section 6).
+    moe_models = phase("9e", moe_phase,
+                       torch.Generator(device="cuda").manual_seed(args.seed + 1), smi, records)
     batched = phase("10", batched_phase, gen, smi)
     served = phase("11", serve_phase, gen, smi)
     tuned = phase("12", tune_phase, gen, smi)
@@ -3387,7 +3572,7 @@ def main() -> int:
     phase("15a", verify_phase, smi)
     phase("15b-15d", walk_phase, smi)
     for counted in (matrix["launches"], tucker["launches"], mamba["launches"],
-                    batched["launches"], served["launches"], tuned["launches"],
+                    moe_models["launches"], batched["launches"], served["launches"], tuned["launches"],
                     observed["launches"], distributed["launches"]):
         for name, n in counted.items():
             main_path["launches"][name] += n
@@ -3406,9 +3591,10 @@ def main() -> int:
         if main_path["launches"][name] == 0:
             raise AssertionError(f"{name} was never launched on the main paths")
         kernels.append({  # launches: summed over the main-path runs (CP-ALS, CP-ALS on a
-            # matrix, Tucker, the Mamba2 prefill, the batched CP-ALS and HOOI
-            # drivers, the server's flushes, the auto runs, the traced runs and
-            # the distributed ranks' runs, summed over ranks), each counted from 0
+            # matrix, Tucker, the Mamba2 and jamba prefills, the batched CP-ALS
+            # and HOOI runs, the server's flushes, the auto runs, the traced
+            # runs and the distributed ranks' runs, summed over ranks), each
+            # counted from 0
             "name": name, "route": "cuda", "source": CSRC + SOURCE[name],
             "replaces": REPLACES[name],
             "launches": main_path["launches"][name],

@@ -1,12 +1,13 @@
 """Architecture registry of the port: ``get_config(name)`` / ``get_smoke(name)``.
 
 The names are the reference's (``repro/configs/__init__.py``). Ported are
-``mamba2-2.7b`` (SSM mixers with no FFN, the path that runs the SSD kernel)
-and the four dense decoders (GQA attention with RoPE and an MLP). The other
-five names are known and raise ``NotImplementedError`` naming the ROADMAP
-Queue 1 sub-slice their layers wait for (MoE: item 15b; M-RoPE positions,
-the vision frontend and the encoder-decoder model: item 15c); an unknown
-name raises ``KeyError``, as in the reference.
+``mamba2-2.7b`` (SSM mixers with no FFN, the path that runs the SSD kernel),
+the four dense decoders (GQA attention with RoPE and an MLP), the two MoE
+models and the hybrid ``jamba-v0.1-52b`` (SSM and attention mixers, MLP
+and MoE FFNs). The other two names are known and raise
+``NotImplementedError`` naming the ROADMAP Queue 1 sub-slice their layers
+wait for (M-RoPE positions, the vision frontend and the encoder-decoder
+model: item 15c); an unknown name raises ``KeyError``, as in the reference.
 """
 
 from __future__ import annotations
@@ -29,10 +30,10 @@ ARCH_MODULES = {
 }
 
 ARCH_NAMES = tuple(ARCH_MODULES)
-PORTED = ("mamba2-2.7b", "qwen2-1.5b", "deepseek-coder-33b", "yi-34b", "nemotron-4-340b")
+PORTED = ("mamba2-2.7b", "qwen2-1.5b", "deepseek-coder-33b", "yi-34b", "nemotron-4-340b",
+          "olmoe-1b-7b", "granite-moe-3b-a800m", "jamba-v0.1-52b")
 #: The sub-slice each unported name waits for.
-WAITS = {"olmoe-1b-7b": "15b", "granite-moe-3b-a800m": "15b", "jamba-v0.1-52b": "15b",
-         "qwen2-vl-72b": "15c", "whisper-tiny": "15c"}
+WAITS = {"qwen2-vl-72b": "15c", "whisper-tiny": "15c"}
 
 
 def _module(name: str):

@@ -20,6 +20,7 @@ from .models.blocks import Layer, check_ported
 from .models.config import ArchConfig
 from .models.layers import MLP, Embedding, Norm
 from .models.model import LM
+from .models.moe import MoE
 from .models.ssm import SSM
 
 
@@ -126,25 +127,30 @@ def lm_from_numpy(
     ``g * period + pos`` takes slice ``g`` of position ``pos``: its
     ``norm1``, ``attn`` (``wq``, ``wk``, ``wv``, ``wo`` and, with
     ``qkv_bias``, ``bq``, ``bk``, ``bv``) or ``ssm``, and ``norm2`` with
-    ``mlp`` (``wi``, ``wo`` and, gated, ``wg``)."""
+    ``mlp`` (``wi``, ``wo`` and, gated, ``wg``) or ``moe`` (``router``,
+    ``wi``, ``wo`` and, gated, ``wg``). ``dtype`` casts the leaves in the
+    model's dtype; those the reference holds in fp32 whatever the model's
+    dtype (the router; the SSM's ``A_log``, ``D``, ``dt_bias``) stay fp32."""
     if "blocks" not in params:
         raise NotImplementedError("only the decoder-only LM converts; the encoder-decoder "
                                   "model waits for ROADMAP Queue 1 item 15c")
 
-    def t(a) -> torch.Tensor:
-        return tensor_from_numpy(a, device, dtype)
+    def t(a, fp32: bool = False) -> torch.Tensor:
+        return tensor_from_numpy(a, device, None if fp32 else dtype)
 
     period = len(params["blocks"])
     n_groups = int(np.shape(params["blocks"][0]["norm1"]["scale"])[0])
     if period * n_groups != cfg.n_layers:
         raise ValueError(f"{period} positions x {n_groups} groups != {cfg.n_layers} layers")
-    parts = {"norm1": Norm, "attn": Attention, "ssm": SSM, "norm2": Norm, "mlp": MLP}
+    parts = {"norm1": Norm, "attn": Attention, "ssm": SSM, "norm2": Norm, "mlp": MLP,
+             "moe": MoE}
     layers = []
     for layer in range(cfg.n_layers):
         check_ported(cfg, layer)
         g, pos = divmod(layer, period)
         tree = params["blocks"][pos]
-        layers.append(Layer(**{name: parts[name]({k: t(v[g]) for k, v in tree[name].items()})
+        layers.append(Layer(**{name: parts[name]({k: t(v[g], k in parts[name].fp32)
+                                                  for k, v in tree[name].items()})
                                for name in tree}))
     return LM(Embedding({k: t(v) for k, v in params["embed"].items()}),
               Norm({k: t(v) for k, v in params["final_norm"].items()}),

@@ -1,8 +1,10 @@
 """Language models of the port: the serving path (prefill and decode) of
-the dense decoders (GQA attention with its KV cache, RoPE, the MLP) and of
-the Mamba2 family, whose intra-chunk SSD term runs on the Hopper kernel
-``kernels/csrc/ssd_intra.cu``. The port of ``repro.models``; MoE waits for
-ROADMAP Queue 1 item 15b, the encoder-decoder and vision models for 15c."""
+the dense decoders (GQA attention with its KV cache, RoPE, the MLP), of the
+Mamba2 family, whose intra-chunk SSD term runs on the Hopper kernel
+``kernels/csrc/ssd_intra.cu``, of the MoE models (the top-k router and
+capacity dispatch) and of the hybrid of all three. The port of
+``repro.models``; the encoder-decoder and vision models wait for ROADMAP
+Queue 1 item 15c."""
 
 from .config import ArchConfig
 from .model import LM, decode_step, forward, init_decode_state, init_params

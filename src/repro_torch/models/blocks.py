@@ -1,12 +1,13 @@
 """Layer blocks and the stack of layers: the port of
-``repro/models/blocks.py`` for the attention and SSM mixers and the MLP FFN
-(the dense decoders and the Mamba2 family).
+``repro/models/blocks.py`` for the attention and SSM mixers and the MLP and
+MoE FFNs (the dense decoders, the Mamba2 family, the MoE models and the
+hybrid).
 
 The reference stacks each period position's parameters over the layer
 groups and drives them with ``lax.scan`` (and remat); the port holds one
 :class:`Layer` module per layer in an ``nn.ModuleList`` and runs a plain
-loop. The MoE FFN waits for ROADMAP Queue 1 item 15b and cross-attention
-(the encoder-decoder model) for item 15c; both raise by name.
+loop. Cross-attention (the encoder-decoder model) waits for ROADMAP Queue 1
+item 15c and raises by name.
 """
 
 from __future__ import annotations
@@ -25,6 +26,7 @@ from .attention import (
 )
 from .config import ArchConfig
 from .layers import MLP, Norm, apply_mlp, apply_norm, init_mlp, init_norm
+from .moe import MoE, apply_moe, init_moe
 from .ssm import SSM, SSMCache, apply_ssm, apply_ssm_decode, init_ssm, init_ssm_cache
 
 
@@ -45,23 +47,52 @@ def check_ported(cfg: ArchConfig, layer: int) -> None:
     if cfg.is_encdec:
         raise NotImplementedError(f"{cfg.name} layer {layer}: cross-attention waits for "
                                   f"ROADMAP Queue 1 item 15c")
-    if layer_kind(cfg, layer)[1] == "moe":
-        raise NotImplementedError(f"{cfg.name} layer {layer}: the MoE FFN waits for "
-                                  f"ROADMAP Queue 1 item 15b")
 
 
 class Layer(nn.Module):
     """One layer: ``norm1`` then its mixer (``attn`` or ``ssm``), added to
-    the residual; where the FFN is an MLP, ``norm2`` then ``mlp``, added
-    too. Absent parts are None."""
+    the residual; where the layer has an FFN, ``norm2`` then ``mlp`` or
+    ``moe``, added too. Absent parts are None."""
 
     def __init__(self, norm1: Norm, *, attn: Attention | None = None, ssm: SSM | None = None,
-                 norm2: Norm | None = None, mlp: MLP | None = None):
+                 norm2: Norm | None = None, mlp: MLP | None = None, moe: MoE | None = None):
         super().__init__()
-        if (attn is None) == (ssm is None) or (norm2 is None) != (mlp is None):
-            raise ValueError("a layer has one mixer (attn or ssm), and norm2 with mlp or "
-                             "neither")
-        self.norm1, self.attn, self.ssm, self.norm2, self.mlp = norm1, attn, ssm, norm2, mlp
+        if (attn is None) == (ssm is None):
+            raise ValueError("a layer has one mixer: attn or ssm")
+        if (norm2 is None) != (mlp is None and moe is None) or (
+                mlp is not None and moe is not None):
+            raise ValueError("a layer has norm2 with one FFN (mlp or moe), or neither")
+        self.norm1, self.attn, self.ssm = norm1, attn, ssm
+        self.norm2, self.mlp, self.moe = norm2, mlp, moe
+
+    @property
+    def ffn(self) -> str:
+        """The FFN this layer holds: 'moe', 'mlp' or ''."""
+        return "moe" if self.moe is not None else "mlp" if self.mlp is not None else ""
+
+
+def check_ffn(p: Layer, cfg: ArchConfig, layer: int) -> str:
+    """The layer's FFN kind; ``ValueError`` where the model's layer lacks
+    the FFN the config asks for (or holds another)."""
+    ffn = layer_kind(cfg, layer)[1]
+    if p.ffn != ffn:
+        raise ValueError(f"{cfg.name} layer {layer}: the config asks for FFN "
+                         f"{ffn or 'none'!r}, the model's layer holds {p.ffn or 'none'!r}")
+    return ffn
+
+
+def _apply_ffn(p: Layer, x: torch.Tensor, cfg: ArchConfig, layer: int
+               ) -> tuple[torch.Tensor, torch.Tensor | None]:
+    """x plus the layer's FFN on ``norm2(x)``, and the MoE's aux loss (None
+    without an MoE)."""
+    ffn = check_ffn(p, cfg, layer)
+    if not ffn:
+        return x, None
+    h = apply_norm(p.norm2, x)
+    if ffn == "moe":
+        f, aux = apply_moe(p.moe, h, cfg)
+        return x + f, aux
+    return x + apply_mlp(p.mlp, h, cfg), None
 
 
 def init_layer(gen: torch.Generator, cfg: ArchConfig, layer: int, dtype, device="cuda"
@@ -73,7 +104,8 @@ def init_layer(gen: torch.Generator, cfg: ArchConfig, layer: int, dtype, device=
            else {"ssm": init_ssm(gen, cfg, dtype, device)})
     if ffn:
         mix["norm2"] = init_norm(cfg, dtype, device)
-        mix["mlp"] = init_mlp(gen, cfg, cfg.d_ff, dtype, device)
+        mix[ffn] = (init_moe(gen, cfg, dtype, device) if ffn == "moe"
+                    else init_mlp(gen, cfg, cfg.d_ff, dtype, device))
     return Layer(norm1, **mix)
 
 
@@ -81,7 +113,8 @@ def apply_layer(p: Layer, x: torch.Tensor, cfg: ArchConfig, layer: int, position
                 *, mode: str = "train", causal: bool = True
                 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Returns (x_out, moe_aux_loss); with no MoE FFN the aux loss is 0.
-    ``mode="prefill"`` runs attention as :func:`flash_attention`."""
+    ``mode="prefill"`` runs attention as :func:`flash_attention`; the MoE
+    is the same in both modes."""
     check_ported(cfg, layer)
     h = apply_norm(p.norm1, x)
     if p.attn is not None:
@@ -91,10 +124,8 @@ def apply_layer(p: Layer, x: torch.Tensor, cfg: ArchConfig, layer: int, position
             a = attention(p.attn, h, cfg, positions, causal=causal)
     else:
         a = apply_ssm(p.ssm, h, cfg)
-    x = x + a
-    if p.mlp is not None:
-        x = x + apply_mlp(p.mlp, apply_norm(p.norm2, x), cfg)
-    return x, torch.zeros((), dtype=torch.float32, device=x.device)
+    x, aux = _apply_ffn(p, x + a, cfg, layer)
+    return x, torch.zeros((), dtype=torch.float32, device=x.device) if aux is None else aux
 
 
 def init_stack(gen: torch.Generator, cfg: ArchConfig, dtype, device="cuda") -> nn.ModuleList:
@@ -129,7 +160,8 @@ def init_stack_cache(stack: nn.ModuleList, cfg: ArchConfig, batch: int, max_len:
 
 def apply_stack_decode(stack: nn.ModuleList, caches: list, x: torch.Tensor, cfg: ArchConfig
                        ) -> tuple[torch.Tensor, list]:
-    """One-token decode through the stack. x: (B, 1, D)."""
+    """One-token decode through the stack. x: (B, 1, D). An MoE layer's
+    aux loss is discarded, as in the reference."""
     new_caches = []
     for layer, (p, cache) in enumerate(zip(stack, caches)):
         check_ported(cfg, layer)
@@ -138,8 +170,6 @@ def apply_stack_decode(stack: nn.ModuleList, caches: list, x: torch.Tensor, cfg:
             a, cache = attention_decode(p.attn, h, cache, cfg)
         else:
             a, cache = apply_ssm_decode(p.ssm, h, cache, cfg)
-        x = x + a
-        if p.mlp is not None:
-            x = x + apply_mlp(p.mlp, apply_norm(p.norm2, x), cfg)
+        x, _ = _apply_ffn(p, x + a, cfg, layer)
         new_caches.append(cache)
     return x, new_caches

@@ -25,10 +25,12 @@ from .config import ArchConfig
 
 class Params(nn.Module):
     """A module holding named tensors as parameters without gradients;
-    ``names`` lists the keys it must have, ``optional`` those it may have."""
+    ``names`` lists the keys it must have, ``optional`` those it may have,
+    ``fp32`` those held in fp32 whatever the model's dtype."""
 
     names: tuple[str, ...] = ()
     optional: tuple[str, ...] = ()
+    fp32: tuple[str, ...] = ()
 
     def __init__(self, tensors: Mapping[str, torch.Tensor]):
         super().__init__()

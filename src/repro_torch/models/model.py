@@ -1,6 +1,7 @@
 """The decoder-only language model's entry points: initialization, the
 train/prefill forward, and the decode step. The port of
-``repro/models/model.py`` for the dense decoders and the Mamba2 family.
+``repro/models/model.py`` for the dense decoders, the Mamba2 family, the
+MoE models and the hybrid.
 
 ``init_params`` puts the model on the card unless the caller passes
 ``device="cpu"``. Forward and decode run without autograd: the port
@@ -58,11 +59,12 @@ def init_params(cfg: ArchConfig, *, generator: torch.Generator, device="cuda",
 @torch.no_grad()
 def forward(params: LM, cfg: ArchConfig, batch: dict, *, mode: str = "train",
             logits_positions: str = "all") -> tuple[torch.Tensor, torch.Tensor]:
-    """-> (logits (B, S, V), moe_aux); ``logits_positions="last"`` (what a
-    prefill serves) gives (B, 1, V). ``batch`` carries 'tokens' (B, S) and
+    """-> (logits (B, S, V), moe_aux: the MoE layers' load-balancing losses
+    summed, 0 without MoE); ``logits_positions="last"`` (what a prefill
+    serves) gives (B, 1, V). ``batch`` carries 'tokens' (B, S) and
     optionally 'positions' (B, S), else 0..S-1. ``mode="prefill"`` runs
     attention blockwise (:func:`~repro_torch.models.attention.flash_attention`);
-    the SSM layers compute the same in both modes."""
+    the SSM and MoE layers compute the same in both modes."""
     _check_encdec(cfg)
     if mode not in MODES:
         raise ValueError(f"mode must be one of {MODES}, got {mode!r}")

@@ -35,6 +35,7 @@ class SSMCache(NamedTuple):
 
 class SSM(Params):
     names = ("wz", "wx", "wB", "wC", "wdt", "conv_w", "A_log", "D", "dt_bias", "norm_scale", "wo")
+    fp32 = ("A_log", "D", "dt_bias")
 
 
 def init_ssm(gen: torch.Generator, cfg: ArchConfig, dtype, device="cuda") -> SSM:

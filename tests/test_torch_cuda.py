@@ -13,7 +13,9 @@ rounded to bf16 (the SSD kernel's, for bf16 x) within 1e-2 (a bf16 ulp is
 2^-8 of the value). The Mamba2 mixer on the card against the same call on
 CPU copies: 1e-4 in fp32, 5e-2 in bf16 (cuBLAS and the CPU round bf16
 products at other places); the dense decoders' logits likewise, 1e-4 in
-fp32.
+fp32. The MoE layer on the card against the CPU holds the CPU's routing
+fixed on both (a router near a tie would choose other experts on another
+summation order), 1e-5 in fp32.
 """
 
 import copy
@@ -66,6 +68,7 @@ from repro_torch.kernels.ssd_intra import (
 )
 from repro_torch.kernels.sweep import fused_pair, fused_pair_plain
 from repro_torch.models import decode_step, forward, init_decode_state, init_params
+from repro_torch.models import moe
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.config import ArchConfig
 
@@ -1620,3 +1623,49 @@ def test_write_probe_reports_a_store_past_the_registered_buffer(card):
     assert (counts[:-1] == 1).all() and int(counts[-1]) == n - n // 2
     assert torch.equal(out, ws.sum(0))
     build.check(lib.repro_write_probe_set(None, 0, 0, None), "probe")
+
+
+# -- the MoE FFN: routing held fixed; the hybrid's prefill -------------------
+
+@pytest.mark.parametrize("skewed", [False, True], ids=["routed", "skewed"])
+@pytest.mark.parametrize("name", ["olmoe-1b-7b", "granite-moe-3b-a800m", "jamba-v0.1-52b"])
+def test_apply_moe_on_the_card_matches_cpu_with_routing_fixed(card, name, skewed):
+    """A smoke-sized MoE layer in fp32 on the card against the same weights
+    on the CPU, both following the CPU's routing; skewed, expert 0's queue
+    overflows and both drop the same choices. No kernel is launched."""
+    cfg = replace(get_smoke(name), dtype="float32")
+    gen = torch.Generator().manual_seed(9)
+    p = moe.init_moe(gen, cfg, torch.float32, "cpu")
+    x = torch.randn((2, 320, cfg.d_model), generator=gen)
+    if skewed:
+        p.router[:, 0] += 8.0 / cfg.d_model
+        x += 0.5
+    r = moe.route(p, x.reshape(-1, cfg.d_model), cfg.top_k)
+    t = x.shape[0] * x.shape[1]
+    _, keep = moe.assign(r.ids, cfg.n_experts, moe.capacity(t, cfg.top_k, cfg.n_experts))
+    assert bool((~keep).any()) == skewed
+    want, want_aux = moe.apply_moe(p, x, cfg, routing=r)
+    before = _launch_counts()
+    got, aux = moe.apply_moe(copy.deepcopy(p).to(card), x.to(card), cfg,
+                             routing=moe.Routing(*(a.to(card) for a in r)))
+    assert _launch_counts() == before
+    _close(got.cpu(), want)
+    assert abs(float(aux) - float(want_aux)) <= 1e-6
+
+
+def test_jamba_prefill_launches_once_an_ssm_layer(card):
+    """jamba's smoke model (one period of 8 layers: attention at 4, the SSM
+    elsewhere, MoE at the odd ones) in bf16: a prefill launches ``ssd_intra``
+    exactly 7 times, a decode step never."""
+    cfg = get_smoke("jamba-v0.1-52b")
+    model = init_params(cfg, generator=torch.Generator(device=card).manual_seed(10))
+    tokens = torch.randint(0, cfg.vocab_size, (2, 64), device=card)
+    before = ssd_intra.launches
+    lg, aux = forward(model, cfg, {"tokens": tokens}, mode="prefill", logits_positions="last")
+    assert ssd_intra.launches == before + 7
+    assert lg.shape == (2, 1, cfg.padded_vocab) and bool(torch.isfinite(lg).all())
+    assert float(aux) > 0
+    state = init_decode_state(model, cfg, 2, 16)
+    for t in range(3):
+        lg, state = decode_step(model, cfg, state, tokens[:, t:t + 1])
+    assert ssd_intra.launches == before + 7 and bool(torch.isfinite(lg).all())

@@ -315,7 +315,8 @@ def test_entry_points_reject_what_waits():
         forward(model, cfg, {"tokens": torch.zeros((1, 12), dtype=torch.long)})
     with pytest.raises(NotImplementedError, match="encoder-decoder"):
         forward(model, replace(cfg, is_encdec=True), tokens)
-    with pytest.raises(NotImplementedError, match="MoE FFN waits for ROADMAP Queue 1 item 15b"):
+    with pytest.raises(ValueError, match="layer 0: the config asks for FFN 'moe', the model's "
+                                         "layer holds 'none'"):
         forward(model, replace(cfg, n_experts=4, top_k=2, moe_every=2), tokens)
     with pytest.raises(NotImplementedError, match="cross-attention waits for ROADMAP Queue 1 "
                                                   "item 15c"):
