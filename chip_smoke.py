@@ -116,6 +116,21 @@ Phases (any failure raises, and the script exits non-zero):
    (``JAMBA_SSD``) against its plain version (x bf16 within 1e-2, fp32
    within 1e-5). No check compares two paths through a router; times are
    printed, none asserted;
+   (f) the VLM backbone and the encoder-decoder model, from a generator of
+   their own: ``qwen2-vl-72b`` at full width cut to ``VLM_LAYERS`` (4),
+   served as in (d) but prefilled from (2, 1024, 8192) patch embeddings
+   (its stub frontend's input); ``whisper-tiny`` at full width and depth:
+   the encoder on (2, ``WHISPER_FRAMES``) frame embeddings, Whisper's 30 s
+   window, unmasked in ``train`` mode (the recipe of the reference's
+   ``tests/test_archs.py``; 1500 frames cannot go through ``flash_attention``),
+   then ``enc_norm`` and ``_encoder_kv``; one teacher-forced
+   ``forward`` on the frames and (2, 448) decoder tokens; 32 greedy
+   ``decode_step``s with that ``cross_kv`` from ``WHISPER_START`` on
+   ``init_decode_state(max_len=448)``; no kernel launched, finite logits;
+   then the whisper duality in fp32: ``forward(mode="train")`` on 1500
+   frames and ``WHISPER_DUAL_TOKENS`` decoder tokens against
+   token-by-token ``decode_step(cross_kv=)`` over the same positions,
+   within ``DUAL_TOL``. Times printed, none asserted;
 10. the batched engine (``BATCHES``: 16 tensors of 256^3 at R = 32 in fp32
     and bf16, 64 of 96^3 at R = 16, 8 of 64^4 at R = 16): batched
     ``repro_torch.mttkrp`` in every mode with per-element and with shared
@@ -348,6 +363,15 @@ DENSE_DUAL = ("qwen2-1.5b", 4, 2048, 256)
 #: SSD kernel at jamba's shape: 2 x 1024 tokens are 8 chunks of 256, N = 16,
 #: H = 128, P = 64.
 MOE_LAYERS = {"olmoe-1b-7b": None, "granite-moe-3b-a800m": None, "jamba-v0.1-52b": 8}
+#: Phase 9f, the VLM backbone and the encoder-decoder model (ROADMAP Queue
+#: 1 item 15c): qwen2-vl-72b cut to 4 layers (6.0 G parameters, 12.0 GB in
+#: bf16; its 80 are 72.7 G, 145 GB); whisper-tiny whole: the encoder's
+#: frames (Whisper's 30 s window), the decoder's start token
+#: (<|startoftranscript|>), the fp32 duality's decoder tokens.
+VLM_LAYERS = {"qwen2-vl-72b": 4}
+WHISPER_FRAMES = 1500
+WHISPER_START = 50258
+WHISPER_DUAL_TOKENS = 128
 MOE_TOKENS = 2048
 MOE_TOL = 1e-5
 JAMBA_SSD = {"bcn": 8, "q": 256, "n": 16, "h": 128, "p": 64}
@@ -1592,8 +1616,22 @@ def routing_watch():
         blocks.apply_moe = real
 
 
+def lm_batch(gen, cfg, batch: int, seq: int) -> dict:
+    """A prompt batch: (batch, seq) tokens, or for a config with a stub
+    frontend (batch, seq, d_model) embeddings in the model's dtype, the
+    frontend's precomputed patch or frame embeddings."""
+    import torch
+    from repro_torch.models.model import DTYPES
+
+    if cfg.frontend == "none":
+        return {"tokens": torch.randint(0, cfg.vocab_size, (batch, seq), generator=gen,
+                                        device="cuda")}
+    return {"embeds": torch.randn((batch, seq, cfg.d_model), generator=gen,
+                                  device="cuda").to(DTYPES[cfg.dtype])}
+
+
 def serve_lm(gen, name: str, layers, smi: str) -> dict:
-    """Phases 9d and 9e for one model in bf16 at full width: prefill, then
+    """Phases 9d, 9e and 9f for one model in bf16 at full width: prefill, then
     greedy decode; returns the record. A prefill launches ``ssd_intra`` once
     for each SSM layer and nothing else, a decode step nothing. For an MoE
     model the untimed prefill also records what capacity dropped and the
@@ -1615,9 +1653,9 @@ def serve_lm(gen, name: str, layers, smi: str) -> dict:
     init_s = time.perf_counter() - t0
     n_params = sum(t.numel() for t in model.parameters())
     batch, seq = DENSE_PREFILL
-    tokens = torch.randint(0, cfg.vocab_size, DENSE_PREFILL, generator=gen, device="cuda")
+    prompt = lm_batch(gen, cfg, batch, seq)
     with routing_watch() as seen:  # untimed
-        forward(model, cfg, {"tokens": tokens}, mode="prefill", logits_positions="last")
+        forward(model, cfg, prompt, mode="prefill", logits_positions="last")
     routing = {}
     if seen:
         routing = {"moe_calls": len(seen),
@@ -1627,8 +1665,7 @@ def serve_lm(gen, name: str, layers, smi: str) -> dict:
     torch.cuda.reset_peak_memory_stats()
     _zeroed(kernels)
     t0 = time.perf_counter()
-    logits, aux = forward(model, cfg, {"tokens": tokens}, mode="prefill",
-                          logits_positions="last")
+    logits, aux = forward(model, cfg, prompt, mode="prefill", logits_positions="last")
     torch.cuda.synchronize()
     prefill_ms = (time.perf_counter() - t0) * 1e3
     launches = {k: n.launches for k, n in kernels.items()}
@@ -1658,8 +1695,9 @@ def serve_lm(gen, name: str, layers, smi: str) -> dict:
     _no_launches(kernels, f"{name} decode")
     if not bool(torch.isfinite(lg).all()):
         raise AssertionError(f"{name} decode: non-finite logits")
+    kind = "moe_serve" if cfg.n_experts else "vlm_serve" if "embeds" in prompt else "dense_serve"
     rec = {
-        "moe_serve" if cfg.n_experts else "dense_serve": name, "dtype": cfg.dtype,
+        kind: name, "dtype": cfg.dtype, "prompt_input": next(iter(prompt)),
         "layers": cfg.n_layers, "of_layers": full.n_layers, "params": n_params,
         "init_s": init_s, "prompts": batch, "prompt_tokens": seq, "prefill_ms": prefill_ms,
         "prefill_tokens_per_s": batch * seq / prefill_ms * 1e3, "prefill_peak_gb": peak_gb,
@@ -1836,6 +1874,142 @@ def moe_phase(gen, smi: str, records: dict) -> dict:
     layer = [r for name in MOE_LAYERS for r in moe_layer_check(gen, name, smi)]
     ssd_kernel_phase(gen, smi, records, JAMBA_SSD, "jamba-v0.1-52b")
     return {"serve": serve, "layer": layer, "launches": launches}
+
+
+def whisper_encode(model, cfg, frames):
+    """The encoder as the reference's encoder-decoder decode test runs it:
+    unmasked in ``train`` mode, then ``enc_norm``; -> ``cross_kv``."""
+    import torch
+    from repro_torch.models.blocks import apply_stack
+    from repro_torch.models.layers import apply_norm
+    from repro_torch.models.model import _encoder_kv
+
+    pos = torch.arange(frames.shape[1], dtype=torch.int32, device="cuda").expand(
+        frames.shape[:2])
+    with torch.no_grad():
+        enc, _ = apply_stack(model.encoder, frames, cfg, pos, causal=False)
+        return _encoder_kv(cfg, apply_norm(model.enc_norm, enc))
+
+
+def whisper_serve(gen, smi: str) -> dict:
+    """Phase 9f (b): whisper-tiny in bf16 at full width and depth: the
+    encoder on Whisper's 30 s window, one teacher-forced forward, and
+    greedy decode with the encoder's ``cross_kv``."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import decode_step, forward, init_decode_state, init_params
+
+    cfg = get_config("whisper-tiny")
+    kernels = counters()
+    model = init_params(cfg, generator=gen)
+    n_params = sum(t.numel() for t in model.parameters())
+    batch, steps_max = DENSE_PREFILL[0], cfg.max_target_len
+    frames = lm_batch(gen, cfg, batch, WHISPER_FRAMES)["embeds"]
+    dec = torch.randint(0, cfg.vocab_size, (batch, steps_max), generator=gen, device="cuda")
+    whisper_encode(model, cfg, frames)  # untimed
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _zeroed(kernels)
+    t0 = time.perf_counter()
+    kv = whisper_encode(model, cfg, frames)
+    torch.cuda.synchronize()
+    encoder_ms = (time.perf_counter() - t0) * 1e3
+    batch_in = {"embeds": frames, "dec_tokens": dec}
+    forward(model, cfg, batch_in)  # untimed
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, _ = forward(model, cfg, batch_in)
+    torch.cuda.synchronize()
+    forward_ms = (time.perf_counter() - t0) * 1e3
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    if logits.shape != (batch, steps_max, cfg.padded_vocab) or not bool(
+            torch.isfinite(logits).all()):
+        raise AssertionError(f"whisper forward: logits {tuple(logits.shape)} or non-finite")
+    start = torch.full((batch, 1), WHISPER_START, dtype=torch.long, device="cuda")
+    decode_step(model, cfg, init_decode_state(model, cfg, batch, steps_max), start,
+                cross_kv=kv)  # untimed
+    state = init_decode_state(model, cfg, batch, steps_max)
+    tok = start
+    out_tokens = []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(DECODE_STEPS):
+        lg, state = decode_step(model, cfg, state, tok, cross_kv=kv)
+        tok = lg[:, -1, :cfg.vocab_size].argmax(-1, keepdim=True)
+        out_tokens.append(tok)
+    torch.cuda.synchronize()
+    decode_ms = (time.perf_counter() - t0) * 1e3 / DECODE_STEPS
+    launches = _no_launches(kernels, "whisper-tiny")
+    if not bool(torch.isfinite(lg).all()):
+        raise AssertionError("whisper decode: non-finite logits")
+    rec = {"encdec_serve": "whisper-tiny", "dtype": cfg.dtype,
+           "layers": [cfg.n_layers, cfg.dec_layers], "params": n_params,
+           "param_count": cfg.param_count(), "prompts": batch, "frames": WHISPER_FRAMES,
+           "cross_kv_shape": list(kv[0].shape), "encoder_ms": encoder_ms,
+           "forward_dec_tokens": steps_max, "forward_ms": forward_ms, "peak_gb": peak_gb,
+           "logits_shape": list(logits.shape), "decode_steps": DECODE_STEPS,
+           "decode_cache": steps_max, "decode_ms_per_token": decode_ms,
+           "decode_tokens_per_s": batch / decode_ms * 1e3,
+           "decoded_sample": torch.cat(out_tokens, 1)[0, :8].tolist(), "launches": launches,
+           "gpu": smi}
+    del model, logits, state, lg, kv
+    torch.cuda.empty_cache()
+    return rec
+
+
+def whisper_duality(gen, smi: str) -> dict:
+    """Phase 9f (c): whisper-tiny in fp32: teacher-forced ``train`` logits
+    on 1500 frames and ``WHISPER_DUAL_TOKENS`` decoder tokens against
+    token-by-token ``decode_step(cross_kv=)`` over the same positions."""
+    from dataclasses import replace
+
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import decode_step, forward, init_decode_state, init_params
+
+    cfg = replace(get_config("whisper-tiny"), dtype="float32")
+    kernels = counters()
+    model = init_params(cfg, generator=gen)
+    batch, n = DENSE_PREFILL[0], WHISPER_DUAL_TOKENS
+    frames = lm_batch(gen, cfg, batch, WHISPER_FRAMES)["embeds"]
+    dec = torch.randint(0, cfg.vocab_size, (batch, n), generator=gen, device="cuda")
+    _zeroed(kernels)
+    train, _ = forward(model, cfg, {"embeds": frames, "dec_tokens": dec})
+    kv = whisper_encode(model, cfg, frames)
+    state = init_decode_state(model, cfg, batch, n)
+    seq = []
+    for t in range(n):
+        lg, state = decode_step(model, cfg, state, dec[:, t:t + 1], cross_kv=kv)
+        seq.append(lg[:, 0])
+    launches = _no_launches(kernels, "whisper duality")
+    v = cfg.vocab_size
+    rel, diff = rel_err(torch.stack(seq, 1)[..., :v], train[..., :v])
+    out = {"encdec_duality": "whisper-tiny", "dtype": cfg.dtype, "frames": WHISPER_FRAMES,
+           "decode_positions": n, "max_rel_err": rel, "max_abs_err": diff,
+           "finite": bool(torch.isfinite(train).all()
+                          and all(bool(torch.isfinite(x).all()) for x in seq)),
+           "launches": launches, "limit": DUAL_TOL, "gpu": smi}
+    del model, train, state, seq, kv
+    torch.cuda.empty_cache()
+    return out
+
+
+def vlm_encdec_phase(gen, smi: str) -> dict:
+    """Phase 9f: qwen2-vl-72b served from patch embeddings, whisper-tiny
+    served with its encoder's ``cross_kv``, and the whisper fp32 duality.
+    Returns the records."""
+    serve = []
+    for name, layers in VLM_LAYERS.items():
+        rec = serve_lm(gen, name, layers, smi)
+        emit(rec)
+        serve.append(rec)
+    whisper = whisper_serve(gen, smi)
+    emit(whisper)
+    dual = whisper_duality(gen, smi)
+    emit(dual)
+    if not dual["finite"] or dual["max_rel_err"] > DUAL_TOL:
+        raise AssertionError(f"whisper duality: {json.dumps(dual)}")
+    return {"serve": serve, "whisper": whisper, "duality": dual}
 
 
 def batched_phase(gen, smi: str) -> dict:
@@ -3564,6 +3738,8 @@ def main() -> int:
     # section 6).
     moe_models = phase("9e", moe_phase,
                        torch.Generator(device="cuda").manual_seed(args.seed + 1), smi, records)
+    # and so does phase 9f, for the same reason
+    phase("9f", vlm_encdec_phase, torch.Generator(device="cuda").manual_seed(args.seed + 2), smi)
     batched = phase("10", batched_phase, gen, smi)
     served = phase("11", serve_phase, gen, smi)
     tuned = phase("12", tune_phase, gen, smi)

@@ -1,13 +1,13 @@
 """Architecture registry of the port: ``get_config(name)`` / ``get_smoke(name)``.
 
-The names are the reference's (``repro/configs/__init__.py``). Ported are
+The names are the reference's (``repro/configs/__init__.py``), all ported:
 ``mamba2-2.7b`` (SSM mixers with no FFN, the path that runs the SSD kernel),
 the four dense decoders (GQA attention with RoPE and an MLP), the two MoE
-models and the hybrid ``jamba-v0.1-52b`` (SSM and attention mixers, MLP
-and MoE FFNs). The other two names are known and raise
-``NotImplementedError`` naming the ROADMAP Queue 1 sub-slice their layers
-wait for (M-RoPE positions, the vision frontend and the encoder-decoder
-model: item 15c); an unknown name raises ``KeyError``, as in the reference.
+models, the hybrid ``jamba-v0.1-52b`` (SSM and attention mixers, MLP and
+MoE FFNs), the VLM backbone ``qwen2-vl-72b`` (M-RoPE, a stub vision
+frontend: its inputs are patch embeddings) and the encoder-decoder
+``whisper-tiny`` (a stub audio frontend: its inputs are frame embeddings;
+cross-attention). An unknown name raises ``KeyError``, as in the reference.
 """
 
 from __future__ import annotations
@@ -30,21 +30,13 @@ ARCH_MODULES = {
 }
 
 ARCH_NAMES = tuple(ARCH_MODULES)
-PORTED = ("mamba2-2.7b", "qwen2-1.5b", "deepseek-coder-33b", "yi-34b", "nemotron-4-340b",
-          "olmoe-1b-7b", "granite-moe-3b-a800m", "jamba-v0.1-52b")
-#: The sub-slice each unported name waits for.
-WAITS = {"qwen2-vl-72b": "15c", "whisper-tiny": "15c"}
+PORTED = ARCH_NAMES
 
 
 def _module(name: str):
     if name not in ARCH_MODULES:
         raise KeyError(
             f"unknown arch {name!r}; available: {sorted(ARCH_MODULES)}"
-        )
-    if name not in PORTED:
-        raise NotImplementedError(
-            f"arch {name!r} is not ported yet: its layers wait for ROADMAP Queue 1 item "
-            f"{WAITS[name]}; ported: {PORTED}"
         )
     return importlib.import_module(f"{__name__}.{ARCH_MODULES[name]}")
 

@@ -16,7 +16,7 @@ from .core.cp_als import CPResult
 from .core.tucker import TuckerResult
 from .engine.plan import BlockPlan, Memory, MultiTTMPlan
 from .models.attention import Attention
-from .models.blocks import Layer, check_ported
+from .models.blocks import Layer
 from .models.config import ArchConfig
 from .models.layers import MLP, Embedding, Norm
 from .models.model import LM
@@ -121,37 +121,46 @@ def lm_from_numpy(
     dtype: torch.dtype | None = None,
 ) -> LM:
     """The port's model from the reference's ``init_params`` pytree, given
-    as numpy arrays (``jax.tree.map(np.asarray, params)``). The reference
-    stacks each period position's leaves over the layer groups
-    (``params["blocks"][pos][...]`` has a leading ``n_groups`` axis); layer
-    ``g * period + pos`` takes slice ``g`` of position ``pos``: its
-    ``norm1``, ``attn`` (``wq``, ``wk``, ``wv``, ``wo`` and, with
-    ``qkv_bias``, ``bq``, ``bk``, ``bv``) or ``ssm``, and ``norm2`` with
-    ``mlp`` (``wi``, ``wo`` and, gated, ``wg``) or ``moe`` (``router``,
-    ``wi``, ``wo`` and, gated, ``wg``). ``dtype`` casts the leaves in the
-    model's dtype; those the reference holds in fp32 whatever the model's
-    dtype (the router; the SSM's ``A_log``, ``D``, ``dt_bias``) stay fp32."""
-    if "blocks" not in params:
-        raise NotImplementedError("only the decoder-only LM converts; the encoder-decoder "
-                                  "model waits for ROADMAP Queue 1 item 15c")
+    as numpy arrays (``jax.tree.map(np.asarray, params)``): ``blocks`` for
+    a decoder-only model, ``encoder``, ``enc_norm`` and ``decoder`` (of
+    ``cfg.dec_layers`` layers, each with ``norm_x`` and ``xattn``) for the
+    encoder-decoder model. The reference stacks each period position's
+    leaves over the layer groups (``params["blocks"][pos][...]`` has a
+    leading ``n_groups`` axis); layer ``g * period + pos`` takes slice ``g``
+    of position ``pos``: its ``norm1``, ``attn`` (``wq``, ``wk``, ``wv``,
+    ``wo`` and, with ``qkv_bias``, ``bq``, ``bk``, ``bv``) or ``ssm``,
+    ``norm_x`` and ``xattn`` where it has them, and ``norm2`` with ``mlp``
+    (``wi``, ``wo`` and, gated, ``wg``) or ``moe`` (``router``, ``wi``,
+    ``wo`` and, gated, ``wg``). ``dtype`` casts the leaves in the model's
+    dtype; those the reference holds in fp32 whatever the model's dtype
+    (the router; the SSM's ``A_log``, ``D``, ``dt_bias``) stay fp32."""
 
     def t(a, fp32: bool = False) -> torch.Tensor:
         return tensor_from_numpy(a, device, None if fp32 else dtype)
 
-    period = len(params["blocks"])
-    n_groups = int(np.shape(params["blocks"][0]["norm1"]["scale"])[0])
-    if period * n_groups != cfg.n_layers:
-        raise ValueError(f"{period} positions x {n_groups} groups != {cfg.n_layers} layers")
-    parts = {"norm1": Norm, "attn": Attention, "ssm": SSM, "norm2": Norm, "mlp": MLP,
-             "moe": MoE}
-    layers = []
-    for layer in range(cfg.n_layers):
-        check_ported(cfg, layer)
-        g, pos = divmod(layer, period)
-        tree = params["blocks"][pos]
-        layers.append(Layer(**{name: parts[name]({k: t(v[g], k in parts[name].fp32)
-                                                  for k, v in tree[name].items()})
-                               for name in tree}))
-    return LM(Embedding({k: t(v) for k, v in params["embed"].items()}),
-              Norm({k: t(v) for k, v in params["final_norm"].items()}),
-              torch.nn.ModuleList(layers))
+    parts = {"norm1": Norm, "attn": Attention, "ssm": SSM, "norm_x": Norm, "xattn": Attention,
+             "norm2": Norm, "mlp": MLP, "moe": MoE}
+
+    def stack(positions: Sequence[Mapping], n_layers: int) -> torch.nn.ModuleList:
+        period = len(positions)
+        n_groups = int(np.shape(positions[0]["norm1"]["scale"])[0])
+        if period * n_groups != n_layers:
+            raise ValueError(f"{period} positions x {n_groups} groups != {n_layers} layers")
+        layers = []
+        for layer in range(n_layers):
+            g, pos = divmod(layer, period)
+            tree = positions[pos]
+            layers.append(Layer(**{name: parts[name]({k: t(v[g], k in parts[name].fp32)
+                                                      for k, v in tree[name].items()})
+                                   for name in tree}))
+        return torch.nn.ModuleList(layers)
+
+    def norm(tree: Mapping) -> Norm:
+        return Norm({k: t(v) for k, v in tree.items()})
+
+    embed = Embedding({k: t(v) for k, v in params["embed"].items()})
+    if "blocks" in params:
+        return LM(embed, norm(params["final_norm"]), stack(params["blocks"], cfg.n_layers))
+    return LM(embed, norm(params["final_norm"]),
+              encoder=stack(params["encoder"], cfg.n_layers), enc_norm=norm(params["enc_norm"]),
+              decoder=stack(params["decoder"], cfg.dec_layers))

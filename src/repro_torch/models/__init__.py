@@ -2,9 +2,10 @@
 the dense decoders (GQA attention with its KV cache, RoPE, the MLP), of the
 Mamba2 family, whose intra-chunk SSD term runs on the Hopper kernel
 ``kernels/csrc/ssd_intra.cu``, of the MoE models (the top-k router and
-capacity dispatch) and of the hybrid of all three. The port of
-``repro.models``; the encoder-decoder and vision models wait for ROADMAP
-Queue 1 item 15c."""
+capacity dispatch), of the hybrid of all three, of the VLM backbone (a
+stub vision frontend: patch embeddings in) and of the encoder-decoder model
+(a stub audio frontend: frame embeddings in; cross-attention). The port of
+``repro.models``."""
 
 from .config import ArchConfig
 from .model import LM, decode_step, forward, init_decode_state, init_params

@@ -1,14 +1,19 @@
-"""GQA attention: train/prefill (full causal) and single-token decode with a
-KV cache. The port of ``repro/models/attention.py`` without its sharding
-policies (the mesh layer waits for ROADMAP Queue 1 item 15f) and without
-cross-attention's ``kv_override`` (item 15c).
+"""GQA attention: train/prefill (full causal), cross-attention on an
+encoder's states (``kv_override``), and single-token decode with a KV
+cache. The port of ``repro/models/attention.py`` without its sharding
+policies (the mesh layer waits for ROADMAP Queue 1 item 15f).
 
 The numerics follow the reference's casts one by one: Q, K and V in the
 activations' dtype, scores scaled in it and then taken to fp32, the causal
 mask built from ``positions`` with masked scores set to -1e30, probabilities
 cast back to the activations' dtype before the PV product. Grouped K/V heads
 are expanded with ``repeat_interleave`` (``jnp.repeat``): q head ``h`` reads
-kv head ``h // groups``.
+kv head ``h // groups``. Products of two dtypes are taken in the promoted
+one, as ``jnp.einsum`` takes them.
+
+Under ``kv_override`` K and V are the given encoder states, unroped and
+unmasked. The reference projects K and V there too and discards them; the
+port projects Q alone (``docs/PORT.md``).
 
 The decode cache is written in place (``index_copy_`` at ``length``; the
 port serves without autograd), where the reference returns new arrays: the
@@ -23,7 +28,7 @@ from typing import NamedTuple
 import torch
 
 from .config import ArchConfig
-from .layers import Params, apply_rope, dense_init
+from .layers import Params, apply_rope, dense_init, einsum, matmul
 
 #: The score a masked position gets, as in the reference.
 MASKED = -1e30
@@ -61,44 +66,58 @@ def init_attn(gen: torch.Generator, cfg: ArchConfig, dtype, device="cuda") -> At
 def _proj(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """``einsum("bsd,dhk->bshk")`` as one matmul."""
     d, h, k = w.shape
-    return (x @ w.reshape(d, h * k)).unflatten(-1, (h, k))
+    return matmul(x, w.reshape(d, h * k)).unflatten(-1, (h, k))
+
+
+def _q(p: Attention, cfg: ArchConfig, x: torch.Tensor) -> torch.Tensor:
+    q = _proj(x, p.wq)
+    return q + p.bq if cfg.qkv_bias else q
 
 
 def _qkv(p: Attention, cfg: ArchConfig, x: torch.Tensor):
-    q, k, v = _proj(x, p.wq), _proj(x, p.wk), _proj(x, p.wv)
+    k, v = _proj(x, p.wk), _proj(x, p.wv)
     if cfg.qkv_bias:
-        q = q + p.bq
         k = k + p.bk
         v = v + p.bv
-    return q, k, v
+    return _q(p, cfg, x), k, v
 
 
 def _out(out: torch.Tensor, wo: torch.Tensor) -> torch.Tensor:
     """``einsum("bshk,hkd->bsd")`` as one matmul."""
-    return out.flatten(-2) @ wo.reshape(-1, wo.shape[-1])
+    return matmul(out.flatten(-2), wo.reshape(-1, wo.shape[-1]))
 
 
 def _groups(cfg: ArchConfig) -> int:
     return cfg.n_heads // max(cfg.n_kv_heads, 1)
 
 
-def attention(p: Attention, x: torch.Tensor, cfg: ArchConfig, positions: torch.Tensor, *,
-              causal: bool = True) -> torch.Tensor:
-    """Full (train) attention. x: (B, S, D) -> (B, S, D)."""
-    q, k, v = _qkv(p, cfg, x)
-    q = apply_rope(q, positions, cfg.rope_theta, cfg.mrope)
-    k = apply_rope(k, positions, cfg.rope_theta, cfg.mrope)
+def attention(p: Attention, x: torch.Tensor, cfg: ArchConfig, positions: torch.Tensor | None,
+              *, causal: bool = True,
+              kv_override: tuple[torch.Tensor, torch.Tensor] | None = None) -> torch.Tensor:
+    """Full (train) attention. x: (B, S, D) -> (B, S, D).
+
+    ``kv_override`` supplies an encoder's K and V, (B, S_enc, n_kv, hd), for
+    cross-attention: no RoPE, no mask (``positions`` and ``causal`` are not
+    read)."""
+    if kv_override is not None:
+        q = _q(p, cfg, x)
+        k, v = kv_override
+        causal = False
+    else:
+        q, k, v = _qkv(p, cfg, x)
+        q = apply_rope(q, positions, cfg.rope_theta, cfg.mrope)
+        k = apply_rope(k, positions, cfg.rope_theta, cfg.mrope)
     groups = _groups(cfg)
     if groups > 1:
         k = k.repeat_interleave(groups, dim=2)
         v = v.repeat_interleave(groups, dim=2)
     scale = cfg.hd ** -0.5
-    scores = (torch.einsum("bqhk,bshk->bhqs", q, k) * scale).float()
+    scores = (einsum("bqhk,bshk->bhqs", q, k) * scale).float()
     if causal:
         mask = positions[:, None, :, None] >= torch.arange(k.shape[1], device=x.device)
         scores = torch.where(mask, scores, MASKED)
     probs = torch.softmax(scores, dim=-1).to(x.dtype)
-    out = torch.einsum("bhqs,bshk->bqhk", probs, v)
+    out = einsum("bhqs,bshk->bqhk", probs, v)
     return _out(out, p.wo)
 
 
@@ -187,9 +206,9 @@ def attention_decode(p: Attention, x: torch.Tensor, cache: KVCache, cfg: ArchCon
     groups = _groups(cfg)
     qg = q.reshape(b, 1, cfg.n_kv_heads, groups, cfg.hd)
     scale = cfg.hd ** -0.5
-    scores = (torch.einsum("bqhgk,bshk->bhgqs", qg, ck) * scale).float()
+    scores = (einsum("bqhgk,bshk->bhgqs", qg, ck) * scale).float()
     valid = torch.arange(ck.shape[1], device=x.device) <= cache.length
     scores = torch.where(valid, scores, MASKED)
     probs = torch.softmax(scores, dim=-1).to(x.dtype)
-    out = torch.einsum("bhgqs,bshk->bqhgk", probs, cv).reshape(b, 1, cfg.n_heads, cfg.hd)
+    out = einsum("bhgqs,bshk->bqhgk", probs, cv).reshape(b, 1, cfg.n_heads, cfg.hd)
     return _out(out, p.wo), KVCache(ck, cv, cache.length + 1)

@@ -1,13 +1,12 @@
 """Layer blocks and the stack of layers: the port of
-``repro/models/blocks.py`` for the attention and SSM mixers and the MLP and
-MoE FFNs (the dense decoders, the Mamba2 family, the MoE models and the
-hybrid).
+``repro/models/blocks.py`` for the attention and SSM mixers, cross-attention
+on an encoder's states, and the MLP and MoE FFNs (the dense decoders, the
+Mamba2 family, the MoE models, the hybrid and the encoder-decoder model).
 
 The reference stacks each period position's parameters over the layer
 groups and drives them with ``lax.scan`` (and remat); the port holds one
 :class:`Layer` module per layer in an ``nn.ModuleList`` and runs a plain
-loop. Cross-attention (the encoder-decoder model) waits for ROADMAP Queue 1
-item 15c and raises by name.
+loop.
 """
 
 from __future__ import annotations
@@ -42,27 +41,26 @@ def layer_kind(cfg: ArchConfig, layer: int) -> tuple[str, str]:
     return mixer, ffn
 
 
-def check_ported(cfg: ArchConfig, layer: int) -> None:
-    """Raise ``NotImplementedError`` for a layer the port cannot run yet."""
-    if cfg.is_encdec:
-        raise NotImplementedError(f"{cfg.name} layer {layer}: cross-attention waits for "
-                                  f"ROADMAP Queue 1 item 15c")
-
-
 class Layer(nn.Module):
     """One layer: ``norm1`` then its mixer (``attn`` or ``ssm``), added to
-    the residual; where the layer has an FFN, ``norm2`` then ``mlp`` or
+    the residual; in a decoder layer of the encoder-decoder model,
+    ``norm_x`` then cross-attention (``xattn``) on the encoder's states,
+    added too; where the layer has an FFN, ``norm2`` then ``mlp`` or
     ``moe``, added too. Absent parts are None."""
 
     def __init__(self, norm1: Norm, *, attn: Attention | None = None, ssm: SSM | None = None,
+                 norm_x: Norm | None = None, xattn: Attention | None = None,
                  norm2: Norm | None = None, mlp: MLP | None = None, moe: MoE | None = None):
         super().__init__()
         if (attn is None) == (ssm is None):
             raise ValueError("a layer has one mixer: attn or ssm")
+        if (norm_x is None) != (xattn is None):
+            raise ValueError("a layer has norm_x with xattn, or neither")
         if (norm2 is None) != (mlp is None and moe is None) or (
                 mlp is not None and moe is not None):
             raise ValueError("a layer has norm2 with one FFN (mlp or moe), or neither")
         self.norm1, self.attn, self.ssm = norm1, attn, ssm
+        self.norm_x, self.xattn = norm_x, xattn
         self.norm2, self.mlp, self.moe = norm2, mlp, moe
 
     @property
@@ -81,6 +79,22 @@ def check_ffn(p: Layer, cfg: ArchConfig, layer: int) -> str:
     return ffn
 
 
+def check_cross(p: Layer, cfg: ArchConfig, layer: int) -> None:
+    """``ValueError`` where the call needs the layer's cross-attention and
+    the model's layer holds none."""
+    if p.xattn is None:
+        raise ValueError(f"{cfg.name} layer {layer}: the call needs cross-attention, the "
+                         f"model's layer holds none")
+
+
+def _apply_cross(p: Layer, x: torch.Tensor, cfg: ArchConfig,
+                 cross_kv: tuple[torch.Tensor, torch.Tensor]) -> torch.Tensor:
+    """x plus cross-attention on ``norm_x(x)`` against the encoder's K/V
+    (unroped and unmasked: no positions)."""
+    hx = apply_norm(p.norm_x, x)
+    return x + attention(p.xattn, hx, cfg, None, kv_override=cross_kv)
+
+
 def _apply_ffn(p: Layer, x: torch.Tensor, cfg: ArchConfig, layer: int
                ) -> tuple[torch.Tensor, torch.Tensor | None]:
     """x plus the layer's FFN on ``norm2(x)``, and the MoE's aux loss (None
@@ -95,13 +109,15 @@ def _apply_ffn(p: Layer, x: torch.Tensor, cfg: ArchConfig, layer: int
     return x + apply_mlp(p.mlp, h, cfg), None
 
 
-def init_layer(gen: torch.Generator, cfg: ArchConfig, layer: int, dtype, device="cuda"
-               ) -> Layer:
-    check_ported(cfg, layer)
+def init_layer(gen: torch.Generator, cfg: ArchConfig, layer: int, dtype, device="cuda",
+               cross_attn: bool = False) -> Layer:
     mixer, ffn = layer_kind(cfg, layer)
     norm1 = init_norm(cfg, dtype, device)
     mix = ({"attn": init_attn(gen, cfg, dtype, device)} if mixer == "attn"
            else {"ssm": init_ssm(gen, cfg, dtype, device)})
+    if cross_attn:
+        mix["norm_x"] = init_norm(cfg, dtype, device)
+        mix["xattn"] = init_attn(gen, cfg, dtype, device)
     if ffn:
         mix["norm2"] = init_norm(cfg, dtype, device)
         mix[ffn] = (init_moe(gen, cfg, dtype, device) if ffn == "moe"
@@ -110,12 +126,16 @@ def init_layer(gen: torch.Generator, cfg: ArchConfig, layer: int, dtype, device=
 
 
 def apply_layer(p: Layer, x: torch.Tensor, cfg: ArchConfig, layer: int, positions: torch.Tensor,
-                *, mode: str = "train", causal: bool = True
+                *, mode: str = "train", causal: bool = True,
+                cross_kv: tuple[torch.Tensor, torch.Tensor] | None = None
                 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Returns (x_out, moe_aux_loss); with no MoE FFN the aux loss is 0.
-    ``mode="prefill"`` runs attention as :func:`flash_attention`; the MoE
-    is the same in both modes."""
-    check_ported(cfg, layer)
+    ``mode="prefill"`` runs attention as :func:`flash_attention`, causal
+    whatever ``causal`` says, as in the reference; the MoE is the same in
+    both modes. ``cross_kv``, the encoder's K/V, adds cross-attention after
+    the mixer."""
+    if cross_kv is not None:
+        check_cross(p, cfg, layer)
     h = apply_norm(p.norm1, x)
     if p.attn is not None:
         if mode == "prefill":
@@ -124,23 +144,32 @@ def apply_layer(p: Layer, x: torch.Tensor, cfg: ArchConfig, layer: int, position
             a = attention(p.attn, h, cfg, positions, causal=causal)
     else:
         a = apply_ssm(p.ssm, h, cfg)
-    x, aux = _apply_ffn(p, x + a, cfg, layer)
+    x = x + a
+    if cross_kv is not None:
+        x = _apply_cross(p, x, cfg, cross_kv)
+    x, aux = _apply_ffn(p, x, cfg, layer)
     return x, torch.zeros((), dtype=torch.float32, device=x.device) if aux is None else aux
 
 
-def init_stack(gen: torch.Generator, cfg: ArchConfig, dtype, device="cuda") -> nn.ModuleList:
-    """One :class:`Layer` per layer, drawn in layer order from ``gen``."""
-    return nn.ModuleList(init_layer(gen, cfg, layer, dtype, device)
-                         for layer in range(cfg.n_layers))
+def init_stack(gen: torch.Generator, cfg: ArchConfig, dtype, device="cuda",
+               n_layers: int | None = None, cross_attn: bool = False) -> nn.ModuleList:
+    """One :class:`Layer` per layer (``n_layers``, default the config's),
+    drawn in layer order from ``gen``; ``cross_attn`` gives each its
+    cross-attention (the encoder-decoder model's decoder)."""
+    n_layers = cfg.n_layers if n_layers is None else n_layers
+    return nn.ModuleList(init_layer(gen, cfg, layer, dtype, device, cross_attn=cross_attn)
+                         for layer in range(n_layers))
 
 
 def apply_stack(stack: nn.ModuleList, x: torch.Tensor, cfg: ArchConfig, positions: torch.Tensor,
-                *, mode: str = "train", causal: bool = True
+                *, mode: str = "train", causal: bool = True,
+                cross_kv: tuple[torch.Tensor, torch.Tensor] | None = None
                 ) -> tuple[torch.Tensor, torch.Tensor]:
     """The layers in order. Returns (x, total_moe_aux)."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for layer, p in enumerate(stack):
-        x, a = apply_layer(p, x, cfg, layer, positions, mode=mode, causal=causal)
+        x, a = apply_layer(p, x, cfg, layer, positions, mode=mode, causal=causal,
+                           cross_kv=cross_kv)
         aux = aux + a
     return x, aux
 
@@ -148,28 +177,36 @@ def apply_stack(stack: nn.ModuleList, x: torch.Tensor, cfg: ArchConfig, position
 def init_stack_cache(stack: nn.ModuleList, cfg: ArchConfig, batch: int, max_len: int, dtype
                      ) -> list[KVCache | SSMCache]:
     """One zeroed cache per layer: a :class:`KVCache` of ``max_len``
-    positions for an attention layer, an SSM state for an SSM layer."""
+    positions for an attention layer, an SSM state for an SSM layer. Under
+    an encoder-decoder config the stack is the decoder, whose every layer
+    holds cross-attention."""
     caches: list[KVCache | SSMCache] = []
     for layer, p in enumerate(stack):
-        check_ported(cfg, layer)
+        if cfg.is_encdec:
+            check_cross(p, cfg, layer)
         device = p.norm1.scale.device
         caches.append(init_cache(cfg, batch, max_len, dtype, device) if p.attn is not None
                       else init_ssm_cache(cfg, batch, dtype, device))
     return caches
 
 
-def apply_stack_decode(stack: nn.ModuleList, caches: list, x: torch.Tensor, cfg: ArchConfig
+def apply_stack_decode(stack: nn.ModuleList, caches: list, x: torch.Tensor, cfg: ArchConfig,
+                       cross_kv: tuple[torch.Tensor, torch.Tensor] | None = None
                        ) -> tuple[torch.Tensor, list]:
     """One-token decode through the stack. x: (B, 1, D). An MoE layer's
-    aux loss is discarded, as in the reference."""
+    aux loss is discarded, as in the reference. Cross-attention runs where
+    ``cross_kv`` is given and the layer holds it; without ``cross_kv`` it
+    is skipped, as the reference skips it."""
     new_caches = []
     for layer, (p, cache) in enumerate(zip(stack, caches)):
-        check_ported(cfg, layer)
         h = apply_norm(p.norm1, x)
         if p.attn is not None:
             a, cache = attention_decode(p.attn, h, cache, cfg)
         else:
             a, cache = apply_ssm_decode(p.ssm, h, cache, cfg)
-        x, _ = _apply_ffn(p, x + a, cfg, layer)
+        x = x + a
+        if cross_kv is not None and p.xattn is not None:
+            x = _apply_cross(p, x, cfg, cross_kv)
+        x, _ = _apply_ffn(p, x, cfg, layer)
         new_caches.append(cache)
     return x, new_caches

@@ -1,7 +1,7 @@
 """Shared neural layers of the language models: initializers, norms, rotary
-embeddings (RoPE and M-RoPE), token embedding and logits, and the MLP. The
-port of ``repro/models/layers.py``; ``embed_vectors`` (the stub frontend's
-input) waits for ROADMAP Queue 1 item 15c.
+embeddings (RoPE and M-RoPE), token embedding, the stub frontend's input
+(``embed_vectors``) and logits, and the MLP. The port of
+``repro/models/layers.py``.
 
 Parameters live in :class:`Params` modules whose parameter names are the
 reference's dict keys, so a reference pytree converts leaf by leaf
@@ -9,6 +9,10 @@ reference's dict keys, so a reference pytree converts leaf by leaf
 gradients: the port serves (prefill and decode); training waits for its
 slice. f32 where numerically sensitive, the config's dtype elsewhere, as in
 the reference.
+
+A product of two dtypes (activations from ``embeds`` in another dtype than
+the weights) is taken in the promoted dtype, as ``jnp.einsum`` takes it
+(:func:`matmul`, :func:`einsum`); ``torch.matmul`` would raise.
 """
 
 from __future__ import annotations
@@ -47,6 +51,18 @@ class Params(nn.Module):
 
     def __contains__(self, name: str) -> bool:
         return getattr(self, name, None) is not None
+
+
+def matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a @ b`` in the dtype the two promote to."""
+    dt = torch.promote_types(a.dtype, b.dtype)
+    return torch.matmul(a.to(dt), b.to(dt))
+
+
+def einsum(eq: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``torch.einsum`` of two operands in the dtype they promote to."""
+    dt = torch.promote_types(a.dtype, b.dtype)
+    return torch.einsum(eq, a.to(dt), b.to(dt))
 
 
 # --------------------------------------------------------------------------
@@ -158,9 +174,16 @@ def embed_tokens(p: Embedding, ids: torch.Tensor) -> torch.Tensor:
     return p.table[ids]
 
 
+def embed_vectors(x: torch.Tensor) -> torch.Tensor:
+    """The stub frontend's path: the inputs are already (B, S, D)
+    embeddings (precomputed patch or frame embeddings), taken as they are,
+    in their own dtype."""
+    return x
+
+
 def logits(p: Embedding, x: torch.Tensor, vocab_size: int | None = None) -> torch.Tensor:
     head = p.head if "head" in p else p.table.T
-    out = torch.matmul(x, head)
+    out = matmul(x, head)
     v_pad = head.shape[-1]
     if vocab_size is not None and vocab_size < v_pad:
         # mask padded vocab rows so softmax/argmax never see them
@@ -193,11 +216,11 @@ def init_mlp(gen: torch.Generator, cfg: ArchConfig, d_ff: int, dtype, device="cu
 def apply_mlp(p: MLP, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
     """The activation in f32, cast back to the activations' dtype, as in the
     reference; ``gelu`` is ``jax.nn.gelu``'s default, the tanh form."""
-    h = x @ p.wi
+    h = matmul(x, p.wi)
     if cfg.act == "silu_glu":
-        h = F.silu((x @ p.wg).float()).to(h.dtype) * h
+        h = F.silu(matmul(x, p.wg).float()).to(h.dtype) * h
     elif cfg.act == "sq_relu":
         h = F.relu(h.float()).square().to(h.dtype)
     else:  # gelu
         h = F.gelu(h.float(), approximate="tanh").to(h.dtype)
-    return h @ p.wo
+    return matmul(h, p.wo)

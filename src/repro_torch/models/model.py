@@ -1,15 +1,18 @@
-"""The decoder-only language model's entry points: initialization, the
-train/prefill forward, and the decode step. The port of
-``repro/models/model.py`` for the dense decoders, the Mamba2 family, the
-MoE models and the hybrid.
+"""The language models' entry points: initialization, the train/prefill
+forward, and the decode step, for the decoder-only model and the
+encoder-decoder model (the whisper backbone). The port of
+``repro/models/model.py``.
 
 ``init_params`` puts the model on the card unless the caller passes
 ``device="cpu"``. Forward and decode run without autograd: the port
 serves; ``loss_fn`` waits for the training slice (ROADMAP Queue 1 item
-15d), ``param_specs`` and ``cache_specs`` for the mesh layer (15f), and the
-encoder-decoder model and ``embeds`` inputs for 15c. As in the reference,
-prefill hands no state to decode: ``decode_step`` starts from
-``init_decode_state``'s zeroed caches.
+15d), ``param_specs`` and ``cache_specs`` for the mesh layer (15f). As in
+the reference, prefill hands no state to decode: ``decode_step`` starts
+from ``init_decode_state``'s zeroed caches, and an encoder-decoder model's
+decoder reads the encoder through the ``cross_kv`` its caller passes.
+
+A batch carrying ``embeds`` (a stub frontend's precomputed patch or frame
+embeddings) is read from them, whatever the model, as in the reference.
 """
 
 from __future__ import annotations
@@ -20,7 +23,15 @@ from torch import nn
 from ..engine.context import check_device
 from .blocks import apply_stack, apply_stack_decode, init_stack, init_stack_cache
 from .config import ArchConfig
-from .layers import Embedding, Norm, apply_norm, embed_tokens, init_embedding, init_norm
+from .layers import (
+    Embedding,
+    Norm,
+    apply_norm,
+    embed_tokens,
+    embed_vectors,
+    init_embedding,
+    init_norm,
+)
 from .layers import logits as lm_logits
 
 DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
@@ -29,20 +40,36 @@ LOGITS_POSITIONS = ("all", "last")
 
 
 class LM(nn.Module):
-    """``embed`` (the token table and, untied, the head), ``final_norm`` and
-    ``blocks`` (one layer each), named as the reference's pytree."""
+    """``embed`` (the token table and, untied, the head), ``final_norm``,
+    and either ``blocks`` (decoder-only, one layer each) or ``encoder``,
+    ``enc_norm`` and ``decoder`` (encoder-decoder), named as the
+    reference's pytree; the parts a model lacks are None."""
 
-    def __init__(self, embed: Embedding, final_norm: Norm, blocks: nn.ModuleList):
+    def __init__(self, embed: Embedding, final_norm: Norm, blocks: nn.ModuleList | None = None,
+                 *, encoder: nn.ModuleList | None = None, enc_norm: Norm | None = None,
+                 decoder: nn.ModuleList | None = None):
         super().__init__()
+        encdec = (encoder, enc_norm, decoder)
+        if len({p is None for p in encdec}) > 1 or (blocks is None) == (encoder is None):
+            raise ValueError("a model holds blocks, or encoder, enc_norm and decoder")
         self.embed = embed
         self.final_norm = final_norm
         self.blocks = blocks
+        self.encoder, self.enc_norm, self.decoder = encdec
+
+    @property
+    def is_encdec(self) -> bool:
+        return self.blocks is None
 
 
-def _check_encdec(cfg: ArchConfig) -> None:
-    if cfg.is_encdec:
-        raise NotImplementedError(f"{cfg.name}: the encoder-decoder model waits for "
-                                  f"ROADMAP Queue 1 item 15c")
+def _stack(params: LM, cfg: ArchConfig) -> nn.ModuleList:
+    """The stack that decodes: ``blocks`` or the decoder; ``ValueError``
+    where the model's kind is not the config's."""
+    if params.is_encdec != cfg.is_encdec:
+        kinds = ("decoder-only", "encoder-decoder")
+        raise ValueError(f"{cfg.name}: the config is {kinds[cfg.is_encdec]}, the model "
+                         f"{kinds[params.is_encdec]}")
+    return params.decoder if cfg.is_encdec else params.blocks
 
 
 def init_params(cfg: ArchConfig, *, generator: torch.Generator, device="cuda",
@@ -50,36 +77,102 @@ def init_params(cfg: ArchConfig, *, generator: torch.Generator, device="cuda",
     """The model with weights drawn from ``generator`` (on ``device``) in
     the reference's distributions, in ``dtype`` (default the config's)."""
     dev = check_device(device, "init_params")
-    _check_encdec(cfg)
     dtype = dtype or DTYPES[cfg.dtype]
-    return LM(init_embedding(generator, cfg, dtype, dev), init_norm(cfg, dtype, dev),
-              init_stack(generator, cfg, dtype, dev))
+    embed, final_norm = init_embedding(generator, cfg, dtype, dev), init_norm(cfg, dtype, dev)
+    if not cfg.is_encdec:
+        return LM(embed, final_norm, init_stack(generator, cfg, dtype, dev))
+    return LM(embed, final_norm, encoder=init_stack(generator, cfg, dtype, dev),
+              enc_norm=init_norm(cfg, dtype, dev),
+              decoder=init_stack(generator, cfg, dtype, dev, n_layers=cfg.dec_layers,
+                                 cross_attn=True))
+
+
+def _inputs_to_hidden(params: LM, cfg: ArchConfig, batch: dict) -> torch.Tensor:
+    if cfg.frontend != "none" or "embeds" in batch:
+        return embed_vectors(batch["embeds"])
+    return embed_tokens(params.embed, batch["tokens"])
+
+
+def _keeps_dtype(cfg: ArchConfig, dtype: torch.dtype, what: str, other: torch.dtype) -> None:
+    """``ValueError`` where ``what`` in ``other`` would promote the stack's
+    ``dtype`` activations: the reference's stack is a ``lax.scan`` whose
+    carry keeps its dtype, and raises there (bf16 embeds on an fp32 model;
+    whisper's fp32 encoder states under a bf16 decoder)."""
+    if torch.promote_types(dtype, other) != dtype:
+        raise ValueError(f"{cfg.name}: {what} in {other} would promote the layer stack's "
+                         f"{dtype} activations; the stack keeps its dtype, as the reference's "
+                         f"does")
+
+
+def _check_embeds(params: LM, cfg: ArchConfig, x: torch.Tensor) -> None:
+    """Embeds in a wider dtype than the weights (fp32 on a bf16 model) run
+    through attention, the MLP and the logits in that dtype, promoted as the
+    reference promotes them; an SSM or MoE layer takes only the model's
+    dtype (``docs/PORT.md``)."""
+    dtype = params.embed.table.dtype
+    if x.dtype == dtype:
+        return
+    _keeps_dtype(cfg, x.dtype, "the weights", dtype)
+    stack = params.encoder if params.is_encdec else params.blocks
+    if any(p.ssm is not None or p.moe is not None for p in stack):
+        raise ValueError(f"{cfg.name}: embeds in {x.dtype} on a model in {dtype} with SSM or "
+                         f"MoE layers")
+
+
+def _encoder_kv(cfg: ArchConfig, enc: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """The encoder's hidden states as (B, S, n_kv, hd) K/V stand-ins, one
+    tensor for both: cross-attention reads the encoder's states directly,
+    as in the reference (its ``xattn`` K/V weights are not read)."""
+    b, s, d = enc.shape
+    kv = enc.reshape(b, s, cfg.n_kv_heads, d // cfg.n_kv_heads)
+    if kv.shape[-1] != cfg.hd:
+        kv = kv[..., :cfg.hd]
+    return kv, kv
 
 
 @torch.no_grad()
 def forward(params: LM, cfg: ArchConfig, batch: dict, *, mode: str = "train",
             logits_positions: str = "all") -> tuple[torch.Tensor, torch.Tensor]:
-    """-> (logits (B, S, V), moe_aux: the MoE layers' load-balancing losses
-    summed, 0 without MoE); ``logits_positions="last"`` (what a prefill
-    serves) gives (B, 1, V). ``batch`` carries 'tokens' (B, S) and
-    optionally 'positions' (B, S), else 0..S-1. ``mode="prefill"`` runs
-    attention blockwise (:func:`~repro_torch.models.attention.flash_attention`);
-    the SSM and MoE layers compute the same in both modes."""
-    _check_encdec(cfg)
+    """-> (logits (B, S_dec, V), moe_aux: the MoE layers' load-balancing
+    losses summed, 0 without MoE); ``logits_positions="last"`` (what a
+    prefill serves) gives (B, 1, V). ``batch`` carries 'tokens' (B, S) or
+    'embeds' (B, S, D) (which win whenever present, and which a config with
+    a frontend needs), for the encoder-decoder model also 'dec_tokens'
+    (B, S_dec), and optionally 'positions' (B, S), else 0..S-1 (M-RoPE's
+    three-section positions (B, S, 3) raise ``ValueError``, as the
+    reference's forward raises). ``mode="prefill"`` runs attention
+    blockwise (:func:`~repro_torch.models.attention.flash_attention`),
+    causally in the encoder too, as in the reference; the SSM and MoE
+    layers compute the same in both modes. The decoder of the
+    encoder-decoder model runs teacher-forced in ``train`` mode on
+    positions 0..S_dec-1."""
     if mode not in MODES:
         raise ValueError(f"mode must be one of {MODES}, got {mode!r}")
     if logits_positions not in LOGITS_POSITIONS:
         raise ValueError(f"logits_positions must be one of {LOGITS_POSITIONS}, "
                          f"got {logits_positions!r}")
-    if cfg.frontend != "none" or "embeds" in batch:
-        raise NotImplementedError(f"{cfg.name}: 'embeds' inputs (the stub frontend) wait "
-                                  f"for ROADMAP Queue 1 item 15c")
-    x = embed_tokens(params.embed, batch["tokens"])
+    _stack(params, cfg)
+    x = _inputs_to_hidden(params, cfg, batch)
+    _check_embeds(params, cfg, x)
     b, s = x.shape[:2]
     positions = batch.get("positions")
     if positions is None:
         positions = torch.arange(s, dtype=torch.int32, device=x.device).expand(b, s)
-    x, aux = apply_stack(params.blocks, x, cfg, positions, mode=mode)
+    elif tuple(positions.shape) != (b, s):
+        raise ValueError(f"{cfg.name}: positions of shape {tuple(positions.shape)}, the "
+                         f"forward takes ({b}, {s})")
+    if cfg.is_encdec:
+        enc, aux = apply_stack(params.encoder, x, cfg, positions, mode=mode, causal=False)
+        enc = apply_norm(params.enc_norm, enc)
+        _keeps_dtype(cfg, params.embed.table.dtype, "the encoder's states", enc.dtype)
+        y = embed_tokens(params.embed, batch["dec_tokens"])
+        db, ds = y.shape[:2]
+        dpos = torch.arange(ds, dtype=torch.int32, device=y.device).expand(db, ds)
+        x, aux2 = apply_stack(params.decoder, y, cfg, dpos, mode="train", causal=True,
+                              cross_kv=_encoder_kv(cfg, enc))
+        aux = aux + aux2
+    else:
+        x, aux = apply_stack(params.blocks, x, cfg, positions, mode=mode)
     x = apply_norm(params.final_norm, x)
     if logits_positions == "last":
         x = x[:, -1:, :]
@@ -88,19 +181,24 @@ def forward(params: LM, cfg: ArchConfig, batch: dict, *, mode: str = "train",
 
 def init_decode_state(params: LM, cfg: ArchConfig, batch: int, max_len: int) -> dict:
     """Zeroed caches for ``batch`` sequences: ``max_len`` positions for each
-    attention layer's K and V; an SSM layer's state has no length."""
-    _check_encdec(cfg)
-    return {"caches": init_stack_cache(params.blocks, cfg, batch, max_len,
+    attention layer's K and V (the decoder's, for the encoder-decoder
+    model); an SSM layer's state has no length."""
+    return {"caches": init_stack_cache(_stack(params, cfg), cfg, batch, max_len,
                                        params.embed.table.dtype)}
 
 
 @torch.no_grad()
-def decode_step(params: LM, cfg: ArchConfig, state: dict, tokens: torch.Tensor
+def decode_step(params: LM, cfg: ArchConfig, state: dict, tokens: torch.Tensor,
+                cross_kv: tuple[torch.Tensor, torch.Tensor] | None = None
                 ) -> tuple[torch.Tensor, dict]:
     """One serving step: next-token logits (B, 1, V) + updated caches.
-    ``tokens``: (B, 1) integers."""
-    _check_encdec(cfg)
+    ``tokens``: (B, 1) integers. ``cross_kv``: the encoder's K/V
+    (:func:`_encoder_kv` of the normed encoder states); without it the
+    decoder's cross-attention is skipped, as in the reference."""
+    stack = _stack(params, cfg)
+    if cross_kv is not None:
+        _keeps_dtype(cfg, params.embed.table.dtype, "cross_kv", cross_kv[0].dtype)
     x = embed_tokens(params.embed, tokens)
-    x, caches = apply_stack_decode(params.blocks, state["caches"], x, cfg)
+    x, caches = apply_stack_decode(stack, state["caches"], x, cfg, cross_kv=cross_kv)
     x = apply_norm(params.final_norm, x)
     return lm_logits(params.embed, x, vocab_size=cfg.vocab_size), {"caches": caches}

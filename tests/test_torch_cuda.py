@@ -1040,6 +1040,46 @@ def test_dense_decoder_on_the_card_matches_cpu(card, name):
     assert _launch_counts() == before
 
 
+@pytest.mark.parametrize("name", ["qwen2-vl-72b", "whisper-tiny"])
+def test_frontend_models_on_the_card_match_cpu(card, name):
+    """The smoke-sized VLM backbone and encoder-decoder model in fp32 on the
+    card against the same weights on the CPU: forward from embeds in both
+    modes, then 8 decode steps (whisper's with the forward's encoder states
+    as ``cross_kv``) within 1e-4, no kernel launched."""
+    from repro_torch.models.model import _encoder_kv
+    from repro_torch.models.blocks import apply_stack
+    from repro_torch.models.layers import apply_norm
+
+    cfg = replace(get_smoke(name), dtype="float32")
+    gen = torch.Generator().manual_seed(9)
+    model = init_params(cfg, generator=gen, device="cpu")
+    embeds = torch.randn((2, 32, cfg.d_model), generator=gen)
+    tokens = torch.randint(0, cfg.vocab_size, (2, 16), generator=gen)
+    batch = {"embeds": embeds, **({"dec_tokens": tokens} if cfg.is_encdec else {})}
+    on_card = copy.deepcopy(model).to(card)
+    v = cfg.vocab_size
+    before = _launch_counts()
+    for mode in ("train", "prefill"):
+        want, _ = forward(model, cfg, batch, mode=mode)
+        got, _ = forward(on_card, cfg, {k: t.to(card) for k, t in batch.items()}, mode=mode)
+        _close(got[..., :v].cpu(), want[..., :v], tol=1e-4)
+    kv = card_kv = None
+    if cfg.is_encdec:
+        pos = torch.arange(32).expand(2, 32)
+        with torch.no_grad():
+            enc, _ = apply_stack(model.encoder, embeds, cfg, pos, causal=False)
+            kv = _encoder_kv(cfg, apply_norm(model.enc_norm, enc))
+        card_kv = tuple(t.to(card) for t in kv)
+    state = init_decode_state(model, cfg, 2, 8)
+    card_state = init_decode_state(on_card, cfg, 2, 8)
+    for t in range(8):
+        want, state = decode_step(model, cfg, state, tokens[:, t:t + 1], cross_kv=kv)
+        got, card_state = decode_step(on_card, cfg, card_state, tokens[:, t:t + 1].to(card),
+                                      cross_kv=card_kv)
+        _close(got[..., :v].cpu(), want[..., :v], tol=1e-4)
+    assert _launch_counts() == before
+
+
 # -- batched calls: one launch for B problems, the batch the grid's z axis ----
 
 def _batch_data(batch, dims, rank, dtype, device, shared=False, seed=0):

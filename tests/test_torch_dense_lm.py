@@ -210,11 +210,26 @@ def test_init_params_draws_the_reference_distributions():
 
 
 def test_entry_points_reject_embeds():
-    cfg = configs.get_smoke("yi-34b")
-    model = init_params(cfg, generator=torch.Generator().manual_seed(0), device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 15c"):
-        forward(model, cfg, {"tokens": torch.zeros((1, 8), dtype=torch.long),
-                             "embeds": torch.zeros((1, 8, cfg.d_model))})
-    with pytest.raises(NotImplementedError, match="Queue 1 item 15c"):
+    """Since the stub frontends are ported, ``embeds`` are no longer
+    refused: as in the reference, they win over ``tokens`` whenever a batch
+    carries them, on a decoder-only model without a frontend too, and a
+    config with a frontend reads them (``KeyError`` without)."""
+    name = "yi-34b"
+    ref_cfg = replace(ref_get_smoke(name), dtype="float32")
+    cfg = ArchConfig(**asdict(ref_cfg))
+    params = ref_init_params(jax.random.PRNGKey(3), ref_cfg)
+    model = convert.lm_from_numpy(jax.tree.map(np.asarray, params), cfg, device="cpu")
+    rng = np.random.default_rng(7)
+    embeds = rng.standard_normal((1, 8, cfg.d_model), dtype=np.float32)
+    tokens = rng.integers(0, cfg.vocab_size, (1, 8)).astype(np.int32)
+    got, _ = forward(model, cfg, {"tokens": torch.from_numpy(tokens).long(),
+                                  "embeds": torch.from_numpy(embeds)})
+    want, _ = ref_forward(params, ref_cfg, {"tokens": jnp.asarray(tokens),
+                                            "embeds": jnp.asarray(embeds)})
+    v = cfg.vocab_size
+    assert _rel(got[..., :v], np.asarray(want)[..., :v]) <= TOL["float32"]
+    from_tokens, _ = forward(model, cfg, {"tokens": torch.from_numpy(tokens).long()})
+    assert not torch.equal(got, from_tokens)
+    with pytest.raises(KeyError, match="embeds"):
         forward(model, replace(cfg, frontend="vision_stub"),
                 {"tokens": torch.zeros((1, 8), dtype=torch.long)})

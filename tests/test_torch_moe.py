@@ -350,15 +350,19 @@ def test_bf16_layers_match_the_reference(name):
 
 @pytest.mark.parametrize("name", NAMES)
 def test_moe_configs_are_ported(name):
-    assert name in configs.PORTED and name not in configs.WAITS
+    assert name in configs.PORTED
     assert asdict(configs.get_config(name)) == asdict(ref_get_config(name))
     cfg = configs.get_config(name)
     assert cfg.n_experts and cfg.top_k and cfg.moe_d_ff
 
 
 def test_only_the_encdec_and_vision_models_wait():
-    assert set(configs.WAITS) == {"qwen2-vl-72b", "whisper-tiny"}
-    assert set(configs.WAITS.values()) == {"15c"}
+    """Nothing waits any more: every name of the reference's registry is
+    ported, the encoder-decoder and vision models included."""
+    assert configs.PORTED == configs.ARCH_NAMES and len(configs.ARCH_NAMES) == 10
+    assert not hasattr(configs, "WAITS")
+    for name in configs.ARCH_NAMES:
+        assert configs.get_config(name).name == name
 
 
 def test_lm_from_numpy_keeps_the_fp32_leaves_under_a_dtype():
