@@ -131,6 +131,28 @@ Phases (any failure raises, and the script exits non-zero):
    frames and ``WHISPER_DUAL_TOKENS`` decoder tokens against
    token-by-token ``decode_step(cross_kv=)`` over the same positions,
    within ``DUAL_TOL``. Times printed, none asserted;
+   (g) the training path, from a generator of its own: ``SsdIntra``'s five
+   gradients at ``TRAIN_SSD`` (BC = 16, q = 256, N = 128, H = 80, P = 64)
+   against autograd through ``ssd_intra_plain`` (``SSD_GRAD_TOL``: 1e-5
+   fp32, 1e-2 with x in bf16), one launch for forward and backward, the
+   backward's device time beside the plain version's; ``mamba2-2.7b`` in
+   fp32 at full width cut to 2 layers on 2 x 512 tokens: ``loss_fn``'s
+   loss and every gradient against the same model with ``ssd_intra``
+   swapped for its plain version (within ``TRAIN_GRAD_TOL`` 1e-4 of each
+   leaf's largest gradient), remat ``none``/``full``/``dots`` within
+   ``REMAT_TOL`` 1e-6 (bit-equality printed), exactly 2 / 4 / 4
+   ``ssd_intra`` launches a step, and 5 AdamW steps on the fixed batch
+   with a falling loss; ``mamba2-2.7b`` in bf16 at full width and depth
+   (2.70 G parameters, weights drawn on the card): ``init_train_state``
+   and ``build_train_step`` on a fixed 2 x 2048-token ``synthetic_batch``,
+   one untimed step and 3 timed, exactly 128 ``ssd_intra`` launches a
+   step and no other counted kernel, finite loss and gradient norm, ms a
+   step, tokens/s and peak memory printed; ``python -m
+   repro_torch.launch.train`` on the smoke model in a subprocess (exit 0,
+   its two lines, ``step_15`` and ``step_20`` kept), then ``TrainLoop``
+   on the smoke model with a failure injected at step 6 (one restart, step
+   10, final parameters within ``LOOP_TOL`` 1e-6 of an uninterrupted run;
+   bit-equality printed). Times printed, none asserted;
 10. the batched engine (``BATCHES``: 16 tensors of 256^3 at R = 32 in fp32
     and bf16, 64 of 96^3 at R = 16, 8 of 64^4 at R = 16): batched
     ``repro_torch.mttkrp`` in every mode with per-element and with shared
@@ -372,6 +394,30 @@ VLM_LAYERS = {"qwen2-vl-72b": 4}
 WHISPER_FRAMES = 1500
 WHISPER_START = 50258
 WHISPER_DUAL_TOKENS = 128
+#: Phase 9g, the training path (ROADMAP Queue 1 items 15d and 15e): the
+#: SSD term's backward alone at the train shape (2 x 2048 tokens are BC = 16
+#: chunks of 256; N = 128, H = 80, P = 64), within SSD_GRAD_TOL of each
+#: gradient's largest magnitude of autograd through the plain version; the
+#: gradient check through the model (mamba2-2.7b in fp32 at full width, cut
+#: to 2 layers, on 2 x 512 tokens) against the same model with the plain
+#: version swapped in, within TRAIN_GRAD_TOL of each leaf's largest
+#: gradient, the three remat modes within REMAT_TOL of one another, and
+#: FIXED_STEPS AdamW steps (peak lr FIXED_LR, warmup 1) on that batch; the
+#: slice at full width and depth (bf16, 64 layers) on a fixed 2 x 2048-token
+#: batch, one untimed step and TRAIN_TIMED timed; the launcher's smoke run
+#: (LAUNCHER_ARGS) and the loop's recovery from a failure at step 6, within
+#: LOOP_TOL of an uninterrupted run.
+TRAIN_SSD = {"bcn": 16, "q": 256, "n": 128, "h": 80, "p": 64}
+SSD_GRAD_TOL = {"f32": 1e-5, "x_bf16": 1e-2}
+TRAIN_GRAD = (2, (2, 512))
+TRAIN_GRAD_TOL = 1e-4
+REMAT_TOL = 1e-6
+FIXED_STEPS, FIXED_LR = 5, 1e-3
+TRAIN_BATCH = (2, 2048)
+TRAIN_TIMED = 3
+LAUNCHER_ARGS = ["--arch", "mamba2-2.7b", "--smoke", "--steps", "20", "--batch", "8", "--seq",
+                 "64", "--ckpt-every", "5"]
+LOOP_TOL = 1e-6
 MOE_TOKENS = 2048
 MOE_TOL = 1e-5
 JAMBA_SSD = {"bcn": 8, "q": 256, "n": 16, "h": 128, "p": 64}
@@ -493,6 +539,20 @@ def cuda_ms(fn, reps: int = 10, warm: int = 2) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def peak_extra_gb(fn) -> float:
+    """GB that one call of ``fn`` holds on the card at its peak, above what
+    was allocated before it (its result included)."""
+    import torch
+
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    out = fn()
+    torch.cuda.synchronize()
+    del out
+    return (torch.cuda.max_memory_allocated() - base) / 1e9
 
 
 def graph_ms(fn, reps: int = 50, rounds: int = 4) -> float:
@@ -2010,6 +2070,313 @@ def vlm_encdec_phase(gen, smi: str) -> dict:
     if not dual["finite"] or dual["max_rel_err"] > DUAL_TOL:
         raise AssertionError(f"whisper duality: {json.dumps(dual)}")
     return {"serve": serve, "whisper": whisper, "duality": dual}
+
+
+def ssd_backward_check(gen, smi: str) -> dict:
+    """Phase 9g (a): ``SsdIntra``'s five gradients at ``TRAIN_SSD`` against
+    autograd through ``ssd_intra_plain`` on the same inputs and output
+    gradient, in the model's mix (x bf16) and in fp32; one kernel launch for
+    the forward and backward together; the closed-form backward's device
+    time beside the plain version's forward and its autograd."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.ssd_intra import ssd_intra, ssd_intra_grads, ssd_intra_plain
+
+    bcn, q, n, h, p = (TRAIN_SSD[k] for k in ("bcn", "q", "n", "h", "p"))
+    cc = torch.randn((bcn, q, n), generator=gen, device="cuda")
+    bc = torch.randn((bcn, q, n), generator=gen, device="cuda")
+    cum = -torch.cumsum(F.softplus(torch.randn((bcn, q, h), generator=gen, device="cuda")), 1)
+    dt = F.softplus(torch.randn((bcn, q, h), generator=gen, device="cuda"))
+    x32 = torch.randn((bcn, q, h, p), generator=gen, device="cuda")
+    dy32 = torch.randn((bcn, q, h, p), generator=gen, device="cuda")
+    out = []
+    for mix, dtype in (("x_bf16", torch.bfloat16), ("f32", torch.float32)):
+        x, dy = x32.to(dtype), dy32.to(dtype)
+        leaves = [t.clone().requires_grad_() for t in (cc, bc, cum, dt, x)]
+        before = ssd_intra.launches
+        got = torch.autograd.grad(ssd_intra(*leaves), leaves, dy)
+        launches = ssd_intra.launches - before
+        plain = [t.clone().requires_grad_() for t in (cc, bc, cum, dt, x)]
+        want = torch.autograd.grad(ssd_intra_plain(*plain), plain, dy)
+        errs = {}
+        for name, g, w in zip(("dcc", "dbc", "dcum", "ddt", "dx"), got, want):
+            if g.dtype != w.dtype or not bool(torch.isfinite(g).all()):
+                raise AssertionError(f"ssd_intra backward {mix} {name}: {g.dtype} or non-finite")
+            errs[name] = rel_err(g, w)[0]
+        if launches != 1 or max(errs.values()) > SSD_GRAD_TOL[mix]:
+            raise AssertionError(f"ssd_intra backward {mix}: {launches} launches, errors {errs}, "
+                                 f"limit {SSD_GRAD_TOL[mix]}")
+        del got, want, plain
+        args = (cc, bc, cum, dt, x)
+
+        def plain_fwd_bwd():
+            ls = [t.detach().requires_grad_() for t in args]
+            return torch.autograd.grad(ssd_intra_plain(*ls), ls, dy)
+
+        rec = {"ssd_intra_backward": mix, "shape": [bcn, q, n, h, p], "launches": launches,
+               "max_rel_err": errs, "limit": SSD_GRAD_TOL[mix],
+               "backward_ms": cuda_ms(lambda: ssd_intra_grads(*args, dy), reps=3, warm=1),
+               "kernel_forward_ms": cuda_ms(lambda: ssd_intra(*args), reps=3, warm=1),
+               "plain_forward_ms": cuda_ms(lambda: ssd_intra_plain(*args), reps=3, warm=1),
+               "plain_forward_backward_ms": cuda_ms(plain_fwd_bwd, reps=3, warm=1),
+               "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+               "backward_peak_gb": peak_extra_gb(lambda: ssd_intra_grads(*args, dy)),
+               "plain_forward_backward_peak_gb": peak_extra_gb(plain_fwd_bwd), "gpu": smi}
+        emit(rec)
+        out.append(rec)
+        torch.cuda.empty_cache()
+    del cc, bc, cum, dt, x32, dy32
+    torch.cuda.empty_cache()
+    return {"records": out}
+
+
+def _grads(model, cfg, batch) -> tuple[float, dict]:
+    import torch
+    from repro_torch.models import loss_fn
+
+    leaves = dict(model.named_parameters())
+    loss, _ = loss_fn(model, cfg, batch)
+    grads = torch.autograd.grad(loss, list(leaves.values()))
+    return float(loss.detach()), dict(zip(leaves, grads))
+
+
+def train_grad_check(gen, smi: str) -> dict:
+    """Phase 9g (b): the gradients of ``loss_fn`` through the kernel
+    against the same model with ``ssd_intra`` swapped for its plain version
+    in ``models.ssm`` (restored after), every leaf within TRAIN_GRAD_TOL of
+    its largest gradient; remat ``none``, ``full`` and ``dots`` within
+    REMAT_TOL of one another, exactly layers x 1 ``ssd_intra`` launches a
+    step without remat and layers x 2 with it; then FIXED_STEPS AdamW steps
+    on the fixed batch, the last loss below the first."""
+    from dataclasses import replace
+
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.ssd_intra import ssd_intra_plain
+    from repro_torch.models import init_params, set_trainable
+    from repro_torch.models import ssm as ssm_mod
+    from repro_torch.optim import adamw_init, linear_warmup
+    from repro_torch.training import TrainState, build_train_step
+
+    layers, (batch, seq) = TRAIN_GRAD
+    cfg = replace(get_config("mamba2-2.7b"), dtype="float32", n_layers=layers)
+    model = set_trainable(init_params(cfg, generator=gen))
+    tokens = torch.randint(0, cfg.vocab_size, (batch, seq + 1), generator=gen, device="cuda")
+    data = {"tokens": tokens[:, :-1], "labels": tokens[:, 1:]}
+    kernels = counters()
+    runs, launches = {}, {}
+    for remat in ("none", "full", "dots"):
+        _zeroed(kernels)
+        runs[remat] = _grads(model, replace(cfg, remat=remat), data)
+        launches[remat] = {name: k.launches for name, k in kernels.items()}
+        want = {name: (layers if remat == "none" else 2 * layers) if name == "ssd_intra" else 0
+                for name in kernels}
+        if launches[remat] != want:
+            raise AssertionError(f"train step, remat {remat}: launches {launches[remat]}, "
+                                 f"expected {want}")
+    real = ssm_mod.ssd_intra
+    ssm_mod.ssd_intra = ssd_intra_plain
+    try:
+        plain = _grads(model, replace(cfg, remat="none"), data)
+    finally:
+        ssm_mod.ssd_intra = real
+    loss, grads = runs["none"]
+    errs = {k: rel_err(g, plain[1][k])[0] for k, g in grads.items()}
+    worst = max(errs, key=errs.get)
+    finite = all(bool(torch.isfinite(g).all()) for g in grads.values())
+    remat = {}
+    for mode in ("full", "dots"):
+        remat[mode] = {
+            "max_rel_err": max(rel_err(g, grads[k])[0] for k, g in runs[mode][1].items()),
+            "bit_equal": all(torch.equal(g, grads[k]) for k, g in runs[mode][1].items())
+            and runs[mode][0] == loss,
+        }
+    # the AdamW steps on the fixed batch (they update the model in place)
+    state = TrainState(model, adamw_init(model), torch.zeros((), dtype=torch.int32,
+                                                             device="cuda"))
+    step = build_train_step(cfg, lr_fn=lambda s: linear_warmup(s, 1, FIXED_LR))
+    losses = []
+    _zeroed(kernels)
+    for _ in range(FIXED_STEPS):
+        state, metrics = step(state, data)
+        losses.append(float(metrics["loss"]))
+    launches["fixed_batch_steps"] = {name: k.launches for name, k in kernels.items()}
+    rec = {"train_grad_check": cfg.name, "dtype": cfg.dtype, "layers": layers,
+           "tokens": [batch, seq], "loss": loss, "plain_loss": plain[0],
+           "loss_rel_err": abs(loss - plain[0]) / abs(plain[0]),
+           "max_rel_err": errs[worst], "worst_leaf": worst, "limit": TRAIN_GRAD_TOL,
+           "remat": remat, "remat_limit": REMAT_TOL, "launches": launches,
+           "fixed_batch_losses": losses, "gpu": smi}
+    emit(rec)
+    if (not finite or errs[worst] > TRAIN_GRAD_TOL or rec["loss_rel_err"] > TRAIN_GRAD_TOL
+            or any(r["max_rel_err"] > REMAT_TOL for r in remat.values())):
+        raise AssertionError(f"train gradient check: {json.dumps(rec)}")
+    if not all(math.isfinite(v) for v in losses) or not losses[-1] < losses[0]:
+        raise AssertionError(f"fixed-batch losses {losses}: not finite, or not falling")
+    if launches["fixed_batch_steps"]["ssd_intra"] != FIXED_STEPS * 2 * layers:  # remat full
+        raise AssertionError(f"fixed-batch steps: launches {launches['fixed_batch_steps']}")
+    total = {name: sum(run[name] for run in launches.values()) for name in kernels}
+    del model, state, grads, runs, plain
+    torch.cuda.empty_cache()
+    return {"record": rec, "launches": total}
+
+
+def train_full(gen, smi: str) -> dict:
+    """Phase 9g (c): ``mamba2-2.7b`` in bf16 at full width and depth,
+    ``init_train_state`` on the card, ``build_train_step`` on a fixed
+    ``synthetic_batch`` of TRAIN_BATCH: one untimed step, then TRAIN_TIMED
+    timed, each with exactly 2 x 64 ``ssd_intra`` launches (remat ``full``)
+    and no other counted kernel, a finite loss and gradient norm; then the
+    same, one untimed and TRAIN_TIMED timed, on the ``REPRO_SSD_LEAN`` path
+    (``models.ssm._LEAN`` set, restored after): its ms and peak GB beside
+    the default's."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, synthetic_batch
+    from repro_torch.models import ssm as ssm_mod
+    from repro_torch.training import build_train_step, init_train_state
+
+    cfg = get_config("mamba2-2.7b")
+    batch, seq = TRAIN_BATCH
+    t0 = time.perf_counter()
+    state = init_train_state(cfg, generator=gen)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in state.params.parameters())
+    data = synthetic_batch(DataConfig(cfg.vocab_size, seq, batch, seed=int(
+        torch.randint(0, 2 ** 31 - 1, (), generator=gen, device="cuda"))), 0)
+    step = build_train_step(cfg)
+    kernels = counters()
+    want = {name: 2 * cfg.n_layers if name == "ssd_intra" else 0 for name in kernels}
+    total = dict.fromkeys(kernels, 0)
+
+    def steps(state, count):
+        """``count`` steps on ``data``, each with its launches checked;
+        the state after them and their ms, losses and gradient norms."""
+        times, losses, norms = [], [], []
+        for _ in range(count):
+            _zeroed(kernels)
+            t0 = time.perf_counter()
+            state, metrics = step(state, data)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+            launches = {name: k.launches for name, k in kernels.items()}
+            if launches != want:
+                raise AssertionError(f"mamba2 train step: launches {launches}, expected {want}")
+            for name in kernels:
+                total[name] += launches[name]
+            losses.append(float(metrics["loss"]))
+            norms.append(float(metrics["grad_norm"]))
+        if not all(math.isfinite(v) for v in losses + norms):
+            raise AssertionError(f"mamba2 train step: losses {losses}, grad norms {norms}")
+        ms = sum(times) / len(times)
+        return state, {"step_ms": times, "ms_per_step": ms,
+                       "tokens_per_s": batch * seq / ms * 1e3, "losses": losses,
+                       "grad_norms": norms}
+
+    state, _ = steps(state, 1)  # untimed
+    torch.cuda.reset_peak_memory_stats()
+    state, timed = steps(state, TRAIN_TIMED)
+    timed["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    # the same steps on the reference's REPRO_SSD_LEAN path (read at call time)
+    lean_was = ssm_mod._LEAN
+    ssm_mod._LEAN = True
+    try:
+        state, _ = steps(state, 1)  # untimed
+        torch.cuda.reset_peak_memory_stats()
+        state, lean = steps(state, TRAIN_TIMED)
+        lean["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    finally:
+        ssm_mod._LEAN = lean_was
+    rec = {"mamba2_train": cfg.name, "dtype": cfg.dtype, "layers": cfg.n_layers,
+           "params": n_params, "remat": cfg.remat, "batch": [batch, seq],
+           "init_s": init_s, **timed, "launches_per_step": want, "lean": lean, "gpu": smi}
+    emit(rec)
+    del state, data
+    torch.cuda.empty_cache()
+    return {"record": rec, "launches": total}
+
+
+def train_entry(smi: str) -> dict:
+    """Phase 9g (d): ``python -m repro_torch.launch.train`` (LAUNCHER_ARGS)
+    in a subprocess: exit 0, its two lines, ``step_15`` and ``step_20``
+    kept; then the same smoke model through ``TrainLoop`` with a failure
+    injected at step 6: one restart, step 10 reached, the final parameters
+    within LOOP_TOL of an uninterrupted run from the same start."""
+    import copy
+    import functools
+    import shutil
+    import tempfile
+
+    import torch
+    from repro_torch.checkpoint import list_steps
+    from repro_torch.configs import get_smoke
+    from repro_torch.data import DataConfig, synthetic_batch
+    from repro_torch.training import LoopConfig, TrainLoop, build_train_step, init_train_state
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_train_")
+    try:
+        ckpt = os.path.join(tmp, "launcher")
+        env = {**os.environ, "PYTHONPATH": os.path.join(ROOT, "src")}
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, "-m", "repro_torch.launch.train", *LAUNCHER_ARGS,
+                               "--ckpt-dir", ckpt], capture_output=True, text=True, env=env,
+                              timeout=300)
+        launcher_s = time.perf_counter() - t0
+        lines = proc.stdout.strip().splitlines()
+        kept = list_steps(ckpt)
+        if (proc.returncode != 0 or len(lines) != 2 or not lines[0].startswith("arch=")
+                or not lines[1].startswith("done: 20 steps") or not {15, 20} <= set(kept)):
+            raise AssertionError(f"launcher: exit {proc.returncode}, kept {kept}, stdout "
+                                 f"{proc.stdout[-2000:]!r}, stderr {proc.stderr[-4000:]!r}")
+
+        cfg = get_smoke("mamba2-2.7b")
+        start = init_train_state(cfg, generator=torch.Generator(device="cuda").manual_seed(0))
+        step = build_train_step(cfg)
+        data = DataConfig(vocab_size=cfg.vocab_size, seq_len=64, global_batch=8)
+        crashed = []
+
+        def fail(s):
+            if s == 6 and not crashed:
+                crashed.append(s)
+                raise RuntimeError("injected node failure")
+
+        def loop(directory):
+            return TrainLoop(step, data, LoopConfig(total_steps=10, ckpt_every=5,
+                                                    ckpt_dir=os.path.join(tmp, directory)),
+                             batch_fn=functools.partial(synthetic_batch, device="cuda"))
+
+        kernels = counters()
+        _zeroed(kernels)
+        recovered = loop("failed")
+        state, stats = recovered.run(copy.deepcopy(start), fail_injector=fail)
+        clean, clean_stats = loop("clean").run(copy.deepcopy(start))
+        launches = {name: k.launches for name, k in kernels.items()}
+        pairs = list(zip(state.params.parameters(), clean.params.parameters()))
+        err = max(rel_err(p.detach(), q.detach())[0] for p, q in pairs)
+        rec = {"train_entry": cfg.name, "launcher_args": LAUNCHER_ARGS, "launcher_s": launcher_s,
+               "launcher_stdout": lines, "kept_steps": kept, "restarts": stats.restarts,
+               "steps_done": stats.steps_done, "final_step": int(state.step),
+               "max_rel_err_vs_uninterrupted": err, "limit": LOOP_TOL,
+               "bit_equal": all(torch.equal(p, q) for p, q in pairs),
+               "losses": stats.losses, "clean_losses": clean_stats.losses,
+               "launches": launches, "gpu": smi}
+        emit(rec)
+        if stats.restarts != 1 or int(state.step) != 10 or err > LOOP_TOL:
+            raise AssertionError(f"loop recovery: {json.dumps(rec)}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return {"record": rec, "launches": launches}
+
+
+def train_phase(gen, smi: str) -> dict:
+    """Phase 9g: the training path, (a) to (d). Times are printed, none
+    asserted. Returns the records and the launches of the model's runs."""
+    backward = ssd_backward_check(gen, smi)
+    parts = [train_grad_check(gen, smi), train_full(gen, smi), train_entry(smi)]
+    launches = {name: sum(part["launches"][name] for part in parts) for name in KERNELS}
+    return {"backward": backward, "records": [part["record"] for part in parts],
+            "launches": launches}
 
 
 def batched_phase(gen, smi: str) -> dict:
@@ -3740,6 +4107,9 @@ def main() -> int:
                        torch.Generator(device="cuda").manual_seed(args.seed + 1), smi, records)
     # and so does phase 9f, for the same reason
     phase("9f", vlm_encdec_phase, torch.Generator(device="cuda").manual_seed(args.seed + 2), smi)
+    # and so does phase 9g, the training path
+    trained = phase("9g", train_phase, torch.Generator(device="cuda").manual_seed(args.seed + 3),
+                    smi)
     batched = phase("10", batched_phase, gen, smi)
     served = phase("11", serve_phase, gen, smi)
     tuned = phase("12", tune_phase, gen, smi)
@@ -3748,7 +4118,8 @@ def main() -> int:
     phase("15a", verify_phase, smi)
     phase("15b-15d", walk_phase, smi)
     for counted in (matrix["launches"], tucker["launches"], mamba["launches"],
-                    moe_models["launches"], batched["launches"], served["launches"], tuned["launches"],
+                    moe_models["launches"], trained["launches"], batched["launches"],
+                    served["launches"], tuned["launches"],
                     observed["launches"], distributed["launches"]):
         for name, n in counted.items():
             main_path["launches"][name] += n

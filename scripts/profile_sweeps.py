@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Where a CP-ALS iteration and a Tucker/HOOI sweep spend their device time.
 
-    python3 scripts/profile_sweeps.py [--seed N]
+    python3 scripts/profile_sweeps.py [--seed N] [--serve | --train]
 
 Needs one CUDA card and nvcc. For the two CP-ALS problems of
 ``chip_smoke.py`` (a 1000^3 tensor of CP rank 64 plus noise, R=64, and a
@@ -16,7 +16,10 @@ profiled sweeps; for ``chip_smoke.py``'s Mamba2 serving cell
 one untimed prefill, then two profiled. With ``--serve`` it profiles
 only the server's buckets (``chip_smoke.py`` phase 11: 16 x 256^3 at R=32,
 64 x 96^3 and 8 x 64^4 at R=16): one ``cp_als_batched`` iteration untimed,
-then two profiled (``backend="auto"``, as the server runs them). Each
+then two profiled (``backend="auto"``, as the server runs them). With
+``--train`` it profiles only ``chip_smoke.py``'s training cell (phase 9g:
+``mamba2-2.7b`` at full width and depth in bf16, one train step on 2 x
+2048 tokens, remat ``full``): one step untimed, then one profiled. Each
 prints one JSON line:
 
 * ``wall_ms``: host time per iteration, between two synchronizations;
@@ -30,6 +33,9 @@ prints one JSON line:
   through the profiler's CPU op tree, and taken out of ``copy``); for the
   prefill ``ssd_intra``, ``gemm`` (cuBLAS: the projections, the chunk
   states, the inter-chunk output and the logits), ``copy`` and ``other``;
+  for the train step also ``ssd_backward`` (the kernels of ``SsdIntra``'s
+  backward, attributed through the profiler's CPU op tree) and ``adamw``
+  (those of ``adamw_update``), each taken out of the name groups;
 * ``top``: the ten most expensive device functions by name.
 
 The profiler adds host overhead, so ``wall_ms`` reads a little above
@@ -62,6 +68,10 @@ PREFILL_GROUPS = (  # the Mamba2 prefill's groups
     ("gemm", r"gemm|xmma|nvjet|cutlass|cublas"),
     ("copy", r"copy"),
 )
+
+
+TRAIN_GROUPS = PREFILL_GROUPS  # the train step's by name, before the attributed ones
+SSD_BACKWARD = "autograd::engine::evaluate_function: SsdIntraBackward"
 
 
 def group_of(name: str, groups=GROUPS) -> str:
@@ -99,9 +109,10 @@ def profiled(fn, iters: int, groups=GROUPS):
     return wall, busy, by_group, [[name[:120], ms] for name, ms in top], prof
 
 
-def under(prof, label: str, iters: int) -> dict[str, float]:
+def under(prof, label: str, iters: int, groups=GROUPS) -> dict[str, float]:
     """Device ms per iteration, by group, of the kernels launched by CPU ops
-    inside a ``record_function(label)`` range."""
+    inside a ``record_function(label)`` range (or the CPU event of that
+    name, such as an autograd node's evaluation)."""
     import torch
 
     out: dict[str, float] = {}
@@ -113,7 +124,8 @@ def under(prof, label: str, iters: int) -> dict[str, float]:
             p = p.cpu_parent
         if p is not None:
             for k in evt.kernels:
-                out[group_of(k.name)] = out.get(group_of(k.name), 0.0) + k.duration / 1e3 / iters
+                g = group_of(k.name, groups)
+                out[g] = out.get(g, 0.0) + k.duration / 1e3 / iters
     return out
 
 
@@ -121,6 +133,7 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--serve", action="store_true", help="only the server's buckets")
+    ap.add_argument("--train", action="store_true", help="only the Mamba2 train step")
     args = ap.parse_args()
 
     import torch
@@ -140,11 +153,13 @@ def main() -> int:
 
     torch.backends.cuda.matmul.allow_tf32 = False
     gpu = nvidia_smi()
-    for source in build.build_all():
+    for source in ("ssd_intra.cu",) if args.train else build.build_all():
         build.library(source)
     ctx = repro_torch.ExecutionContext.create("cuda")
     gen = torch.Generator(device="cuda").manual_seed(args.seed)
     iters = 2
+    if args.train:
+        return profile_train(gen, gpu)
     if args.serve:
         return profile_buckets(gen, gpu, iters)
     for dims, rank in [((1000, 1000, 1000), 64), ((180, 180, 180, 180), 32)]:
@@ -214,6 +229,53 @@ def main() -> int:
         "profile_prefill": cfg.name, "dtype": cfg.dtype, "prompts": PREFILL[0],
         "prompt_tokens": PREFILL[1], "wall_ms": wall, "busy_ms": busy,
         "idle_share": 1.0 - busy / wall, "groups_ms": groups, "top": top, "gpu": gpu,
+    }), flush=True)
+    return 0
+
+
+def profile_train(gen, gpu: str) -> int:
+    """``chip_smoke.py``'s training cell (phase 9g): one train step of
+    ``mamba2-2.7b`` in bf16 at full width and depth on a fixed
+    ``synthetic_batch`` of ``TRAIN_BATCH``, after one untimed."""
+    import torch
+    from torch.profiler import record_function
+
+    from chip_smoke import TRAIN_BATCH
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, synthetic_batch
+    from repro_torch.training import build_train_step, init_train_state
+    from repro_torch.training import steps as steps_mod
+
+    cfg = get_config("mamba2-2.7b")
+    batch, seq = TRAIN_BATCH
+    state = init_train_state(cfg, generator=gen)
+    data = synthetic_batch(DataConfig(cfg.vocab_size, seq, batch), 0)
+    real = steps_mod.adamw_update
+
+    def adamw_update(*args, **kwargs):
+        with record_function("adamw_update"):
+            return real(*args, **kwargs)
+
+    steps_mod.adamw_update = adamw_update
+    step = build_train_step(cfg)
+    box = list(step(state, data))  # untimed
+    del state
+    torch.cuda.synchronize()
+
+    def one():
+        box[0], box[1] = step(box[0], data)
+
+    wall, busy, groups, top, prof = profiled(one, 1, TRAIN_GROUPS)
+    for name, label in (("ssd_backward", SSD_BACKWARD), ("adamw", "adamw_update")):
+        inside = under(prof, label, 1, TRAIN_GROUPS)
+        for g, ms in inside.items():
+            groups[g] -= ms
+        groups[name] = sum(inside.values())
+    print(json.dumps({
+        "profile_train": cfg.name, "dtype": cfg.dtype, "layers": cfg.n_layers,
+        "remat": cfg.remat, "batch": [batch, seq], "wall_ms": wall, "busy_ms": busy,
+        "idle_share": 1.0 - busy / wall, "groups_ms": groups, "top": top,
+        "loss": float(box[1]["loss"]), "gpu": gpu,
     }), flush=True)
     return 0
 

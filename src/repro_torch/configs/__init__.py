@@ -8,13 +8,14 @@ MoE FFNs), the VLM backbone ``qwen2-vl-72b`` (M-RoPE, a stub vision
 frontend: its inputs are patch embeddings) and the encoder-decoder
 ``whisper-tiny`` (a stub audio frontend: its inputs are frame embeddings;
 cross-attention). An unknown name raises ``KeyError``, as in the reference.
+The run shapes and the (arch, shape) cells are the reference's too.
 """
 
 from __future__ import annotations
 
 import importlib
 
-from ..models.config import ArchConfig
+from ..models.config import SHAPES, ArchConfig, RunShape
 
 ARCH_MODULES = {
     "mamba2-2.7b": "mamba2_2_7b",
@@ -32,6 +33,10 @@ ARCH_MODULES = {
 ARCH_NAMES = tuple(ARCH_MODULES)
 PORTED = ARCH_NAMES
 
+# long_500k requires sub-quadratic sequence handling: run for SSM/hybrid
+# only; skip (documented, DESIGN.md §4) for pure full-attention archs.
+LONG_CONTEXT_ARCHS = ("mamba2-2.7b", "jamba-v0.1-52b")
+
 
 def _module(name: str):
     if name not in ARCH_MODULES:
@@ -47,3 +52,26 @@ def get_config(name: str) -> ArchConfig:
 
 def get_smoke(name: str) -> ArchConfig:
     return _module(name).smoke()
+
+
+def get_shape(name: str) -> RunShape:
+    return SHAPES[name]
+
+
+def cell_is_skipped(arch: str, shape: str) -> str | None:
+    """Returns the skip reason for a (arch, shape) cell, or None if it runs."""
+    if shape == "long_500k" and arch not in LONG_CONTEXT_ARCHS:
+        return (
+            "long_500k needs sub-quadratic sequence mixing; "
+            f"{arch} is pure full-attention (DESIGN.md §4)"
+        )
+    return None
+
+
+def all_cells() -> list[tuple[str, str, str | None]]:
+    """All 40 (arch, shape, skip_reason) cells."""
+    return [
+        (a, s, cell_is_skipped(a, s))
+        for a in ARCH_NAMES
+        for s in SHAPES
+    ]

@@ -1,8 +1,9 @@
 """The bridge that carries parameters into the port: numpy arrays, the
 plan and memory dicts the reference writes (its tune cache's
-``plan_to_dict`` and its context's ``memory`` entry), and the language
-model's parameter pytree. With these a caller pins the same plan, the same
-initial factors and the same weights on both sides.
+``plan_to_dict`` and its context's ``memory`` entry), the language
+model's parameter pytree and its training state. With these a caller pins
+the same plan, the same initial factors, the same weights and the same
+optimizer state on both sides.
 """
 
 from __future__ import annotations
@@ -15,6 +16,7 @@ import torch
 from .core.cp_als import CPResult
 from .core.tucker import TuckerResult
 from .engine.plan import BlockPlan, Memory, MultiTTMPlan
+from .models import set_trainable
 from .models.attention import Attention
 from .models.blocks import Layer
 from .models.config import ArchConfig
@@ -22,6 +24,8 @@ from .models.layers import MLP, Embedding, Norm
 from .models.model import LM
 from .models.moe import MoE
 from .models.ssm import SSM
+from .optim import AdamWState
+from .training import TrainState
 
 
 def tensor_from_numpy(
@@ -164,3 +168,31 @@ def lm_from_numpy(
     return LM(embed, norm(params["final_norm"]),
               encoder=stack(params["encoder"], cfg.n_layers), enc_norm=norm(params["enc_norm"]),
               decoder=stack(params["decoder"], cfg.dec_layers))
+
+
+def train_state_from_numpy(
+    state,
+    cfg: ArchConfig,
+    *,
+    device: str | torch.device = "cuda",
+    dtype: torch.dtype | None = None,
+) -> TrainState:
+    """The port's :class:`~repro_torch.training.TrainState` from the
+    reference's ``TrainState`` given as numpy arrays
+    (``jax.tree.map(np.asarray, state)``): the parameters through
+    :func:`lm_from_numpy` (in ``dtype``, every floating leaf trainable),
+    the AdamW moments (and master copy, if kept) leaf for leaf in their
+    own dtypes, keyed by the port's parameter names, and both steps."""
+
+    def by_name(tree) -> dict[str, torch.Tensor]:
+        return {k: p.detach() for k, p in lm_from_numpy(tree, cfg, device=device).named_parameters()}
+
+    opt = state.opt
+    params = set_trainable(lm_from_numpy(state.params, cfg, device=device, dtype=dtype))
+    return TrainState(
+        params=params,
+        opt=AdamWState(step=tensor_from_numpy(opt.step, device), m=by_name(opt.m),
+                       v=by_name(opt.v),
+                       master=None if opt.master is None else by_name(opt.master)),
+        step=tensor_from_numpy(state.step, device),
+    )

@@ -11,7 +11,9 @@ cumulative log-decay ``cum`` and ``dt`` ``(BC, q, H)``, and X
                                  dt[c, j, h] X[c, j, h, :],
 
 ``(BC, q, H, P)`` in X's dtype, accumulated in fp32: the term ``y_intra`` of
-``repro/models/ssm.py:125-147``, one launch per layer of a prefill.
+``repro/models/ssm.py:125-147``, one launch per SSM layer of a prefill or
+of a train step's forward (two under remat, whose recompute launches it
+again). Its gradient (:class:`SsdIntra`) is PyTorch's, not a kernel's.
 
 What bounds it on an H100: its bytes (0.36 GB at Mamba2-2.7b's q=256,
 N=128, H=80, P=64 with BC=64: 0.108 ms for x bf16, 0.208 ms for fp32).
@@ -29,6 +31,7 @@ is kept for the reference's signature and validation.
 
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple
 
 import torch
@@ -61,18 +64,39 @@ class SsdPlan(NamedTuple):
     heads: int
 
 
+def _acc(*ts: torch.Tensor) -> torch.dtype:
+    """The dtype the plain version and the backward compute in: fp32, or
+    float64 where an operand is float64 (so that ``gradcheck`` can hold the
+    backward to the forward)."""
+    return functools.reduce(torch.promote_types, (t.dtype for t in ts), torch.float32)
+
+
+def _above(q: int, device) -> torch.Tensor:
+    """``[j > i]`` as a (1, q, q, 1) mask."""
+    return torch.ones((q, q), dtype=torch.bool, device=device).triu(1)[None, :, :, None]
+
+
+def _decay(cumf: torch.Tensor) -> torch.Tensor:
+    """``E[b,i,j,h] = exp(cum_i - cum_j)`` where ``j <= i``, else 0, the
+    exponent masked before the exp (no inf above the diagonal)."""
+    seg = cumf[:, :, None, :] - cumf[:, None, :, :]
+    return torch.exp(seg.masked_fill(_above(cumf.shape[1], cumf.device), -torch.inf))
+
+
 def ssd_intra_plain(cc: torch.Tensor, bc: torch.Tensor, cum: torch.Tensor, dt: torch.Tensor,
                     x: torch.Tensor) -> torch.Tensor:
     """Plain version, ``ssd_intra_ref``'s formula: the fp32 Gram, the decay
-    selected on ``j <= i``, the ``dt`` weighting, one einsum; x's dtype."""
-    g = torch.einsum("bin,bjn->bij", cc.float(), bc.float())
-    cumf = cum.float()
-    seg = cumf[:, :, None, :] - cumf[:, None, :, :]
-    q = cc.shape[1]
-    causal = torch.ones((q, q), dtype=torch.bool, device=cc.device).tril()
-    w = torch.where(causal[None, :, :, None], g[..., None] * torch.exp(seg), 0.0)
-    w = w * dt.float()[:, None, :, :]
-    return torch.einsum("bijh,bjhp->bihp", w, x.float()).to(x.dtype)
+    selected on ``j <= i``, the ``dt`` weighting, one einsum; x's dtype
+    (float64 operands are computed in float64). The decay is selected
+    before its exp, where the reference selects after it: the same values,
+    but autograd through this version stays finite where a chunk's decay
+    passes e^88 above the diagonal (``exp`` overflows there, and the
+    reference's gradient of ``cc``, ``bc`` and ``cum`` is NaN)."""
+    acc = _acc(cc, bc, cum, dt, x)
+    g = torch.einsum("bin,bjn->bij", cc.to(acc), bc.to(acc))
+    w = g[..., None] * _decay(cum.to(acc))
+    w = w * dt.to(acc)[:, None, :, :]
+    return torch.einsum("bijh,bjhp->bihp", w, x.to(acc)).to(x.dtype)
 
 
 def traffic_model(bcn: int, q: int, n: int, h: int, p: int, itemsize: int = 2) -> dict:
@@ -160,13 +184,10 @@ def _shapes(cc, bc, cum, dt, x, head_block):
     return bcn, q, cc.shape[2], h, p
 
 
-def ssd_intra(cc: torch.Tensor, bc: torch.Tensor, cum: torch.Tensor, dt: torch.Tensor,
-              x: torch.Tensor, *, head_block: int = 8, plan: SsdPlan | None = None
-              ) -> torch.Tensor:
-    """The intra-chunk SSD term, ``(BC, q, H, P)`` in x's dtype. A CUDA
-    tensor launches the kernel under ``plan`` (default :func:`kernel_plan`);
-    cc, bc, cum and dt are taken in fp32 (cast if they are not), x in fp32
-    or bf16. A CPU tensor takes :func:`ssd_intra_plain`."""
+def _launch(cc: torch.Tensor, bc: torch.Tensor, cum: torch.Tensor, dt: torch.Tensor,
+            x: torch.Tensor, head_block: int, plan: SsdPlan | None) -> torch.Tensor:
+    """The forward: the kernel on a CUDA tensor, :func:`ssd_intra_plain`
+    on a CPU tensor (see :func:`ssd_intra`)."""
     bcn, q, n, h, p = _shapes(cc, bc, cum, dt, x, head_block)
     if x.device.type == "cpu":
         return ssd_intra_plain(cc, bc, cum, dt, x)
@@ -207,6 +228,76 @@ def ssd_intra(cc: torch.Tensor, bc: torch.Tensor, cum: torch.Tensor, dt: torch.T
         collect.report("ssd_intra", plan, collect.nbytes(*small, x), collect.nbytes(out),
                        collect.dtype_name(out))
     return out
+
+
+def ssd_intra_grads(cc: torch.Tensor, bc: torch.Tensor, cum: torch.Tensor, dt: torch.Tensor,
+                    x: torch.Tensor, dy: torch.Tensor, needs: tuple[bool, ...] = (True,) * 5
+                    ) -> tuple[torch.Tensor | None, ...]:
+    """The closed-form adjoint of the term: (dcc, dbc, dcum, ddt, dx) for
+    the output's gradient ``dy``, each in its input's dtype (None where
+    ``needs`` says the input takes none). In fp32 (float64 where an
+    operand is float64), with
+    ``W[b,i,j,h] = [j <= i] G[b,i,j] E[b,i,j,h] dt[b,j,h]``, ``G = C B^T``,
+    ``E = exp(cum_i - cum_j)``:
+
+        dx[b,j,h,p] = sum_i W dy[b,i,h,p]
+        dW[b,i,j,h] = [j <= i] sum_p dy[b,i,h,p] x[b,j,h,p]
+        dG = sum_h dW E dt_j;  dC = dG B;  dB = dG^T C
+        ddt_j = sum_i dW G E
+        dcum = rowsum_j(dW W) - colsum_i(dW W)
+
+    Every contraction is a product of two operands. It makes a few fp32
+    ``(BC, q, q, H)`` tensors: 336 MB each at BC = 16, q = 256, H = 80."""
+    acc = _acc(cc, bc, cum, dt, x, dy)
+    ccf, bcf, cumf, dtf, xf, dyf = (t.to(acc) for t in (cc, bc, cum, dt, x, dy))
+    g = torch.einsum("bin,bjn->bij", ccf, bcf)
+    e = _decay(cumf)
+    ge = g[..., None] * e
+    w = ge * dtf[:, None, :, :]
+    dw = torch.einsum("bihp,bjhp->bijh", dyf, xf).masked_fill_(_above(cc.shape[1], cc.device), 0.0)
+    dx = torch.einsum("bijh,bihp->bjhp", w, dyf).to(x.dtype) if needs[4] else None
+    dcum = ddt = dcc = dbc = None
+    if needs[2]:
+        dww = dw * w
+        dcum = (dww.sum(2) - dww.sum(1)).to(cum.dtype)
+        del dww
+    del w
+    if needs[3]:
+        ddt = (dw * ge).sum(1).to(dt.dtype)
+    del ge
+    if needs[0] or needs[1]:
+        dg = torch.einsum("bijh,bjh->bij", dw * e, dtf)
+        dcc = (dg @ bcf).to(cc.dtype) if needs[0] else None
+        dbc = (dg.transpose(1, 2) @ ccf).to(bc.dtype) if needs[1] else None
+    return dcc, dbc, dcum, ddt, dx
+
+
+class SsdIntra(torch.autograd.Function):
+    """The term with its gradient: the forward is :func:`_launch` (the
+    kernel on the card, one launch), the backward :func:`ssd_intra_grads`
+    in PyTorch operations (no kernel): the reference has no backward
+    kernel either, its training path being an einsum chain that XLA
+    differentiates (``repro/models/ssm.py:125-147``)."""
+
+    @staticmethod
+    def forward(ctx, cc, bc, cum, dt, x, head_block, plan):
+        ctx.save_for_backward(cc, bc, cum, dt, x)
+        return _launch(cc, bc, cum, dt, x, head_block, plan)
+
+    @staticmethod
+    def backward(ctx, dy):
+        return (*ssd_intra_grads(*ctx.saved_tensors, dy, ctx.needs_input_grad[:5]), None, None)
+
+
+def ssd_intra(cc: torch.Tensor, bc: torch.Tensor, cum: torch.Tensor, dt: torch.Tensor,
+              x: torch.Tensor, *, head_block: int = 8, plan: SsdPlan | None = None
+              ) -> torch.Tensor:
+    """The intra-chunk SSD term, ``(BC, q, H, P)`` in x's dtype, with its
+    gradient (:class:`SsdIntra`). A CUDA tensor launches the kernel under
+    ``plan`` (default :func:`kernel_plan`); cc, bc, cum and dt are taken in
+    fp32 (cast if they are not), x in fp32 or bf16. A CPU tensor takes
+    :func:`ssd_intra_plain`. Both run the same backward."""
+    return SsdIntra.apply(cc, bc, cum, dt, x, head_block, plan)
 
 
 ssd_intra.launches = 0  # type: ignore[attr-defined]

@@ -4,11 +4,12 @@ Mamba2 family, whose intra-chunk SSD term runs on the Hopper kernel
 ``kernels/csrc/ssd_intra.cu``, of the MoE models (the top-k router and
 capacity dispatch), of the hybrid of all three, of the VLM backbone (a
 stub vision frontend: patch embeddings in) and of the encoder-decoder model
-(a stub audio frontend: frame embeddings in; cross-attention). The port of
-``repro.models``."""
+(a stub audio frontend: frame embeddings in; cross-attention), and the
+training loss of each (``loss_fn``). The port of ``repro.models``."""
 
 from .config import ArchConfig
-from .model import LM, decode_step, forward, init_decode_state, init_params
+from .layers import set_trainable
+from .model import LM, decode_step, forward, init_decode_state, init_params, loss_fn
 
 __all__ = [
     "ArchConfig",
@@ -17,4 +18,6 @@ __all__ = [
     "forward",
     "init_decode_state",
     "init_params",
+    "loss_fn",
+    "set_trainable",
 ]

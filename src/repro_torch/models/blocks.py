@@ -6,13 +6,21 @@ Mamba2 family, the MoE models, the hybrid and the encoder-decoder model).
 The reference stacks each period position's parameters over the layer
 groups and drives them with ``lax.scan`` (and remat); the port holds one
 :class:`Layer` module per layer in an ``nn.ModuleList`` and runs a plain
-loop.
+loop over the same groups of ``cfg.block_period`` layers, each group
+checkpointed as the reference's scan body is (:func:`_remat`).
 """
 
 from __future__ import annotations
 
+import functools
+
 import torch
 from torch import nn
+from torch.utils.checkpoint import (
+    CheckpointPolicy,
+    checkpoint,
+    create_selective_checkpoint_contexts,
+)
 
 from .attention import (
     Attention,
@@ -161,15 +169,50 @@ def init_stack(gen: torch.Generator, cfg: ArchConfig, dtype, device="cuda",
                          for layer in range(n_layers))
 
 
+#: What ``remat="dots"`` keeps from the forward: the products' outputs,
+#: as ``jax.checkpoint_policies.checkpoint_dots`` keeps ``dot_general``'s.
+DOTS = frozenset({torch.ops.aten.mm.default, torch.ops.aten.bmm.default,
+                  torch.ops.aten.addmm.default, torch.ops.aten.baddbmm.default})
+
+
+def _save_dots(ctx, op, *args, **kwargs) -> CheckpointPolicy:
+    return CheckpointPolicy.MUST_SAVE if op in DOTS else CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _remat(fn, cfg: ArchConfig):
+    """``fn`` under activation checkpointing, as ``cfg.remat`` asks (the
+    reference's ``_remat``): ``"none"`` none, ``"dots"`` keeping only the
+    products' outputs (:data:`DOTS`), anything else (``"full"``) keeping
+    only ``fn``'s inputs. Only under autograd: a forward without gradients
+    (serving) runs ``fn`` as it is. ``ssd_intra``'s kernel is no aten op,
+    so under both it runs again in the backward's recompute."""
+    if cfg.remat == "none" or not torch.is_grad_enabled():
+        return fn
+    if cfg.remat == "dots":
+        dots = functools.partial(create_selective_checkpoint_contexts, _save_dots)
+        return functools.partial(checkpoint, fn, use_reentrant=False, context_fn=dots)
+    return functools.partial(checkpoint, fn, use_reentrant=False)
+
+
 def apply_stack(stack: nn.ModuleList, x: torch.Tensor, cfg: ArchConfig, positions: torch.Tensor,
                 *, mode: str = "train", causal: bool = True,
                 cross_kv: tuple[torch.Tensor, torch.Tensor] | None = None
                 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """The layers in order. Returns (x, total_moe_aux)."""
+    """The layers in order, a group of ``cfg.block_period`` layers at a
+    time, each group under :func:`_remat`. Returns (x, total_moe_aux)."""
+    period = cfg.block_period
+
+    def group(first: int, h: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+        aux = torch.zeros((), dtype=torch.float32, device=h.device)
+        for layer in range(first, min(first + period, len(stack))):
+            h, a = apply_layer(stack[layer], h, cfg, layer, positions, mode=mode, causal=causal,
+                               cross_kv=cross_kv)
+            aux = aux + a
+        return h, aux
+
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    for layer, p in enumerate(stack):
-        x, a = apply_layer(p, x, cfg, layer, positions, mode=mode, causal=causal,
-                           cross_kv=cross_kv)
+    for first in range(0, len(stack), period):
+        x, a = _remat(functools.partial(group, first), cfg)(x)
         aux = aux + a
     return x, aux
 

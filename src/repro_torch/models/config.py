@@ -1,6 +1,7 @@
-"""Architecture configuration of the language models: a copy of the
-reference's ``repro/models/config.py:ArchConfig`` (pure arithmetic, kept
-equal to it field for field and count for count)."""
+"""Architecture and run-shape configuration of the language models: a copy
+of the reference's ``repro/models/config.py`` (``ArchConfig``, ``RunShape``,
+``SHAPES``; pure arithmetic, kept equal to it field for field and count for
+count)."""
 
 from __future__ import annotations
 
@@ -161,3 +162,21 @@ class ArchConfig:
                 )
                 total -= inactive
         return total
+
+
+@dataclass(frozen=True)
+class RunShape:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: Literal["train", "prefill", "decode"]
+    microbatch: int = 0  # 0 -> no gradient accumulation; else per-device
+                         # batch is split into chunks of this many sequences
+
+
+SHAPES: dict[str, RunShape] = {
+    "train_4k": RunShape("train_4k", 4096, 256, "train"),
+    "prefill_32k": RunShape("prefill_32k", 32768, 32, "prefill"),
+    "decode_32k": RunShape("decode_32k", 32768, 128, "decode"),
+    "long_500k": RunShape("long_500k", 524288, 1, "decode"),
+}

@@ -6,9 +6,9 @@ embeddings (RoPE and M-RoPE), token embedding, the stub frontend's input
 Parameters live in :class:`Params` modules whose parameter names are the
 reference's dict keys, so a reference pytree converts leaf by leaf
 (:func:`repro_torch.convert.lm_from_numpy`). They are created without
-gradients: the port serves (prefill and decode); training waits for its
-slice. f32 where numerically sensitive, the config's dtype elsewhere, as in
-the reference.
+gradients, for serving; :func:`set_trainable` gives every floating leaf
+one, for training. f32 where numerically sensitive, the config's dtype
+elsewhere, as in the reference.
 
 A product of two dtypes (activations from ``embeds`` in another dtype than
 the weights) is taken in the promoted dtype, as ``jnp.einsum`` takes it
@@ -51,6 +51,16 @@ class Params(nn.Module):
 
     def __contains__(self, name: str) -> bool:
         return getattr(self, name, None) is not None
+
+
+def set_trainable(module: nn.Module, on: bool = True) -> nn.Module:
+    """Every floating parameter of ``module`` (the fp32 ones too: the
+    router, ``A_log``, ``D``, ``dt_bias``) asks for a gradient, or with
+    ``on=False`` none does; returns ``module``."""
+    for p in module.parameters():
+        if p.is_floating_point():
+            p.requires_grad_(on)
+    return module
 
 
 def matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:

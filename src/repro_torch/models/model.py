@@ -4,9 +4,11 @@ encoder-decoder model (the whisper backbone). The port of
 ``repro/models/model.py``.
 
 ``init_params`` puts the model on the card unless the caller passes
-``device="cpu"``. Forward and decode run without autograd: the port
-serves; ``loss_fn`` waits for the training slice (ROADMAP Queue 1 item
-15d), ``param_specs`` and ``cache_specs`` for the mesh layer (15f). As in
+``device="cpu"``. ``forward`` and ``decode_step`` serve, without autograd;
+``loss_fn`` trains, through the same forward (``_forward``) in ``train``
+mode, with the gradient of every parameter that asks for one
+(:func:`~repro_torch.models.layers.set_trainable`). ``param_specs`` and
+``cache_specs`` wait for the mesh layer (ROADMAP Queue 1 item 15f). As in
 the reference, prefill hands no state to decode: ``decode_step`` starts
 from ``init_decode_state``'s zeroed caches, and an encoder-decoder model's
 decoder reads the encoder through the ``cross_kv`` its caller passes.
@@ -133,6 +135,12 @@ def _encoder_kv(cfg: ArchConfig, enc: torch.Tensor) -> tuple[torch.Tensor, torch
 @torch.no_grad()
 def forward(params: LM, cfg: ArchConfig, batch: dict, *, mode: str = "train",
             logits_positions: str = "all") -> tuple[torch.Tensor, torch.Tensor]:
+    """:func:`_forward` without autograd (serving)."""
+    return _forward(params, cfg, batch, mode=mode, logits_positions=logits_positions)
+
+
+def _forward(params: LM, cfg: ArchConfig, batch: dict, *, mode: str = "train",
+             logits_positions: str = "all") -> tuple[torch.Tensor, torch.Tensor]:
     """-> (logits (B, S_dec, V), moe_aux: the MoE layers' load-balancing
     losses summed, 0 without MoE); ``logits_positions="last"`` (what a
     prefill serves) gives (B, 1, V). ``batch`` carries 'tokens' (B, S) or
@@ -177,6 +185,24 @@ def forward(params: LM, cfg: ArchConfig, batch: dict, *, mode: str = "train",
     if logits_positions == "last":
         x = x[:, -1:, :]
     return lm_logits(params.embed, x, vocab_size=cfg.vocab_size), aux
+
+
+def loss_fn(params: LM, cfg: ArchConfig, batch: dict, aux_weight: float = 0.01
+            ) -> tuple[torch.Tensor, dict]:
+    """The training loss, as the reference's: the mean next-token NLL of
+    the ``train``-mode logits in fp32 (``logsumexp`` over the padded
+    vocabulary as :func:`~repro_torch.models.layers.logits` masks it, less
+    the gold logit at ``batch["labels"]``, or ``batch["dec_labels"]`` for
+    the encoder-decoder model), plus ``aux_weight`` times the MoE aux loss.
+    -> (total, {"nll", "aux"}), differentiable where the parameters are."""
+    out, aux = _forward(params, cfg, batch, mode="train")
+    labels = batch["dec_labels" if cfg.is_encdec else "labels"]
+    out = out.float()
+    logz = torch.logsumexp(out, dim=-1)
+    gold = torch.gather(out, -1, labels[..., None].long())[..., 0]
+    nll = (logz - gold).mean()
+    total = nll + aux_weight * aux
+    return total, {"nll": nll, "aux": aux}
 
 
 def init_decode_state(params: LM, cfg: ArchConfig, batch: int, max_len: int) -> dict:

@@ -1,7 +1,6 @@
 """Mamba2 SSD (state-space duality) mixer: the chunked parallel form for
-prefill, the O(1)-state recurrent form for decode. The port of
-``repro/models/ssm.py`` (its default path; the ``REPRO_SSD_LEAN`` option
-waits, ROADMAP Queue 1 item 15d).
+train and prefill, the O(1)-state recurrent form for decode. The port of
+``repro/models/ssm.py``, its ``REPRO_SSD_LEAN`` option included.
 
 Math (per head, head_dim P, state N):
     h_t = exp(Δ_t A) · h_{t-1} + Δ_t · B_t x_tᵀ      h ∈ R^{N×P}
@@ -13,10 +12,19 @@ inter-chunk output are einsums, as the reference computes them outside any
 kernel. Casts follow the reference's one by one. The kernel keeps the
 intra-chunk weights in fp32 where the reference rounds them to the model's
 dtype (``ssm.py:145``).
+
+``REPRO_SSD_LEAN=1`` (read once, at import, as in the reference) takes the
+reference's lean path: Δ folded into X once (``xc_dt``, in x's dtype), the
+chunk states and the inter-chunk output from three operands with the decay
+in x's dtype, written as products of two, and the intra-chunk term as the
+kernel on ``xc_dt`` with ``dt`` set to ones. The reference rounds the
+lean intra-chunk weights (``gmat``, ``decay``) to x's dtype; the kernel
+keeps ``G E`` in fp32 there too (``docs/PORT.md``).
 """
 
 from __future__ import annotations
 
+import os
 from typing import NamedTuple
 
 import torch
@@ -25,6 +33,9 @@ import torch.nn.functional as F
 from ..kernels.ssd_intra import ssd_intra
 from .config import ArchConfig
 from .layers import Params, dense_init
+
+#: The reference's ``_LEAN`` (``repro/models/ssm.py:34``): off by default.
+_LEAN = os.environ.get("REPRO_SSD_LEAN") == "1"
 
 
 class SSMCache(NamedTuple):
@@ -111,15 +122,29 @@ def apply_ssm(p: SSM, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
     cum = torch.cumsum(ld, dim=2)  # within-chunk cumulative log decay
 
     # ---- intra-chunk (quadratic in q): Y[i] += Σ_{j<=i} C_i·B_j decay Δ_j x_j
-    y_intra = ssd_intra(
-        cc.reshape(b * nc, q, n), bc.reshape(b * nc, q, n), cum.reshape(b * nc, q, h),
-        dtc.reshape(b * nc, q, h), xc.reshape(b * nc, q, h, pd),
-    ).reshape(b, nc, q, h, pd)
+    if _LEAN:
+        # Δ folded into X once ((B,nc,q,H,P), the size of xc); the kernel
+        # then weights by ones
+        xc_dt = (xc.float() * dtc[..., None]).to(x.dtype)
+        y_intra = ssd_intra(
+            cc.reshape(b * nc, q, n), bc.reshape(b * nc, q, n), cum.reshape(b * nc, q, h),
+            torch.ones_like(dtc).reshape(b * nc, q, h), xc_dt.reshape(b * nc, q, h, pd),
+        ).reshape(b, nc, q, h, pd)
+    else:
+        y_intra = ssd_intra(
+            cc.reshape(b * nc, q, n), bc.reshape(b * nc, q, n), cum.reshape(b * nc, q, h),
+            dtc.reshape(b * nc, q, h), xc.reshape(b * nc, q, h, pd),
+        ).reshape(b, nc, q, h, pd)
 
     # ---- chunk states: S_c = Σ_j decay_to_end_j Δ_j B_j x_jᵀ  (B,nc,H,N,P)
     decay_to_end = torch.exp(cum[:, :, -1:, :] - cum)  # (B,nc,q,H)
-    sb = bc[:, :, :, None, :] * (dtc * decay_to_end)[..., None]
-    s_c = torch.einsum("bcjhn,bcjhp->bchnp", sb.to(x.dtype), xc)
+    if _LEAN:
+        # "bcjn,bcjh,bcjhp->bchnp" with the decay in x's dtype, as two products
+        xd = decay_to_end.to(x.dtype)[..., None] * xc_dt
+        s_c = torch.einsum("bcjn,bcjhp->bchnp", bc.to(x.dtype), xd)
+    else:
+        sb = bc[:, :, :, None, :] * (dtc * decay_to_end)[..., None]
+        s_c = torch.einsum("bcjhn,bcjhp->bchnp", sb.to(x.dtype), xc)
 
     # ---- inter-chunk recurrence (a loop over chunks), carried in fp32
     total = torch.exp(cum[:, :, -1, :])  # (B, nc, H) full-chunk decay
@@ -132,8 +157,13 @@ def apply_ssm(p: SSM, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
 
     # ---- inter-chunk output: y += (C_i decay_from_start_i) · h_before
     decay_from_start = torch.exp(cum)  # (B,nc,q,H)
-    cd = cc[:, :, :, None, :] * decay_from_start[..., None]
-    y_inter = torch.einsum("bcihn,bchnp->bcihp", cd.to(x.dtype), h_before.to(x.dtype))
+    if _LEAN:
+        # "bcin,bcih,bchnp->bcihp" with the decay in x's dtype, as two products
+        ch = torch.einsum("bcin,bchnp->bcihp", cc.to(x.dtype), h_before.to(x.dtype))
+        y_inter = ch * decay_from_start.to(x.dtype)[..., None]
+    else:
+        cd = cc[:, :, :, None, :] * decay_from_start[..., None]
+        y_inter = torch.einsum("bcihn,bchnp->bcihp", cd.to(x.dtype), h_before.to(x.dtype))
 
     y = (y_intra + y_inter).reshape(b, s, h, pd)
     y = y + xh * p.D[None, None, :, None].to(x.dtype)

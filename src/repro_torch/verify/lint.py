@@ -11,7 +11,8 @@ the reference words them:
 * **RV104 mutable-default** — ``def f(x=[])`` / ``def f(x=make())``
   share one instance across calls.
 * **RV105 wallclock** — ``time.*``/``datetime.now``/``random.*`` calls
-  outside the measurement layers (``tune``, ``observe``, ``launch``) make
+  outside the measurement layers (``tune``, ``observe``, ``launch``,
+  ``training``, ``checkpoint``, ``data``, as the reference scopes it) make
   the numeric layers nondeterministic. Two files time things on purpose:
   ``engine/execute.py`` (the dispatch spans' timing) and
   ``distributed/collectives.py`` (the host seconds each collective
@@ -121,7 +122,7 @@ _PURE_FOREIGN = ("jax", "torch")
 
 #: RV105: sanctioned nondeterminism — the measurement layers, and the two
 #: files that time things on purpose.
-_WALLCLOCK_DIRS = ("tune", "observe", "launch")
+_WALLCLOCK_DIRS = ("tune", "observe", "launch", "training", "checkpoint", "data")
 _WALLCLOCK_FILES = frozenset({
     "engine/execute.py",           # the dispatch spans' timing
     "distributed/collectives.py",  # the host seconds of each collective (COUNTER)
