@@ -4,6 +4,7 @@
     python3 chip_smoke.py [--seed N]
     python3 chip_smoke.py --serve-once DIR   # phase 11's cold or warm start alone
     python3 chip_smoke.py --dist-rank R DIR  # one rank of phase 14 (phase 14 starts them)
+    python3 chip_smoke.py --mesh-rank DIR    # phase 9h alone (the main run starts it)
 
 Phases (any failure raises, and the script exits non-zero):
 
@@ -152,7 +153,24 @@ Phases (any failure raises, and the script exits non-zero):
    its two lines, ``step_15`` and ``step_20`` kept), then ``TrainLoop``
    on the smoke model with a failure injected at step 6 (one restart, step
    10, final parameters within ``LOOP_TOL`` 1e-6 of an uninterrupted run;
-   bit-equality printed). Times printed, none asserted;
+   bit-equality printed). Times printed, none asserted; phase 9h, the
+   mesh layer, in a process of its own (a world-size-1 NCCL group, a
+   ``(1, 1)`` ``("data", "model")`` CUDA mesh; one card cannot hold a
+   multi-rank NCCL mesh, and the CPU tests hold the multi-rank behaviour):
+   (a) ``mamba2-2.7b`` in bf16 at full width and depth, 2 steps of
+   ``jit_train_step`` under ``make_policy(cfg, mesh)`` on 9g's batch shape
+   against 2 steps of ``build_train_step`` from the same state (both drawn
+   from one seed), each step exactly 2 x 64 ``ssd_intra`` launches (the
+   sharded ones through ``local_map``), losses within ``MESH_TOL`` 1e-5
+   relative, ms and peak memory a step beside 9g's (the sharded state laid
+   out before its first step, the plain one dropped); (b) the elastic
+   restore on the smoke model: saved unsharded after one step, restored
+   onto the mesh with ``train_state_specs`` and stepped, the loss within
+   ``RESTORE_TOL`` 1e-6 of the unsharded continuation's; (c)
+   ``qwen2-1.5b`` in bf16, all 28 layers: a 2 x 1024 prefill through
+   ``forward`` with and without the policy, then ``MESH_DECODE`` 8 greedy
+   steps of ``jit_serve_step`` (``cache_specs``) against the unsharded
+   ``decode_step``, logits within ``MESH_TOL``, no kernel launched;
 10. the batched engine (``BATCHES``: 16 tensors of 256^3 at R = 32 in fp32
     and bf16, 64 of 96^3 at R = 16, 8 of 64^4 at R = 16): batched
     ``repro_torch.mttkrp`` in every mode with per-element and with shared
@@ -418,6 +436,16 @@ TRAIN_TIMED = 3
 LAUNCHER_ARGS = ["--arch", "mamba2-2.7b", "--smoke", "--steps", "20", "--batch", "8", "--seq",
                  "64", "--ckpt-every", "5"]
 LOOP_TOL = 1e-6
+#: Phase 9h, the mesh layer on a (1, 1) CUDA mesh: (a) the sharded train
+#: step's losses and (c) the sharded decode's logits within MESH_TOL
+#: (relative) of the unsharded runs; (b) the restored-and-stepped loss
+#: within RESTORE_TOL of the unsharded continuation's; (c) MESH_DECODE
+#: greedy steps after a MESH_PREFILL prefill. Its seed, on top of --seed.
+MESH_TOL = 1e-5
+RESTORE_TOL = 1e-6
+MESH_PREFILL = (2, 1024)
+MESH_DECODE = 8
+MESH_SEED = 4
 MOE_TOKENS = 2048
 MOE_TOL = 1e-5
 JAMBA_SSD = {"bcn": 8, "q": 256, "n": 16, "h": 128, "p": 64}
@@ -2379,6 +2407,198 @@ def train_phase(gen, smi: str) -> dict:
             "launches": launches}
 
 
+def mesh_rank(tmp: str, seed: int) -> int:
+    """Phase 9h, in a process of its own: a world-size-1 NCCL group on a
+    free local port, a ``(1, 1)`` ``("data", "model")`` CUDA mesh, then
+    (a)-(c) (counts set to 0 before each run and read after); writes
+    ``mesh.json`` into ``tmp``. The process group is closed before it
+    returns."""
+    import socket
+
+    import torch
+    import torch.distributed as dist
+    from repro_torch.checkpoint import restore_latest, save_checkpoint
+    from repro_torch.configs import get_config, get_smoke
+    from repro_torch.data import DataConfig, synthetic_batch
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.models import forward, init_decode_state, init_params
+    from repro_torch.models.sharding import distribute_tree, full, make_policy
+    from repro_torch.training import (build_serve_step, build_train_step, init_train_state,
+                                      jit_serve_step, jit_train_step, train_state_specs)
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.cuda.set_device(0)
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}", rank=0, world_size=1)
+    t_start = time.perf_counter()
+    try:
+        mesh = make_debug_mesh(1, 1, device_type="cuda")
+        kernels = counters()
+        total = dict.fromkeys(kernels, 0)
+
+        def run(fn, want):
+            """``fn()`` with the counts from 0; its launches checked against
+            ``want`` (by kernel name, the rest 0) and added to the total."""
+            _zeroed(kernels)
+            out = fn()
+            torch.cuda.synchronize()
+            got = {name: k.launches for name, k in kernels.items()}
+            expect = {name: want.get(name, 0) for name in kernels}
+            if got != expect:
+                raise AssertionError(f"phase 9h: launches {got}, expected {expect}")
+            for name in kernels:
+                total[name] += got[name]
+            return out
+
+        # (a) mamba2-2.7b at full width and depth, plain then sharded, one seed
+        cfg = get_config("mamba2-2.7b")
+        sh = make_policy(cfg, mesh)
+        batch, seq = TRAIN_BATCH
+        data = synthetic_batch(DataConfig(cfg.vocab_size, seq, batch, seed=seed + MESH_SEED), 0)
+        per_step = {"ssd_intra": 2 * cfg.n_layers}
+
+        def train(sharded: bool):
+            """Two steps from the seed's state (laid out on the mesh first,
+            the plain state dropped, where ``sharded``): ms, loss and peak
+            GB a step."""
+            state = init_train_state(
+                cfg, generator=torch.Generator(device="cuda").manual_seed(seed + MESH_SEED))
+            if sharded:
+                state = distribute_tree(state, train_state_specs(state, cfg, sh), sh)
+            step = jit_train_step(cfg, sh, state) if sharded else build_train_step(cfg)
+            times, losses, peaks = [], [], []
+            for _ in range(2):
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                t0 = time.perf_counter()
+                state, metrics = run(lambda: step(state, data), per_step)
+                times.append((time.perf_counter() - t0) * 1e3)
+                losses.append(float(metrics["loss"]))
+                peaks.append(torch.cuda.max_memory_allocated() / 1e9)
+            placed = sorted({str(tuple(p.placements)) for p in state.params.parameters()
+                             if hasattr(p, "placements")})
+            del state, step
+            torch.cuda.empty_cache()
+            return {"step_ms": times, "losses": losses, "peak_gb": peaks, "placements": placed}
+
+        plain = train(False)
+        meshed = train(True)
+        loss_err = max(abs(a - b) / abs(b) for a, b in zip(meshed["losses"], plain["losses"]))
+        a = {"arch": cfg.name, "layers": cfg.n_layers, "batch": [batch, seq],
+             "launches_per_step": per_step, "plain": plain, "sharded": meshed,
+             "max_rel_loss_err": loss_err, "limit": MESH_TOL}
+        if loss_err > MESH_TOL or not meshed["placements"]:
+            raise AssertionError(f"phase 9h (a): {json.dumps(a)}")
+
+        # (b) the elastic restore on the smoke model
+        scfg = get_smoke("mamba2-2.7b")
+        ssh = make_policy(scfg, mesh)
+        sdata = synthetic_batch(DataConfig(scfg.vocab_size, 64, 8, seed=seed + MESH_SEED), 1)
+        start = init_train_state(
+            scfg, generator=torch.Generator(device="cuda").manual_seed(seed + MESH_SEED))
+        sstep = build_train_step(scfg)
+        smoke_launches = {"ssd_intra": 2 * scfg.n_layers}
+        start, _ = run(lambda: sstep(start, sdata), smoke_launches)
+        ckpt = os.path.join(tmp, "ckpt")
+        save_checkpoint(ckpt, 1, start)
+        _, again = restore_latest(ckpt, start)
+        _, cont = run(lambda: sstep(again, sdata), smoke_launches)
+        specs = train_state_specs(start, scfg, ssh)
+        _, onto = restore_latest(ckpt, start, mesh=mesh, spec_tree=specs)
+        laid_out = all(tuple(p.placements) == ssh.placements(specs.params[k])
+                       for k, p in onto.params.named_parameters())
+        _, sharded = run(lambda: jit_train_step(scfg, ssh, onto)(onto, sdata), smoke_launches)
+        b_err = abs(float(sharded["loss"]) - float(cont["loss"])) / abs(float(cont["loss"]))
+        b = {"arch": scfg.name, "loss_unsharded": float(cont["loss"]),
+             "loss_restored_sharded": float(sharded["loss"]), "rel_err": b_err,
+             "limit": RESTORE_TOL, "laid_out": laid_out}
+        if b_err > RESTORE_TOL or not laid_out:
+            raise AssertionError(f"phase 9h (b): {json.dumps(b)}")
+        del start, again, onto
+        torch.cuda.empty_cache()
+
+        # (c) qwen2-1.5b, all layers: prefill, then greedy decode, plain and sharded
+        dcfg = get_config("qwen2-1.5b")
+        dsh = make_policy(dcfg, mesh)
+        params = init_params(dcfg, generator=torch.Generator(device="cuda").manual_seed(
+            seed + MESH_SEED))
+        pb, ps = MESH_PREFILL
+        gen = torch.Generator(device="cuda").manual_seed(seed + MESH_SEED)
+        prompt = {"tokens": torch.randint(0, dcfg.vocab_size, (pb, ps), generator=gen,
+                                          device="cuda")}
+        want, _ = run(lambda: forward(params, dcfg, prompt, mode="prefill",
+                                      logits_positions="last"), {})
+        got, _ = run(lambda: forward(params, dcfg, prompt, mode="prefill",
+                                     logits_positions="last", sh=dsh), {})
+        errs = [rel_err(full(got).float(), want.float())[0]]
+        plain_state = init_decode_state(params, dcfg, pb, ps)
+        mesh_state = init_decode_state(params, dcfg, pb, ps)
+        serve, mesh_serve = build_serve_step(dcfg), jit_serve_step(dcfg, dsh, params, mesh_state)
+        tok = want[:, -1].argmax(-1, keepdim=True)
+        times = {"plain_ms": [], "sharded_ms": []}
+        for _ in range(MESH_DECODE):
+            t0 = time.perf_counter()
+            want, plain_state = run(lambda: serve(params, plain_state, tok), {})
+            t1 = time.perf_counter()
+            got, mesh_state = run(lambda: mesh_serve(params, mesh_state, tok), {})
+            times["plain_ms"].append((t1 - t0) * 1e3)
+            times["sharded_ms"].append((time.perf_counter() - t1) * 1e3)
+            errs.append(rel_err(full(got).float(), want.float())[0])
+            tok = want[:, -1].argmax(-1, keepdim=True)
+        c = {"arch": dcfg.name, "layers": dcfg.n_layers, "prefill": [pb, ps],
+             "decode_steps": MESH_DECODE, "max_rel_err": max(errs), "rel_errs": errs,
+             "limit": MESH_TOL, **times}
+        if max(errs) > MESH_TOL or not all(math.isfinite(e) for e in errs):
+            raise AssertionError(f"phase 9h (c): {json.dumps(c)}")
+        rec = {"mesh": str(mesh), "device": torch.cuda.get_device_name(0), "train": a,
+               "restore": b, "serve": c, "launches": total,
+               "seconds": time.perf_counter() - t_start}
+    finally:
+        dist.destroy_process_group()
+    with open(os.path.join(tmp, "mesh.json"), "w") as f:
+        json.dump(rec, f)
+    return 0
+
+
+def mesh_phase(seed: int, smi: str, trained: dict) -> dict:
+    """Phase 9h: :func:`mesh_rank` in a process of its own (no process
+    group opens in this one), loading the libraries phase 2 built (no
+    ``nvcc`` on its path); its record printed with phase 9g's full-depth
+    step beside it. Returns the record and its launches."""
+    import tempfile
+
+    import torch
+
+    torch.cuda.empty_cache()  # the child takes the card: this process keeps only what it holds
+    parent_gb = torch.cuda.memory_reserved() / 1e9
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_mesh_")
+    try:
+        nvcc_dirs = {os.path.dirname(p) for p in (shutil.which("nvcc"),) if p}
+        env = {**os.environ, "NCCL_SOCKET_IFNAME": os.environ.get("NCCL_SOCKET_IFNAME", "lo"),
+               "CUDA_HOME": os.path.join(tmp, "no-nvcc"),
+               "PATH": os.pathsep.join(d for d in os.environ.get("PATH", "").split(os.pathsep)
+                                       if d not in nvcc_dirs)}
+        proc = subprocess.run([sys.executable, os.path.abspath(__file__), "--seed", str(seed),
+                               "--mesh-rank", tmp], env=env, capture_output=True, text=True,
+                              timeout=600)
+        if proc.returncode != 0:
+            raise AssertionError(f"phase 9h: exit {proc.returncode}:\n{proc.stdout[-3000:]}\n"
+                                 f"{proc.stderr[-6000:]}")
+        with open(os.path.join(tmp, "mesh.json")) as f:
+            rec = json.load(f)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    full_step = trained["records"][1]
+    rec["train"]["phase_9g"] = {"ms_per_step": full_step["ms_per_step"],
+                                "peak_gb": full_step["peak_gb"]}
+    rec["parent_reserved_gb"] = parent_gb
+    rec["gpu"] = smi
+    emit({"mesh_layer": rec})
+    return {"record": rec, "launches": rec["launches"]}
+
+
 def batched_phase(gen, smi: str) -> dict:
     """Phase 10: the batched engine, one launch a batched call, each call
     against the kernel's plain version and a loop of B unbatched calls,
@@ -4041,6 +4261,8 @@ def main() -> int:
                     help="phase 11's cold or warm start: serve one bucket, building into DIR")
     ap.add_argument("--dist-rank", nargs=2, metavar=("RANK", "DIR"), default=None,
                     help="one rank of phase 14, on DIR's file store")
+    ap.add_argument("--mesh-rank", metavar="DIR", default=None,
+                    help="phase 9h in a process of its own, writing DIR/mesh.json")
     args = ap.parse_args()
 
     import torch
@@ -4052,6 +4274,8 @@ def main() -> int:
         return serve_once(args.serve_once)
     if args.dist_rank is not None:
         return dist_rank(int(args.dist_rank[0]), args.dist_rank[1], args.seed)
+    if args.mesh_rank is not None:
+        return mesh_rank(args.mesh_rank, args.seed)
     from repro_torch.kernels import build
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -4110,6 +4334,7 @@ def main() -> int:
     # and so does phase 9g, the training path
     trained = phase("9g", train_phase, torch.Generator(device="cuda").manual_seed(args.seed + 3),
                     smi)
+    meshed = phase("9h", mesh_phase, args.seed, smi, trained)
     batched = phase("10", batched_phase, gen, smi)
     served = phase("11", serve_phase, gen, smi)
     tuned = phase("12", tune_phase, gen, smi)
@@ -4118,7 +4343,8 @@ def main() -> int:
     phase("15a", verify_phase, smi)
     phase("15b-15d", walk_phase, smi)
     for counted in (matrix["launches"], tucker["launches"], mamba["launches"],
-                    moe_models["launches"], trained["launches"], batched["launches"],
+                    moe_models["launches"], trained["launches"], meshed["launches"],
+                    batched["launches"],
                     served["launches"], tuned["launches"],
                     observed["launches"], distributed["launches"]):
         for name, n in counted.items():

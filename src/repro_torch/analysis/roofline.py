@@ -18,8 +18,8 @@ at the peak rate of the type they run in, whichever is larger.
 :func:`mma_bound` counts the MTTKRP kernel's products as the tensor cores
 run them, :func:`ssd_bound` the intra-chunk SSD term's. ``chip_smoke.py``
 and the probes in ``scripts/`` take every ``bound_ms`` from here.
-``roofline_from_record`` waits for ``launch/dryrun.py`` (ROADMAP Queue 1
-item 15f).
+``roofline_from_record`` waits for ``launch/dryrun.py``, the dry run (ROADMAP Queue 1
+item 15g).
 """
 
 from __future__ import annotations

@@ -18,8 +18,16 @@ reference's on-disk format, so either package reads what the other wrote:
 A state is serialized by flattening it with path strings, as the
 reference flattens its pytrees: a mapping's keys, a named tuple's field
 names, a sequence's indices, and a module's parameter names split at the
-dots; None holds nothing. The reference's elastic restore (``mesh=``,
-``spec_tree=``) waits for the mesh layer.
+dots; None holds nothing.
+
+**Elastic restore**: :func:`restore_latest` with ``mesh=`` and
+``spec_tree=`` lays each restored leaf out on ``mesh`` by its spec
+(``distribute_tensor``), whatever mesh saved it. A state of DTensors is
+saved as its whole arrays, the files the same as an unsharded save's, so
+checkpoints stay mesh-agnostic. Every rank gathers (``full_tensor()``) on
+the calling thread, before the writer thread starts (a collective there
+would deadlock), and only rank 0 writes; a restore on a mesh waits at a
+barrier until rank 0's write is done.
 """
 
 from __future__ import annotations
@@ -34,7 +42,10 @@ from typing import Any, Mapping
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from torch import nn
+
+from ..models.sharding import Sharding, full
 
 
 # --------------------------------------------------------------------------
@@ -61,9 +72,37 @@ def _flatten(tree, prefix: tuple[str, ...] = ()) -> dict[str, Any]:
     return flat
 
 
+def _flat_specs(template, specs, prefix: tuple[str, ...] = ()) -> dict[str, tuple]:
+    """``specs`` (the structure of ``template``, a spec at each tensor leaf
+    and, for a module, a mapping by parameter name) by the keys
+    :func:`_flatten` gives ``template``'s leaves."""
+    if template is None or specs is None:
+        return {}
+    if isinstance(template, nn.Module):
+        return {"/".join(prefix + tuple(name.split("."))): specs[name]
+                for name, _ in template.named_parameters()}
+    if isinstance(template, Mapping):
+        items = ((str(k), v, specs[k]) for k, v in template.items())
+    elif isinstance(template, tuple) and hasattr(template, "_fields"):
+        items = zip(template._fields, template, specs)
+    elif isinstance(template, (list, tuple)):
+        items = ((str(i), v, s) for i, (v, s) in enumerate(zip(template, specs)))
+    else:
+        return {"/".join(prefix): specs}
+    flat: dict[str, tuple] = {}
+    for k, v, s in items:
+        flat.update(_flat_specs(v, s, prefix + (k,)))
+    return flat
+
+
 def _leaf(template, array: torch.Tensor) -> torch.Tensor:
-    """A restored leaf, on the template's device where it is a tensor."""
-    return array.to(template.device) if isinstance(template, torch.Tensor) else array
+    """A restored leaf, on the template's device where it is a tensor (a
+    leaf already laid out on a mesh stays there)."""
+    from torch.distributed.tensor import DTensor
+
+    if isinstance(template, torch.Tensor) and not isinstance(array, DTensor):
+        return array.to(template.device)
+    return array
 
 
 def _unflatten_into(template, flat: Mapping[str, torch.Tensor], prefix: tuple[str, ...] = ()):
@@ -107,10 +146,17 @@ def _is_bf16(leaf) -> bool:
 
 
 def _host_copy(leaf):
-    """A copy in host memory that no later in-place update reaches."""
+    """A copy in host memory that no later in-place update reaches; a
+    DTensor's whole value (gathered: every rank calls this)."""
     if isinstance(leaf, torch.Tensor):
-        return leaf.detach().to("cpu", copy=True)
+        return full(leaf.detach()).to("cpu", copy=True)
     return np.array(leaf, copy=True)
+
+
+def _writer() -> bool:
+    """Whether this process writes: rank 0 of a process group, or a
+    process without one."""
+    return not dist.is_initialized() or dist.get_rank() == 0
 
 
 # --------------------------------------------------------------------------
@@ -161,9 +207,12 @@ def _write(directory: str, step: int, flat: dict[str, Any], extra: dict | None) 
     return final
 
 
-def save_checkpoint(directory: str, step: int, tree, extra: dict | None = None) -> str:
-    """Synchronous atomic save of a state at ``step``."""
-    return _write(directory, step, _flatten(tree), extra)
+def save_checkpoint(directory: str, step: int, tree, extra: dict | None = None) -> str | None:
+    """Synchronous atomic save of a state at ``step`` (its DTensors
+    gathered on every rank, written by rank 0 alone: the path it wrote, or
+    None on the other ranks)."""
+    host = {k: _host_copy(v) for k, v in _flatten(tree).items()}
+    return _write(directory, step, host, extra) if _writer() else None
 
 
 def list_steps(directory: str) -> list[int]:
@@ -179,11 +228,14 @@ def list_steps(directory: str) -> list[int]:
     return sorted(out)
 
 
-def restore_latest(directory: str, template, step: int | None = None):
+def restore_latest(directory: str, template, mesh=None, spec_tree=None,
+                   step: int | None = None):
     """Restore into ``template``'s structure (each tensor on its template
     leaf's device, in the dtype it was saved in; a module as a copy of the
-    template holding the restored parameters). Returns (step, tree), or
-    (None, None) when no checkpoint exists."""
+    template holding the restored parameters), re-laid-out onto ``mesh``
+    per ``spec_tree`` (elastic: the mesh need not match the saving mesh;
+    a leaf with a spec becomes a DTensor on ``mesh``'s device). Returns
+    (step, tree), or (None, None) when no checkpoint exists."""
     steps = list_steps(directory)
     if not steps:
         return None, None
@@ -198,6 +250,10 @@ def restore_latest(directory: str, template, step: int | None = None):
     bf16 = set(manifest.get("bf16_keys", []))
     flat = {k: (torch.from_numpy(a.view(np.int16)).view(torch.bfloat16) if k in bf16
                 else torch.from_numpy(a)) for k, a in arrays.items()}
+    if mesh is not None:
+        sh = Sharding(mesh=mesh)
+        for k, spec in _flat_specs(template, spec_tree).items():
+            flat[k] = sh.place(flat[k].to(mesh.device_type), spec)
     return manifest["step"], _unflatten_into(template, flat)
 
 
@@ -216,9 +272,13 @@ class CheckpointManager:
             self._thread = None
 
     def save_async(self, step: int, tree, extra: dict | None = None):
-        """Snapshot to host now; write + GC on a background thread."""
+        """Snapshot to host now (DTensors gathered here, on the calling
+        thread, by every rank); write + GC on a background thread, on rank
+        0 alone."""
         self.wait()
         host = {k: _host_copy(v) for k, v in _flatten(tree).items()}
+        if not _writer():
+            return
 
         def work():
             _write(self.directory, step, host, extra)
@@ -229,9 +289,9 @@ class CheckpointManager:
         self._thread.start()
 
     def save(self, step: int, tree, extra: dict | None = None):
-        save_checkpoint(self.directory, step, tree, extra)
-        self.saved_steps = list_steps(self.directory)
-        self._gc()
+        if save_checkpoint(self.directory, step, tree, extra) is not None:
+            self.saved_steps = list_steps(self.directory)
+            self._gc()
 
     def _gc(self):
         steps = list_steps(self.directory)
@@ -242,6 +302,11 @@ class CheckpointManager:
             )
         self.saved_steps = list_steps(self.directory)
 
-    def restore_latest(self, template):
+    def restore_latest(self, template, mesh=None, spec_tree=None):
+        """The latest checkpoint, laid out on ``mesh`` by ``spec_tree`` if
+        given; on a mesh every rank first waits until rank 0's write is
+        done."""
         self.wait()
-        return restore_latest(self.directory, template)
+        if mesh is not None and dist.is_initialized():
+            dist.barrier()
+        return restore_latest(self.directory, template, mesh=mesh, spec_tree=spec_tree)

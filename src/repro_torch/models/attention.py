@@ -1,7 +1,15 @@
 """GQA attention: train/prefill (full causal), cross-attention on an
 encoder's states (``kv_override``), and single-token decode with a KV
-cache. The port of ``repro/models/attention.py`` without its sharding
-policies (the mesh layer waits for ROADMAP Queue 1 item 15f).
+cache. The port of ``repro/models/attention.py``, with its two sharding
+policies (``sh``, :mod:`repro_torch.models.sharding`):
+
+  head_tp  — q/kv heads sharded over 'tp' (kv replicated when
+             n_kv_heads < tp, the standard Megatron GQA treatment);
+  context  — heads intact, *sequence* sharded over 'tp' for the attention
+             math (context parallelism) — used when n_heads % tp != 0.
+
+Decode KV caches are sharded over the sequence axis ('sp') by default
+(:func:`cache_spec`).
 
 The numerics follow the reference's casts one by one: Q, K and V in the
 activations' dtype, scores scaled in it and then taken to fp32, the causal
@@ -18,17 +26,21 @@ port projects Q alone (``docs/PORT.md``).
 The decode cache is written in place (``index_copy_`` at ``length``; the
 port serves without autograd), where the reference returns new arrays: the
 caches of the state a step was given are the caches of the state it
-returns (``docs/PORT.md``).
+returns (``docs/PORT.md``). Under a mesh the cache is updated out of
+place (a select at ``length``) and laid out by :func:`cache_spec`, as the
+reference's ``dynamic_update_slice`` and constraint update it.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple
 
 import torch
 
 from .config import ArchConfig
 from .layers import Params, apply_rope, dense_init, einsum, matmul
+from .sharding import NULL, Sharding, local_map
 
 #: The score a masked position gets, as in the reference.
 MASKED = -1e30
@@ -63,28 +75,59 @@ def init_attn(gen: torch.Generator, cfg: ArchConfig, dtype, device="cuda") -> At
     return Attention(p)
 
 
+def _proj_spec(sh: Sharding, heads: int):
+    """Weight spec for (d, H, hd) projections under the active policy."""
+    if sh.attn == "head_tp" and heads % max(sh.tp_size, 1) == 0:
+        return ("fsdp", "tp", None)
+    return (("fsdp", "tp"), None, None)  # context: fully FSDP, heads intact
+
+
+def _wo_spec(sh: Sharding, cfg: ArchConfig):
+    """Weight spec for the (H, hd, d) output projection."""
+    if sh.attn == "head_tp" and cfg.n_heads % max(sh.tp_size, 1) == 0:
+        return ("tp", None, "fsdp")
+    return (None, None, ("fsdp", "tp"))
+
+
+def _act_specs(sh: Sharding, cfg: ArchConfig):
+    """(q_spec, kv_spec) activation constraints for (B, S, H, hd)."""
+    if sh.attn == "head_tp":
+        q_spec = ("dp", None, "tp", None)
+        kv_spec = (
+            ("dp", None, "tp", None)
+            if cfg.n_kv_heads % max(sh.tp_size, 1) == 0
+            else ("dp", None, None, None)  # kv replicated across tp
+        )
+    else:  # context parallel: shard the sequence
+        q_spec = ("dp", "sp", None, None)
+        kv_spec = ("dp", None, None, None)
+    return q_spec, kv_spec
+
+
 def _proj(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """``einsum("bsd,dhk->bshk")`` as one matmul."""
     d, h, k = w.shape
     return matmul(x, w.reshape(d, h * k)).unflatten(-1, (h, k))
 
 
-def _q(p: Attention, cfg: ArchConfig, x: torch.Tensor) -> torch.Tensor:
-    q = _proj(x, p.wq)
+def _q(p: Attention, cfg: ArchConfig, x: torch.Tensor, sh: Sharding) -> torch.Tensor:
+    q = _proj(x, sh.constrain(p.wq, *_proj_spec(sh, cfg.n_heads)))
     return q + p.bq if cfg.qkv_bias else q
 
 
-def _qkv(p: Attention, cfg: ArchConfig, x: torch.Tensor):
-    k, v = _proj(x, p.wk), _proj(x, p.wv)
+def _qkv(p: Attention, cfg: ArchConfig, x: torch.Tensor, sh: Sharding):
+    kv = _proj_spec(sh, cfg.n_kv_heads)
+    k, v = _proj(x, sh.constrain(p.wk, *kv)), _proj(x, sh.constrain(p.wv, *kv))
     if cfg.qkv_bias:
         k = k + p.bk
         v = v + p.bv
-    return _q(p, cfg, x), k, v
+    return _q(p, cfg, x, sh), k, v
 
 
-def _out(out: torch.Tensor, wo: torch.Tensor) -> torch.Tensor:
+def _out(out: torch.Tensor, wo: torch.Tensor, cfg: ArchConfig, sh: Sharding) -> torch.Tensor:
     """``einsum("bshk,hkd->bsd")`` as one matmul."""
-    return matmul(out.flatten(-2), wo.reshape(-1, wo.shape[-1]))
+    wo = sh.constrain(wo, *_wo_spec(sh, cfg))
+    return sh.constrain(matmul(out.flatten(-2), wo.reshape(-1, wo.shape[-1])), "dp", None, None)
 
 
 def _groups(cfg: ArchConfig) -> int:
@@ -93,32 +136,51 @@ def _groups(cfg: ArchConfig) -> int:
 
 def attention(p: Attention, x: torch.Tensor, cfg: ArchConfig, positions: torch.Tensor | None,
               *, causal: bool = True,
-              kv_override: tuple[torch.Tensor, torch.Tensor] | None = None) -> torch.Tensor:
+              kv_override: tuple[torch.Tensor, torch.Tensor] | None = None,
+              sh: Sharding = NULL) -> torch.Tensor:
     """Full (train) attention. x: (B, S, D) -> (B, S, D).
 
     ``kv_override`` supplies an encoder's K and V, (B, S_enc, n_kv, hd), for
     cross-attention: no RoPE, no mask (``positions`` and ``causal`` are not
     read)."""
     if kv_override is not None:
-        q = _q(p, cfg, x)
+        q = _q(p, cfg, x, sh)
         k, v = kv_override
         causal = False
     else:
-        q, k, v = _qkv(p, cfg, x)
+        q, k, v = _qkv(p, cfg, x, sh)
         q = apply_rope(q, positions, cfg.rope_theta, cfg.mrope)
         k = apply_rope(k, positions, cfg.rope_theta, cfg.mrope)
+    q_spec, kv_spec = _act_specs(sh, cfg)
+    q, k, v = sh.constrain(q, *q_spec), sh.constrain(k, *kv_spec), sh.constrain(v, *kv_spec)
     groups = _groups(cfg)
     if groups > 1:
-        k = k.repeat_interleave(groups, dim=2)
-        v = v.repeat_interleave(groups, dim=2)
-    scale = cfg.hd ** -0.5
+        k = sh.constrain(k.repeat_interleave(groups, dim=2), *q_spec)
+        v = sh.constrain(v.repeat_interleave(groups, dim=2), *q_spec)
+    core = functools.partial(_core, scale=cfg.hd ** -0.5, dtype=x.dtype)
+    args = (q, k, v) + ((positions,) if causal else ())
+    out = local_map(sh, core, _core_specs(sh, q_spec)[:len(args)], 0)(*args)
+    return _out(out, p.wo, cfg, sh)
+
+
+def _core_specs(sh: Sharding, q_spec) -> tuple:
+    """The specs of (q, k, v, positions) for attention's core on local
+    shards: each rank's batch rows and heads (head_tp), or its query
+    positions (context), K and V whole there."""
+    kv_core = q_spec if sh.attn == "head_tp" else ("dp", None, None, None)
+    return tuple(sh.spec(*d) for d in (q_spec, kv_core, kv_core, q_spec[:2]))
+
+
+def _core(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, positions: torch.Tensor | None = None,
+          *, scale: float, dtype: torch.dtype) -> torch.Tensor:
+    """Softmax attention of q (B, Sq, H, hd) on k and v (B, Sk, H, hd),
+    causal by ``positions`` (B, Sq) where given: (B, Sq, H, hd)."""
     scores = (einsum("bqhk,bshk->bhqs", q, k) * scale).float()
-    if causal:
-        mask = positions[:, None, :, None] >= torch.arange(k.shape[1], device=x.device)
+    if positions is not None:
+        mask = positions[:, None, :, None] >= torch.arange(k.shape[1], device=q.device)
         scores = torch.where(mask, scores, MASKED)
-    probs = torch.softmax(scores, dim=-1).to(x.dtype)
-    out = einsum("bhqs,bshk->bqhk", probs, v)
-    return _out(out, p.wo)
+    probs = torch.softmax(scores, dim=-1).to(dtype)
+    return einsum("bhqs,bshk->bqhk", probs, v)
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, positions: torch.Tensor,
@@ -127,10 +189,11 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, positions
     """Double-blocked streaming-softmax attention, for long prefills: score
     blocks of (B, H, q_chunk, kv_chunk) instead of (B, H, S, S). q: (B, Sq,
     H, hd); k/v: (B, Sk, n_kv, hd). Every block is computed, as the
-    reference's scans compute it: a fully masked one adds exactly zero."""
+    reference's scans compute it: a fully masked one adds exactly zero.
+    Query head ``h`` reads kv head ``h // (H / k's heads)``."""
     b, sq, h, hd = q.shape
     sk = k.shape[1]
-    groups = h // max(cfg.n_kv_heads, 1)
+    groups = h // k.shape[2]
     scale = hd ** -0.5
     q_chunk, kv_chunk = min(q_chunk, sq), min(kv_chunk, sk)
     if sq % q_chunk or sk % kv_chunk:
@@ -168,14 +231,26 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, positions
 
 
 def attention_prefill(p: Attention, x: torch.Tensor, cfg: ArchConfig, positions: torch.Tensor,
-                      *, q_chunk: int = 1024, kv_chunk: int = 1024
+                      *, q_chunk: int = 1024, kv_chunk: int = 1024, sh: Sharding = NULL
                       ) -> tuple[torch.Tensor, tuple[torch.Tensor, torch.Tensor]]:
     """Prefill: flash attention; returns (output, (k, v)) for a cache fill."""
-    q, k, v = _qkv(p, cfg, x)
+    q, k, v = _qkv(p, cfg, x, sh)
     q = apply_rope(q, positions, cfg.rope_theta, cfg.mrope)
     k = apply_rope(k, positions, cfg.rope_theta, cfg.mrope)
-    out = flash_attention(q, k, v, positions, cfg, q_chunk=q_chunk, kv_chunk=kv_chunk)
-    return _out(out, p.wo), (k, v)
+    q_spec, kv_spec = _act_specs(sh, cfg)
+    q, k, v = sh.constrain(q, *q_spec), sh.constrain(k, *kv_spec), sh.constrain(v, *kv_spec)
+    flash = functools.partial(flash_attention, cfg=cfg, q_chunk=q_chunk, kv_chunk=kv_chunk)
+    if sh.mesh is None:
+        return _out(flash(q, k, v, positions), p.wo, cfg, sh), (k, v)
+    # on local shards, K and V expanded to the query's heads first so that
+    # a rank's heads find theirs
+    groups = _groups(cfg)
+    ke, ve = k, v
+    if groups > 1:
+        ke = sh.constrain(k.repeat_interleave(groups, dim=2), *q_spec)
+        ve = sh.constrain(v.repeat_interleave(groups, dim=2), *q_spec)
+    out = local_map(sh, flash, _core_specs(sh, q_spec), 0)(q, ke, ve, positions)
+    return _out(out, p.wo, cfg, sh), (k, v)
 
 
 def init_cache(cfg: ArchConfig, batch: int, max_len: int, dtype, device="cuda") -> KVCache:
@@ -187,8 +262,16 @@ def init_cache(cfg: ArchConfig, batch: int, max_len: int, dtype, device="cuda") 
     )
 
 
-def attention_decode(p: Attention, x: torch.Tensor, cache: KVCache, cfg: ArchConfig
-                     ) -> tuple[torch.Tensor, KVCache]:
+def cache_spec(cfg: ArchConfig, sh: Sharding):
+    """KV cache sharding: sequence-sharded ('sp') by default — the flash-
+    decoding layout — falling back to head sharding when configured."""
+    if sh.decode_cache == "heads" and cfg.n_kv_heads % max(sh.tp_size, 1) == 0:
+        return ("dp", None, "tp", None)
+    return ("dp", "sp", None, None)
+
+
+def attention_decode(p: Attention, x: torch.Tensor, cache: KVCache, cfg: ArchConfig, *,
+                     sh: Sharding = NULL) -> tuple[torch.Tensor, KVCache]:
     """One-token decode. x: (B, 1, D); the cache holds ``length`` valid
     entries. The new K/V is written at ``length`` (in place); attention runs
     over the whole cache with positions after ``length`` masked. No host
@@ -197,18 +280,38 @@ def attention_decode(p: Attention, x: torch.Tensor, cache: KVCache, cfg: ArchCon
     if one != 1:
         raise ValueError(f"attention_decode takes one token a sequence, got {one}")
     pos = cache.length.expand(b, 1)
-    q, k_new, v_new = _qkv(p, cfg, x)
+    q, k_new, v_new = _qkv(p, cfg, x, sh)
     q = apply_rope(q, pos, cfg.rope_theta, cfg.mrope)
     k_new = apply_rope(k_new, pos, cfg.rope_theta, cfg.mrope)
     at = cache.length.view(1).long()
-    ck = cache.k.index_copy_(1, at, k_new.to(cache.k.dtype))
-    cv = cache.v.index_copy_(1, at, v_new.to(cache.v.dtype))
-    groups = _groups(cfg)
-    qg = q.reshape(b, 1, cfg.n_kv_heads, groups, cfg.hd)
-    scale = cfg.hd ** -0.5
+    if sh.mesh is None:
+        ck = cache.k.index_copy_(1, at, k_new.to(cache.k.dtype))
+        cv = cache.v.index_copy_(1, at, v_new.to(cache.v.dtype))
+    else:
+        # out of place, as a select at ``length``: DTensor's sharding rules
+        # do not cover index_copy in every PyTorch release
+        spec = cache_spec(cfg, sh)
+        at_length = torch.arange(cache.k.shape[1], device=x.device)[:, None, None] == cache.length
+        ck = sh.constrain(torch.where(at_length, k_new.to(cache.k.dtype), cache.k), *spec)
+        cv = sh.constrain(torch.where(at_length, v_new.to(cache.v.dtype), cache.v), *spec)
+    # each rank's batch rows over the whole cache (gathered over sp)
+    core = functools.partial(_decode_core, groups=_groups(cfg), scale=cfg.hd ** -0.5,
+                             dtype=x.dtype)
+    rows = sh.spec("dp", None, None, None)
+    out = local_map(sh, core, (rows, rows, rows, ()), 0)(q, ck, cv, cache.length)
+    y = sh.constrain(matmul(out.flatten(-2), p.wo.reshape(-1, p.wo.shape[-1])), "dp", None, None)
+    return y, KVCache(ck, cv, cache.length + 1)
+
+
+def _decode_core(q: torch.Tensor, ck: torch.Tensor, cv: torch.Tensor, length: torch.Tensor, *,
+                 groups: int, scale: float, dtype: torch.dtype) -> torch.Tensor:
+    """One query position's attention (q: (B, 1, H, hd)) over the cache's
+    positions up to ``length``: (B, 1, H, hd); q head ``h`` reads kv head
+    ``h // groups``."""
+    b, _, kv, hd = q.shape[0], q.shape[1], ck.shape[2], q.shape[3]
+    qg = q.reshape(b, 1, kv, groups, hd)
     scores = (einsum("bqhgk,bshk->bhgqs", qg, ck) * scale).float()
-    valid = torch.arange(ck.shape[1], device=x.device) <= cache.length
+    valid = torch.arange(ck.shape[1], device=q.device) <= length
     scores = torch.where(valid, scores, MASKED)
-    probs = torch.softmax(scores, dim=-1).to(x.dtype)
-    out = einsum("bhgqs,bshk->bqhgk", probs, cv).reshape(b, 1, cfg.n_heads, cfg.hd)
-    return _out(out, p.wo), KVCache(ck, cv, cache.length + 1)
+    probs = torch.softmax(scores, dim=-1).to(dtype)
+    return einsum("bhgqs,bshk->bqhgk", probs, cv).reshape(b, 1, kv * groups, hd)

@@ -7,7 +7,10 @@ The reference stacks each period position's parameters over the layer
 groups and drives them with ``lax.scan`` (and remat); the port holds one
 :class:`Layer` module per layer in an ``nn.ModuleList`` and runs a plain
 loop over the same groups of ``cfg.block_period`` layers, each group
-checkpointed as the reference's scan body is (:func:`_remat`).
+checkpointed as the reference's scan body is (:func:`_remat`). Every
+function takes the sharding policy as the keyword ``sh``; a group's output
+is laid out over ('dp', 'sp' under ``sp_activations``), as the
+reference's scan carry is.
 """
 
 from __future__ import annotations
@@ -34,6 +37,7 @@ from .attention import (
 from .config import ArchConfig
 from .layers import MLP, Norm, apply_mlp, apply_norm, init_mlp, init_norm
 from .moe import MoE, apply_moe, init_moe
+from .sharding import NULL, Sharding
 from .ssm import SSM, SSMCache, apply_ssm, apply_ssm_decode, init_ssm, init_ssm_cache
 
 
@@ -96,25 +100,32 @@ def check_cross(p: Layer, cfg: ArchConfig, layer: int) -> None:
 
 
 def _apply_cross(p: Layer, x: torch.Tensor, cfg: ArchConfig,
-                 cross_kv: tuple[torch.Tensor, torch.Tensor]) -> torch.Tensor:
+                 cross_kv: tuple[torch.Tensor, torch.Tensor], sh: Sharding) -> torch.Tensor:
     """x plus cross-attention on ``norm_x(x)`` against the encoder's K/V
     (unroped and unmasked: no positions)."""
-    hx = apply_norm(p.norm_x, x)
-    return x + attention(p.xattn, hx, cfg, None, kv_override=cross_kv)
+    hx = _normed(p.norm_x, x, sh)
+    return x + attention(p.xattn, hx, cfg, None, kv_override=cross_kv, sh=sh)
 
 
-def _apply_ffn(p: Layer, x: torch.Tensor, cfg: ArchConfig, layer: int
+def _normed(norm: Norm, x: torch.Tensor, sh: Sharding) -> torch.Tensor:
+    """``norm(x)`` with its sequence whole (the all-gather at the
+    Megatron-SP boundary, under ``sp_activations``), as the projections
+    that read it flatten (batch, sequence)."""
+    return sh.constrain(apply_norm(norm, x), "dp", None, None)
+
+
+def _apply_ffn(p: Layer, x: torch.Tensor, cfg: ArchConfig, layer: int, sh: Sharding
                ) -> tuple[torch.Tensor, torch.Tensor | None]:
     """x plus the layer's FFN on ``norm2(x)``, and the MoE's aux loss (None
     without an MoE)."""
     ffn = check_ffn(p, cfg, layer)
     if not ffn:
         return x, None
-    h = apply_norm(p.norm2, x)
+    h = _normed(p.norm2, x, sh)
     if ffn == "moe":
-        f, aux = apply_moe(p.moe, h, cfg)
+        f, aux = apply_moe(p.moe, h, cfg, sh=sh)
         return x + f, aux
-    return x + apply_mlp(p.mlp, h, cfg), None
+    return x + apply_mlp(p.mlp, h, cfg, sh=sh), None
 
 
 def init_layer(gen: torch.Generator, cfg: ArchConfig, layer: int, dtype, device="cuda",
@@ -135,7 +146,7 @@ def init_layer(gen: torch.Generator, cfg: ArchConfig, layer: int, dtype, device=
 
 def apply_layer(p: Layer, x: torch.Tensor, cfg: ArchConfig, layer: int, positions: torch.Tensor,
                 *, mode: str = "train", causal: bool = True,
-                cross_kv: tuple[torch.Tensor, torch.Tensor] | None = None
+                cross_kv: tuple[torch.Tensor, torch.Tensor] | None = None, sh: Sharding = NULL
                 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Returns (x_out, moe_aux_loss); with no MoE FFN the aux loss is 0.
     ``mode="prefill"`` runs attention as :func:`flash_attention`, causal
@@ -144,18 +155,18 @@ def apply_layer(p: Layer, x: torch.Tensor, cfg: ArchConfig, layer: int, position
     the mixer."""
     if cross_kv is not None:
         check_cross(p, cfg, layer)
-    h = apply_norm(p.norm1, x)
+    h = _normed(p.norm1, x, sh)
     if p.attn is not None:
         if mode == "prefill":
-            a, _ = attention_prefill(p.attn, h, cfg, positions)
+            a, _ = attention_prefill(p.attn, h, cfg, positions, sh=sh)
         else:
-            a = attention(p.attn, h, cfg, positions, causal=causal)
+            a = attention(p.attn, h, cfg, positions, causal=causal, sh=sh)
     else:
-        a = apply_ssm(p.ssm, h, cfg)
+        a = apply_ssm(p.ssm, h, cfg, sh=sh)
     x = x + a
     if cross_kv is not None:
-        x = _apply_cross(p, x, cfg, cross_kv)
-    x, aux = _apply_ffn(p, x, cfg, layer)
+        x = _apply_cross(p, x, cfg, cross_kv, sh)
+    x, aux = _apply_ffn(p, x, cfg, layer, sh)
     return x, torch.zeros((), dtype=torch.float32, device=x.device) if aux is None else aux
 
 
@@ -196,7 +207,7 @@ def _remat(fn, cfg: ArchConfig):
 
 def apply_stack(stack: nn.ModuleList, x: torch.Tensor, cfg: ArchConfig, positions: torch.Tensor,
                 *, mode: str = "train", causal: bool = True,
-                cross_kv: tuple[torch.Tensor, torch.Tensor] | None = None
+                cross_kv: tuple[torch.Tensor, torch.Tensor] | None = None, sh: Sharding = NULL
                 ) -> tuple[torch.Tensor, torch.Tensor]:
     """The layers in order, a group of ``cfg.block_period`` layers at a
     time, each group under :func:`_remat`. Returns (x, total_moe_aux)."""
@@ -206,9 +217,9 @@ def apply_stack(stack: nn.ModuleList, x: torch.Tensor, cfg: ArchConfig, position
         aux = torch.zeros((), dtype=torch.float32, device=h.device)
         for layer in range(first, min(first + period, len(stack))):
             h, a = apply_layer(stack[layer], h, cfg, layer, positions, mode=mode, causal=causal,
-                               cross_kv=cross_kv)
+                               cross_kv=cross_kv, sh=sh)
             aux = aux + a
-        return h, aux
+        return sh.constrain(h, "dp", "sp" if sh.sp_activations else None, None), aux
 
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for first in range(0, len(stack), period):
@@ -234,8 +245,8 @@ def init_stack_cache(stack: nn.ModuleList, cfg: ArchConfig, batch: int, max_len:
 
 
 def apply_stack_decode(stack: nn.ModuleList, caches: list, x: torch.Tensor, cfg: ArchConfig,
-                       cross_kv: tuple[torch.Tensor, torch.Tensor] | None = None
-                       ) -> tuple[torch.Tensor, list]:
+                       cross_kv: tuple[torch.Tensor, torch.Tensor] | None = None, *,
+                       sh: Sharding = NULL) -> tuple[torch.Tensor, list]:
     """One-token decode through the stack. x: (B, 1, D). An MoE layer's
     aux loss is discarded, as in the reference. Cross-attention runs where
     ``cross_kv`` is given and the layer holds it; without ``cross_kv`` it
@@ -244,12 +255,12 @@ def apply_stack_decode(stack: nn.ModuleList, caches: list, x: torch.Tensor, cfg:
     for layer, (p, cache) in enumerate(zip(stack, caches)):
         h = apply_norm(p.norm1, x)
         if p.attn is not None:
-            a, cache = attention_decode(p.attn, h, cache, cfg)
+            a, cache = attention_decode(p.attn, h, cache, cfg, sh=sh)
         else:
-            a, cache = apply_ssm_decode(p.ssm, h, cache, cfg)
+            a, cache = apply_ssm_decode(p.ssm, h, cache, cfg, sh=sh)
         x = x + a
         if cross_kv is not None and p.xattn is not None:
-            x = _apply_cross(p, x, cfg, cross_kv)
-        x, _ = _apply_ffn(p, x, cfg, layer)
+            x = _apply_cross(p, x, cfg, cross_kv, sh)
+        x, _ = _apply_ffn(p, x, cfg, layer, sh)
         new_caches.append(cache)
     return x, new_caches

@@ -25,6 +25,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from .config import ArchConfig
+from .sharding import NULL, Sharding, local_map
 
 
 class Params(nn.Module):
@@ -180,26 +181,36 @@ def init_embedding(gen: torch.Generator, cfg: ArchConfig, dtype, device="cuda") 
     return Embedding(p)
 
 
-def embed_tokens(p: Embedding, ids: torch.Tensor) -> torch.Tensor:
-    return p.table[ids]
+def _take(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+    return table[ids]
 
 
-def embed_vectors(x: torch.Tensor) -> torch.Tensor:
+def embed_tokens(p: Embedding, ids: torch.Tensor, *, sh: Sharding = NULL) -> torch.Tensor:
+    """The rows of the token table. Under a mesh each rank gathers its
+    batch rows from the whole table (``local_map``): DTensor's rule for the
+    gather's backward (``index_put``) fails in some PyTorch releases."""
+    rows = local_map(sh, _take, ((None, None), sh.spec("dp", None)), 1)(p.table, ids)
+    return sh.constrain(rows, "dp", None, None)
+
+
+def embed_vectors(x: torch.Tensor, *, sh: Sharding = NULL) -> torch.Tensor:
     """The stub frontend's path: the inputs are already (B, S, D)
     embeddings (precomputed patch or frame embeddings), taken as they are,
     in their own dtype."""
-    return x
+    return sh.constrain(x, "dp", None, None)
 
 
-def logits(p: Embedding, x: torch.Tensor, vocab_size: int | None = None) -> torch.Tensor:
+def logits(p: Embedding, x: torch.Tensor, vocab_size: int | None = None, *,
+           sh: Sharding = NULL) -> torch.Tensor:
     head = p.head if "head" in p else p.table.T
+    head = sh.constrain(head, "fsdp", "tp")
     out = matmul(x, head)
     v_pad = head.shape[-1]
     if vocab_size is not None and vocab_size < v_pad:
         # mask padded vocab rows so softmax/argmax never see them
         mask = torch.arange(v_pad, device=out.device) < vocab_size
         out = torch.where(mask, out, torch.tensor(-1e30, dtype=out.dtype, device=out.device))
-    return out
+    return sh.constrain(out, "dp", None, "tp")
 
 
 # --------------------------------------------------------------------------
@@ -223,14 +234,16 @@ def init_mlp(gen: torch.Generator, cfg: ArchConfig, d_ff: int, dtype, device="cu
     return MLP(p)
 
 
-def apply_mlp(p: MLP, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
+def apply_mlp(p: MLP, x: torch.Tensor, cfg: ArchConfig, *, sh: Sharding = NULL) -> torch.Tensor:
     """The activation in f32, cast back to the activations' dtype, as in the
     reference; ``gelu`` is ``jax.nn.gelu``'s default, the tanh form."""
-    h = matmul(x, p.wi)
+    wi = sh.constrain(p.wi, "fsdp", "tp")
+    wo = sh.constrain(p.wo, "tp", "fsdp")
+    h = sh.constrain(matmul(x, wi), "dp", None, "tp")
     if cfg.act == "silu_glu":
-        h = F.silu(matmul(x, p.wg).float()).to(h.dtype) * h
+        h = F.silu(matmul(x, sh.constrain(p.wg, "fsdp", "tp")).float()).to(h.dtype) * h
     elif cfg.act == "sq_relu":
         h = F.relu(h.float()).square().to(h.dtype)
     else:  # gelu
         h = F.gelu(h.float(), approximate="tanh").to(h.dtype)
-    return matmul(h, p.wo)
+    return sh.constrain(matmul(h, wo), "dp", None, None)

@@ -7,8 +7,13 @@ encoder-decoder model (the whisper backbone). The port of
 ``device="cpu"``. ``forward`` and ``decode_step`` serve, without autograd;
 ``loss_fn`` trains, through the same forward (``_forward``) in ``train``
 mode, with the gradient of every parameter that asks for one
-(:func:`~repro_torch.models.layers.set_trainable`). ``param_specs`` and
-``cache_specs`` wait for the mesh layer (ROADMAP Queue 1 item 15f). As in
+(:func:`~repro_torch.models.layers.set_trainable`). Each takes the
+sharding policy as the keyword ``sh`` (:mod:`repro_torch.models.sharding`;
+under a mesh it runs on DTensors, inside
+:func:`~repro_torch.models.sharding.replicating`), and ``param_specs`` and
+``cache_specs`` give the specs the sharded steps lay the parameters and
+the decode caches out by. ``init_params(device="meta")`` builds the
+shapes without drawing, as ``jax.eval_shape`` does. As in
 the reference, prefill hands no state to decode: ``decode_step`` starts
 from ``init_decode_state``'s zeroed caches, and an encoder-decoder model's
 decoder reads the encoder through the ``cross_kv`` its caller passes.
@@ -23,6 +28,7 @@ import torch
 from torch import nn
 
 from ..engine.context import check_device
+from .attention import KVCache
 from .blocks import apply_stack, apply_stack_decode, init_stack, init_stack_cache
 from .config import ArchConfig
 from .layers import (
@@ -35,6 +41,8 @@ from .layers import (
     init_norm,
 )
 from .layers import logits as lm_logits
+from .sharding import NULL, Sharding, Spec, local_map, replicating
+from .ssm import SSMCache
 
 DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 MODES = ("train", "prefill")
@@ -77,8 +85,10 @@ def _stack(params: LM, cfg: ArchConfig) -> nn.ModuleList:
 def init_params(cfg: ArchConfig, *, generator: torch.Generator, device="cuda",
                 dtype: torch.dtype | None = None) -> LM:
     """The model with weights drawn from ``generator`` (on ``device``) in
-    the reference's distributions, in ``dtype`` (default the config's)."""
-    dev = check_device(device, "init_params")
+    the reference's distributions, in ``dtype`` (default the config's).
+    On ``device="meta"`` only the shapes and dtypes, nothing drawn or
+    allocated (the reference's ``jax.eval_shape(init_params, ...)``)."""
+    dev = torch.device("meta") if str(device) == "meta" else check_device(device, "init_params")
     dtype = dtype or DTYPES[cfg.dtype]
     embed, final_norm = init_embedding(generator, cfg, dtype, dev), init_norm(cfg, dtype, dev)
     if not cfg.is_encdec:
@@ -89,10 +99,10 @@ def init_params(cfg: ArchConfig, *, generator: torch.Generator, device="cuda",
                                  cross_attn=True))
 
 
-def _inputs_to_hidden(params: LM, cfg: ArchConfig, batch: dict) -> torch.Tensor:
+def _inputs_to_hidden(params: LM, cfg: ArchConfig, batch: dict, sh: Sharding) -> torch.Tensor:
     if cfg.frontend != "none" or "embeds" in batch:
-        return embed_vectors(batch["embeds"])
-    return embed_tokens(params.embed, batch["tokens"])
+        return embed_vectors(batch["embeds"], sh=sh)
+    return embed_tokens(params.embed, batch["tokens"], sh=sh)
 
 
 def _keeps_dtype(cfg: ArchConfig, dtype: torch.dtype, what: str, other: torch.dtype) -> None:
@@ -134,13 +144,15 @@ def _encoder_kv(cfg: ArchConfig, enc: torch.Tensor) -> tuple[torch.Tensor, torch
 
 @torch.no_grad()
 def forward(params: LM, cfg: ArchConfig, batch: dict, *, mode: str = "train",
-            logits_positions: str = "all") -> tuple[torch.Tensor, torch.Tensor]:
+            logits_positions: str = "all", sh: Sharding = NULL
+            ) -> tuple[torch.Tensor, torch.Tensor]:
     """:func:`_forward` without autograd (serving)."""
-    return _forward(params, cfg, batch, mode=mode, logits_positions=logits_positions)
+    return _forward(params, cfg, batch, mode=mode, logits_positions=logits_positions, sh=sh)
 
 
 def _forward(params: LM, cfg: ArchConfig, batch: dict, *, mode: str = "train",
-             logits_positions: str = "all") -> tuple[torch.Tensor, torch.Tensor]:
+             logits_positions: str = "all", sh: Sharding = NULL
+             ) -> tuple[torch.Tensor, torch.Tensor]:
     """-> (logits (B, S_dec, V), moe_aux: the MoE layers' load-balancing
     losses summed, 0 without MoE); ``logits_positions="last"`` (what a
     prefill serves) gives (B, 1, V). ``batch`` carries 'tokens' (B, S) or
@@ -160,7 +172,13 @@ def _forward(params: LM, cfg: ArchConfig, batch: dict, *, mode: str = "train",
         raise ValueError(f"logits_positions must be one of {LOGITS_POSITIONS}, "
                          f"got {logits_positions!r}")
     _stack(params, cfg)
-    x = _inputs_to_hidden(params, cfg, batch)
+    with replicating(sh):
+        return _forward_body(params, cfg, batch, mode, logits_positions, sh)
+
+
+def _forward_body(params: LM, cfg: ArchConfig, batch: dict, mode: str, logits_positions: str,
+                  sh: Sharding) -> tuple[torch.Tensor, torch.Tensor]:
+    x = _inputs_to_hidden(params, cfg, batch, sh)
     _check_embeds(params, cfg, x)
     b, s = x.shape[:2]
     positions = batch.get("positions")
@@ -170,39 +188,50 @@ def _forward(params: LM, cfg: ArchConfig, batch: dict, *, mode: str = "train",
         raise ValueError(f"{cfg.name}: positions of shape {tuple(positions.shape)}, the "
                          f"forward takes ({b}, {s})")
     if cfg.is_encdec:
-        enc, aux = apply_stack(params.encoder, x, cfg, positions, mode=mode, causal=False)
+        enc, aux = apply_stack(params.encoder, x, cfg, positions, mode=mode, causal=False, sh=sh)
         enc = apply_norm(params.enc_norm, enc)
         _keeps_dtype(cfg, params.embed.table.dtype, "the encoder's states", enc.dtype)
-        y = embed_tokens(params.embed, batch["dec_tokens"])
+        y = embed_tokens(params.embed, batch["dec_tokens"], sh=sh)
         db, ds = y.shape[:2]
         dpos = torch.arange(ds, dtype=torch.int32, device=y.device).expand(db, ds)
         x, aux2 = apply_stack(params.decoder, y, cfg, dpos, mode="train", causal=True,
-                              cross_kv=_encoder_kv(cfg, enc))
+                              cross_kv=_encoder_kv(cfg, enc), sh=sh)
         aux = aux + aux2
     else:
-        x, aux = apply_stack(params.blocks, x, cfg, positions, mode=mode)
-    x = apply_norm(params.final_norm, x)
+        x, aux = apply_stack(params.blocks, x, cfg, positions, mode=mode, sh=sh)
+    x = sh.constrain(apply_norm(params.final_norm, x), "dp", None, None)
     if logits_positions == "last":
         x = x[:, -1:, :]
-    return lm_logits(params.embed, x, vocab_size=cfg.vocab_size), aux
+    return lm_logits(params.embed, x, vocab_size=cfg.vocab_size, sh=sh), aux
 
 
-def loss_fn(params: LM, cfg: ArchConfig, batch: dict, aux_weight: float = 0.01
-            ) -> tuple[torch.Tensor, dict]:
+def loss_fn(params: LM, cfg: ArchConfig, batch: dict, aux_weight: float = 0.01, *,
+            sh: Sharding = NULL) -> tuple[torch.Tensor, dict]:
     """The training loss, as the reference's: the mean next-token NLL of
     the ``train``-mode logits in fp32 (``logsumexp`` over the padded
     vocabulary as :func:`~repro_torch.models.layers.logits` masks it, less
     the gold logit at ``batch["labels"]``, or ``batch["dec_labels"]`` for
     the encoder-decoder model), plus ``aux_weight`` times the MoE aux loss.
-    -> (total, {"nll", "aux"}), differentiable where the parameters are."""
-    out, aux = _forward(params, cfg, batch, mode="train")
+    -> (total, {"nll", "aux"}), differentiable where the parameters are.
+    Under a mesh they are DTensors (``sharding.full`` reads one), and a
+    backward runs inside ``sharding.replicating(sh)``."""
+    out, aux = _forward(params, cfg, batch, mode="train", sh=sh)
     labels = batch["dec_labels" if cfg.is_encdec else "labels"]
-    out = out.float()
-    logz = torch.logsumexp(out, dim=-1)
-    gold = torch.gather(out, -1, labels[..., None].long())[..., 0]
-    nll = (logz - gold).mean()
-    total = nll + aux_weight * aux
+    with replicating(sh):
+        # each rank's batch rows over the whole vocabulary under a mesh: a
+        # gather over a tp-sharded vocabulary fails to reduce its masked
+        # partial result in DTensor
+        nll = local_map(sh, _nll, (sh.spec("dp", None, None), sh.spec("dp", None)), 1)(
+            out.float(), labels).mean()
+        total = nll + aux_weight * aux
     return total, {"nll": nll, "aux": aux}
+
+
+def _nll(out: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Each position's NLL of its label: ``logsumexp`` over the vocabulary
+    less the gold logit."""
+    logz = torch.logsumexp(out, dim=-1)
+    return logz - torch.gather(out, -1, labels[..., None].long())[..., 0]
 
 
 def init_decode_state(params: LM, cfg: ArchConfig, batch: int, max_len: int) -> dict:
@@ -215,8 +244,8 @@ def init_decode_state(params: LM, cfg: ArchConfig, batch: int, max_len: int) -> 
 
 @torch.no_grad()
 def decode_step(params: LM, cfg: ArchConfig, state: dict, tokens: torch.Tensor,
-                cross_kv: tuple[torch.Tensor, torch.Tensor] | None = None
-                ) -> tuple[torch.Tensor, dict]:
+                cross_kv: tuple[torch.Tensor, torch.Tensor] | None = None, *,
+                sh: Sharding = NULL) -> tuple[torch.Tensor, dict]:
     """One serving step: next-token logits (B, 1, V) + updated caches.
     ``tokens``: (B, 1) integers. ``cross_kv``: the encoder's K/V
     (:func:`_encoder_kv` of the normed encoder states); without it the
@@ -224,7 +253,86 @@ def decode_step(params: LM, cfg: ArchConfig, state: dict, tokens: torch.Tensor,
     stack = _stack(params, cfg)
     if cross_kv is not None:
         _keeps_dtype(cfg, params.embed.table.dtype, "cross_kv", cross_kv[0].dtype)
-    x = embed_tokens(params.embed, tokens)
-    x, caches = apply_stack_decode(stack, state["caches"], x, cfg, cross_kv=cross_kv)
-    x = apply_norm(params.final_norm, x)
-    return lm_logits(params.embed, x, vocab_size=cfg.vocab_size), {"caches": caches}
+    with replicating(sh):
+        x = embed_tokens(params.embed, tokens, sh=sh)
+        x, caches = apply_stack_decode(stack, state["caches"], x, cfg, cross_kv=cross_kv, sh=sh)
+        x = apply_norm(params.final_norm, x)
+        return lm_logits(params.embed, x, vocab_size=cfg.vocab_size, sh=sh), {"caches": caches}
+
+
+# --------------------------------------------------------------------------
+# parameter and cache partition specs
+# --------------------------------------------------------------------------
+
+def _leaf_spec(name: str, ndim: int, cfg: ArchConfig, sh: Sharding) -> Spec:
+    """The spec of parameter ``name`` (a dotted name of :class:`LM`): the
+    reference's ``_leaf_spec`` (``repro/models/model.py``) without its
+    leading ``n_groups`` entry, the port's layers being unstacked."""
+    names = [n for n in name.split(".") if not n.isdigit()]
+    last = names[-1]
+    parent = names[-2] if len(names) > 1 else ""
+    mk = sh.spec
+    head_tp = sh.attn == "head_tp" and cfg.n_heads % max(sh.tp_size, 1) == 0
+    if parent == "embed":
+        return mk("tp", "fsdp") if last == "table" else mk("fsdp", "tp")
+    if last in ("scale", "bias", "A_log", "D", "dt_bias", "norm_scale"):
+        return mk(None)
+    if parent in ("attn", "xattn"):
+        if last in ("wq", "wk", "wv"):
+            heads = cfg.n_heads if last == "wq" else cfg.n_kv_heads
+            if head_tp and heads % max(sh.tp_size, 1) == 0:
+                return mk("fsdp", "tp", None)
+            return mk(("fsdp", "tp"), None, None)
+        if last == "wo":
+            if head_tp:
+                return mk("tp", None, "fsdp")
+            return mk(None, None, ("fsdp", "tp"))  # (H, hd, d): shard d
+        return mk(None, None)  # biases (H, hd)
+    if parent == "mlp":
+        return mk("fsdp", "tp") if last in ("wi", "wg") else mk("tp", "fsdp")
+    if parent == "moe":
+        if last == "router":
+            return mk("fsdp", None)
+        if sh.moe == "expert":
+            return mk("tp", "fsdp", None) if last in ("wi", "wg") else mk("tp", None, "fsdp")
+        return mk(None, "fsdp", "tp") if last in ("wi", "wg") else mk(None, "tp", "fsdp")
+    if parent == "ssm":
+        if last in ("wz", "wx"):
+            return mk("fsdp", "tp")
+        if last == "wo":
+            return mk("tp", "fsdp")
+        if last in ("wB", "wC", "wdt"):
+            return mk("fsdp", None)
+        if last == "conv_w":
+            return mk(None, None)
+    return (None,) * ndim
+
+
+def param_specs(params: LM, cfg: ArchConfig, sh: Sharding) -> dict[str, Spec]:
+    """The spec of each parameter, by its name in ``params.named_parameters()``
+    (for the sharded steps' layouts); ``()`` for each without a mesh.
+    Per-dim divisibility is enforced via ``sh.fit_spec`` (small models on
+    big meshes back off to feasible axis prefixes)."""
+    if sh.mesh is None:
+        return {k: () for k, _ in params.named_parameters()}
+    return {k: sh.fit_spec(p.shape, _leaf_spec(k, p.dim(), cfg, sh))
+            for k, p in params.named_parameters()}
+
+
+def cache_specs(state: dict, cfg: ArchConfig, sh: Sharding) -> dict:
+    """Specs for the decode caches, the structure of ``state``: KV over
+    (dp batch, sp seq), SSM state over (dp, tp heads), lengths replicated;
+    ``()`` at each leaf without a mesh."""
+    specs: list = []
+    for c in state["caches"]:
+        if sh.mesh is None:
+            specs.append(type(c)(*(() for _ in c)))
+        elif isinstance(c, KVCache):
+            kv = sh.spec("dp", "sp", None, None)
+            specs.append(KVCache(k=kv, v=kv, length=()))
+        elif isinstance(c, SSMCache):
+            specs.append(SSMCache(conv=sh.spec("dp", None, None),
+                                  state=sh.spec("dp", "tp", None, None), length=()))
+        else:
+            raise TypeError(f"cache_specs: a cache of type {type(c).__name__}")
+    return {"caches": specs}

@@ -10,8 +10,16 @@ separate functions (:func:`route`, :func:`capacity`, :func:`assign`,
 takes a :class:`Routing` from the caller, so a check can hold one routing
 decision fixed while it compares what follows.
 
-The reference's sharding policies (``expert``, ``ffn``) wait for the mesh
-layer, ROADMAP Queue 1 item 15f.
+Sharding policies (``sh.moe``, :mod:`repro_torch.models.sharding`):
+  'expert' — experts sharded over 'tp' (EP);
+  'ffn'    — expert count kept local, per-expert FFN dim sharded over 'tp'
+             (for n_experts % tp != 0, e.g. granite's 40 experts on 16).
+Under a mesh the router runs on the sharded tokens; :func:`assign`,
+:func:`dispatch` and :func:`combine` (a sort, a bincount, scatters and
+gathers with data-dependent shapes, which DTensor has no rule for) run on
+each rank's replicated copy through ``local_map``, as XLA replicates what
+it cannot partition; the expert FFN runs on the sharded ``(E, cap, D)``
+buffers.
 """
 
 from __future__ import annotations
@@ -23,6 +31,7 @@ import torch.nn.functional as F
 
 from .config import ArchConfig
 from .layers import Params, dense_init
+from .sharding import NULL, Sharding, local_map
 
 
 class MoE(Params):
@@ -121,17 +130,29 @@ def dispatch(xf: torch.Tensor, ids: torch.Tensor, pos: torch.Tensor, keep: torch
     return xe.reshape(e, cap, d)
 
 
-def experts(p: MoE, xe: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
+def _expert_specs(sh: Sharding):
+    """(wi_spec, wo_spec) under the active MoE policy."""
+    if sh.moe == "expert":
+        return ("tp", "fsdp", None), ("tp", None, "fsdp")
+    return (None, "fsdp", "tp"), (None, "tp", "fsdp")
+
+
+def experts(p: MoE, xe: torch.Tensor, cfg: ArchConfig, *, sh: Sharding = NULL) -> torch.Tensor:
     """Every expert's FFN on its slots, one batched matmul a weight.
     ``silu_glu`` gates with ``wg``; every other ``act`` (``gelu`` too, as
     in the reference's ``apply_moe``) takes the squared ReLU. The
     activation in fp32, cast back to the slots' dtype."""
-    h = torch.bmm(xe, p.wi)
+    ep = "tp" if sh.moe == "expert" else None
+    cap_axis = "dp" if sh.moe_dispatch == "dp" else None
+    xe = sh.constrain(xe, ep, cap_axis, None)
+    wi_spec, wo_spec = _expert_specs(sh)
+    h = torch.bmm(xe, sh.constrain(p.wi, *wi_spec))
     if cfg.act == "silu_glu":
-        h = F.silu(torch.bmm(xe, p.wg).float()).to(h.dtype) * h
+        h = F.silu(torch.bmm(xe, sh.constrain(p.wg, *wi_spec)).float()).to(h.dtype) * h
     else:
         h = F.relu(h.float()).square().to(h.dtype)
-    return torch.bmm(h, p.wo)
+    h = sh.constrain(h, ep, cap_axis, "tp" if sh.moe == "ffn" else None)
+    return sh.constrain(torch.bmm(h, sh.constrain(p.wo, *wo_spec)), ep, cap_axis, None)
 
 
 def combine(ye: torch.Tensor, r: Routing, pos: torch.Tensor, keep: torch.Tensor
@@ -148,7 +169,8 @@ def combine(ye: torch.Tensor, r: Routing, pos: torch.Tensor, keep: torch.Tensor
 
 
 def apply_moe(p: MoE, x: torch.Tensor, cfg: ArchConfig, capacity_factor: float = 1.25,
-              *, routing: Routing | None = None) -> tuple[torch.Tensor, torch.Tensor]:
+              *, routing: Routing | None = None, sh: Sharding = NULL
+              ) -> tuple[torch.Tensor, torch.Tensor]:
     """x: (B, S, D) -> (y, aux_loss). Choices over an expert's capacity are
     dropped (Switch/GShard semantics). ``routing`` (default :func:`route`
     on x) holds the router's decision fixed."""
@@ -158,10 +180,15 @@ def apply_moe(p: MoE, x: torch.Tensor, cfg: ArchConfig, capacity_factor: float =
     xf = x.reshape(t, d)
     r = route(p, xf, k) if routing is None else routing
     cap = capacity(t, k, e, capacity_factor)
-    pos, keep = assign(r.ids, e, cap)
-    ye = experts(p, dispatch(xf, r.ids, pos, keep, e, cap), cfg)
-    y = combine(ye, r, pos, keep)
-    return y.reshape(b, s, d).to(x.dtype), aux_loss(r, e)
+    rep2, rep3 = (None, None), (None, None, None)
+    pos, keep = local_map(sh, lambda ids: assign(ids, e, cap), (rep2,), (None, None))(r.ids)
+    xe = local_map(sh, lambda xf, ids, pos, keep: dispatch(xf, ids, pos, keep, e, cap),
+                   (rep2,) * 4, None)(xf, r.ids, pos, keep)
+    ye = experts(p, xe, cfg, sh=sh)
+    y = local_map(sh, lambda ye, gates, ids, pos, keep: combine(ye, Routing(None, gates, ids),
+                                                                 pos, keep),
+                  (rep3,) + (rep2,) * 4, None)(ye, r.gates, r.ids, pos, keep)
+    return sh.constrain(y.reshape(b, s, d).to(x.dtype), "dp", None, None), aux_loss(r, e)
 
 
 def routing_stats(p: MoE, x: torch.Tensor, cfg: ArchConfig, capacity_factor: float = 1.25

@@ -20,10 +20,22 @@ in x's dtype, written as products of two, and the intra-chunk term as the
 kernel on ``xc_dt`` with ``dt`` set to ones. The reference rounds the
 lean intra-chunk weights (``gmat``, ``decay``) to x's dtype; the kernel
 keeps ``G E`` in fp32 there too (``docs/PORT.md``).
+
+Sharding (``sh``): heads over 'tp' (80/16=5 for mamba2-2.7b, 128/16=8 for
+jamba); B/C are group-shared (ngroups=1) and replicated across tp. The
+kernel launches through ``ctypes`` and takes no DTensor, so under a mesh
+the chunk scan that calls it (:func:`_chunk_scan`: the kernel's term, the
+chunk states, the scan over chunks and the inter-chunk term) runs through
+``local_map`` on each rank's local shards, as ``shard_map`` would run it:
+C and B split over dp, the log decay, Δ and X over dp and (heads) over tp, the
+output as X. The scan is independent across batch rows and heads, so
+this is exact, and each rank launches the kernel once a layer on its
+shard.
 """
 
 from __future__ import annotations
 
+import functools
 import os
 from typing import NamedTuple
 
@@ -33,6 +45,7 @@ import torch.nn.functional as F
 from ..kernels.ssd_intra import ssd_intra
 from .config import ArchConfig
 from .layers import Params, dense_init
+from .sharding import NULL, Sharding, local_map
 
 #: The reference's ``_LEAN`` (``repro/models/ssm.py:34``): off by default.
 _LEAN = os.environ.get("REPRO_SSD_LEAN") == "1"
@@ -87,45 +100,36 @@ def _gated_norm(y: torch.Tensor, z: torch.Tensor, scale: torch.Tensor,
     return (yf * torch.rsqrt(ms + eps) * scale.float()).to(dtype)
 
 
-def apply_ssm(p: SSM, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
-    """Chunked SSD forward. x: (B, S, D) -> (B, S, D). S % chunk == 0."""
-    b, s, d = x.shape
-    h, pd, n = cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state
-    q = min(cfg.ssm_chunk, s)
-    if s % q:
-        raise ValueError(f"apply_ssm: sequence length {s} is not a multiple of the chunk {q}")
-    nc = s // q
-
-    z = x @ p.wz
-    xin = x @ p.wx
-    bmat = x @ p.wB
-    cmat = x @ p.wC
-    dt = (x @ p.wdt).float()
-
-    # causal depthwise conv over (x, B, C)
+def _conv_gates(xin: torch.Tensor, bmat: torch.Tensor, cmat: torch.Tensor, dt: torch.Tensor,
+                conv_w: torch.Tensor, dt_bias: torch.Tensor, a_log: torch.Tensor, *, n: int):
+    """The depthwise causal conv over (x, B, C) with its SiLU, and Δ and
+    the log decay from the raw Δ projection: (x, B, C, Δ, log a)."""
+    d_inner = xin.shape[-1]
     conv_in = torch.cat([xin, bmat, cmat], dim=-1)
-    conv_out = F.silu(_causal_conv(conv_in, p.conv_w).float()).to(x.dtype)
-    xin = conv_out[..., : cfg.d_inner]
-    bmat = conv_out[..., cfg.d_inner: cfg.d_inner + n]
-    cmat = conv_out[..., cfg.d_inner + n:]
+    conv_out = F.silu(_causal_conv(conv_in, conv_w).float()).to(xin.dtype)
+    dt = F.softplus(dt + dt_bias)  # (B, S, H)
+    a = -torch.exp(a_log)  # (H,) negative
+    return (conv_out[..., :d_inner], conv_out[..., d_inner: d_inner + n], conv_out[..., d_inner + n:],
+            dt, dt * a)  # log a_t = Δ a, <= 0
 
-    xh = xin.reshape(b, s, h, pd)
-    dt = F.softplus(dt + p.dt_bias)  # (B, S, H)
-    a = -torch.exp(p.A_log)  # (H,) negative
-    log_decay = dt * a  # (B, S, H) log a_t, <= 0
 
-    xc = xh.reshape(b, nc, q, h, pd)
-    bc = bmat.reshape(b, nc, q, n).float()
-    cc = cmat.reshape(b, nc, q, n).float()
-    dtc = dt.reshape(b, nc, q, h)
-    ld = log_decay.reshape(b, nc, q, h)
+def _chunk_scan(cc: torch.Tensor, bc: torch.Tensor, ld: torch.Tensor, dtc: torch.Tensor,
+                xc: torch.Tensor) -> torch.Tensor:
+    """The chunked SSD on chunk views: C, B (B, nc, q, N) fp32, the log
+    decay ``ld`` and Δ (B, nc, q, H) fp32, X (B, nc, q, H, P) -> the
+    intra-chunk term (the kernel) plus the inter-chunk term, (B, nc, q, H,
+    P) in X's dtype. Independent across batch rows and heads: under a mesh
+    it runs on each rank's local shards (:func:`apply_ssm`)."""
+    b, nc, q, h, pd = xc.shape
+    n = cc.shape[-1]
+    dtype = xc.dtype
     cum = torch.cumsum(ld, dim=2)  # within-chunk cumulative log decay
 
     # ---- intra-chunk (quadratic in q): Y[i] += Σ_{j<=i} C_i·B_j decay Δ_j x_j
     if _LEAN:
         # Δ folded into X once ((B,nc,q,H,P), the size of xc); the kernel
         # then weights by ones
-        xc_dt = (xc.float() * dtc[..., None]).to(x.dtype)
+        xc_dt = (xc.float() * dtc[..., None]).to(dtype)
         y_intra = ssd_intra(
             cc.reshape(b * nc, q, n), bc.reshape(b * nc, q, n), cum.reshape(b * nc, q, h),
             torch.ones_like(dtc).reshape(b * nc, q, h), xc_dt.reshape(b * nc, q, h, pd),
@@ -140,15 +144,15 @@ def apply_ssm(p: SSM, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
     decay_to_end = torch.exp(cum[:, :, -1:, :] - cum)  # (B,nc,q,H)
     if _LEAN:
         # "bcjn,bcjh,bcjhp->bchnp" with the decay in x's dtype, as two products
-        xd = decay_to_end.to(x.dtype)[..., None] * xc_dt
-        s_c = torch.einsum("bcjn,bcjhp->bchnp", bc.to(x.dtype), xd)
+        xd = decay_to_end.to(dtype)[..., None] * xc_dt
+        s_c = torch.einsum("bcjn,bcjhp->bchnp", bc.to(dtype), xd)
     else:
         sb = bc[:, :, :, None, :] * (dtc * decay_to_end)[..., None]
-        s_c = torch.einsum("bcjhn,bcjhp->bchnp", sb.to(x.dtype), xc)
+        s_c = torch.einsum("bcjhn,bcjhp->bchnp", sb.to(dtype), xc)
 
     # ---- inter-chunk recurrence (a loop over chunks), carried in fp32
     total = torch.exp(cum[:, :, -1, :])  # (B, nc, H) full-chunk decay
-    hprev = torch.zeros((b, h, n, pd), dtype=torch.float32, device=x.device)
+    hprev = torch.zeros((b, h, n, pd), dtype=torch.float32, device=xc.device)
     before = []
     for ci in range(nc):
         before.append(hprev)
@@ -159,17 +163,55 @@ def apply_ssm(p: SSM, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
     decay_from_start = torch.exp(cum)  # (B,nc,q,H)
     if _LEAN:
         # "bcin,bcih,bchnp->bcihp" with the decay in x's dtype, as two products
-        ch = torch.einsum("bcin,bchnp->bcihp", cc.to(x.dtype), h_before.to(x.dtype))
-        y_inter = ch * decay_from_start.to(x.dtype)[..., None]
+        ch = torch.einsum("bcin,bchnp->bcihp", cc.to(dtype), h_before.to(dtype))
+        y_inter = ch * decay_from_start.to(dtype)[..., None]
     else:
         cd = cc[:, :, :, None, :] * decay_from_start[..., None]
-        y_inter = torch.einsum("bcihn,bchnp->bcihp", cd.to(x.dtype), h_before.to(x.dtype))
+        y_inter = torch.einsum("bcihn,bchnp->bcihp", cd.to(dtype), h_before.to(dtype))
+    return y_intra + y_inter
 
-    y = (y_intra + y_inter).reshape(b, s, h, pd)
+
+def apply_ssm(p: SSM, x: torch.Tensor, cfg: ArchConfig, *, sh: Sharding = NULL) -> torch.Tensor:
+    """Chunked SSD forward. x: (B, S, D) -> (B, S, D). S % chunk == 0."""
+    b, s, d = x.shape
+    h, pd, n = cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state
+    q = min(cfg.ssm_chunk, s)
+    if s % q:
+        raise ValueError(f"apply_ssm: sequence length {s} is not a multiple of the chunk {q}")
+    nc = s // q
+
+    z = x @ sh.constrain(p.wz, "fsdp", "tp")
+    xin = x @ sh.constrain(p.wx, "fsdp", "tp")
+    bmat = x @ p.wB
+    cmat = x @ p.wC
+    dt = (x @ p.wdt).float()
+
+    # the causal conv over (x, B, C) and the gates, each rank on its batch
+    # rows under a mesh (replicated over tp)
+    rows, rep = sh.spec("dp", None, None), (None, None)
+    conv = local_map(sh, functools.partial(_conv_gates, n=n), (rows,) * 4 + (rep, (None,), (None,)),
+                     (0,) * 5)
+    xin, bmat, cmat, dt, log_decay = conv(xin, bmat, cmat, dt, p.conv_w, p.dt_bias, p.A_log)
+    xh = sh.constrain(xin.reshape(b, s, h, pd), "dp", None, "tp", None)
+
+    # chunk views (heads sharded over tp)
+    xc = sh.constrain(xh.reshape(b, nc, q, h, pd), "dp", None, None, "tp", None)
+    bc = bmat.reshape(b, nc, q, n).float()
+    cc = cmat.reshape(b, nc, q, n).float()
+    dtc = sh.constrain(dt.reshape(b, nc, q, h), "dp", None, None, "tp")
+    ld = sh.constrain(log_decay.reshape(b, nc, q, h), "dp", None, None, "tp")
+
+    # the chunk scan, on each rank's batch rows and heads under a mesh: C
+    # and B over dp, the rest over dp and (heads) tp, the output as X
+    cb, hc = sh.spec("dp", None, None, None), sh.spec("dp", None, None, "tp")
+    scan = local_map(sh, _chunk_scan, (cb, cb, hc, hc, sh.spec("dp", None, None, "tp", None)), 4)
+    y = sh.constrain(scan(cc, bc, ld, dtc, xc), "dp", None, None, "tp", None)
+
+    y = y.reshape(b, s, h, pd)
     y = y + xh * p.D[None, None, :, None].to(x.dtype)
     y = y.reshape(b, s, cfg.d_inner)
     y = _gated_norm(y, z, p.norm_scale)
-    return y @ p.wo
+    return sh.constrain(y @ sh.constrain(p.wo, "tp", "fsdp"), "dp", None, None)
 
 
 def init_ssm_cache(cfg: ArchConfig, batch: int, dtype, device="cuda") -> SSMCache:
@@ -182,8 +224,8 @@ def init_ssm_cache(cfg: ArchConfig, batch: int, dtype, device="cuda") -> SSMCach
     )
 
 
-def apply_ssm_decode(p: SSM, x: torch.Tensor, cache: SSMCache, cfg: ArchConfig
-                     ) -> tuple[torch.Tensor, SSMCache]:
+def apply_ssm_decode(p: SSM, x: torch.Tensor, cache: SSMCache, cfg: ArchConfig, *,
+                     sh: Sharding = NULL) -> tuple[torch.Tensor, SSMCache]:
     """Single-token recurrent step. x: (B, 1, D)."""
     b = x.shape[0]
     h, pd, n = cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state
@@ -212,5 +254,5 @@ def apply_ssm_decode(p: SSM, x: torch.Tensor, cache: SSMCache, cfg: ArchConfig
     y = y + xh * p.D[None, :, None]
     y = y.reshape(b, cfg.d_inner).to(x.dtype)
     y = _gated_norm(y, z, p.norm_scale)
-    out = (y @ p.wo)[:, None, :]
+    out = sh.constrain((y @ p.wo)[:, None, :], "dp", None, None)
     return out, SSMCache(window[:, 1:, :], state, cache.length + 1)

@@ -1,8 +1,8 @@
 """Optimizer substrate: AdamW with fp32 (or bf16) moments, global-norm
-clipping, LR schedules. The port of ``repro.optim``; ``opt_state_specs``
-waits for the mesh layer (ROADMAP Queue 1 item 15f)."""
+clipping, LR schedules, and the moments' specs under a mesh
+(``opt_state_specs``). The port of ``repro.optim``."""
 
-from .adamw import AdamWState, adamw_init, adamw_update
+from .adamw import AdamWState, adamw_init, adamw_update, opt_state_specs
 from .schedule import cosine_schedule, linear_warmup
 
 __all__ = [
@@ -11,4 +11,5 @@ __all__ = [
     "adamw_update",
     "cosine_schedule",
     "linear_warmup",
+    "opt_state_specs",
 ]

@@ -9,7 +9,10 @@ The update works in place, as the reference's jitted step donates its
 state (``donate_argnums=(0,)``): at Mamba2-2.7b's 2.70 G parameters a
 functional update would hold two 32 GB states at once. It reads every
 gradient and takes the global norm before it writes anything, and it
-consumes the state it is given (``docs/PORT.md``).
+consumes the state it is given (``docs/PORT.md``). Under a mesh the
+parameters, gradients and moments are DTensors; each moment keeps its
+parameter's spec (:func:`opt_state_specs`), and the in-place update keeps
+every placement.
 """
 
 from __future__ import annotations
@@ -100,3 +103,14 @@ def adamw_update(params: nn.Module | Mapping[str, torch.Tensor], grads: Mapping[
             master.copy_(new_master)
     metrics = {"grad_norm": gnorm, "clip_scale": scale}
     return params, AdamWState(step, state.m, state.v, state.master), metrics
+
+
+def opt_state_specs(param_spec_tree: Mapping, keep_master: bool = False) -> AdamWState:
+    """Moments inherit the param specs (fully sharded, ZeRO-style); the
+    step is replicated."""
+    return AdamWState(
+        step=(),
+        m=dict(param_spec_tree),
+        v=dict(param_spec_tree),
+        master=dict(param_spec_tree) if keep_master else None,
+    )

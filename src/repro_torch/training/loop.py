@@ -1,7 +1,8 @@
 """Fault-tolerant training loop, the port of ``repro/training/loop.py``,
 line for line:
 
-  * resume-from-latest on start;
+  * resume-from-latest on start (laid out on ``mesh`` by ``spec_tree``
+    where given: the elastic restore);
   * periodic async checkpointing (overlapped with training);
   * failure handling: a step that raises is retried from the last
     checkpoint up to ``max_restarts`` times (on real fleets the launcher
@@ -68,11 +69,12 @@ class TrainLoop:
         self.ckpt = CheckpointManager(loop_cfg.ckpt_dir, keep=loop_cfg.keep)
         self.stats = LoopStats()
 
-    def run(self, state, fail_injector: Callable | None = None):
+    def run(self, state, mesh=None, spec_tree=None, fail_injector: Callable | None = None):
         """Run to total_steps with restart-on-failure. `fail_injector(step)`
-        raising simulates node failures (used by tests)."""
+        raising simulates node failures (used by tests). Every restore lays
+        the state out on ``mesh`` by ``spec_tree`` where given."""
         cfg = self.cfg
-        start, restored = self.ckpt.restore_latest(state)
+        start, restored = self.ckpt.restore_latest(state, mesh=mesh, spec_tree=spec_tree)
         if restored is not None:
             state = restored
             step = start
@@ -104,7 +106,9 @@ class TrainLoop:
                 if self.stats.restarts > cfg.max_restarts:
                     raise
                 self.ckpt.wait()
-                restored_step, restored = self.ckpt.restore_latest(state)
+                restored_step, restored = self.ckpt.restore_latest(
+                    state, mesh=mesh, spec_tree=spec_tree
+                )
                 if restored is None:
                     step = 0  # no checkpoint yet: restart from scratch
                 else:
