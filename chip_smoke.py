@@ -299,11 +299,23 @@ Phases (any failure raises, and the script exits non-zero):
     (d) ``python -m repro_torch.verify`` in a subprocess exits 0 with all
     five analyzers and no finding, and ``verify_dtypes(device="cuda")``
     gives no finding, every Hopper launch it records writing float32;
-16. the seconds each phase took, one JSON line per kernel and shape (times
+16. the dry run (``python -m repro_torch.launch.dryrun``, one subprocess a
+    cell, ``DRYRUN_AT_ONCE`` at a time, records in a temporary directory):
+    one cell of each family on the 16x16 mesh of a fake process group,
+    ``DRYRUN_CELLS`` (the six ``decode_32k`` cells and ``whisper-tiny``'s
+    ``train_4k``, all at full depth), on this machine's torch, whose
+    DTensor rules differ from other releases'; each exits 0 with
+    ``status: "ok"``, its seconds and headline numbers printed (mem/dev,
+    FLOPs/dev, collectives), and ``mamba2-2.7b``'s ``argument_bytes``
+    equal to the reference's record, ``MAMBA_ARGUMENT_BYTES``; and that
+    cell once more beside ``CommDebugMode`` (``COMM_CHECK``), whose count
+    of each collective kind must equal the dry run's counter's and the
+    CLI's record's; no GPU is used;
+17. the seconds each phase took, one JSON line per kernel and shape (times
     from CUDA events), the ``nvidia-smi`` line, and one ``{"kernels":
     [...]}`` line, its launches summed over the main paths and phase 14's
     ranks;
-17. the last line, ``{"ok": true, "device": {...}}``.
+18. the last line, ``{"ok": true, "device": {...}}``.
 
 All data are made on the card from ``--seed`` with a ``torch.Generator``.
 Matmuls run in full fp32 (TF32 off), so the plain versions and the einsum
@@ -375,6 +387,42 @@ COUNTED = ("mttkrp3", "mttkrpn", "fused_pair", "mttkrp_partial", "multi_ttm_keep
            "ssd_intra")
 KERNELS = ("mttkrp3", "mttkrpn", "splitk_reduce", "fused_pair", "mttkrp_partial",
            "multi_ttm_keep", "ssd_intra")
+#: Phase 16's cells: one of each family, on 16x16 at full depth.
+DRYRUN_CELLS = (("mamba2-2.7b", "decode_32k"), ("qwen2-1.5b", "decode_32k"),
+                ("olmoe-1b-7b", "decode_32k"), ("jamba-v0.1-52b", "decode_32k"),
+                ("qwen2-vl-72b", "decode_32k"), ("whisper-tiny", "decode_32k"),
+                ("whisper-tiny", "train_4k"))
+#: Dry runs at once (each is one CPU process).
+DRYRUN_AT_ONCE = 3
+#: ``memory.argument_bytes`` of the reference's
+#: ``results/dryrun/mamba2-2.7b__decode_32k__16x16.json``.
+MAMBA_ARGUMENT_BYTES = 131_754_272
+#: Phase 16's check of the dry run's collective counter on this machine's
+#: torch: the cell ``argv[1:3]`` dry-run again (records in ``argv[3]``),
+#: ``CommDebugMode`` entered around its step beside the counter; prints
+#: both counts by kind as one JSON line.
+COMM_CHECK = r"""
+import contextlib, json, sys
+from torch.distributed.tensor.debug import CommDebugMode
+from repro_torch.launch import dryrun
+
+comm, apart = CommDebugMode(), dryrun.propagation_apart
+
+@contextlib.contextmanager
+def watched():
+    with apart(), comm:
+        yield
+
+dryrun.propagation_apart = watched
+rec = dryrun.run_cell(sys.argv[1], sys.argv[2], False, sys.argv[3])
+counts = {}
+for op, n in comm.get_comm_counts().items():
+    name = op.__name__.split(".")[-1]
+    kind = dryrun.COLLECTIVE_KINDS.get(name, name)
+    counts[kind] = counts.get(kind, 0) + n
+print(json.dumps({"counter": {k: v["count"] for k, v in rec["collectives"]["by_kind"].items()},
+                  "comm_debug_mode": counts}))
+"""
 #: Phase 9: Mamba2-2.7b's SSD shape at 4 prompts of 4096 tokens (BC = 4 x
 #: 4096 / 256 chunks), the prefill and decode it serves, and the duality check.
 SSD_SHAPE = {"bcn": 64, "q": 256, "n": 128, "h": 80, "p": 64}
@@ -4196,6 +4244,75 @@ def verify_phase(smi: str) -> dict:
     return rec
 
 
+def dryrun_phase(smi: str) -> dict:
+    """Phase 16: each of ``DRYRUN_CELLS`` dry-run by the CLI in a process
+    of its own, ``DRYRUN_AT_ONCE`` at a time, beside ``COMM_CHECK`` on
+    the first cell; a cell that fails, or whose record is not ``ok``, or a
+    collective count that is not ``CommDebugMode``'s, fails the phase."""
+    import tempfile
+    from concurrent.futures import ThreadPoolExecutor
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_dryrun_")
+    env = {**os.environ, "PYTHONPATH": os.path.join(ROOT, "src")}
+
+    def run(cell):
+        t = time.perf_counter()
+        if cell[2:]:  # the check of the counter, records apart
+            cmd = ["-c", COMM_CHECK, cell[0], cell[1], os.path.join(tmp, "comm")]
+        else:
+            cmd = ["-m", "repro_torch.launch.dryrun", "--arch", cell[0], "--shape", cell[1],
+                   "--out", tmp]
+        proc = subprocess.run([sys.executable, *cmd], cwd=ROOT, env=env, capture_output=True,
+                              text=True, timeout=600)
+        return cell, time.perf_counter() - t, proc
+
+    cells = []
+    try:
+        with ThreadPoolExecutor(DRYRUN_AT_ONCE) as pool:
+            done = list(pool.map(run, ((*DRYRUN_CELLS[0], "comm"), *DRYRUN_CELLS)))
+        (arch, shape, _), comm_secs, proc = done.pop(0)
+        if proc.returncode != 0:
+            raise AssertionError(f"16: the counter's check on {arch} {shape} exited "
+                                 f"{proc.returncode}:\n{proc.stdout[-2000:]}\n"
+                                 f"{proc.stderr[-6000:]}")
+        comm = json.loads(proc.stdout.strip().splitlines()[-1])
+        comm["seconds"] = comm_secs
+        print(f"16: {arch} {shape} 16x16 beside CommDebugMode in {comm_secs:.1f} s: counter "
+              f"{comm['counter']}, CommDebugMode {comm['comm_debug_mode']}", flush=True)
+        for (arch, shape), secs, proc in done:
+            if proc.returncode != 0:
+                raise AssertionError(f"16: the dry run of {arch} {shape} exited "
+                                     f"{proc.returncode}:\n{proc.stdout[-2000:]}\n"
+                                     f"{proc.stderr[-6000:]}")
+            with open(os.path.join(tmp, f"{arch}__{shape}__16x16.json")) as f:
+                rec = json.load(f)
+            if rec.get("status") != "ok":
+                raise AssertionError(f"16: {arch} {shape}: status {rec.get('status')!r}")
+            cells.append({"arch": arch, "shape": shape, "seconds": secs,
+                          "trace_s": rec["trace_s"], "torch": rec["torch"],
+                          "argument_bytes": rec["memory"]["argument_bytes"],
+                          "peak_bytes_est": rec["memory"]["peak_bytes_est"],
+                          "flops": rec["cost"]["flops"],
+                          "collectives": {k: v["count"]
+                                          for k, v in rec["collectives"]["by_kind"].items()}})
+            print(f"16: {arch} {shape} 16x16 ok in {secs:.1f} s: "
+                  f"{proc.stdout.strip().splitlines()[-1]}", flush=True)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    mamba = next(c for c in cells if c["arch"] == "mamba2-2.7b")
+    rec = {"dryrun": cells, "comm_check": comm, "at_once": DRYRUN_AT_ONCE, "gpu": smi}
+    emit(rec)
+    if mamba["argument_bytes"] != MAMBA_ARGUMENT_BYTES:
+        raise AssertionError(f"16: mamba2-2.7b decode_32k 16x16 holds {mamba['argument_bytes']} "
+                             f"argument bytes; the reference's record {MAMBA_ARGUMENT_BYTES}")
+    if not comm["counter"] == comm["comm_debug_mode"] == mamba["collectives"]:
+        raise AssertionError(f"16: mamba2-2.7b decode_32k 16x16's collectives by kind: the "
+                             f"counter {comm['counter']}, CommDebugMode "
+                             f"{comm['comm_debug_mode']}, the CLI's record "
+                             f"{mamba['collectives']}")
+    return rec
+
+
 def walk_phase(smi: str) -> dict:
     """Phases 15b-15d: the kernel walks against the kernels (the docstring's
     item 15)."""
@@ -4342,6 +4459,7 @@ def main() -> int:
     distributed = phase("14", dist_phase, args.seed, smi, built)
     phase("15a", verify_phase, smi)
     phase("15b-15d", walk_phase, smi)
+    phase("16", dryrun_phase, smi)
     for counted in (matrix["launches"], tucker["launches"], mamba["launches"],
                     moe_models["launches"], trained["launches"], meshed["launches"],
                     batched["launches"],

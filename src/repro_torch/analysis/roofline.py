@@ -18,8 +18,9 @@ at the peak rate of the type they run in, whichever is larger.
 :func:`mma_bound` counts the MTTKRP kernel's products as the tensor cores
 run them, :func:`ssd_bound` the intra-chunk SSD term's. ``chip_smoke.py``
 and the probes in ``scripts/`` take every ``bound_ms`` from here.
-``roofline_from_record`` waits for ``launch/dryrun.py``, the dry run (ROADMAP Queue 1
-item 15g).
+:func:`roofline_from_record` reads a record of the dry run
+(:mod:`repro_torch.launch.dryrun`), whose FLOPs and bytes are one
+device's.
 """
 
 from __future__ import annotations
@@ -153,3 +154,19 @@ def ssd_bound(bcn: int, q: int, n: int, h: int, p: int, x_itemsize: int,
     t_ops = (3 * 2.0 * causal * n / hw.peak_flops["tf32"]
              + times * 2.0 * causal * h * p / hw.peak_flops[rate])
     return (max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations")
+
+
+def roofline_from_record(record: dict, hw: HW = H100, dtype: str = "bfloat16") -> RooflineTerms:
+    """Terms from a dry-run record (:mod:`repro_torch.launch.dryrun`), the
+    reference's mapping: ``cost.flops``, ``cost.bytes_accessed`` and
+    ``collectives.operand_bytes`` a device, ``model_flops`` over
+    ``devices``."""
+    return roofline(
+        flops_per_device=record["cost"]["flops"],
+        bytes_per_device=record["cost"]["bytes_accessed"],
+        collective_bytes_per_device=record["collectives"]["operand_bytes"],
+        model_flops_total=record.get("model_flops", 0.0),
+        chips=record.get("devices", 256),
+        hw=hw,
+        dtype=dtype,
+    )

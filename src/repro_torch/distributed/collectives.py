@@ -17,6 +17,7 @@ its bytes to :data:`COUNTER` under the same ring rule (``hlo.py``'s
     all-gather          (q-1) · operand bytes
     reduce-scatter      (q-1) · output bytes
     all-reduce          int(2(q-1)/q · operand bytes)
+    all-to-all          int((q-1)/q · operand bytes)
     collective-permute  operand bytes (one hop)
 
 A group of one process moves nothing and counts nothing, as XLA drops such
@@ -52,7 +53,7 @@ from typing import Mapping
 
 import torch
 
-KINDS = ("all-gather", "reduce-scatter", "all-reduce", "collective-permute")
+KINDS = ("all-gather", "reduce-scatter", "all-reduce", "all-to-all", "collective-permute")
 #: The backend of a group that moves nothing (see the module docstring).
 ABSTRACT = "abstract"
 
@@ -75,13 +76,16 @@ class Group:
 
 def ring_bytes(kind: str, operand_bytes: int, output_bytes: int, q: int) -> int:
     """Per-rank link bytes of one collective over ``q`` ranks under the
-    ring model (the reference's ``distributed/hlo.py`` rule)."""
+    ring model (the reference's ``distributed/hlo.py`` rule; all-to-all's
+    is ``analysis/hlo_cost.py``'s)."""
     if kind == "all-gather":
         return (q - 1) * operand_bytes
     if kind == "reduce-scatter":
         return (q - 1) * output_bytes
     if kind == "all-reduce":
         return int(2 * (q - 1) / q * operand_bytes)
+    if kind == "all-to-all":
+        return int((q - 1) / q * operand_bytes)
     if kind == "collective-permute":
         return operand_bytes
     raise ValueError(f"unknown collective kind {kind!r}; expected one of {KINDS}")

@@ -26,7 +26,7 @@ does the whole q x q product and masks half of it), forms each Gram tile
 once per CTA for all the heads of its block, builds the weights in the
 warps' own MMA fragments and takes the exp only where ``j <= i``. Its plan
 (tile and heads per CTA, :func:`kernel_plan`) is its own; ``head_block``
-is kept for the reference's signature and validation.
+is kept for the reference's signature and validated where given.
 """
 
 from __future__ import annotations
@@ -178,9 +178,10 @@ def _shapes(cc, bc, cum, dt, x, head_block):
     if cum.shape != (bcn, q, h) or dt.shape != (bcn, q, h):
         raise ValueError(f"ssd_intra: cum and dt must be ({bcn}, {q}, {h}), got "
                          f"{tuple(cum.shape)}, {tuple(dt.shape)}")
-    hb = min(head_block, h)
-    if hb < 1 or h % hb:
-        raise ValueError(f"ssd_intra: head_block {head_block} does not divide H={h}")
+    if head_block is not None:
+        hb = min(head_block, h)
+        if hb < 1 or h % hb:
+            raise ValueError(f"ssd_intra: head_block {head_block} does not divide H={h}")
     return bcn, q, cc.shape[2], h, p
 
 
@@ -290,13 +291,16 @@ class SsdIntra(torch.autograd.Function):
 
 
 def ssd_intra(cc: torch.Tensor, bc: torch.Tensor, cum: torch.Tensor, dt: torch.Tensor,
-              x: torch.Tensor, *, head_block: int = 8, plan: SsdPlan | None = None
+              x: torch.Tensor, *, head_block: int | None = None, plan: SsdPlan | None = None
               ) -> torch.Tensor:
     """The intra-chunk SSD term, ``(BC, q, H, P)`` in x's dtype, with its
     gradient (:class:`SsdIntra`). A CUDA tensor launches the kernel under
-    ``plan`` (default :func:`kernel_plan`); cc, bc, cum and dt are taken in
-    fp32 (cast if they are not), x in fp32 or bf16. A CPU tensor takes
-    :func:`ssd_intra_plain`. Both run the same backward."""
+    ``plan`` (default :func:`kernel_plan`, which picks the heads a CTA
+    takes itself); cc, bc, cum and dt are taken in fp32 (cast if they are
+    not), x in fp32 or bf16. A CPU tensor takes :func:`ssd_intra_plain`.
+    Both run the same backward. A ``head_block`` given is validated as the
+    reference's (it must divide H, or exceed it); none is needed, so any H
+    runs (a rank's share of the heads, say 20 of ``mamba2-2.7b``'s 80)."""
     return SsdIntra.apply(cc, bc, cum, dt, x, head_block, plan)
 
 

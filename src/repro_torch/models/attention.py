@@ -34,13 +34,14 @@ reference's ``dynamic_update_slice`` and constraint update it.
 from __future__ import annotations
 
 import functools
+import math
 from typing import NamedTuple
 
 import torch
 
 from .config import ArchConfig
 from .layers import Params, apply_rope, dense_init, einsum, matmul
-from .sharding import NULL, Sharding, local_map
+from .sharding import NULL, Sharding, grad_as_input, local_map
 
 #: The score a masked position gets, as in the reference.
 MASKED = -1e30
@@ -104,20 +105,43 @@ def _act_specs(sh: Sharding, cfg: ArchConfig):
     return q_spec, kv_spec
 
 
-def _proj(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """``einsum("bsd,dhk->bshk")`` as one matmul."""
+def _proj(x: torch.Tensor, w: torch.Tensor, spec, sh: Sharding) -> torch.Tensor:
+    """``einsum("bsd,dhk->bshk")`` as one matmul. DTensor may split the
+    (B, S, H*hd) product over mesh dims whose size does not divide the
+    heads, and such a product cannot be unflattened: it is then laid out by
+    the activation ``spec`` (B, S, H, hd) first, and else left as it is
+    (a constraint would sum a partial product before the RoPE, not after).
+    The flattened weight's gradient comes back split as the weight is, for
+    the same reason."""
     d, h, k = w.shape
-    return matmul(x, w.reshape(d, h * k)).unflatten(-1, (h, k))
+    y = matmul(x, grad_as_input(w.reshape(d, h * k)))
+    if not _splits_whole_heads(y, h):
+        y = sh.constrain(y, *spec[:3])
+    return y.unflatten(-1, (h, k))
+
+
+def _splits_whole_heads(y: torch.Tensor, h: int) -> bool:
+    """Whether the mesh dims that split ``y``'s last dim split it in whole
+    heads (always, for a plain tensor)."""
+    from torch.distributed.tensor import DTensor, Shard
+
+    if not isinstance(y, DTensor):
+        return True
+    ways = [y.device_mesh.size(i) for i, p in enumerate(y.placements)
+            if isinstance(p, Shard) and p.dim == y.ndim - 1]
+    return all(type(p) is Shard or not p.is_shard() for p in y.placements) and h % math.prod(
+        ways) == 0
 
 
 def _q(p: Attention, cfg: ArchConfig, x: torch.Tensor, sh: Sharding) -> torch.Tensor:
-    q = _proj(x, sh.constrain(p.wq, *_proj_spec(sh, cfg.n_heads)))
+    q = _proj(x, sh.constrain(p.wq, *_proj_spec(sh, cfg.n_heads)), _act_specs(sh, cfg)[0], sh)
     return q + p.bq if cfg.qkv_bias else q
 
 
 def _qkv(p: Attention, cfg: ArchConfig, x: torch.Tensor, sh: Sharding):
-    kv = _proj_spec(sh, cfg.n_kv_heads)
-    k, v = _proj(x, sh.constrain(p.wk, *kv)), _proj(x, sh.constrain(p.wv, *kv))
+    kv, kv_spec = _proj_spec(sh, cfg.n_kv_heads), _act_specs(sh, cfg)[1]
+    k = _proj(x, sh.constrain(p.wk, *kv), kv_spec, sh)
+    v = _proj(x, sh.constrain(p.wv, *kv), kv_spec, sh)
     if cfg.qkv_bias:
         k = k + p.bk
         v = v + p.bv
@@ -125,9 +149,14 @@ def _qkv(p: Attention, cfg: ArchConfig, x: torch.Tensor, sh: Sharding):
 
 
 def _out(out: torch.Tensor, wo: torch.Tensor, cfg: ArchConfig, sh: Sharding) -> torch.Tensor:
-    """``einsum("bshk,hkd->bsd")`` as one matmul."""
-    wo = sh.constrain(wo, *_wo_spec(sh, cfg))
-    return sh.constrain(matmul(out.flatten(-2), wo.reshape(-1, wo.shape[-1])), "dp", None, None)
+    """``einsum("bshk,hkd->bsd")`` as one matmul, on the whole sequence
+    (gathered under ``context``: a product that flattens (batch, sequence)
+    with the sequence split fails DTensor's sharding rules); both flattened
+    operands' gradients come back laid out as they are (see :func:`_proj`)."""
+    q_spec = _act_specs(sh, cfg)[0]
+    out = grad_as_input(sh.constrain(out, q_spec[0], None, *q_spec[2:]).flatten(-2))
+    wo = grad_as_input(sh.constrain(wo, *_wo_spec(sh, cfg)).reshape(-1, wo.shape[-1]))
+    return sh.constrain(matmul(out, wo), "dp", None, None)
 
 
 def _groups(cfg: ArchConfig) -> int:

@@ -15,8 +15,8 @@ Sharding policies (``sh.moe``, :mod:`repro_torch.models.sharding`):
   'ffn'    — expert count kept local, per-expert FFN dim sharded over 'tp'
              (for n_experts % tp != 0, e.g. granite's 40 experts on 16).
 Under a mesh the router runs on the sharded tokens; :func:`assign`,
-:func:`dispatch` and :func:`combine` (a sort, a bincount, scatters and
-gathers with data-dependent shapes, which DTensor has no rule for) run on
+:func:`dispatch` and :func:`combine` (a sort, an ``index_add_``, scatters
+and gathers, which DTensor has no rule for) run on
 each rank's replicated copy through ``local_map``, as XLA replicates what
 it cannot partition; the expert FFN runs on the sharded ``(E, cap, D)``
 buffers.
@@ -108,7 +108,10 @@ def assign(ids: torch.Tensor, e: int, cap: int) -> tuple[torch.Tensor, torch.Ten
     is kept while that is below ``cap``: the latest tokens are dropped."""
     flat = ids.reshape(-1)
     order = torch.sort(flat, stable=True).indices  # expert-major, token-major within
-    counts = torch.bincount(flat, minlength=e)
+    # each expert's count of choices, in a buffer of fixed shape (a bincount's
+    # length depends on the ids, which a shape-only run cannot know)
+    counts = torch.zeros(e, dtype=flat.dtype, device=flat.device).index_add_(
+        0, flat, torch.ones_like(flat))
     starts = torch.cumsum(counts, 0) - counts
     pos = torch.empty_like(flat)
     pos[order] = torch.arange(flat.numel(), device=flat.device) - starts[flat[order]]
@@ -119,15 +122,17 @@ def assign(ids: torch.Tensor, e: int, cap: int) -> tuple[torch.Tensor, torch.Ten
 def dispatch(xf: torch.Tensor, ids: torch.Tensor, pos: torch.Tensor, keep: torch.Tensor,
              e: int, cap: int) -> torch.Tensor:
     """The ``(E, cap, D)`` buffer: each kept choice's token in slot
-    ``expert * cap + position``, zeros in the empty slots. Only kept
-    choices are written, so every slot is written at most once."""
+    ``expert * cap + position``, zeros in the empty slots. Every slot is
+    written at most once: the dropped choices all go to one spare row past
+    the last slot, which is cut off (every shape fixed by T, k, E and cap,
+    none by the choices)."""
     t, d = xf.shape
     k = ids.shape[1]
-    slots = (ids * cap + pos)[keep]
-    tokens = torch.arange(t, device=xf.device).repeat_interleave(k).reshape(t, k)[keep]
-    xe = torch.zeros((e * cap, d), dtype=xf.dtype, device=xf.device)
+    slots = torch.where(keep, ids * cap + pos, e * cap).reshape(-1)
+    tokens = torch.arange(t, device=xf.device).repeat_interleave(k)
+    xe = torch.zeros((e * cap + 1, d), dtype=xf.dtype, device=xf.device)
     xe[slots] = xf[tokens]
-    return xe.reshape(e, cap, d)
+    return xe[:-1].reshape(e, cap, d)
 
 
 def _expert_specs(sh: Sharding):

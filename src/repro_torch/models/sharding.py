@@ -275,11 +275,66 @@ def local_map(sh: Sharding, fn, in_specs, out_layouts):
         grads = tuple(tuple(Partial() if split[d] and isinstance(p, Replicate) else p
                             for d, p in enumerate(pl)) for pl in ins)
         # one output's placements are a list: a tuple would read as one a output
-        return _local_map(fn, out_placements=outs if many else list(outs[0]), in_placements=ins,
+        return _local_map(_contiguous_grads(fn), out_placements=outs if many else list(outs[0]),
+                          in_placements=ins,
                           in_grad_placements=grads, device_mesh=sh.mesh,
                           redistribute_inputs=False)(*args)
 
     return run
+
+
+class _ContiguousGrad(torch.autograd.Function):
+    """The identity, its gradient made contiguous."""
+
+    @staticmethod
+    def forward(ctx, x):
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.contiguous()
+
+
+def _contiguous_grads(fn):
+    """``fn`` on local shards, each input's gradient made contiguous: a
+    local gradient comes back as the local backward leaves it (a permuted
+    einsum's is transposed), and DTensor, which takes the shard's layout
+    from the global one, would then view it where it cannot be viewed."""
+
+    def run(*xs):
+        return fn(*(_ContiguousGrad.apply(x) if isinstance(x, torch.Tensor) and x.requires_grad
+                    else x for x in xs))
+
+    return run
+
+
+class _GradAs(torch.autograd.Function):
+    """The identity, its gradient split as the input is."""
+
+    @staticmethod
+    def forward(ctx, x):
+        ctx.layout = (x.device_mesh, tuple(x.placements))
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        mesh, placements = ctx.layout
+        # a pending sum stays pending (summing here would change the order)
+        want = tuple(p if p.is_partial() else q for p, q in zip(g.placements, placements))
+        return g if tuple(g.placements) == want else g.redistribute(mesh, want)
+
+
+def grad_as_input(x: torch.Tensor) -> torch.Tensor:
+    """``x``, its gradient split as ``x`` is (a partial sum left pending).
+    A DTensor's gradient comes back split as the backward's sharding rules
+    pick; where a view's backward then reshapes it (a flattened weight's
+    gradient into its heads, a product's into (batch x sequence) rows), a
+    split that tp does not divide evenly, or one over the sequence, fails.
+    Only data moves, no sum: the values are the same bits. A plain tensor
+    comes back as it is."""
+    from torch.distributed.tensor import DTensor
+
+    return _GradAs.apply(x) if isinstance(x, DTensor) and x.requires_grad else x
 
 
 def distribute_tree(tree, spec_tree, sh: Sharding):

@@ -162,10 +162,11 @@ def _like(g: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
 
 
 def build_serve_step(cfg: ArchConfig, *, sh: Sharding = NULL):
-    """Returns serve_step(params, state, tokens) -> (logits, state)."""
+    """Returns serve_step(params, state, tokens, cross_kv=None) -> (logits,
+    state); ``cross_kv`` is an encoder-decoder model's encoder K/V."""
 
-    def serve_step(params: LM, state: dict, tokens: torch.Tensor):
-        return decode_step(params, cfg, state, tokens, sh=sh)
+    def serve_step(params: LM, state: dict, tokens: torch.Tensor, cross_kv=None):
+        return decode_step(params, cfg, state, tokens, cross_kv, sh=sh)
 
     return serve_step
 
@@ -201,9 +202,10 @@ def jit_train_step(cfg: ArchConfig, sh: Sharding, state: TrainState, microbatche
 def jit_serve_step(cfg: ArchConfig, sh: Sharding, params: LM, decode_state: dict):
     """The serve step with its layouts, the reference's ``jit_serve_step``.
     Without a mesh, the plain :func:`build_serve_step`. Under one,
-    ``step(params, state, tokens)`` lays the parameters out by
-    :func:`~repro_torch.models.param_specs`, the caches by
-    :func:`~repro_torch.models.cache_specs` and the tokens over dp, and
+    ``step(params, state, tokens, cross_kv=None)`` lays the parameters out
+    by :func:`~repro_torch.models.param_specs`, the caches by
+    :func:`~repro_torch.models.cache_specs`, the tokens over dp and an
+    encoder's K/V over dp and sp (the reference's dry run lays them so), and
     returns the logits as a DTensor and the state laid out by the cache
     specs."""
     step = build_serve_step(cfg, sh=sh)
@@ -212,10 +214,12 @@ def jit_serve_step(cfg: ArchConfig, sh: Sharding, params: LM, decode_state: dict
     pspecs = param_specs(params, cfg, sh)
     cspecs = cache_specs(decode_state, cfg, sh)
 
-    def sharded_step(params: LM, state: dict, tokens: torch.Tensor):
+    def sharded_step(params: LM, state: dict, tokens: torch.Tensor, cross_kv=None):
+        if cross_kv is not None:
+            cross_kv = tuple(sh.constrain(t, "dp", "sp", None, None) for t in cross_kv)
         logits, new = step(distribute_tree(params, pspecs, sh),
                            distribute_tree(state, cspecs, sh),
-                           sh.constrain(tokens, "dp", None))
+                           sh.constrain(tokens, "dp", None), cross_kv)
         return logits, distribute_tree(new, cspecs, sh)
 
     return sharded_step

@@ -4,16 +4,19 @@ its losses against ``--mesh none``'s, and its refusal on a host with
 fewer than 8 cards.
 
 The smoke config trains in bf16, where the sharded contractions add their
-partial products in bf16 across ranks: the first loss reads 1.7e-5 from
-the unsharded one, so the losses are held to bf16's unit roundoff (2^-8),
-the fp32 steps to 1e-5 in ``tests/test_torch_mesh_train.py``.
+partial products in bf16 across ranks: the port's ``debug`` and ``none``
+losses differ by 9.4e-6, 2.3e-5 and 2.1e-5 relative over the three steps,
+and the reference's own (``python -m repro.launch.train`` on 8 host
+devices) by up to 4.1e-5. So the losses are held to 2e-4 relative, a
+small multiple of the reference's own gap; the fp32 steps to 1e-5 in
+``tests/test_torch_mesh_train.py``.
 """
 
 import pytest
 import torch
 import torch.distributed as dist
 
-BF16_UNIT = 2.0 ** -8
+LOSS_TOL = 2e-4
 
 
 def test_the_launcher_trains_on_the_debug_mesh(tmp_path):
@@ -24,7 +27,7 @@ def test_the_launcher_trains_on_the_debug_mesh(tmp_path):
     meshed = train.main(common + ["--mesh", "debug", "--ckpt-dir", str(tmp_path / "debug")])
     assert len(meshed.losses) == len(plain.losses) == 3
     for a, b in zip(meshed.losses, plain.losses):
-        assert abs(a - b) <= BF16_UNIT * abs(b), (meshed.losses, plain.losses)
+        assert abs(a - b) <= LOSS_TOL * abs(b), (meshed.losses, plain.losses)
     assert sorted(p.name for p in (tmp_path / "debug").iterdir()) == ["step_3"]
     assert not dist.is_initialized()
 
