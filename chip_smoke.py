@@ -167,10 +167,20 @@ Phases (any failure raises, and the script exits non-zero):
    restore on the smoke model: saved unsharded after one step, restored
    onto the mesh with ``train_state_specs`` and stepped, the loss within
    ``RESTORE_TOL`` 1e-6 of the unsharded continuation's; (c)
-   ``qwen2-1.5b`` in bf16, all 28 layers: a 2 x 1024 prefill through
+   ``qwen2-1.5b`` in bf16, all 28 layers, under each attention policy:
+   the (1, 1) mesh's own (``head_tp``) and the one it takes on the 16x16
+   mesh (``context``: its 12 heads on 16): a 2 x 1024 prefill through
    ``forward`` with and without the policy, then ``MESH_DECODE`` 8 greedy
-   steps of ``jit_serve_step`` (``cache_specs``) against the unsharded
-   ``decode_step``, logits within ``MESH_TOL``, no kernel launched;
+   steps of ``jit_serve_step`` (``cache_specs``; the decode core on the
+   sequence-sharded cache, its softmaxes combined by DTensor all-reduces)
+   against the unsharded ``decode_step``, logits within ``MESH_TOL``, no
+   kernel launched; (d) ``olmoe-1b-7b``'s smoke model in fp32 under each
+   MoE policy (``expert``, ``ffn``): one ``jit_train_step`` on a
+   ``MESH_MOE_BATCH`` batch and ``MESH_MOE_DECODE`` 2 greedy
+   ``jit_serve_step`` steps (routing on each rank's own tokens) against
+   the unsharded step and decode, loss and logits within ``MESH_TOL``, no
+   kernel launched; (a)'s loss runs through the vocabulary-parallel NLL's
+   all-reduces;
 10. the batched engine (``BATCHES``: 16 tensors of 256^3 at R = 32 in fp32
     and bf16, 64 of 96^3 at R = 16, 8 of 64^4 at R = 16): batched
     ``repro_torch.mttkrp`` in every mode with per-element and with shared
@@ -306,8 +316,11 @@ Phases (any failure raises, and the script exits non-zero):
     ``train_4k``, all at full depth), on this machine's torch, whose
     DTensor rules differ from other releases'; each exits 0 with
     ``status: "ok"``, its seconds and headline numbers printed (mem/dev,
-    FLOPs/dev, collectives), and ``mamba2-2.7b``'s ``argument_bytes``
-    equal to the reference's record, ``MAMBA_ARGUMENT_BYTES``; and that
+    FLOPs/dev, collectives), ``mamba2-2.7b``'s ``argument_bytes``
+    equal to the reference's record, ``MAMBA_ARGUMENT_BYTES``,
+    ``qwen2-1.5b``'s and ``qwen2-vl-72b``'s FLOPs a device at most
+    ``DECODE_FLOPS_LIMIT`` 1.25 times the reference's,
+    ``DECODE_REF_FLOPS``; and that
     cell once more beside ``CommDebugMode`` (``COMM_CHECK``), whose count
     of each collective kind must equal the dry run's counter's and the
     CLI's record's; no GPU is used;
@@ -326,6 +339,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import dataclasses
 import json
 import math
 import os
@@ -394,6 +408,13 @@ DRYRUN_CELLS = (("mamba2-2.7b", "decode_32k"), ("qwen2-1.5b", "decode_32k"),
                 ("whisper-tiny", "train_4k"))
 #: Dry runs at once (each is one CPU process).
 DRYRUN_AT_ONCE = 3
+#: ``cost.flops`` of the reference's ``A decode_32k 16x16`` records, from
+#: ``python -m repro.launch.dryrun --arch A --shape decode_32k`` (jax 0.9.0
+#: on the CPU), and the multiple of them the port may count: the decode
+#: core attends each rank's own part of the sequence-sharded cache, under
+#: ``context`` (qwen2-1.5b) and ``head_tp`` (qwen2-vl-72b).
+DECODE_REF_FLOPS = {"qwen2-1.5b": 6_674_448_384, "qwen2-vl-72b": 134_540_689_408}
+DECODE_FLOPS_LIMIT = 1.25
 #: ``memory.argument_bytes`` of the reference's
 #: ``results/dryrun/mamba2-2.7b__decode_32k__16x16.json``.
 MAMBA_ARGUMENT_BYTES = 131_754_272
@@ -485,8 +506,8 @@ LAUNCHER_ARGS = ["--arch", "mamba2-2.7b", "--smoke", "--steps", "20", "--batch",
                  "64", "--ckpt-every", "5"]
 LOOP_TOL = 1e-6
 #: Phase 9h, the mesh layer on a (1, 1) CUDA mesh: (a) the sharded train
-#: step's losses and (c) the sharded decode's logits within MESH_TOL
-#: (relative) of the unsharded runs; (b) the restored-and-stepped loss
+#: step's losses, (c) the sharded decode's logits and (d) the sharded MoE
+#: model's loss and logits within MESH_TOL (relative) of the unsharded runs; (b) the restored-and-stepped loss
 #: within RESTORE_TOL of the unsharded continuation's; (c) MESH_DECODE
 #: greedy steps after a MESH_PREFILL prefill. Its seed, on top of --seed.
 MESH_TOL = 1e-5
@@ -494,6 +515,9 @@ RESTORE_TOL = 1e-6
 MESH_PREFILL = (2, 1024)
 MESH_DECODE = 8
 MESH_SEED = 4
+#: Phase 9h (d): the MoE smoke model's train batch and its decode steps.
+MESH_MOE_BATCH = (4, 128)
+MESH_MOE_DECODE = 2
 MOE_TOKENS = 2048
 MOE_TOL = 1e-5
 JAMBA_SSD = {"bcn": 8, "q": 256, "n": 16, "h": 128, "p": 64}
@@ -2458,7 +2482,7 @@ def train_phase(gen, smi: str) -> dict:
 def mesh_rank(tmp: str, seed: int) -> int:
     """Phase 9h, in a process of its own: a world-size-1 NCCL group on a
     free local port, a ``(1, 1)`` ``("data", "model")`` CUDA mesh, then
-    (a)-(c) (counts set to 0 before each run and read after); writes
+    (a)-(d) (counts set to 0 before each run and read after); writes
     ``mesh.json`` into ``tmp``. The process group is closed before it
     returns."""
     import socket
@@ -2470,7 +2494,8 @@ def mesh_rank(tmp: str, seed: int) -> int:
     from repro_torch.data import DataConfig, synthetic_batch
     from repro_torch.launch.mesh import make_debug_mesh
     from repro_torch.models import forward, init_decode_state, init_params
-    from repro_torch.models.sharding import distribute_tree, full, make_policy
+    from repro_torch.models.sharding import (attention_policy, distribute_tree, full,
+                                             make_policy)
     from repro_torch.training import (build_serve_step, build_train_step, init_train_state,
                                       jit_serve_step, jit_train_step, train_state_specs)
 
@@ -2567,41 +2592,95 @@ def mesh_rank(tmp: str, seed: int) -> int:
         del start, again, onto
         torch.cuda.empty_cache()
 
-        # (c) qwen2-1.5b, all layers: prefill, then greedy decode, plain and sharded
+        # (c) qwen2-1.5b, all layers: prefill, then greedy decode, plain and
+        # sharded under each attention policy: the (1, 1) mesh's own
+        # (head_tp) and the one it takes on the 16x16 mesh (context)
         dcfg = get_config("qwen2-1.5b")
-        dsh = make_policy(dcfg, mesh)
         params = init_params(dcfg, generator=torch.Generator(device="cuda").manual_seed(
             seed + MESH_SEED))
         pb, ps = MESH_PREFILL
         gen = torch.Generator(device="cuda").manual_seed(seed + MESH_SEED)
         prompt = {"tokens": torch.randint(0, dcfg.vocab_size, (pb, ps), generator=gen,
                                           device="cuda")}
-        want, _ = run(lambda: forward(params, dcfg, prompt, mode="prefill",
-                                      logits_positions="last"), {})
-        got, _ = run(lambda: forward(params, dcfg, prompt, mode="prefill",
-                                     logits_positions="last", sh=dsh), {})
-        errs = [rel_err(full(got).float(), want.float())[0]]
-        plain_state = init_decode_state(params, dcfg, pb, ps)
-        mesh_state = init_decode_state(params, dcfg, pb, ps)
-        serve, mesh_serve = build_serve_step(dcfg), jit_serve_step(dcfg, dsh, params, mesh_state)
-        tok = want[:, -1].argmax(-1, keepdim=True)
-        times = {"plain_ms": [], "sharded_ms": []}
+        prefilled, _ = run(lambda: forward(params, dcfg, prompt, mode="prefill",
+                                           logits_positions="last"), {})
+        serve, plain_state = build_serve_step(dcfg), init_decode_state(params, dcfg, pb, ps)
+        tok = prefilled[:, -1].argmax(-1, keepdim=True)
+        steps, plain_ms = [], []
         for _ in range(MESH_DECODE):
             t0 = time.perf_counter()
             want, plain_state = run(lambda: serve(params, plain_state, tok), {})
-            t1 = time.perf_counter()
-            got, mesh_state = run(lambda: mesh_serve(params, mesh_state, tok), {})
-            times["plain_ms"].append((t1 - t0) * 1e3)
-            times["sharded_ms"].append((time.perf_counter() - t1) * 1e3)
-            errs.append(rel_err(full(got).float(), want.float())[0])
+            plain_ms.append((time.perf_counter() - t0) * 1e3)
+            steps.append((tok, want))
             tok = want[:, -1].argmax(-1, keepdim=True)
+        del plain_state
         c = {"arch": dcfg.name, "layers": dcfg.n_layers, "prefill": [pb, ps],
-             "decode_steps": MESH_DECODE, "max_rel_err": max(errs), "rel_errs": errs,
-             "limit": MESH_TOL, **times}
-        if max(errs) > MESH_TOL or not all(math.isfinite(e) for e in errs):
-            raise AssertionError(f"phase 9h (c): {json.dumps(c)}")
+             "decode_steps": MESH_DECODE, "limit": MESH_TOL, "plain_ms": plain_ms,
+             "policies": []}
+        for dsh in (make_policy(dcfg, mesh), dataclasses.replace(
+                make_policy(dcfg, mesh), attn=attention_policy(dcfg, 16))):
+            got, _ = run(lambda: forward(params, dcfg, prompt, mode="prefill",
+                                         logits_positions="last", sh=dsh), {})
+            errs = [rel_err(full(got).float(), prefilled.float())[0]]
+            mesh_state = init_decode_state(params, dcfg, pb, ps)
+            mesh_serve = jit_serve_step(dcfg, dsh, params, mesh_state)
+            sharded_ms = []
+            for tok, want in steps:
+                t0 = time.perf_counter()
+                got, mesh_state = run(lambda: mesh_serve(params, mesh_state, tok), {})
+                sharded_ms.append((time.perf_counter() - t0) * 1e3)
+                errs.append(rel_err(full(got).float(), want.float())[0])
+            del mesh_state
+            c["policies"].append({"attn_policy": dsh.attn, "max_rel_err": max(errs),
+                                  "rel_errs": errs, "sharded_ms": sharded_ms})
+            if max(errs) > MESH_TOL or not all(math.isfinite(e) for e in errs):
+                raise AssertionError(f"phase 9h (c): {json.dumps(c)}")
+        del params
+        torch.cuda.empty_cache()
+
+        # (d) olmoe-1b-7b's smoke model in fp32: a train step and greedy
+        # decode steps, plain and sharded under each MoE policy
+        mcfg = dataclasses.replace(get_smoke("olmoe-1b-7b"), dtype="float32")
+        mb, ms = MESH_MOE_BATCH
+        gen = torch.Generator(device="cuda").manual_seed(seed + MESH_SEED)
+        mdata = {k: torch.randint(0, mcfg.vocab_size, (mb, ms), generator=gen, device="cuda")
+                 for k in ("tokens", "labels")}
+        mtoks = torch.randint(0, mcfg.vocab_size, (mb, MESH_MOE_DECODE), generator=gen,
+                              device="cuda")
+
+        def mstate():
+            return init_train_state(
+                mcfg, generator=torch.Generator(device="cuda").manual_seed(seed + MESH_SEED))
+
+        _, mwant = run(lambda: build_train_step(mcfg)(mstate(), mdata), {})
+        mparams, mserve = mstate().params, build_serve_step(mcfg)
+        mplain = init_decode_state(mparams, mcfg, mb, MESH_MOE_DECODE)
+        dwant = []
+        for i in range(MESH_MOE_DECODE):
+            want, mplain = run(lambda: mserve(mparams, mplain, mtoks[:, i:i + 1]), {})
+            dwant.append(want)
+        d = {"arch": mcfg.name, "dtype": mcfg.dtype, "batch": [mb, ms],
+             "decode_steps": MESH_MOE_DECODE, "limit": MESH_TOL, "policies": []}
+        for moe in ("expert", "ffn"):
+            msh = dataclasses.replace(make_policy(mcfg, mesh), moe=moe)
+            state = mstate()
+            state = distribute_tree(state, train_state_specs(state, mcfg, msh), msh)
+            _, got = run(lambda: jit_train_step(mcfg, msh, state)(state, mdata), {})
+            loss_err = abs(float(got["loss"]) - float(mwant["loss"])) / abs(float(mwant["loss"]))
+            meshed = init_decode_state(mparams, mcfg, mb, MESH_MOE_DECODE)
+            mesh_serve = jit_serve_step(mcfg, msh, mparams, meshed)
+            errs = []
+            for i in range(MESH_MOE_DECODE):
+                got, meshed = run(lambda: mesh_serve(mparams, meshed, mtoks[:, i:i + 1]), {})
+                errs.append(rel_err(full(got).float(), dwant[i].float())[0])
+            d["policies"].append({"moe_policy": moe, "rel_loss_err": loss_err,
+                                  "decode_rel_errs": errs})
+            if (max([loss_err, *errs]) > MESH_TOL
+                    or not all(math.isfinite(e) for e in [loss_err, *errs])):
+                raise AssertionError(f"phase 9h (d): {json.dumps(d)}")
+            del state
         rec = {"mesh": str(mesh), "device": torch.cuda.get_device_name(0), "train": a,
-               "restore": b, "serve": c, "launches": total,
+               "restore": b, "serve": c, "moe": d, "launches": total,
                "seconds": time.perf_counter() - t_start}
     finally:
         dist.destroy_process_group()
@@ -4300,8 +4379,18 @@ def dryrun_phase(smi: str) -> dict:
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     mamba = next(c for c in cells if c["arch"] == "mamba2-2.7b")
-    rec = {"dryrun": cells, "comm_check": comm, "at_once": DRYRUN_AT_ONCE, "gpu": smi}
+    decode = {c["arch"]: c["flops"] for c in cells
+              if c["shape"] == "decode_32k" and c["arch"] in DECODE_REF_FLOPS}
+    vs_ref = {arch: {"port": flops, "reference": DECODE_REF_FLOPS[arch],
+                     "ratio": flops / DECODE_REF_FLOPS[arch], "limit": DECODE_FLOPS_LIMIT}
+              for arch, flops in decode.items()}
+    rec = {"dryrun": cells, "comm_check": comm, "at_once": DRYRUN_AT_ONCE,
+           "decode_flops": vs_ref, "gpu": smi}
     emit(rec)
+    over = {arch: r for arch, r in vs_ref.items() if not r["ratio"] <= DECODE_FLOPS_LIMIT}
+    if over or set(decode) != set(DECODE_REF_FLOPS):
+        raise AssertionError(f"16: decode_32k 16x16 FLOPs a device against the reference's "
+                             f"(at most {DECODE_FLOPS_LIMIT}x): {json.dumps(vs_ref)}")
     if mamba["argument_bytes"] != MAMBA_ARGUMENT_BYTES:
         raise AssertionError(f"16: mamba2-2.7b decode_32k 16x16 holds {mamba['argument_bytes']} "
                              f"argument bytes; the reference's record {MAMBA_ARGUMENT_BYTES}")

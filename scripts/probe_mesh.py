@@ -2,7 +2,7 @@
 """Which models' sharded paths run on this machine's PyTorch, on a (1, 1)
 ``("data", "model")`` CUDA mesh of a world-size-1 NCCL group.
 
-    python3 scripts/probe_mesh.py [--dtype float32|bfloat16] [NAME ...]
+    python3 scripts/probe_mesh.py [--dtype float32|bfloat16] [--policy k=v ...] [NAME ...]
 
 Needs one CUDA card (and nvcc, for ``ssd_intra``). DTensor's sharding
 rules differ between PyTorch releases, so a path that runs sharded on one
@@ -10,7 +10,10 @@ release may meet an op without a rule on another. For each smoke config
 (default all ten), from one seed: one ``jit_train_step`` against one
 ``build_train_step``, a ``forward`` prefill and 2 ``jit_serve_step``
 decode steps (``cache_specs``) against the unsharded ``forward`` and
-``decode_step`` (the encoder-decoder model's with ``cross_kv``). One JSON
+``decode_step`` (the encoder-decoder model's with ``cross_kv``), under
+``make_policy`` with the fields ``--policy`` names replaced (say
+``attn=context`` and ``moe=ffn``, the paths a (1, 1) mesh would not
+take). One JSON
 line a config: each part's relative difference from the unsharded run,
 or the error it raised (its type, message and innermost frame in
 ``repro_torch``); then one line with the card's name and power limit and
@@ -44,7 +47,7 @@ def _rel(got, want) -> float:
     return float((got - want).abs().max()) / max(float(want.abs().max()), 1e-30)
 
 
-def probe(name: str, dtype: str, mesh) -> dict:
+def probe(name: str, dtype: str, mesh, policy: dict) -> dict:
     from dataclasses import replace
 
     import torch
@@ -57,7 +60,7 @@ def probe(name: str, dtype: str, mesh) -> dict:
                                       jit_serve_step, jit_train_step)
 
     cfg = replace(get_smoke(name), dtype=dtype)
-    sh = make_policy(cfg, mesh)
+    sh = replace(make_policy(cfg, mesh), **policy)
     b, s = 2, 16
     gen = torch.Generator(device="cuda").manual_seed(1)
     batch = {}
@@ -129,7 +132,10 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("names", nargs="*")
     ap.add_argument("--dtype", default="float32", choices=["float32", "bfloat16"])
+    ap.add_argument("--policy", action="append", default=[], metavar="K=V",
+                    help="a field of the sharding policy replaced (attn=context, moe=ffn)")
     args = ap.parse_args()
+    policy = dict(kv.split("=", 1) for kv in args.policy)
 
     import torch
     import torch.distributed as dist
@@ -150,7 +156,7 @@ def main() -> int:
     try:
         mesh = make_debug_mesh(1, 1, device_type="cuda")
         for name in args.names or ARCH_NAMES:
-            print(json.dumps(probe(name, args.dtype, mesh)), flush=True)
+            print(json.dumps(probe(name, args.dtype, mesh, policy)), flush=True)
     finally:
         dist.destroy_process_group()
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],

@@ -9,7 +9,9 @@ policies (``sh``, :mod:`repro_torch.models.sharding`):
              math (context parallelism) — used when n_heads % tp != 0.
 
 Decode KV caches are sharded over the sequence axis ('sp') by default
-(:func:`cache_spec`).
+(:func:`cache_spec`); under either policy the decode core then stays on
+each rank's part of them and the parts' softmaxes are combined,
+flash-decoding style (:func:`_decode_seq_sharded`).
 
 The numerics follow the reference's casts one by one: Q, K and V in the
 activations' dtype, scores scaled in it and then taken to fp32, the causal
@@ -41,7 +43,7 @@ import torch
 
 from .config import ArchConfig
 from .layers import Params, apply_rope, dense_init, einsum, matmul
-from .sharding import NULL, Sharding, grad_as_input, local_map
+from .sharding import NULL, Sharding, grad_as_input, local_map, reduce_local
 
 #: The score a masked position gets, as in the reference.
 MASKED = -1e30
@@ -313,34 +315,80 @@ def attention_decode(p: Attention, x: torch.Tensor, cache: KVCache, cfg: ArchCon
     q = apply_rope(q, pos, cfg.rope_theta, cfg.mrope)
     k_new = apply_rope(k_new, pos, cfg.rope_theta, cfg.mrope)
     at = cache.length.view(1).long()
+    core = functools.partial(_decode_core, groups=_groups(cfg), scale=cfg.hd ** -0.5,
+                             dtype=x.dtype)
+    spec = cache_spec(cfg, sh)
     if sh.mesh is None:
         ck = cache.k.index_copy_(1, at, k_new.to(cache.k.dtype))
         cv = cache.v.index_copy_(1, at, v_new.to(cache.v.dtype))
+        out = core(q, ck, cv, cache.length)
+    elif spec[1] == "sp":
+        ck, cv, out = _decode_seq_sharded(q, k_new, v_new, cache, sh.spec(*spec), core, sh)
     else:
         # out of place, as a select at ``length``: DTensor's sharding rules
         # do not cover index_copy in every PyTorch release
-        spec = cache_spec(cfg, sh)
         at_length = torch.arange(cache.k.shape[1], device=x.device)[:, None, None] == cache.length
         ck = sh.constrain(torch.where(at_length, k_new.to(cache.k.dtype), cache.k), *spec)
         cv = sh.constrain(torch.where(at_length, v_new.to(cache.v.dtype), cache.v), *spec)
-    # each rank's batch rows over the whole cache (gathered over sp)
-    core = functools.partial(_decode_core, groups=_groups(cfg), scale=cfg.hd ** -0.5,
-                             dtype=x.dtype)
-    rows = sh.spec("dp", None, None, None)
-    out = local_map(sh, core, (rows, rows, rows, ()), 0)(q, ck, cv, cache.length)
+        # a head-sharded cache: each rank's batch rows over all heads (the
+        # cache's heads gathered over tp) and the whole sequence
+        rows = sh.spec("dp", None, None, None)
+        out = local_map(sh, core, (rows, rows, rows, ()), 0)(q, ck, cv, cache.length)
     y = sh.constrain(matmul(out.flatten(-2), p.wo.reshape(-1, p.wo.shape[-1])), "dp", None, None)
     return y, KVCache(ck, cv, cache.length + 1)
 
 
-def _decode_core(q: torch.Tensor, ck: torch.Tensor, cv: torch.Tensor, length: torch.Tensor, *,
-                 groups: int, scale: float, dtype: torch.dtype) -> torch.Tensor:
+def _decode_seq_sharded(q: torch.Tensor, k_new: torch.Tensor, v_new: torch.Tensor,
+                        cache: KVCache, spec, core, sh: Sharding):
+    """The decode step on a cache split over its sequence (flash decoding):
+    each rank writes the new K and V into its own positions (a select,
+    which changes the shard that holds ``length`` alone), attends its batch
+    rows' query to its own positions (each masked by its global position),
+    and the ranks that split the sequence combine their softmaxes:
+    (new cache K, new cache V, the output (B, 1, H, hd))."""
+    seq = sh.split_dims(tuple(cache.k.shape), spec, 1)
+    pos_spec = (spec[1],)
+    kv_pos = sh.place(torch.arange(cache.k.shape[1], device=q.device), pos_spec)
+    rows = sh.spec("dp", None, None, None)
+
+    def write(old: torch.Tensor, new: torch.Tensor, kv_pos: torch.Tensor,
+              length: torch.Tensor) -> torch.Tensor:
+        return torch.where((kv_pos == length)[:, None, None], new.to(old.dtype), old)
+
+    put = local_map(sh, write, (spec, rows, pos_spec, ()), 0)
+    ck, cv = put(cache.k, k_new, kv_pos, cache.length), put(cache.v, v_new, kv_pos, cache.length)
+    attend = functools.partial(core, combine=functools.partial(reduce_local, sh, dims=seq))
+    out = local_map(sh, attend, (rows, spec, spec, (), pos_spec), 0)(q, ck, cv, cache.length,
+                                                                     kv_pos)
+    return ck, cv, out
+
+
+def _decode_core(q: torch.Tensor, ck: torch.Tensor, cv: torch.Tensor, length: torch.Tensor,
+                 kv_pos: torch.Tensor | None = None, *, groups: int, scale: float,
+                 dtype: torch.dtype, combine=None) -> torch.Tensor:
     """One query position's attention (q: (B, 1, H, hd)) over the cache's
     positions up to ``length``: (B, 1, H, hd); q head ``h`` reads kv head
-    ``h // groups``."""
+    ``h // groups``.
+
+    With ``combine`` the cache holds a part of the positions, ``kv_pos``
+    (their global positions), and ``combine(x, op)`` reduces ``x`` by
+    ``op`` over the ranks that hold the others: each part's softmax output
+    is weighted by its share ``exp(m - max m) * l / sum(...)`` of the
+    whole softmax's sum (``m`` its largest score, ``l`` its sum of
+    ``exp(score - m)``) and the parts are summed in fp32. A part with no
+    valid position weighs 0, and a lone part weighs exactly 1."""
     b, _, kv, hd = q.shape[0], q.shape[1], ck.shape[2], q.shape[3]
     qg = q.reshape(b, 1, kv, groups, hd)
     scores = (einsum("bqhgk,bshk->bhgqs", qg, ck) * scale).float()
-    valid = torch.arange(ck.shape[1], device=q.device) <= length
+    if kv_pos is None:
+        kv_pos = torch.arange(ck.shape[1], device=q.device)
+    valid = kv_pos <= length
     scores = torch.where(valid, scores, MASKED)
     probs = torch.softmax(scores, dim=-1).to(dtype)
-    return einsum("bhgqs,bshk->bqhgk", probs, cv).reshape(b, 1, kv * groups, hd)
+    out = einsum("bhgqs,bshk->bqhgk", probs, cv)
+    if combine is not None:
+        m = scores.amax(dim=-1, keepdim=True)
+        share = torch.exp(m - combine(m, "max")) * torch.exp(scores - m).sum(dim=-1, keepdim=True)
+        share = (share / combine(share, "sum")).permute(0, 3, 1, 2, 4)  # (b, 1, kv, groups, 1)
+        out = combine(out.float() * share, "sum").to(dtype)
+    return out.reshape(b, 1, kv * groups, hd)

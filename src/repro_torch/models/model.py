@@ -24,6 +24,9 @@ embeddings) is read from them, whatever the model, as in the reference.
 
 from __future__ import annotations
 
+import functools
+import math
+
 import torch
 from torch import nn
 
@@ -41,7 +44,7 @@ from .layers import (
     init_norm,
 )
 from .layers import logits as lm_logits
-from .sharding import NULL, Sharding, Spec, local_map, replicating
+from .sharding import NULL, Sharding, Spec, local_map, reduce_local, replicating
 from .ssm import SSMCache
 
 DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
@@ -218,11 +221,8 @@ def loss_fn(params: LM, cfg: ArchConfig, batch: dict, aux_weight: float = 0.01, 
     out, aux = _forward(params, cfg, batch, mode="train", sh=sh)
     labels = batch["dec_labels" if cfg.is_encdec else "labels"]
     with replicating(sh):
-        # each rank's batch rows over the whole vocabulary under a mesh: a
-        # gather over a tp-sharded vocabulary fails to reduce its masked
-        # partial result in DTensor
-        nll = local_map(sh, _nll, (sh.spec("dp", None, None), sh.spec("dp", None)), 1)(
-            out.float(), labels).mean()
+        nll = (_nll(out.float(), labels) if sh.mesh is None
+               else _vocab_parallel_nll(out.float(), labels, sh)).mean()
         total = nll + aux_weight * aux
     return total, {"nll": nll, "aux": aux}
 
@@ -232,6 +232,51 @@ def _nll(out: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
     less the gold logit."""
     logz = torch.logsumexp(out, dim=-1)
     return logz - torch.gather(out, -1, labels[..., None].long())[..., 0]
+
+
+def _vocab_parallel_nll(out: torch.Tensor, labels: torch.Tensor, sh: Sharding) -> torch.Tensor:
+    """:func:`_nll` on the logits as ``lm_logits`` lays them out, the
+    vocabulary split over tp: each rank takes its batch rows over its own
+    words (:class:`_VocabNLL`), and the ranks that split the vocabulary
+    all-reduce their maxima, their sums of ``exp`` and their gold logits."""
+    spec = sh.fit_spec(tuple(out.shape), sh.spec("dp", None, "tp"))
+    vocab = sh.split_dims(tuple(out.shape), spec, 2)
+
+    def local(out: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+        first = sh.shard_index(vocab) * out.shape[-1]
+        return _VocabNLL.apply(out, labels, first, functools.partial(reduce_local, sh, dims=vocab))
+
+    return local_map(sh, local, (spec, spec[:2]), 1)(out, labels)
+
+
+class _VocabNLL(torch.autograd.Function):
+    """Each position's NLL of its label from one part of the vocabulary,
+    the words from ``first`` on (``out``: (..., part) fp32 logits), with
+    ``combine(x, op)`` reducing over the ranks that hold the other parts:
+    ``logsumexp`` taken as ``torch.logsumexp`` takes it (the largest logit
+    out, where finite) on the combined maximum and sum, less the gold logit
+    of the part that holds the label (0 in the others). The gradient is
+    the local softmax less the one-hot of a label in the part, as
+    ``logsumexp``'s and ``gather``'s gradients sum to."""
+
+    @staticmethod
+    def forward(ctx, out, labels, first: int, combine):
+        m = combine(out.amax(dim=-1), "max")
+        m = torch.where(m.abs() == math.inf, 0.0, m)
+        logz = torch.log(combine(torch.exp(out - m[..., None]).sum(dim=-1), "sum")) + m
+        at = labels.long() - first
+        mine = (at >= 0) & (at < out.shape[-1])
+        at = at.clamp(0, out.shape[-1] - 1)
+        gold = torch.where(mine, torch.gather(out, -1, at[..., None])[..., 0], 0.0)
+        ctx.save_for_backward(out, logz, at, mine)
+        return logz - combine(gold, "sum")
+
+    @staticmethod
+    def backward(ctx, g):
+        out, logz, at, mine = ctx.saved_tensors
+        grad = g[..., None] * torch.exp(out - logz[..., None])
+        return (grad.scatter_add_(-1, at[..., None], torch.where(mine, -g, 0.0)[..., None]),
+                None, None, None)
 
 
 def init_decode_state(params: LM, cfg: ArchConfig, batch: int, max_len: int) -> dict:

@@ -14,16 +14,31 @@ Sharding policies (``sh.moe``, :mod:`repro_torch.models.sharding`):
   'expert' — experts sharded over 'tp' (EP);
   'ffn'    — expert count kept local, per-expert FFN dim sharded over 'tp'
              (for n_experts % tp != 0, e.g. granite's 40 experts on 16).
-Under a mesh the router runs on the sharded tokens; :func:`assign`,
-:func:`dispatch` and :func:`combine` (a sort, an ``index_add_``, scatters
-and gathers, which DTensor has no rule for) run on
-each rank's replicated copy through ``local_map``, as XLA replicates what
-it cannot partition; the expert FFN runs on the sharded ``(E, cap, D)``
-buffers.
+Under a mesh every rank routes its own tokens (its ``dp`` shard of the
+batch), and :func:`assign`, :func:`dispatch` and :func:`combine` (a sort,
+an ``index_add_``, scatters and gathers, which DTensor has no rule for)
+run on them through ``local_map`` (:func:`_apply_sharded`):
+
+* each choice's queue position is the global one, token-major over the
+  whole batch: the local position plus the expert's count of choices on
+  the lower ``dp`` ranks (an all-gather of an ``(E,)`` count over ``dp``);
+* each rank fills the slots of its own experts (``expert``) or of every
+  expert (``ffn``) with its own tokens, zeros elsewhere, and the buffers
+  are summed over ``dp`` (every slot is written on one rank alone, so the
+  sum is exact) into the layout the reference constrains them to: an
+  all-reduce, a reduce-scatter where ``moe_dispatch="dp"`` shards the
+  slots;
+* the expert FFN runs on those buffers, and each rank takes back its own
+  tokens' rows from its experts, the other choices at weight 0; the
+  tokens' outputs are summed over the ranks that split the experts (an
+  all-reduce of ``(T / dp, D)``, k times smaller than the choices'
+  ``(T / dp, k, D)`` rows). That sum adds the k choices in another order
+  than the unsharded sum over k does: the same values to rounding.
 """
 
 from __future__ import annotations
 
+import math
 from typing import NamedTuple
 
 import torch
@@ -31,7 +46,7 @@ import torch.nn.functional as F
 
 from .config import ArchConfig
 from .layers import Params, dense_init
-from .sharding import NULL, Sharding, local_map
+from .sharding import NULL, Sharding, gather_local, grad_as_input, local_map
 
 
 class MoE(Params):
@@ -156,6 +171,7 @@ def experts(p: MoE, xe: torch.Tensor, cfg: ArchConfig, *, sh: Sharding = NULL) -
         h = F.silu(torch.bmm(xe, sh.constrain(p.wg, *wi_spec)).float()).to(h.dtype) * h
     else:
         h = F.relu(h.float()).square().to(h.dtype)
+    del xe  # the slots go before the outputs' all-reduce: a prefill's peak
     h = sh.constrain(h, ep, cap_axis, "tp" if sh.moe == "ffn" else None)
     return sh.constrain(torch.bmm(h, sh.constrain(p.wo, *wo_spec)), ep, cap_axis, None)
 
@@ -185,15 +201,82 @@ def apply_moe(p: MoE, x: torch.Tensor, cfg: ArchConfig, capacity_factor: float =
     xf = x.reshape(t, d)
     r = route(p, xf, k) if routing is None else routing
     cap = capacity(t, k, e, capacity_factor)
-    rep2, rep3 = (None, None), (None, None, None)
-    pos, keep = local_map(sh, lambda ids: assign(ids, e, cap), (rep2,), (None, None))(r.ids)
-    xe = local_map(sh, lambda xf, ids, pos, keep: dispatch(xf, ids, pos, keep, e, cap),
-                   (rep2,) * 4, None)(xf, r.ids, pos, keep)
-    ye = experts(p, xe, cfg, sh=sh)
-    y = local_map(sh, lambda ye, gates, ids, pos, keep: combine(ye, Routing(None, gates, ids),
-                                                                 pos, keep),
-                  (rep3,) + (rep2,) * 4, None)(ye, r.gates, r.ids, pos, keep)
-    return sh.constrain(y.reshape(b, s, d).to(x.dtype), "dp", None, None), aux_loss(r, e)
+    if sh.mesh is None:
+        pos, keep = assign(r.ids, e, cap)
+        y = combine(experts(p, dispatch(xf, r.ids, pos, keep, e, cap), cfg), r, pos, keep)
+    else:
+        y = _apply_sharded(p, xf, r, cfg, cap, sh)
+    # the gradient comes back laid out as y is: one split over the sequence
+    # (under ``sp_activations``) cannot be flattened into (T, D) in some
+    # PyTorch releases
+    y = grad_as_input(y.reshape(b, s, d))
+    return sh.constrain(y.to(x.dtype), "dp", None, None), aux_loss(r, e)
+
+
+def _apply_sharded(p: MoE, xf: torch.Tensor, r: Routing, cfg: ArchConfig, cap: int,
+                   sh: Sharding) -> torch.Tensor:
+    """:func:`assign`, :func:`dispatch`, :func:`experts` and :func:`combine`
+    under a mesh, each rank on its own tokens (the module docstring):
+    (T, D), each rank's rows pending a sum over the mesh dims that split
+    the experts."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+
+    e = cfg.n_experts
+    tok, tok_dims = _tokens(r.ids, sh)
+    exp_dims = sh.split_dims((e, cap), sh.spec("tp" if sh.moe == "expert" else None), 0)
+    n_exp = e // math.prod(sh.mesh.size(m) for m in exp_dims)
+
+    def own(ids: torch.Tensor, keep: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+        """The choices' experts counted from this rank's first, and which
+        choices are kept for one of its experts."""
+        lo = sh.shard_index(exp_dims) * n_exp
+        return ids - lo, keep & (ids >= lo) & (ids < lo + n_exp)
+
+    def fill(xf, ids, pos, keep):
+        ids, keep = own(ids, keep)
+        return dispatch(xf, ids, pos, keep, n_exp, cap)
+
+    def take(ye, gates, ids, pos, keep):
+        ids, keep = own(ids, keep)
+        return combine(ye, Routing(None, gates, ids), pos, keep)
+
+    def layout(split: tuple[int, ...], summed: tuple[int, ...]) -> list:
+        return [Shard(0) if m in split else Partial() if m in summed else Replicate()
+                for m in range(sh.mesh.ndim)]
+
+    pos, keep = assign_sharded(r.ids, e, cap, sh)
+    # each rank's slots pending their sum go as soon as experts() has summed them
+    ye = experts(p, local_map(sh, fill, (tok,) * 4, layout(exp_dims, tok_dims))(
+        xf, r.ids, pos, keep), cfg, sh=sh)
+    return local_map(sh, take, (sh.spec("tp" if exp_dims else None, None, None),) + (tok,) * 4,
+                     layout(tok_dims, exp_dims))(ye, r.gates, r.ids, pos, keep)
+
+
+def _tokens(ids: torch.Tensor, sh: Sharding) -> tuple[tuple, tuple[int, ...]]:
+    """The spec of the choices ``ids`` (T, k) split as the tokens are, over
+    dp, and the mesh dims that split them."""
+    tok = sh.fit_spec(tuple(ids.shape), sh.spec("dp", None))
+    return tok, sh.split_dims(tuple(ids.shape), tok, 0)
+
+
+def assign_sharded(ids: torch.Tensor, e: int, cap: int, sh: Sharding
+                   ) -> tuple[torch.Tensor, torch.Tensor]:
+    """:func:`assign` under a mesh, each rank on its own tokens' choices:
+    the global positions and kept flags, laid out as the tokens. A
+    choice's position is its local one plus its expert's count of choices
+    on the lower dp ranks (an all-gather of each rank's ``(E,)`` count)."""
+    tok, tok_dims = _tokens(ids, sh)
+
+    def positions(ids: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+        pos, _ = assign(ids, e, cap)
+        flat = ids.reshape(-1)
+        counts = torch.zeros(e, dtype=flat.dtype, device=flat.device).index_add_(
+            0, flat, torch.ones_like(flat))
+        before = gather_local(sh, counts, tok_dims)[:sh.shard_index(tok_dims)].sum(dim=0)
+        pos = pos + before[ids]
+        return pos, pos < cap
+
+    return local_map(sh, positions, (tok,), (0, 0))(ids)
 
 
 def routing_stats(p: MoE, x: torch.Tensor, cfg: ArchConfig, capacity_factor: float = 1.25

@@ -161,6 +161,25 @@ class Sharding:
             return x
         return self.place(x, self.spec(*dims))
 
+    def split_dims(self, shape, spec: Spec, dim: int) -> tuple[int, ...]:
+        """The mesh dims, in the mesh's order, that split tensor dim ``dim``
+        of a tensor of ``shape`` laid out by ``spec`` (fitted to it); none
+        without a mesh."""
+        if self.mesh is None:
+            return ()
+        part = self.fit_spec(shape, spec)[dim]
+        axes = () if part is None else part if isinstance(part, tuple) else (part,)
+        return tuple(self.mesh.mesh_dim_names.index(a) for a in axes)
+
+    def shard_index(self, dims: tuple[int, ...]) -> int:
+        """This rank's shard, of ``prod(sizes of dims)``, of a tensor dim
+        split over the mesh dims ``dims`` (0 for none)."""
+        coord = self.mesh.get_coordinate() if dims else None
+        index = 0
+        for d in dims:
+            index = index * self.mesh.size(d) + coord[d]
+        return index
+
     # ------------------------------------------------------------- helpers
     @property
     def tp_size(self) -> int:
@@ -253,12 +272,14 @@ def local_map(sh: Sharding, fn, in_specs, out_layouts):
     """``fn`` run on each rank's local shards, as ``shard_map`` runs it:
     input ``i`` laid out by ``in_specs[i]`` (fitted to its shape), each
     output taken as laid out as the input whose index ``out_layouts``
-    names for it, or replicated where it names None (one entry, or a tuple
-    of them for several outputs). Differentiable: each gradient comes back
-    laid out as its input, except on a mesh dim where the input is
-    replicated and an output split: there each rank's gradient is its
-    shard's share, a partial sum (as ``shard_map``'s transpose sums the
-    cotangent of a replicated input). Without a mesh, ``fn`` itself."""
+    names for it, replicated where it names None, or as a list of
+    placements gives it (a ``Partial`` one: each rank's output a term of
+    the sum) (one entry, or a tuple of them for several outputs).
+    Differentiable: each gradient comes back laid out as its input, except
+    on a mesh dim where the input is replicated and an output split or
+    pending a sum: there each rank's gradient is its own share, a partial
+    sum (as ``shard_map``'s transpose sums the cotangent of a replicated
+    input). Without a mesh, ``fn`` itself."""
     if sh.mesh is None:
         return fn
     from torch.distributed.tensor import Partial, Replicate, Shard
@@ -269,9 +290,10 @@ def local_map(sh: Sharding, fn, in_specs, out_layouts):
         ins = tuple(tuple(a.placements) for a in args)
         replicated = (Replicate(),) * sh.mesh.ndim
         many = isinstance(out_layouts, tuple)
-        outs = tuple(replicated if i is None else ins[i]
+        outs = tuple(replicated if i is None else tuple(i) if isinstance(i, list) else ins[i]
                      for i in (out_layouts if many else (out_layouts,)))
-        split = [any(isinstance(o[d], Shard) for o in outs) for d in range(sh.mesh.ndim)]
+        split = [any(isinstance(o[d], (Shard, Partial)) for o in outs)
+                 for d in range(sh.mesh.ndim)]
         grads = tuple(tuple(Partial() if split[d] and isinstance(p, Replicate) else p
                             for d, p in enumerate(pl)) for pl in ins)
         # one output's placements are a list: a tuple would read as one a output
@@ -281,6 +303,35 @@ def local_map(sh: Sharding, fn, in_specs, out_layouts):
                           redistribute_inputs=False)(*args)
 
     return run
+
+
+def reduce_local(sh: Sharding, x: torch.Tensor, op: str, dims: tuple[int, ...]) -> torch.Tensor:
+    """In a function :func:`local_map` runs: each rank's ``x`` reduced by
+    ``op`` (``"sum"``, ``"max"``) over the mesh dims ``dims``, the result
+    on every rank of them. The all-reduce is DTensor's (a ``Partial``
+    made ``Replicate``), as every collective of the mesh layer, so the dry
+    run's counter and ``CommDebugMode`` see it. ``x`` itself over no dim."""
+    if not dims:
+        return x
+    from torch.distributed.tensor import DTensor, Partial, Replicate
+
+    replicated = (Replicate(),) * sh.mesh.ndim
+    pending = tuple(Partial(op) if d in dims else Replicate() for d in range(sh.mesh.ndim))
+    return DTensor.from_local(x, sh.mesh, pending, run_check=False).redistribute(
+        sh.mesh, replicated).to_local()
+
+
+def gather_local(sh: Sharding, x: torch.Tensor, dims: tuple[int, ...]) -> torch.Tensor:
+    """In a function :func:`local_map` runs: every rank's ``x`` over the
+    mesh dims ``dims``, stacked on a new leading dim in the order of
+    :meth:`Sharding.shard_index` (an all-gather, DTensor's)."""
+    if not dims:
+        return x[None]
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    split = tuple(Shard(0) if d in dims else Replicate() for d in range(sh.mesh.ndim))
+    return DTensor.from_local(x[None], sh.mesh, split, run_check=False).redistribute(
+        sh.mesh, (Replicate(),) * sh.mesh.ndim).to_local()
 
 
 class _ContiguousGrad(torch.autograd.Function):
@@ -318,9 +369,13 @@ class _GradAs(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
+        from torch.distributed.tensor import Replicate
+
         mesh, placements = ctx.layout
-        # a pending sum stays pending (summing here would change the order)
-        want = tuple(p if p.is_partial() else q for p, q in zip(g.placements, placements))
+        # a pending sum stays pending (summing here would change the order);
+        # an input pending a sum takes its gradient whole, as DTensor gives it
+        want = tuple(p if p.is_partial() else Replicate() if q.is_partial() else q
+                     for p, q in zip(g.placements, placements))
         return g if tuple(g.placements) == want else g.redistribute(mesh, want)
 
 

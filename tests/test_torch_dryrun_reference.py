@@ -1,0 +1,101 @@
+"""The dry run's costs of four cells against the reference's own dry run
+of the same cells, at one layer on the 16x16 mesh.
+
+The reference (``repro.launch.dryrun.run_cell``) lowers and compiles each
+cell for 256 fake XLA host devices, in a subprocess of its own with its
+512-device ``XLA_FLAGS``; there, and only there, ``repro.configs.get_config``
+is wrapped to cut the config to one layer (``dataclasses.replace(cfg,
+n_layers=1)``). The port's ``run_cell(layers=1)`` runs the same cell.
+Each pair must count the same parameters, and the port must keep the
+reference's sharding where it costs the most:
+
+* ``qwen2-1.5b decode_32k``: one device's FLOPs at most 1.25 times the
+  reference's (the decode core on the sequence-sharded cache; before, each
+  rank attended its rows over the whole cache, 4.1 times the reference's);
+* ``qwen2-vl-72b decode_32k``: the same under ``head_tp`` (its 64 heads
+  divide tp), whose decode core also runs on the sequence-sharded cache;
+* ``olmoe-1b-7b prefill_32k``: the peak at most 2 times the reference's
+  (MoE on each rank's own tokens; before, 14.9 times);
+* ``qwen2-1.5b train_4k``: the peak at most 2 times the reference's (the
+  vocabulary-parallel loss; before, 13 times).
+
+The factor of 2 on memory leaves room for the two ways of counting a
+peak: the port's ``MemTracker`` counts live bytes, the reference takes
+XLA's arguments plus temporaries.
+"""
+
+import json
+import os
+import subprocess
+import sys
+
+import pytest
+import torch.distributed as dist
+
+from repro_torch.launch import dryrun
+
+HERE = os.path.dirname(os.path.abspath(__file__))
+SRC = os.path.join(os.path.dirname(HERE), "src")
+LAYERS = 1
+#: (arch, shape, the record's number, the port's limit as a multiple of the reference's)
+CELLS = (("qwen2-1.5b", "decode_32k", "flops", 1.25),
+         ("qwen2-vl-72b", "decode_32k", "flops", 1.25),
+         ("olmoe-1b-7b", "prefill_32k", "peak_bytes_est", 2.0),
+         ("qwen2-1.5b", "train_4k", "peak_bytes_est", 2.0))
+TIMEOUT = 240
+
+#: The reference's cell at ``argv[3]`` layers, its record printed as JSON.
+REF_CHILD = r"""
+import dataclasses, json, sys
+import repro.configs as configs
+from repro.launch import dryrun
+
+own = configs.get_config
+configs.get_config = lambda name: dataclasses.replace(own(name), n_layers=int(sys.argv[3]))
+print(json.dumps(dryrun.run_cell(sys.argv[1], sys.argv[2], False, sys.argv[4])))
+"""
+
+
+@pytest.fixture(scope="module")
+def reference(tmp_path_factory):
+    """Each cell's reference run, all started at once: ``(arch, shape)`` ->
+    a function that waits for its record."""
+    env = {**os.environ, "PYTHONPATH": SRC, "JAX_PLATFORMS": "cpu",
+           "XLA_FLAGS": "--xla_force_host_platform_device_count=512"}
+    procs = {}
+    for arch, shape, _, _ in CELLS:
+        out = tmp_path_factory.mktemp("ref")
+        procs[arch, shape] = subprocess.Popen(
+            [sys.executable, "-c", REF_CHILD, arch, shape, str(LAYERS), str(out)], env=env,
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+
+    def record(cell):
+        proc = procs[cell]
+        out, err = proc.communicate(timeout=TIMEOUT)
+        assert proc.returncode == 0, err[-4000:]
+        return json.loads(out.strip().splitlines()[-1])
+
+    yield record
+    for proc in procs.values():
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+
+
+def _number(rec: dict, key: str) -> int:
+    return rec["cost"][key] if key == "flops" else rec["memory"][key]
+
+
+@pytest.mark.parametrize("arch,shape,key,limit", CELLS)
+def test_the_cost_is_within_the_references(reference, tmp_path, arch, shape, key, limit):
+    port = dryrun.run_cell(arch, shape, False, str(tmp_path), layers=LAYERS)
+    assert not dist.is_initialized()
+    ref = reference((arch, shape))
+    assert ref["status"] == port["status"] == "ok"
+    # the cut reached the reference: both count the same one-layer model
+    assert ref["params"] == port["params"] and port["n_layers"] == LAYERS
+    assert (ref["attn_policy"], ref["moe_policy"]) == (port["attn_policy"], port["moe_policy"])
+    assert ref.get("microbatches") == port.get("microbatches")
+    got, want = _number(port, key), _number(ref, key)
+    assert 0 < got <= limit * want, (f"{arch} {shape} {key}: port {got}, reference {want}, "
+                                     f"{got / want:.3f}x over {limit}x")
