@@ -320,7 +320,10 @@ Phases (any failure raises, and the script exits non-zero):
     equal to the reference's record, ``MAMBA_ARGUMENT_BYTES``,
     ``qwen2-1.5b``'s and ``qwen2-vl-72b``'s FLOPs a device at most
     ``DECODE_FLOPS_LIMIT`` 1.25 times the reference's,
-    ``DECODE_REF_FLOPS``; and that
+    ``DECODE_REF_FLOPS``; ``mamba2-2.7b``'s peak at most 1.25 times the
+    record's, ``MAMBA_PEAK_BYTES``, and its ring bytes at most the
+    record's, ``MAMBA_RING_BYTES`` (``MAMBA_LIMITS``), both printed beside
+    the numbers before the vocabulary-parallel lookup; and that
     cell once more beside ``CommDebugMode`` (``COMM_CHECK``), whose count
     of each collective kind must equal the dry run's counter's and the
     CLI's record's; no GPU is used;
@@ -418,6 +421,17 @@ DECODE_FLOPS_LIMIT = 1.25
 #: ``memory.argument_bytes`` of the reference's
 #: ``results/dryrun/mamba2-2.7b__decode_32k__16x16.json``.
 MAMBA_ARGUMENT_BYTES = 131_754_272
+#: ``memory.peak_bytes_est`` and ``collectives.ring_bytes`` of the same
+#: record, and the multiple of each the port may count: the token table
+#: stays split over the vocabulary (the vocabulary-parallel lookup).
+MAMBA_PEAK_BYTES = 253_726_152
+MAMBA_RING_BYTES = 696_134_912
+MAMBA_LIMITS = {"peak_bytes_est": 1.25, "ring_bytes": 1.0}
+#: The same two numbers before the lookup was vocabulary-parallel (every
+#: rank gathered the whole table for each token): ``python -m
+#: repro_torch.launch.dryrun --arch mamba2-2.7b --shape decode_32k`` at
+#: commit f287166, torch 2.13 on a host CPU.
+MAMBA_BEFORE = {"peak_bytes_est": 664_316_192, "ring_bytes": 560_186_880}
 #: Phase 16's check of the dry run's collective counter on this machine's
 #: torch: the cell ``argv[1:3]`` dry-run again (records in ``argv[3]``),
 #: ``CommDebugMode`` entered around its step beside the counter; prints
@@ -4371,6 +4385,7 @@ def dryrun_phase(smi: str) -> dict:
                           "trace_s": rec["trace_s"], "torch": rec["torch"],
                           "argument_bytes": rec["memory"]["argument_bytes"],
                           "peak_bytes_est": rec["memory"]["peak_bytes_est"],
+                          "ring_bytes": rec["collectives"]["ring_bytes"],
                           "flops": rec["cost"]["flops"],
                           "collectives": {k: v["count"]
                                           for k, v in rec["collectives"]["by_kind"].items()}})
@@ -4384,13 +4399,25 @@ def dryrun_phase(smi: str) -> dict:
     vs_ref = {arch: {"port": flops, "reference": DECODE_REF_FLOPS[arch],
                      "ratio": flops / DECODE_REF_FLOPS[arch], "limit": DECODE_FLOPS_LIMIT}
               for arch, flops in decode.items()}
+    mamba_ref = {"peak_bytes_est": MAMBA_PEAK_BYTES, "ring_bytes": MAMBA_RING_BYTES}
+    mamba_vs = {k: {"port": mamba[k], "reference": want, "ratio": mamba[k] / want,
+                    "limit": MAMBA_LIMITS[k], "before": MAMBA_BEFORE[k]}
+                for k, want in mamba_ref.items()}
     rec = {"dryrun": cells, "comm_check": comm, "at_once": DRYRUN_AT_ONCE,
-           "decode_flops": vs_ref, "gpu": smi}
+           "decode_flops": vs_ref, "mamba_decode": mamba_vs, "gpu": smi}
     emit(rec)
+    print("16: mamba2-2.7b decode_32k 16x16 "
+          + "; ".join(f"{k} {v['port']:,} (before {v['before']:,}), {v['ratio']:.3f}x the "
+                      f"reference's {v['reference']:,}, limit {v['limit']}x"
+                      for k, v in mamba_vs.items()), flush=True)
     over = {arch: r for arch, r in vs_ref.items() if not r["ratio"] <= DECODE_FLOPS_LIMIT}
     if over or set(decode) != set(DECODE_REF_FLOPS):
         raise AssertionError(f"16: decode_32k 16x16 FLOPs a device against the reference's "
                              f"(at most {DECODE_FLOPS_LIMIT}x): {json.dumps(vs_ref)}")
+    over = {k: v for k, v in mamba_vs.items() if not v["ratio"] <= v["limit"]}
+    if over:
+        raise AssertionError(f"16: mamba2-2.7b decode_32k 16x16 against the reference's "
+                             f"record: {json.dumps(over)}")
     if mamba["argument_bytes"] != MAMBA_ARGUMENT_BYTES:
         raise AssertionError(f"16: mamba2-2.7b decode_32k 16x16 holds {mamba['argument_bytes']} "
                              f"argument bytes; the reference's record {MAMBA_ARGUMENT_BYTES}")

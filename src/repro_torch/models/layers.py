@@ -17,6 +17,7 @@ the weights) is taken in the promoted dtype, as ``jnp.einsum`` takes it
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import Mapping
 
@@ -25,7 +26,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from .config import ArchConfig
-from .sharding import NULL, Sharding, local_map
+from .sharding import NULL, Sharding, local_map, reduce_local
 
 
 class Params(nn.Module):
@@ -181,16 +182,101 @@ def init_embedding(gen: torch.Generator, cfg: ArchConfig, dtype, device="cuda") 
     return Embedding(p)
 
 
-def _take(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
-    return table[ids]
-
-
 def embed_tokens(p: Embedding, ids: torch.Tensor, *, sh: Sharding = NULL) -> torch.Tensor:
-    """The rows of the token table. Under a mesh each rank gathers its
-    batch rows from the whole table (``local_map``): DTensor's rule for the
-    gather's backward (``index_put``) fails in some PyTorch releases."""
-    rows = local_map(sh, _take, ((None, None), sh.spec("dp", None)), 1)(p.table, ids)
-    return sh.constrain(rows, "dp", None, None)
+    """The rows of the token table. Under a mesh each rank takes the rows
+    of the words it holds (:func:`_vocab_parallel_take`)."""
+    if sh.mesh is None:
+        return p.table[ids]
+    return sh.constrain(_vocab_parallel_take(p.table, ids, sh), "dp", None, None)
+
+
+def _vocab_parallel_take(table: torch.Tensor, ids: torch.Tensor, sh: Sharding) -> torch.Tensor:
+    """``table[ids]`` with the table laid out as the reference lays it
+    out, ``("tp", "fsdp")``: each rank takes the rows of the words it holds
+    (:class:`_VocabRows`, zero for the others) and the ranks that split the
+    vocabulary sum them, an exact sum. How the table and the rows move
+    around that is chosen a call from the shapes (:func:`_lookup_layout`).
+    Runs in ``local_map``: DTensor's rule for the gather's backward
+    (``index_put``) fails in some PyTorch releases."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    shape = tuple(table.shape)
+    spec = sh.fit_spec(shape, sh.spec("tp", "fsdp"))
+    width = sh.split_dims(shape, spec, 1)
+    layout = _lookup_layout(sh, shape, spec, tuple(ids.shape))
+    if layout == "rows":
+        ins = (spec, (None,) * ids.dim())
+        out = [Shard(ids.dim()) if d in width else Replicate() for d in range(sh.mesh.ndim)]
+    else:
+        ins = ((spec[0] if layout == "table" else None, None),
+               sh.spec("dp", *(None,) * (ids.dim() - 1)))
+        out = 1
+    vocab = sh.split_dims(shape, ins[0], 0)
+
+    def local(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+        first = sh.shard_index(vocab) * table.shape[0]
+        return _VocabRows.apply(table, ids, first, functools.partial(reduce_local, sh, dims=vocab))
+
+    return local_map(sh, local, ins, out)(table, ids)
+
+
+def _lookup_layout(sh: Sharding, shape, spec, ids_shape) -> str:
+    """How the lookup moves what it needs, whichever sends least a call
+    (in full-width rows, the first on a tie):
+
+    * ``"table"``: the table's rows of a rank's words gathered over the
+      ranks that split its width, the looked-up rows then summed over the
+      vocabulary's ranks, split as the ids are;
+    * ``"rows"``: the ids gathered, each rank's part of the width looked up
+      for every id and summed over the vocabulary's ranks, then laid out as
+      the ids are (an all-to-all, or an all-gather where the ids are not
+      split over the width's ranks); a decode step's few ids;
+    * ``"whole"``: the whole table gathered, nothing summed; a prefill's
+      many ids against a small vocabulary.
+
+    A train step's backward sends the gather (as a reduce-scatter) or the
+    all-to-all once more and sums nothing, which keeps the order of
+    ``"table"`` and ``"rows"`` where their sums are equal."""
+    n = sh.mesh.size
+    n_vocab = math.prod(n(d) for d in sh.split_dims(shape, spec, 0))
+    width = sh.split_dims(shape, spec, 1)
+    n_width = math.prod(n(d) for d in width)
+    batch = sh.split_dims(ids_shape, sh.spec("dp", *(None,) * (len(ids_shape) - 1)), 0)
+    n_batch = math.prod(n(d) for d in batch)
+    n_kept = math.prod(n(d) for d in width if d in batch)
+    ids, sum_share = math.prod(ids_shape), 2 * (n_vocab - 1) / n_vocab
+    sent = {"table": shape[0] / n_vocab * (n_width - 1) / n_width + sum_share * ids / n_batch,
+            "rows": ids / n_kept * (n_width - 1) / n_width + sum_share * ids / n_width,
+            "whole": shape[0] * (1 - 1 / (n_vocab * n_width))}
+    if not width:
+        del sent["rows"]
+    return min(sent, key=sent.get)
+
+
+class _VocabRows(torch.autograd.Function):
+    """``table[ids]`` from one part of the vocabulary, the words from
+    ``first`` on (``table``: (part, D')), with ``combine(x, "sum")``
+    summing over the ranks that hold the other parts: each id's row where
+    this part holds it, zero elsewhere. The gradient is the upstream rows
+    of this part's ids accumulated into the part, by the same
+    ``index_put_`` that ``table[ids]``'s own backward runs (the same bits
+    on every device), and no collective."""
+
+    @staticmethod
+    def forward(ctx, table, ids, first: int, combine):
+        at = ids.long() - first
+        mine = (at >= 0) & (at < table.shape[0])
+        at = torch.where(mine, at, 0)
+        ctx.save_for_backward(at, mine)
+        ctx.rows = table.shape[0]
+        return combine(torch.where(mine[..., None], table[at], table.new_zeros(())), "sum")
+
+    @staticmethod
+    def backward(ctx, g):
+        at, mine = ctx.saved_tensors
+        grad = g.new_zeros((ctx.rows,) + tuple(g.shape[-1:]))
+        rows = torch.where(mine[..., None], g, g.new_zeros(()))
+        return grad.index_put_((at,), rows, accumulate=True), None, None, None
 
 
 def embed_vectors(x: torch.Tensor, *, sh: Sharding = NULL) -> torch.Tensor:
@@ -202,8 +288,13 @@ def embed_vectors(x: torch.Tensor, *, sh: Sharding = NULL) -> torch.Tensor:
 
 def logits(p: Embedding, x: torch.Tensor, vocab_size: int | None = None, *,
            sh: Sharding = NULL) -> torch.Tensor:
+    """The logits of ``x`` against the head (the table's transpose when
+    tied), laid out ``("dp", None, "tp")``, the padded vocabulary masked.
+    Under a mesh the head keeps the reference's ``("fsdp", "tp")``, or is
+    gathered over fsdp for the product where that moves less
+    (:func:`_gathers_head`)."""
     head = p.head if "head" in p else p.table.T
-    head = sh.constrain(head, "fsdp", "tp")
+    head = sh.constrain(head, None if _gathers_head(sh, x.shape, head.shape) else "fsdp", "tp")
     out = matmul(x, head)
     v_pad = head.shape[-1]
     if vocab_size is not None and vocab_size < v_pad:
@@ -211,6 +302,22 @@ def logits(p: Embedding, x: torch.Tensor, vocab_size: int | None = None, *,
         mask = torch.arange(v_pad, device=out.device) < vocab_size
         out = torch.where(mask, out, torch.tensor(-1e30, dtype=out.dtype, device=out.device))
     return sh.constrain(out, "dp", None, "tp")
+
+
+def _gathers_head(sh: Sharding, x_shape, head_shape) -> bool:
+    """Whether the logits' product gathers the head over fsdp: the head's
+    block of this rank's words, ``D x (V / tp)``, is smaller than what
+    DTensor moves over fsdp otherwise, the activations of every token
+    (``T x D``, gathered) and their logits (``T x (V / tp)``,
+    reduce-scattered). A train step's tokens gather the head, as FSDP
+    gathers every weight; a decode step's, or a prefill's last positions,
+    move their activations."""
+    if sh.mesh is None:
+        return False
+    spec = sh.fit_spec(tuple(head_shape), sh.spec("fsdp", "tp"))
+    d, v = head_shape[0], head_shape[1] // math.prod(
+        sh.mesh.size(m) for m in sh.split_dims(tuple(head_shape), spec, 1))
+    return math.prod(x_shape[:-1]) * (d + v) > d * v
 
 
 # --------------------------------------------------------------------------

@@ -76,7 +76,7 @@ def batch_specs(cfg: ArchConfig, sh: Sharding) -> dict:
 
 def _split(batch: dict, microbatches: int, sh: Sharding) -> list[dict]:
     """``batch`` cut along its leading (batch) axis into ``microbatches``,
-    each part laid out over dp as the batch is."""
+    each part laid out over dp as the batch is (:func:`_microbatch`)."""
     out = [{} for _ in range(microbatches)]
     for k, x in batch.items():
         b = x.shape[0]
@@ -85,8 +85,31 @@ def _split(batch: dict, microbatches: int, sh: Sharding) -> list[dict]:
                              f"{microbatches} microbatches")
         n = b // microbatches
         for i in range(microbatches):
-            out[i][k] = sh.constrain(x[i * n:(i + 1) * n], "dp", *(None,) * (x.dim() - 1))
+            out[i][k] = _microbatch(x, i * n, n, sh)
     return out
+
+
+def _microbatch(x: torch.Tensor, start: int, n: int, sh: Sharding) -> torch.Tensor:
+    """Rows ``[start, start + n)`` of ``x``, laid out over dp. A slice of a
+    batch split over dp crosses its shards, and DTensor would gather the
+    whole batch onto every rank to cut it; here each rank writes the rows
+    it holds at their places in zeros, and one reduce-scatter over the
+    ranks that split the batch lays this part alone out over dp (an exact
+    sum: each row is written on one rank)."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate
+
+    spec = sh.spec("dp", *(None,) * (x.dim() - 1))
+    dims = tuple(d for d, p in enumerate(getattr(x, "placements", ())) if p.is_shard(0))
+    if not isinstance(x, DTensor) or not dims:
+        return sh.place(x[start:start + n], spec)
+    local = x.to_local()
+    first = sh.shard_index(dims) * local.shape[0]
+    lo, hi = max(start, first), min(start + n, first + local.shape[0])
+    part = local.new_zeros((n,) + tuple(local.shape[1:]))
+    if lo < hi:
+        part[lo - start:hi - start] = local[lo - first:hi - first]
+    pending = tuple(Partial() if d in dims else Replicate() for d in range(sh.mesh.ndim))
+    return sh.place(DTensor.from_local(part, sh.mesh, pending, run_check=False), spec)
 
 
 def build_train_step(

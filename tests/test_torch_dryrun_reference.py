@@ -1,27 +1,38 @@
-"""The dry run's costs of four cells against the reference's own dry run
+"""The dry run's costs of six cells against the reference's own dry run
 of the same cells, at one layer on the 16x16 mesh.
 
 The reference (``repro.launch.dryrun.run_cell``) lowers and compiles each
 cell for 256 fake XLA host devices, in a subprocess of its own with its
 512-device ``XLA_FLAGS``; there, and only there, ``repro.configs.get_config``
 is wrapped to cut the config to one layer (``dataclasses.replace(cfg,
-n_layers=1)``). The port's ``run_cell(layers=1)`` runs the same cell.
-Each pair must count the same parameters, and the port must keep the
-reference's sharding where it costs the most:
+n_layers=1)``). The port's ``run_cell(layers=1)`` runs the same cell, once
+for all of its checks. Each pair must count the same parameters, and the
+port must keep the reference's sharding where it costs the most. Each
+cell checks a tuple of numbers, each at most a multiple of the
+reference's (a test case each):
 
-* ``qwen2-1.5b decode_32k``: one device's FLOPs at most 1.25 times the
-  reference's (the decode core on the sequence-sharded cache; before, each
-  rank attended its rows over the whole cache, 4.1 times the reference's);
+* ``qwen2-1.5b decode_32k``: one device's FLOPs (the decode core on the
+  sequence-sharded cache; before, each rank attended its rows over the
+  whole cache, 4.1 times the reference's), ring bytes and peak (the
+  vocabulary-parallel lookup; before, every rank gathered the whole
+  token table for each token, 5.4 and 6.3 times), all at 1.25 times;
 * ``qwen2-vl-72b decode_32k``: the same under ``head_tp`` (its 64 heads
   divide tp), whose decode core also runs on the sequence-sharded cache;
+* ``mamba2-2.7b decode_32k``: ring bytes and peak at 1.25 times (the
+  lookup; before, 6.5 and 10.7 times);
 * ``olmoe-1b-7b prefill_32k``: the peak at most 2 times the reference's
   (MoE on each rank's own tokens; before, 14.9 times);
 * ``qwen2-1.5b train_4k``: the peak at most 2 times the reference's (the
-  vocabulary-parallel loss; before, 13 times).
+  vocabulary-parallel loss; before, 13 times);
+* ``qwen2-vl-72b train_4k`` (16 microbatches of embeddings): ring bytes
+  at most 2 times (the microbatch split that moves each part alone, and
+  the head gathered for the logits; before, every rank gathered the
+  whole batch for each microbatch, 4.95 times) and the peak at 1.25
+  times (before, 2.74 times).
 
-The factor of 2 on memory leaves room for the two ways of counting a
-peak: the port's ``MemTracker`` counts live bytes, the reference takes
-XLA's arguments plus temporaries.
+The factor of 2 on a train step's or a prefill's memory leaves room for
+the two ways of counting a peak: the port's ``MemTracker`` counts live
+bytes, the reference takes XLA's arguments plus temporaries.
 """
 
 import json
@@ -37,11 +48,18 @@ from repro_torch.launch import dryrun
 HERE = os.path.dirname(os.path.abspath(__file__))
 SRC = os.path.join(os.path.dirname(HERE), "src")
 LAYERS = 1
-#: (arch, shape, the record's number, the port's limit as a multiple of the reference's)
-CELLS = (("qwen2-1.5b", "decode_32k", "flops", 1.25),
-         ("qwen2-vl-72b", "decode_32k", "flops", 1.25),
-         ("olmoe-1b-7b", "prefill_32k", "peak_bytes_est", 2.0),
-         ("qwen2-1.5b", "train_4k", "peak_bytes_est", 2.0))
+#: (arch, shape) -> its checks: (the record's number, the port's limit as a
+#: multiple of the reference's)
+CELLS = {("qwen2-1.5b", "decode_32k"): (("flops", 1.25), ("ring_bytes", 1.25),
+                                        ("peak_bytes_est", 1.25)),
+         ("qwen2-vl-72b", "decode_32k"): (("flops", 1.25), ("ring_bytes", 1.25),
+                                          ("peak_bytes_est", 1.25)),
+         ("olmoe-1b-7b", "prefill_32k"): (("peak_bytes_est", 2.0),),
+         ("qwen2-1.5b", "train_4k"): (("peak_bytes_est", 2.0),),
+         ("mamba2-2.7b", "decode_32k"): (("ring_bytes", 1.25), ("peak_bytes_est", 1.25)),
+         ("qwen2-vl-72b", "train_4k"): (("ring_bytes", 2.0), ("peak_bytes_est", 1.25))}
+CHECKS = [(arch, shape, key, limit) for (arch, shape), checks in CELLS.items()
+          for key, limit in checks]
 TIMEOUT = 240
 
 #: The reference's cell at ``argv[3]`` layers, its record printed as JSON.
@@ -63,7 +81,7 @@ def reference(tmp_path_factory):
     env = {**os.environ, "PYTHONPATH": SRC, "JAX_PLATFORMS": "cpu",
            "XLA_FLAGS": "--xla_force_host_platform_device_count=512"}
     procs = {}
-    for arch, shape, _, _ in CELLS:
+    for arch, shape in CELLS:
         out = tmp_path_factory.mktemp("ref")
         procs[arch, shape] = subprocess.Popen(
             [sys.executable, "-c", REF_CHILD, arch, shape, str(LAYERS), str(out)], env=env,
@@ -82,20 +100,37 @@ def reference(tmp_path_factory):
             proc.wait()
 
 
+@pytest.fixture(scope="module")
+def port(tmp_path_factory):
+    """Each cell's port run, once for all of its checks: ``(arch, shape)``
+    -> its record."""
+    records = {}
+
+    def record(cell):
+        if cell not in records:
+            records[cell] = dryrun.run_cell(*cell, False, str(tmp_path_factory.mktemp("port")),
+                                            layers=LAYERS)
+            assert not dist.is_initialized()
+        return records[cell]
+
+    return record
+
+
 def _number(rec: dict, key: str) -> int:
-    return rec["cost"][key] if key == "flops" else rec["memory"][key]
+    if key == "flops":
+        return rec["cost"][key]
+    return rec["collectives"][key] if key == "ring_bytes" else rec["memory"][key]
 
 
-@pytest.mark.parametrize("arch,shape,key,limit", CELLS)
-def test_the_cost_is_within_the_references(reference, tmp_path, arch, shape, key, limit):
-    port = dryrun.run_cell(arch, shape, False, str(tmp_path), layers=LAYERS)
-    assert not dist.is_initialized()
+@pytest.mark.parametrize("arch,shape,key,limit", CHECKS)
+def test_the_cost_is_within_the_references(reference, port, arch, shape, key, limit):
+    rec = port((arch, shape))
     ref = reference((arch, shape))
-    assert ref["status"] == port["status"] == "ok"
+    assert ref["status"] == rec["status"] == "ok"
     # the cut reached the reference: both count the same one-layer model
-    assert ref["params"] == port["params"] and port["n_layers"] == LAYERS
-    assert (ref["attn_policy"], ref["moe_policy"]) == (port["attn_policy"], port["moe_policy"])
-    assert ref.get("microbatches") == port.get("microbatches")
-    got, want = _number(port, key), _number(ref, key)
+    assert ref["params"] == rec["params"] and rec["n_layers"] == LAYERS
+    assert (ref["attn_policy"], ref["moe_policy"]) == (rec["attn_policy"], rec["moe_policy"])
+    assert ref.get("microbatches") == rec.get("microbatches")
+    got, want = _number(rec, key), _number(ref, key)
     assert 0 < got <= limit * want, (f"{arch} {shape} {key}: port {got}, reference {want}, "
                                      f"{got / want:.3f}x over {limit}x")
