@@ -323,7 +323,12 @@ Phases (any failure raises, and the script exits non-zero):
     ``DECODE_REF_FLOPS``; ``mamba2-2.7b``'s peak at most 1.25 times the
     record's, ``MAMBA_PEAK_BYTES``, and its ring bytes at most the
     record's, ``MAMBA_RING_BYTES`` (``MAMBA_LIMITS``), both printed beside
-    the numbers before the vocabulary-parallel lookup; and that
+    the numbers before the vocabulary-parallel lookup; the one-layer cells
+    of ``LAYER_REF`` (``run_cell(layers=1)``, a process each):
+    ``mamba2-2.7b prefill_32k``'s peak and FLOPs and ``nemotron-4-340b
+    train_4k``'s ring bytes, peak and FLOPs, each at most its
+    ``LAYER_LIMITS`` multiple of the reference's at one layer, printed
+    beside the parent's (``LAYER_BEFORE``); and that
     cell once more beside ``CommDebugMode`` (``COMM_CHECK``), whose count
     of each collective kind must equal the dry run's counter's and the
     CLI's record's; no GPU is used;
@@ -432,6 +437,38 @@ MAMBA_LIMITS = {"peak_bytes_est": 1.25, "ring_bytes": 1.0}
 #: repro_torch.launch.dryrun --arch mamba2-2.7b --shape decode_32k`` at
 #: commit f287166, torch 2.13 on a host CPU.
 MAMBA_BEFORE = {"peak_bytes_est": 664_316_192, "ring_bytes": 560_186_880}
+#: Phase 16's one-layer cells (``run_cell(layers=1)``, a process each): the
+#: reference's numbers at one layer (``repro.launch.dryrun.run_cell`` with
+#: the config cut to one layer, as ``tests/test_torch_dryrun_reference.py``
+#: cuts it; jax 0.9.0 on the CPU), the multiple of each the port may count,
+#: and the port's before the causal conv ran on each rank's own channels
+#: and the norm's and the attention output's gradients were laid out
+#: (``python3 scripts/dryrun_layers.py sweep`` at commit f403cf6, torch 2.13
+#: on a host CPU).
+LAYER_REF = {("mamba2-2.7b", "prefill_32k"): {"peak_bytes_est": 2_068_277_120,
+                                              "flops": 350_944_526_336},
+             ("nemotron-4-340b", "train_4k"): {"ring_bytes": 234_624_581_848,
+                                               "peak_bytes_est": 11_382_347_112,
+                                               "flops": 229_918_189_289_472}}
+LAYER_LIMITS = {("mamba2-2.7b", "prefill_32k"): {"peak_bytes_est": 1.25, "flops": 1.25},
+                ("nemotron-4-340b", "train_4k"): {"ring_bytes": 1.75, "peak_bytes_est": 1.25,
+                                                  "flops": 1.25}}
+LAYER_BEFORE = {("mamba2-2.7b", "prefill_32k"): {"peak_bytes_est": 5_009_420_232,
+                                                 "flops": 354_971_058_176},
+                ("nemotron-4-340b", "train_4k"): {"ring_bytes": 602_045_399_075,
+                                                  "peak_bytes_est": 15_443_087_392,
+                                                  "flops": 306_454_506_504_192}}
+#: One cell ``argv[1:3]`` at one layer (records in ``argv[3]``): its numbers
+#: as one JSON line.
+LAYER_CELL = r"""
+import json, sys
+from repro_torch.launch import dryrun
+
+rec = dryrun.run_cell(sys.argv[1], sys.argv[2], False, sys.argv[3], layers=1)
+print(json.dumps({"status": rec["status"], "torch": rec["torch"], "trace_s": rec["trace_s"],
+                  "flops": rec["cost"]["flops"], "ring_bytes": rec["collectives"]["ring_bytes"],
+                  "peak_bytes_est": rec["memory"]["peak_bytes_est"]}))
+"""
 #: Phase 16's check of the dry run's collective counter on this machine's
 #: torch: the cell ``argv[1:3]`` dry-run again (records in ``argv[3]``),
 #: ``CommDebugMode`` entered around its step beside the counter; prints
@@ -4340,7 +4377,8 @@ def verify_phase(smi: str) -> dict:
 def dryrun_phase(smi: str) -> dict:
     """Phase 16: each of ``DRYRUN_CELLS`` dry-run by the CLI in a process
     of its own, ``DRYRUN_AT_ONCE`` at a time, beside ``COMM_CHECK`` on
-    the first cell; a cell that fails, or whose record is not ``ok``, or a
+    the first cell and the one-layer cells of ``LAYER_REF``; a cell that
+    fails, or whose record is not ``ok``, a number over its limit, or a
     collective count that is not ``CommDebugMode``'s, fails the phase."""
     import tempfile
     from concurrent.futures import ThreadPoolExecutor
@@ -4350,8 +4388,10 @@ def dryrun_phase(smi: str) -> dict:
 
     def run(cell):
         t = time.perf_counter()
-        if cell[2:]:  # the check of the counter, records apart
+        if cell[2:] == ("comm",):  # the check of the counter, records apart
             cmd = ["-c", COMM_CHECK, cell[0], cell[1], os.path.join(tmp, "comm")]
+        elif cell[2:]:  # a one-layer cell, records apart
+            cmd = ["-c", LAYER_CELL, cell[0], cell[1], os.path.join(tmp, "layer")]
         else:
             cmd = ["-m", "repro_torch.launch.dryrun", "--arch", cell[0], "--shape", cell[1],
                    "--out", tmp]
@@ -4359,10 +4399,26 @@ def dryrun_phase(smi: str) -> dict:
                               text=True, timeout=600)
         return cell, time.perf_counter() - t, proc
 
-    cells = []
+    cells, layer = [], {}
     try:
         with ThreadPoolExecutor(DRYRUN_AT_ONCE) as pool:
-            done = list(pool.map(run, ((*DRYRUN_CELLS[0], "comm"), *DRYRUN_CELLS)))
+            done = list(pool.map(run, ((*DRYRUN_CELLS[0], "comm"),
+                                       *((*c, "1L") for c in LAYER_REF), *DRYRUN_CELLS)))
+        for (arch, shape, _), secs, proc in done[1:1 + len(LAYER_REF)]:
+            if proc.returncode != 0:
+                raise AssertionError(f"16: the one-layer dry run of {arch} {shape} exited "
+                                     f"{proc.returncode}:\n{proc.stdout[-2000:]}\n"
+                                     f"{proc.stderr[-6000:]}")
+            got = json.loads(proc.stdout.strip().splitlines()[-1])
+            if got["status"] != "ok":
+                raise AssertionError(f"16: {arch} {shape} 1L: status {got['status']!r}")
+            layer[f"{arch} {shape}"] = {
+                "seconds": secs, "trace_s": got["trace_s"], "torch": got["torch"],
+                **{k: {"port": got[k], "reference": want, "ratio": got[k] / want,
+                       "limit": LAYER_LIMITS[arch, shape][k],
+                       "before": LAYER_BEFORE[arch, shape][k]}
+                   for k, want in LAYER_REF[arch, shape].items()}}
+        del done[1:1 + len(LAYER_REF)]
         (arch, shape, _), comm_secs, proc = done.pop(0)
         if proc.returncode != 0:
             raise AssertionError(f"16: the counter's check on {arch} {shape} exited "
@@ -4404,12 +4460,21 @@ def dryrun_phase(smi: str) -> dict:
                     "limit": MAMBA_LIMITS[k], "before": MAMBA_BEFORE[k]}
                 for k, want in mamba_ref.items()}
     rec = {"dryrun": cells, "comm_check": comm, "at_once": DRYRUN_AT_ONCE,
-           "decode_flops": vs_ref, "mamba_decode": mamba_vs, "gpu": smi}
+           "decode_flops": vs_ref, "mamba_decode": mamba_vs, "one_layer": layer, "gpu": smi}
     emit(rec)
     print("16: mamba2-2.7b decode_32k 16x16 "
           + "; ".join(f"{k} {v['port']:,} (before {v['before']:,}), {v['ratio']:.3f}x the "
                       f"reference's {v['reference']:,}, limit {v['limit']}x"
                       for k, v in mamba_vs.items()), flush=True)
+    for cell, got in layer.items():
+        print(f"16: {cell} 16x16 1L in {got['seconds']:.1f} s: "
+              + "; ".join(f"{k} {v['port']:,} (before {v['before']:,}), {v['ratio']:.3f}x the "
+                          f"reference's {v['reference']:,}, limit {v['limit']}x"
+                          for k, v in got.items() if isinstance(v, dict)), flush=True)
+    over = {cell: {k: v for k, v in got.items() if isinstance(v, dict)
+                   and not v["ratio"] <= v["limit"]} for cell, got in layer.items()}
+    if any(over.values()) or len(layer) != len(LAYER_REF):
+        raise AssertionError(f"16: one-layer cells against the reference's: {json.dumps(over)}")
     over = {arch: r for arch, r in vs_ref.items() if not r["ratio"] <= DECODE_FLOPS_LIMIT}
     if over or set(decode) != set(DECODE_REF_FLOPS):
         raise AssertionError(f"16: decode_32k 16x16 FLOPs a device against the reference's "

@@ -1,0 +1,179 @@
+#!/usr/bin/env python3
+"""The dry run's costs at a cut depth, on the host CPU (no card needed).
+
+    python3 scripts/dryrun_layers.py sweep [--src TREE/src] [--layers 1] [--procs 4] [--out F]
+    python3 scripts/dryrun_layers.py compare OLD NEW
+    python3 scripts/dryrun_layers.py sites ARCH SHAPE [--src TREE/src] [--layers 1] [--min-gb 0.1]
+
+``sweep`` runs ``repro_torch.launch.dryrun.run_cell(arch, shape, False,
+layers=N)`` for every (arch, shape) cell of the 16x16 mesh, each in a
+subprocess of its own, ``--procs`` at once, on the ``repro_torch`` of
+``--src`` (default this checkout's; an unpacked earlier commit's for a
+comparison), and prints one JSON line a cell: its status, FLOPs, ring
+bytes, peak and collectives by kind. ``--out`` also writes the lines to a
+file. ``compare OLD NEW`` reads two such files and prints, for each cell,
+the three numbers' ratios, and the cells where NEW reads more ring bytes
+or FLOPs than OLD, or peaks more than 1 % above it (exit 1 if any).
+
+``sites`` runs one cell and attributes each collective to a call site:
+in the forward the innermost frames of ``repro_torch`` outside the
+sharding layer, in the backward the forward frames of the autograd node
+that ran it (recorded under ``torch.autograd.detect_anomaly``). One line
+a site, heaviest first: ring GB, count, kind, site and the operands'
+local shapes and dtype.
+"""
+
+from __future__ import annotations
+
+import argparse
+import collections
+import json
+import os
+import subprocess
+import sys
+import tempfile
+import traceback
+from concurrent.futures import ThreadPoolExecutor
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+#: One cell at a cut depth, its numbers printed as the last line.
+CELL = r"""
+import json, sys
+from repro_torch.launch import dryrun
+rec = dryrun.run_cell(sys.argv[1], sys.argv[2], False, sys.argv[3], layers=int(sys.argv[4]))
+out = {"arch": sys.argv[1], "shape": sys.argv[2], "status": rec["status"]}
+if rec["status"] == "ok":
+    out.update(flops=rec["cost"]["flops"], ring_bytes=rec["collectives"]["ring_bytes"],
+               peak_bytes_est=rec["memory"]["peak_bytes_est"],
+               by_kind=rec["collectives"]["by_kind"], trace_s=rec["trace_s"])
+print(json.dumps(out))
+"""
+
+
+def _cells() -> list[tuple[str, str]]:
+    sys.path.insert(0, os.path.join(ROOT, "src"))
+    from repro_torch.configs import all_cells
+
+    return [(a, s) for a, s, _ in all_cells()]
+
+
+def _run(src: str, arch: str, shape: str, layers: int) -> dict:
+    env = {**os.environ, "PYTHONPATH": src}
+    with tempfile.TemporaryDirectory() as out:
+        proc = subprocess.run([sys.executable, "-c", CELL, arch, shape, out, str(layers)],
+                              env=env, capture_output=True, text=True, timeout=1800)
+    if proc.returncode:
+        return {"arch": arch, "shape": shape, "status": "error", "stderr": proc.stderr[-2000:]}
+    return json.loads(proc.stdout.strip().splitlines()[-1])
+
+
+def sweep(src: str, layers: int, procs: int, out: str | None) -> None:
+    lines = []
+    with ThreadPoolExecutor(procs) as pool:
+        for rec in pool.map(lambda c: _run(src, *c, layers), _cells()):
+            line = json.dumps(rec)
+            print(line, flush=True)
+            lines.append(line)
+    if out:
+        with open(out, "w") as f:
+            f.write("\n".join(lines) + "\n")
+
+
+def compare(old_path: str, new_path: str) -> int:
+    def load(path):
+        with open(path) as f:
+            return {(r["arch"], r["shape"]): r for r in map(json.loads, f) if r}
+
+    old, new = load(old_path), load(new_path)
+    worse = []
+    for cell, n in new.items():
+        o = old.get(cell)
+        if o is None or "flops" not in o or "flops" not in n:
+            print(json.dumps({"cell": cell, "old": o and o["status"], "new": n["status"]}))
+            continue
+        ratio = {k: n[k] / o[k] if o[k] else None
+                 for k in ("flops", "ring_bytes", "peak_bytes_est")}
+        print(json.dumps({"cell": " ".join(cell), **ratio}))
+        if (n["flops"] > o["flops"] or n["ring_bytes"] > o["ring_bytes"]
+                or n["peak_bytes_est"] > 1.01 * o["peak_bytes_est"]):
+            worse.append(" ".join(cell))
+    print(json.dumps({"cells": len(new), "worse": worse}))
+    return 1 if worse else 0
+
+
+def sites(src: str, arch: str, shape: str, layers: int, min_gb: float) -> None:
+    sys.path.insert(0, src)
+    import torch
+
+    from repro_torch.launch import dryrun
+
+    totals: dict = collections.defaultdict(lambda: [0, 0])
+    own = dryrun.StepCost._collective
+    skip = ("sharding.py", "dryrun.py")
+
+    def frames(lines) -> list[str]:
+        out = []
+        for f in lines:
+            if "repro_torch/" in f.filename and not f.filename.endswith(skip):
+                out.append(f"{f.filename.split('repro_torch/')[1]}:{f.lineno} {f.name}")
+        return out[::-1][:3]
+
+    def site() -> str:
+        node = torch._C._current_autograd_node()
+        if node is None:
+            return "forward " + " < ".join(frames(traceback.extract_stack()))
+        tb = node.metadata.get("traceback_") or []
+        stack = traceback.StackSummary.from_list([])
+        for text in (tb if isinstance(tb, list) else [tb]):
+            for line in str(text).splitlines():
+                line = line.strip()
+                if line.startswith('File "') and ", line " in line:
+                    name, rest = line[6:].split('", line ', 1)
+                    lineno, _, fn = rest.partition(", in ")
+                    stack.append(traceback.FrameSummary(name, int(lineno), fn))
+        return f"backward {node.name()} " + " < ".join(frames(stack))
+
+    def counted(self, name, args, out):
+        before = sum(d["ring_bytes"] for d in self.by_kind.values())
+        own(self, name, args, out)
+        ring = sum(d["ring_bytes"] for d in self.by_kind.values()) - before
+        shapes = ",".join(f"{tuple(t.shape)} {str(t.dtype)[6:]}" for t in dryrun._leaves(args[0]))
+        entry = totals[(dryrun.COLLECTIVE_KINDS[name], site(), shapes)]
+        entry[0] += 1
+        entry[1] += ring
+
+    dryrun.StepCost._collective = counted
+    with tempfile.TemporaryDirectory() as out, torch.autograd.detect_anomaly(check_nan=False):
+        rec = dryrun.run_cell(arch, shape, False, out, layers=layers)
+    print(json.dumps({"arch": arch, "shape": shape, "layers": layers,
+                      "flops": rec["cost"]["flops"],
+                      "ring_bytes": rec["collectives"]["ring_bytes"],
+                      "peak_bytes_est": rec["memory"]["peak_bytes_est"]}))
+    for (kind, where, shapes), (count, ring) in sorted(totals.items(), key=lambda kv: -kv[1][1]):
+        if ring >= min_gb * 1e9:
+            print(f"{ring / 1e9:9.3f} GB {count:5d} {kind:15s} {where}  [{shapes}]")
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("what", choices=("sweep", "sites", "compare"))
+    ap.add_argument("args", nargs="*", help="sites: ARCH SHAPE; compare: OLD NEW")
+    ap.add_argument("--src", default=os.path.join(ROOT, "src"))
+    ap.add_argument("--layers", type=int, default=1)
+    ap.add_argument("--procs", type=int, default=4)
+    ap.add_argument("--out")
+    ap.add_argument("--min-gb", type=float, default=0.1)
+    args = ap.parse_args(argv)
+    src = os.path.abspath(args.src)
+    if args.what == "sweep":
+        sweep(src, args.layers, args.procs, args.out)
+    elif args.what == "compare":
+        return compare(*args.args)
+    else:
+        sites(src, *args.args, args.layers, args.min_gb)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -154,11 +154,21 @@ def _out(out: torch.Tensor, wo: torch.Tensor, cfg: ArchConfig, sh: Sharding) -> 
     """``einsum("bshk,hkd->bsd")`` as one matmul, on the whole sequence
     (gathered under ``context``: a product that flattens (batch, sequence)
     with the sequence split fails DTensor's sharding rules); both flattened
-    operands' gradients come back laid out as they are (see :func:`_proj`)."""
+    operands' gradients come back laid out as they are (see :func:`_proj`).
+    Under ``head_tp`` the weight is gathered over fsdp first, as FSDP
+    gathers it, and the output's gradient is summed over the ranks that
+    hold a part of it (the residual's pending sum) and laid out as the
+    output: the backward then computes each rank's heads' gradient where
+    it stands, where DTensor's rules would move the activations' gradient
+    and hand the heads' gradient back whole, pending a sum."""
     q_spec = _act_specs(sh, cfg)[0]
+    head_tp = _wo_spec(sh, cfg)[0] == "tp"
     out = grad_as_input(sh.constrain(out, q_spec[0], None, *q_spec[2:]).flatten(-2))
     wo = grad_as_input(sh.constrain(wo, *_wo_spec(sh, cfg)).reshape(-1, wo.shape[-1]))
-    return sh.constrain(matmul(out, wo), "dp", None, None)
+    if head_tp:
+        wo = sh.constrain(wo, "tp", None)
+    y = sh.constrain(matmul(out, wo), "dp", None, None)
+    return grad_as_input(y, summed=True) if head_tp else y
 
 
 def _groups(cfg: ArchConfig) -> int:

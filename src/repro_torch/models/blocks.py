@@ -37,7 +37,7 @@ from .attention import (
 from .config import ArchConfig
 from .layers import MLP, Norm, apply_mlp, apply_norm, init_mlp, init_norm
 from .moe import MoE, apply_moe, init_moe
-from .sharding import NULL, Sharding
+from .sharding import NULL, Sharding, grad_as_input
 from .ssm import SSM, SSMCache, apply_ssm, apply_ssm_decode, init_ssm, init_ssm_cache
 
 
@@ -110,8 +110,11 @@ def _apply_cross(p: Layer, x: torch.Tensor, cfg: ArchConfig,
 def _normed(norm: Norm, x: torch.Tensor, sh: Sharding) -> torch.Tensor:
     """``norm(x)`` with its sequence whole (the all-gather at the
     Megatron-SP boundary, under ``sp_activations``), as the projections
-    that read it flatten (batch, sequence)."""
-    return sh.constrain(apply_norm(norm, x), "dp", None, None)
+    that read it flatten (batch, sequence). Its gradient is laid out once
+    as the output is (a pending sum left pending) before the norm's
+    elementwise backward runs: a projection's backward may hand it split
+    on the width, and each of those ops would then gather it again."""
+    return grad_as_input(sh.constrain(apply_norm(norm, x), "dp", None, None))
 
 
 def _apply_ffn(p: Layer, x: torch.Tensor, cfg: ArchConfig, layer: int, sh: Sharding

@@ -198,7 +198,10 @@ def apply_moe(p: MoE, x: torch.Tensor, cfg: ArchConfig, capacity_factor: float =
     b, s, d = x.shape
     e, k = cfg.n_experts, cfg.top_k
     t = b * s
-    xf = x.reshape(t, d)
+    # the tokens' gradient comes back laid out as xf is: the sharded
+    # dispatch's may come back split over tp too, which cannot be
+    # unflattened into (B, S) where the batch does not divide evenly
+    xf = grad_as_input(x.reshape(t, d))
     r = route(p, xf, k) if routing is None else routing
     cap = capacity(t, k, e, capacity_factor)
     if sh.mesh is None:

@@ -363,33 +363,35 @@ class _GradAs(torch.autograd.Function):
     """The identity, its gradient split as the input is."""
 
     @staticmethod
-    def forward(ctx, x):
-        ctx.layout = (x.device_mesh, tuple(x.placements))
+    def forward(ctx, x, summed: bool):
+        ctx.layout = (x.device_mesh, tuple(x.placements), summed)
         return x.view_as(x)
 
     @staticmethod
     def backward(ctx, g):
         from torch.distributed.tensor import Replicate
 
-        mesh, placements = ctx.layout
-        # a pending sum stays pending (summing here would change the order);
-        # an input pending a sum takes its gradient whole, as DTensor gives it
-        want = tuple(p if p.is_partial() else Replicate() if q.is_partial() else q
+        mesh, placements, summed = ctx.layout
+        # a pending sum stays pending (summing here would change the order),
+        # unless asked for; an input pending a sum takes its gradient whole,
+        # as DTensor gives it
+        want = tuple(p if p.is_partial() and not summed else Replicate() if q.is_partial() else q
                      for p, q in zip(g.placements, placements))
-        return g if tuple(g.placements) == want else g.redistribute(mesh, want)
+        return (g if tuple(g.placements) == want else g.redistribute(mesh, want)), None
 
 
-def grad_as_input(x: torch.Tensor) -> torch.Tensor:
-    """``x``, its gradient split as ``x`` is (a partial sum left pending).
-    A DTensor's gradient comes back split as the backward's sharding rules
-    pick; where a view's backward then reshapes it (a flattened weight's
-    gradient into its heads, a product's into (batch x sequence) rows), a
-    split that tp does not divide evenly, or one over the sequence, fails.
-    Only data moves, no sum: the values are the same bits. A plain tensor
-    comes back as it is."""
+def grad_as_input(x: torch.Tensor, summed: bool = False) -> torch.Tensor:
+    """``x``, its gradient split as ``x`` is (a partial sum left pending,
+    or with ``summed`` summed there). A DTensor's gradient comes back split
+    as the backward's sharding rules pick; where a view's backward then
+    reshapes it (a flattened weight's gradient into its heads, a product's
+    into (batch x sequence) rows), a split that tp does not divide evenly,
+    or one over the sequence, fails. Without ``summed`` only data moves, no
+    sum: the values are the same bits. A plain tensor comes back as it
+    is."""
     from torch.distributed.tensor import DTensor
 
-    return _GradAs.apply(x) if isinstance(x, DTensor) and x.requires_grad else x
+    return _GradAs.apply(x, summed) if isinstance(x, DTensor) and x.requires_grad else x
 
 
 def distribute_tree(tree, spec_tree, sh: Sharding):

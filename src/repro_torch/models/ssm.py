@@ -23,6 +23,9 @@ keeps ``G E`` in fp32 there too (``docs/PORT.md``).
 
 Sharding (``sh``): heads over 'tp' (80/16=5 for mamba2-2.7b, 128/16=8 for
 jamba); B/C are group-shared (ngroups=1) and replicated across tp. The
+depthwise conv treats each channel on its own, so under a mesh it runs on
+each rank's own channels (:func:`_conv_gates`): x's tp share as ``wx``
+leaves it, B and C whole, Δ and the log decay on each rank's heads. The
 kernel launches through ``ctypes`` and takes no DTensor, so under a mesh
 the chunk scan that calls it (:func:`_chunk_scan`: the kernel's term, the
 chunk states, the scan over chunks and the inter-chunk term) runs through
@@ -36,6 +39,7 @@ shard.
 from __future__ import annotations
 
 import functools
+import math
 import os
 from typing import NamedTuple
 
@@ -45,7 +49,7 @@ import torch.nn.functional as F
 from ..kernels.ssd_intra import ssd_intra
 from .config import ArchConfig
 from .layers import Params, dense_init
-from .sharding import NULL, Sharding, local_map
+from .sharding import NULL, Sharding, grad_as_input, local_map
 
 #: The reference's ``_LEAN`` (``repro/models/ssm.py:34``): off by default.
 _LEAN = os.environ.get("REPRO_SSD_LEAN") == "1"
@@ -100,17 +104,44 @@ def _gated_norm(y: torch.Tensor, z: torch.Tensor, scale: torch.Tensor,
     return (yf * torch.rsqrt(ms + eps) * scale.float()).to(dtype)
 
 
-def _conv_gates(xin: torch.Tensor, bmat: torch.Tensor, cmat: torch.Tensor, dt: torch.Tensor,
-                conv_w: torch.Tensor, dt_bias: torch.Tensor, a_log: torch.Tensor, *, n: int):
-    """The depthwise causal conv over (x, B, C) with its SiLU, and Δ and
-    the log decay from the raw Δ projection: (x, B, C, Δ, log a)."""
-    d_inner = xin.shape[-1]
-    conv_in = torch.cat([xin, bmat, cmat], dim=-1)
-    conv_out = F.silu(_causal_conv(conv_in, conv_w).float()).to(xin.dtype)
+def _conv_silu(w: torch.Tensor, *xs: torch.Tensor, first: int) -> tuple[torch.Tensor, ...]:
+    """The depthwise causal conv of ``xs`` (each (B, S, C_i)) joined on
+    their channels, by channels ``[first, first + sum C_i)`` of ``w`` (W,
+    all channels), and its SiLU in fp32: each x's channels of it, in x's
+    dtype. Each channel is its own: any split of the channels gives the
+    same values."""
+    x = torch.cat(xs, dim=-1)
+    out = F.silu(_causal_conv(x, w[:, first: first + x.shape[-1]]).float()).to(x.dtype)
+    return out.split([t.shape[-1] for t in xs], dim=-1)
+
+
+def _gates(dt: torch.Tensor, dt_bias: torch.Tensor, a_log: torch.Tensor):
+    """Δ and the log decay from the raw Δ projection (B, S, H)."""
     dt = F.softplus(dt + dt_bias)  # (B, S, H)
     a = -torch.exp(a_log)  # (H,) negative
-    return (conv_out[..., :d_inner], conv_out[..., d_inner: d_inner + n], conv_out[..., d_inner + n:],
-            dt, dt * a)  # log a_t = Δ a, <= 0
+    return dt, dt * a  # log a_t = Δ a, <= 0
+
+
+def _conv_gates(p: SSM, xin: torch.Tensor, bmat: torch.Tensor, cmat: torch.Tensor,
+                dt: torch.Tensor, cfg: ArchConfig, sh: Sharding):
+    """The depthwise causal conv over (x, B, C) with its SiLU, and Δ and
+    the log decay from the raw Δ projection: (x, B, C, Δ, log a). Under a
+    mesh each rank works on its own channels: x on its batch rows and its
+    tp share of the channels (as ``wx`` leaves it) with the matching
+    channels of ``conv_w``, B and C (shared by every head) on its rows
+    whole over tp, Δ and the log decay on its rows and heads."""
+    b, s, h = dt.shape
+    heads = sh.fit_spec((b, s, h), sh.spec("dp", None, "tp"))
+    rows, rep = sh.spec("dp", None, None), (None, None)
+    tp_dims = sh.split_dims((b, s, h), heads, 2)
+    first = sh.shard_index(tp_dims) * (cfg.d_inner // math.prod(sh.mesh.size(d) for d in tp_dims))
+    (xin,) = local_map(sh, functools.partial(_conv_silu, first=first), (rep, heads), (1,))(
+        p.conv_w, xin)
+    bmat, cmat = local_map(sh, functools.partial(_conv_silu, first=cfg.d_inner),
+                           (rep, rows, rows), (1, 2))(p.conv_w, bmat, cmat)
+    dt, log_decay = local_map(sh, _gates, (heads, heads[2:], heads[2:]), (0, 0))(
+        dt, p.dt_bias, p.A_log)
+    return xin, bmat, cmat, dt, log_decay
 
 
 def _chunk_scan(cc: torch.Tensor, bc: torch.Tensor, ld: torch.Tensor, dtc: torch.Tensor,
@@ -186,12 +217,7 @@ def apply_ssm(p: SSM, x: torch.Tensor, cfg: ArchConfig, *, sh: Sharding = NULL) 
     cmat = x @ p.wC
     dt = (x @ p.wdt).float()
 
-    # the causal conv over (x, B, C) and the gates, each rank on its batch
-    # rows under a mesh (replicated over tp)
-    rows, rep = sh.spec("dp", None, None), (None, None)
-    conv = local_map(sh, functools.partial(_conv_gates, n=n), (rows,) * 4 + (rep, (None,), (None,)),
-                     (0,) * 5)
-    xin, bmat, cmat, dt, log_decay = conv(xin, bmat, cmat, dt, p.conv_w, p.dt_bias, p.A_log)
+    xin, bmat, cmat, dt, log_decay = _conv_gates(p, xin, bmat, cmat, dt, cfg, sh)
     xh = sh.constrain(xin.reshape(b, s, h, pd), "dp", None, "tp", None)
 
     # chunk views (heads sharded over tp)
@@ -207,7 +233,10 @@ def apply_ssm(p: SSM, x: torch.Tensor, cfg: ArchConfig, *, sh: Sharding = NULL) 
     scan = local_map(sh, _chunk_scan, (cb, cb, hc, hc, sh.spec("dp", None, None, "tp", None)), 4)
     y = sh.constrain(scan(cc, bc, ld, dtc, xc), "dp", None, None, "tp", None)
 
-    y = y.reshape(b, s, h, pd)
+    # the gated norm's backward may hand y's gradient back split on the
+    # sequence, which the chunk views cannot take where tp does not divide
+    # the chunks: laid out as y is first
+    y = grad_as_input(y.reshape(b, s, h, pd))
     y = y + xh * p.D[None, None, :, None].to(x.dtype)
     y = y.reshape(b, s, cfg.d_inner)
     y = _gated_norm(y, z, p.norm_scale)

@@ -54,12 +54,20 @@ def _old_proj(x, w, spec=None, sh=None):
 
 
 def _old_out(out, wo, cfg, sh):
-    """``_out`` as it was: no layout of either flattened operand."""
+    """``_out`` as it was: no layout of either flattened operand. Under
+    ``head_tp`` the weight gathered over fsdp and the output's gradient
+    summed, as ``_out`` has done since: that sum changes the order of a
+    sum, the layouts it came with change no bit."""
     from repro_torch.models.attention import _wo_spec
     from repro_torch.models.layers import matmul
+    from repro_torch.models.sharding import grad_as_input
 
-    wo = sh.constrain(wo, *_wo_spec(sh, cfg))
-    return sh.constrain(matmul(out.flatten(-2), wo.reshape(-1, wo.shape[-1])), "dp", None, None)
+    head_tp = _wo_spec(sh, cfg)[0] == "tp"
+    wo = sh.constrain(wo, *_wo_spec(sh, cfg)).reshape(-1, wo.shape[-1])
+    if head_tp:
+        wo = sh.constrain(wo, "tp", None)
+    y = sh.constrain(matmul(out.flatten(-2), wo), "dp", None, None)
+    return grad_as_input(y, summed=True) if head_tp else y
 
 
 def _old_assign(ids, e: int, cap: int):
