@@ -325,8 +325,9 @@ Phases (any failure raises, and the script exits non-zero):
     record's, ``MAMBA_RING_BYTES`` (``MAMBA_LIMITS``), both printed beside
     the numbers before the vocabulary-parallel lookup; the one-layer cells
     of ``LAYER_REF`` (``run_cell(layers=1)``, a process each):
-    ``mamba2-2.7b prefill_32k``'s peak and FLOPs and ``nemotron-4-340b
-    train_4k``'s ring bytes, peak and FLOPs, each at most its
+    ``mamba2-2.7b prefill_32k``'s peak and FLOPs, ``nemotron-4-340b
+    train_4k``'s ring bytes, peak and FLOPs and ``mamba2-2.7b
+    train_4k``'s FLOPs, ring bytes and peak, each at most its
     ``LAYER_LIMITS`` multiple of the reference's at one layer, printed
     beside the parent's (``LAYER_BEFORE``); and that
     cell once more beside ``CommDebugMode`` (``COMM_CHECK``), whose count
@@ -441,23 +442,33 @@ MAMBA_BEFORE = {"peak_bytes_est": 664_316_192, "ring_bytes": 560_186_880}
 #: reference's numbers at one layer (``repro.launch.dryrun.run_cell`` with
 #: the config cut to one layer, as ``tests/test_torch_dryrun_reference.py``
 #: cuts it; jax 0.9.0 on the CPU), the multiple of each the port may count,
-#: and the port's before the causal conv ran on each rank's own channels
-#: and the norm's and the attention output's gradients were laid out
-#: (``python3 scripts/dryrun_layers.py sweep`` at commit f403cf6, torch 2.13
-#: on a host CPU).
+#: and the port's before the repair each cell holds (``python3
+#: scripts/dryrun_layers.py sweep``, torch 2.13 on a host CPU): at commit
+#: f403cf6, before the causal conv ran on each rank's own channels and the
+#: norm's and the attention output's gradients were laid out, and at commit
+#: e0a8df7, before the SSM's output projection and gate ran their backward
+#: on each rank's own channels (``mamba2-2.7b train_4k``).
 LAYER_REF = {("mamba2-2.7b", "prefill_32k"): {"peak_bytes_est": 2_068_277_120,
                                               "flops": 350_944_526_336},
              ("nemotron-4-340b", "train_4k"): {"ring_bytes": 234_624_581_848,
                                                "peak_bytes_est": 11_382_347_112,
-                                               "flops": 229_918_189_289_472}}
+                                               "flops": 229_918_189_289_472},
+             ("mamba2-2.7b", "train_4k"): {"flops": 4_469_181_906_944,
+                                           "ring_bytes": 14_495_420_569,
+                                           "peak_bytes_est": 1_253_303_904}}
 LAYER_LIMITS = {("mamba2-2.7b", "prefill_32k"): {"peak_bytes_est": 1.25, "flops": 1.25},
                 ("nemotron-4-340b", "train_4k"): {"ring_bytes": 1.75, "peak_bytes_est": 1.25,
-                                                  "flops": 1.25}}
+                                                  "flops": 1.25},
+                ("mamba2-2.7b", "train_4k"): {"flops": 1.25, "ring_bytes": 1.25,
+                                              "peak_bytes_est": 1.25}}
 LAYER_BEFORE = {("mamba2-2.7b", "prefill_32k"): {"peak_bytes_est": 5_009_420_232,
                                                  "flops": 354_971_058_176},
                 ("nemotron-4-340b", "train_4k"): {"ring_bytes": 602_045_399_075,
                                                   "peak_bytes_est": 15_443_087_392,
-                                                  "flops": 306_454_506_504_192}}
+                                                  "flops": 306_454_506_504_192},
+                ("mamba2-2.7b", "train_4k"): {"flops": 7_710_976_245_760,
+                                              "ring_bytes": 16_777_636_835,
+                                              "peak_bytes_est": 1_014_246_120}}
 #: One cell ``argv[1:3]`` at one layer (records in ``argv[3]``): its numbers
 #: as one JSON line.
 LAYER_CELL = r"""

@@ -1,32 +1,46 @@
 #!/usr/bin/env python3
 """The dry run's costs at a cut depth, on the host CPU (no card needed).
 
-    python3 scripts/dryrun_layers.py sweep [--src TREE/src] [--layers 1] [--procs 4] [--out F]
+    python3 scripts/dryrun_layers.py sweep [ARCH SHAPE ...] [--src TREE/src] [--reference]
+        [--layers 1] [--procs 4] [--out F]
     python3 scripts/dryrun_layers.py compare OLD NEW
     python3 scripts/dryrun_layers.py sites ARCH SHAPE [--src TREE/src] [--layers 1] [--min-gb 0.1]
+        [--flops]
 
 ``sweep`` runs ``repro_torch.launch.dryrun.run_cell(arch, shape, False,
-layers=N)`` for every (arch, shape) cell of the 16x16 mesh, each in a
-subprocess of its own, ``--procs`` at once, on the ``repro_torch`` of
-``--src`` (default this checkout's; an unpacked earlier commit's for a
-comparison), and prints one JSON line a cell: its status, FLOPs, ring
-bytes, peak and collectives by kind. ``--out`` also writes the lines to a
-file. ``compare OLD NEW`` reads two such files and prints, for each cell,
-the three numbers' ratios, and the cells where NEW reads more ring bytes
-or FLOPs than OLD, or peaks more than 1 % above it (exit 1 if any).
+layers=N)`` for each (arch, shape) cell given, or every cell of the 16x16
+mesh, each in a subprocess of its own, ``--procs`` at once, on the
+``repro_torch`` of ``--src`` (default this checkout's; an unpacked earlier
+commit's for a comparison), and prints one JSON line a cell: its status,
+FLOPs, ring bytes, peak and collectives by kind. With ``--reference`` it
+runs the JAX reference's cell instead, cut to the same depth by
+``tests/test_torch_dryrun_reference.py``'s ``_start`` (this checkout's
+``src/repro``), and prints its status, FLOPs, ring bytes and peak.
+``--out`` also writes the lines to a file. ``compare OLD NEW`` reads two
+such files and prints, for each cell, the three numbers' ratios, and the
+cells where NEW reads more ring bytes or FLOPs than OLD, or peaks more
+than 1 % above it (exit 1 if any); with the reference's as OLD the ratios
+are the port's multiples of the reference's.
 
 ``sites`` runs one cell and attributes each collective to a call site:
 in the forward the innermost frames of ``repro_torch`` outside the
 sharding layer, in the backward the forward frames of the autograd node
 that ran it (recorded under ``torch.autograd.detect_anomaly``). One line
 a site, heaviest first: ring GB, count, kind, site and the operands'
-local shapes and dtype.
+local shapes and dtype. Under activation checkpointing the recomputed
+forward runs inside the backward: its ops go to the backward node that
+first unpacks a saved tensor. With ``--flops`` it attributes one device's
+FLOPs instead, op by op as the record counts them, to the same call
+sites: TFLOP, count, op, site and the operands' local shapes (a product's
+``(m, k) @ (k, n)``), each site of at least 100 GFLOP.
 """
 
 from __future__ import annotations
 
 import argparse
 import collections
+import functools
+import importlib.util
 import json
 import os
 import subprocess
@@ -58,6 +72,10 @@ def _cells() -> list[tuple[str, str]]:
     return [(a, s) for a, s, _ in all_cells()]
 
 
+#: A site's least FLOPs for ``sites --flops`` to print it.
+MIN_FLOPS = 100e9
+
+
 def _run(src: str, arch: str, shape: str, layers: int) -> dict:
     env = {**os.environ, "PYTHONPATH": src}
     with tempfile.TemporaryDirectory() as out:
@@ -68,10 +86,40 @@ def _run(src: str, arch: str, shape: str, layers: int) -> dict:
     return json.loads(proc.stdout.strip().splitlines()[-1])
 
 
-def sweep(src: str, layers: int, procs: int, out: str | None) -> None:
+def _reference():
+    """``tests/test_torch_dryrun_reference.py``, whose ``_start`` runs the
+    reference's cell at a cut depth."""
+    sys.path.insert(0, os.path.join(ROOT, "src"))
+    path = os.path.join(ROOT, "tests", "test_torch_dryrun_reference.py")
+    spec = importlib.util.spec_from_file_location("dryrun_reference", path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def _run_reference(ref, arch: str, shape: str, layers: int) -> dict:
+    with tempfile.TemporaryDirectory() as out:
+        proc = ref._start(arch, shape, layers, out)
+        stdout, err = proc.communicate(timeout=1800)
+    if proc.returncode:
+        return {"arch": arch, "shape": shape, "status": "error", "stderr": err[-2000:]}
+    rec = json.loads(stdout.strip().splitlines()[-1])
+    line = {"arch": arch, "shape": shape, "status": rec["status"]}
+    if rec["status"] == "ok":
+        line.update({k: ref._number(rec, k) for k in ("flops", "ring_bytes", "peak_bytes_est")})
+    return line
+
+
+def sweep(src: str, cells: list[tuple[str, str]], layers: int, procs: int, out: str | None,
+          reference: bool = False) -> None:
+    if reference:
+        ref = _reference()
+        run = functools.partial(_run_reference, ref)
+    else:
+        run = functools.partial(_run, src)
     lines = []
     with ThreadPoolExecutor(procs) as pool:
-        for rec in pool.map(lambda c: _run(src, *c, layers), _cells()):
+        for rec in pool.map(lambda c: run(*c, layers), cells or _cells()):
             line = json.dumps(rec)
             print(line, flush=True)
             lines.append(line)
@@ -102,14 +150,15 @@ def compare(old_path: str, new_path: str) -> int:
     return 1 if worse else 0
 
 
-def sites(src: str, arch: str, shape: str, layers: int, min_gb: float) -> None:
+def sites(src: str, arch: str, shape: str, layers: int, min_gb: float,
+          flops: bool = False) -> None:
     sys.path.insert(0, src)
     import torch
 
     from repro_torch.launch import dryrun
 
     totals: dict = collections.defaultdict(lambda: [0, 0])
-    own = dryrun.StepCost._collective
+    own, own_dispatch = dryrun.StepCost._collective, dryrun.StepCost.__torch_dispatch__
     skip = ("sharding.py", "dryrun.py")
 
     def frames(lines) -> list[str]:
@@ -143,35 +192,58 @@ def sites(src: str, arch: str, shape: str, layers: int, min_gb: float) -> None:
         entry[0] += 1
         entry[1] += ring
 
-    dryrun.StepCost._collective = counted
-    with tempfile.TemporaryDirectory() as out, torch.autograd.detect_anomaly(check_nan=False):
-        rec = dryrun.run_cell(arch, shape, False, out, layers=layers)
+    def dispatched(self, func, types, args=(), kwargs=None):
+        before = self.flops
+        out = own_dispatch(self, func, types, args, kwargs)
+        if self.flops != before:
+            shapes = " @ ".join(str(tuple(t.shape)) for t in dryrun._leaves(args)
+                                if isinstance(t, torch.Tensor) and t.ndim)
+            entry = totals[(func._overloadpacket.__name__, site(), shapes)]
+            entry[0] += 1
+            entry[1] += self.flops - before
+        return out
+
+    if flops:
+        dryrun.StepCost.__torch_dispatch__ = dispatched
+    else:
+        dryrun.StepCost._collective = counted
+    try:
+        with tempfile.TemporaryDirectory() as out, torch.autograd.detect_anomaly(check_nan=False):
+            rec = dryrun.run_cell(arch, shape, False, out, layers=layers)
+    finally:
+        dryrun.StepCost._collective, dryrun.StepCost.__torch_dispatch__ = own, own_dispatch
     print(json.dumps({"arch": arch, "shape": shape, "layers": layers,
                       "flops": rec["cost"]["flops"],
                       "ring_bytes": rec["collectives"]["ring_bytes"],
                       "peak_bytes_est": rec["memory"]["peak_bytes_est"]}))
-    for (kind, where, shapes), (count, ring) in sorted(totals.items(), key=lambda kv: -kv[1][1]):
-        if ring >= min_gb * 1e9:
-            print(f"{ring / 1e9:9.3f} GB {count:5d} {kind:15s} {where}  [{shapes}]")
+    unit, least = (1e12, MIN_FLOPS) if flops else (1e9, min_gb * 1e9)
+    for (kind, where, shapes), (count, n) in sorted(totals.items(), key=lambda kv: -kv[1][1]):
+        if n >= least:
+            print(f"{n / unit:9.3f} {'TFLOP' if flops else 'GB'} {count:5d} {kind:15s} {where}"
+                  f"  [{shapes}]")
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("what", choices=("sweep", "sites", "compare"))
-    ap.add_argument("args", nargs="*", help="sites: ARCH SHAPE; compare: OLD NEW")
+    ap.add_argument("args", nargs="*",
+                    help="sweep: ARCH SHAPE pairs; sites: ARCH SHAPE; compare: OLD NEW")
     ap.add_argument("--src", default=os.path.join(ROOT, "src"))
     ap.add_argument("--layers", type=int, default=1)
     ap.add_argument("--procs", type=int, default=4)
     ap.add_argument("--out")
     ap.add_argument("--min-gb", type=float, default=0.1)
+    ap.add_argument("--flops", action="store_true", help="sites: attribute FLOPs, not bytes")
+    ap.add_argument("--reference", action="store_true", help="sweep: the JAX reference's cells")
     args = ap.parse_args(argv)
     src = os.path.abspath(args.src)
     if args.what == "sweep":
-        sweep(src, args.layers, args.procs, args.out)
+        cells = list(zip(args.args[::2], args.args[1::2]))
+        sweep(src, cells, args.layers, args.procs, args.out, args.reference)
     elif args.what == "compare":
         return compare(*args.args)
     else:
-        sites(src, *args.args, args.layers, args.min_gb)
+        sites(src, *args.args, args.layers, args.min_gb, args.flops)
     return 0
 
 

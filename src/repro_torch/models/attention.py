@@ -42,7 +42,7 @@ from typing import NamedTuple
 import torch
 
 from .config import ArchConfig
-from .layers import Params, apply_rope, dense_init, einsum, matmul
+from .layers import Params, apply_rope, dense_init, einsum, matmul, row_parallel_out
 from .sharding import NULL, Sharding, grad_as_input, local_map, reduce_local
 
 #: The score a masked position gets, as in the reference.
@@ -156,19 +156,15 @@ def _out(out: torch.Tensor, wo: torch.Tensor, cfg: ArchConfig, sh: Sharding) -> 
     with the sequence split fails DTensor's sharding rules); both flattened
     operands' gradients come back laid out as they are (see :func:`_proj`).
     Under ``head_tp`` the weight is gathered over fsdp first, as FSDP
-    gathers it, and the output's gradient is summed over the ranks that
-    hold a part of it (the residual's pending sum) and laid out as the
-    output: the backward then computes each rank's heads' gradient where
-    it stands, where DTensor's rules would move the activations' gradient
-    and hand the heads' gradient back whole, pending a sum."""
+    gathers it, and the product is :func:`layers.row_parallel_out`: the
+    backward computes each rank's heads' gradient where it stands."""
     q_spec = _act_specs(sh, cfg)[0]
     head_tp = _wo_spec(sh, cfg)[0] == "tp"
     out = grad_as_input(sh.constrain(out, q_spec[0], None, *q_spec[2:]).flatten(-2))
     wo = grad_as_input(sh.constrain(wo, *_wo_spec(sh, cfg)).reshape(-1, wo.shape[-1]))
     if head_tp:
-        wo = sh.constrain(wo, "tp", None)
-    y = sh.constrain(matmul(out, wo), "dp", None, None)
-    return grad_as_input(y, summed=True) if head_tp else y
+        return row_parallel_out(out, sh.constrain(wo, "tp", None), sh)
+    return sh.constrain(matmul(out, wo), "dp", None, None)
 
 
 def _groups(cfg: ArchConfig) -> int:

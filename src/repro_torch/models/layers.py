@@ -26,7 +26,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from .config import ArchConfig
-from .sharding import NULL, Sharding, local_map, reduce_local
+from .sharding import NULL, Sharding, grad_as_input, local_map, reduce_local
 
 
 class Params(nn.Module):
@@ -69,6 +69,20 @@ def matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """``a @ b`` in the dtype the two promote to."""
     dt = torch.promote_types(a.dtype, b.dtype)
     return torch.matmul(a.to(dt), b.to(dt))
+
+
+def row_parallel_out(y: torch.Tensor, wo: torch.Tensor, sh: Sharding) -> torch.Tensor:
+    """An output projection ``y @ wo`` whose contraction tp splits (y's
+    last dim on each rank's tp share, wo's rows over tp), laid out
+    ``("dp", None, None)``: attention's under ``head_tp``, the SSM's and
+    the MLP's. Under a mesh the output's gradient is summed over the ranks
+    that hold a part of it (the residual's pending sum) and laid out as
+    the output: the backward then computes each rank's own share of y's
+    gradient where it stands, where DTensor's rules would compute it whole
+    on every rank and hand it back pending a sum. The weight comes laid
+    out by the caller: attention's and the SSM's gathered over fsdp, as
+    FSDP gathers it; the MLP's kept split (:func:`apply_mlp`)."""
+    return grad_as_input(sh.constrain(matmul(y, wo), "dp", None, None), summed=True)
 
 
 def einsum(eq: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -343,7 +357,13 @@ def init_mlp(gen: torch.Generator, cfg: ArchConfig, d_ff: int, dtype, device="cu
 
 def apply_mlp(p: MLP, x: torch.Tensor, cfg: ArchConfig, *, sh: Sharding = NULL) -> torch.Tensor:
     """The activation in f32, cast back to the activations' dtype, as in the
-    reference; ``gelu`` is ``jax.nn.gelu``'s default, the tanh form."""
+    reference; ``gelu`` is ``jax.nn.gelu``'s default, the tanh form. The
+    output projection is :func:`row_parallel_out`: the backward computes
+    each rank's own ``d_ff`` columns on its own rows (where the gradient
+    already arrives so laid out, nothing moves). Its weight stays split
+    over fsdp: on a token a row (decode) or an unsplit batch (``long_500k``)
+    gathering it would move more bytes than the output, and there each
+    rank would compute every row's product."""
     wi = sh.constrain(p.wi, "fsdp", "tp")
     wo = sh.constrain(p.wo, "tp", "fsdp")
     h = sh.constrain(matmul(x, wi), "dp", None, "tp")
@@ -353,4 +373,4 @@ def apply_mlp(p: MLP, x: torch.Tensor, cfg: ArchConfig, *, sh: Sharding = NULL) 
         h = F.relu(h.float()).square().to(h.dtype)
     else:  # gelu
         h = F.gelu(h.float(), approximate="tanh").to(h.dtype)
-    return sh.constrain(matmul(h, wo), "dp", None, None)
+    return row_parallel_out(h, wo, sh)

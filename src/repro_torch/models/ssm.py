@@ -48,7 +48,7 @@ import torch.nn.functional as F
 
 from ..kernels.ssd_intra import ssd_intra
 from .config import ArchConfig
-from .layers import Params, dense_init
+from .layers import Params, dense_init, row_parallel_out
 from .sharding import NULL, Sharding, grad_as_input, local_map
 
 #: The reference's ``_LEAN`` (``repro/models/ssm.py:34``): off by default.
@@ -211,7 +211,11 @@ def apply_ssm(p: SSM, x: torch.Tensor, cfg: ArchConfig, *, sh: Sharding = NULL) 
         raise ValueError(f"apply_ssm: sequence length {s} is not a multiple of the chunk {q}")
     nc = s // q
 
-    z = x @ sh.constrain(p.wz, "fsdp", "tp")
+    # the gate's gradient leaves the gated norm at the whole width: laid out
+    # as z is (and summed, where a sum is pending), so that wz's weight
+    # gradient runs on each rank's columns, as wx's does
+    z = grad_as_input(sh.constrain(x @ sh.constrain(p.wz, "fsdp", "tp"), "dp", None, "tp"),
+                      summed=True)
     xin = x @ sh.constrain(p.wx, "fsdp", "tp")
     bmat = x @ p.wB
     cmat = x @ p.wC
@@ -240,7 +244,8 @@ def apply_ssm(p: SSM, x: torch.Tensor, cfg: ArchConfig, *, sh: Sharding = NULL) 
     y = y + xh * p.D[None, None, :, None].to(x.dtype)
     y = y.reshape(b, s, cfg.d_inner)
     y = _gated_norm(y, z, p.norm_scale)
-    return sh.constrain(y @ sh.constrain(p.wo, "tp", "fsdp"), "dp", None, None)
+    wo = sh.constrain(sh.constrain(p.wo, "tp", "fsdp"), "tp", None)
+    return row_parallel_out(sh.constrain(y, "dp", None, "tp"), wo, sh)
 
 
 def init_ssm_cache(cfg: ArchConfig, batch: int, dtype, device="cuda") -> SSMCache:

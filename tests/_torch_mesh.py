@@ -1,10 +1,12 @@
 """Helpers of the sharded-step tests (``tests/test_torch_mesh_train*.py``,
 one model family a file): the port's sharded steps
 (``jit_train_step``, ``jit_serve_step``) on a ``(2, 2)`` ``("data",
-"model")`` mesh of host tensors, against the reference's unsharded ones.
+"model")`` mesh of host tensors (``(2, 4)`` where a file asks for tp = 4),
+against the reference's unsharded ones.
 
-One gloo group of 4 ranks (``torch.distributed`` over a ``FileStore`` in a
-temporary directory; this file, run as a script, is the worker) runs every
+One gloo group of a rank a mesh device (``torch.distributed`` over a
+``FileStore`` in a temporary directory; this file, run as a script, is the
+worker) runs every
 check of a test file once, on smoke configs in fp32 under
 ``make_policy(cfg, mesh)``; rank 0 writes what it read. The reference's
 steps run meanwhile in the test's process on the same state (carried
@@ -52,7 +54,7 @@ import numpy as np
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 SRC = os.path.join(os.path.dirname(HERE), "src")
-WORLD = 4
+MESH = (2, 2)
 TIMEOUT = 300
 B, S = 4, 16
 DECODE_STEPS = 4
@@ -70,7 +72,8 @@ MODEL_MARGIN = 1e-4
 # The worker: one rank of the gloo group
 # --------------------------------------------------------------------------
 
-def worker(rank: int, world: int, store: str, tmp: str, names: list[str], restore: bool) -> None:
+def worker(rank: int, shape: tuple[int, int], store: str, tmp: str, names: list[str],
+           restore: bool) -> None:
     sys.path.insert(0, SRC)
     import torch
     import torch.distributed as dist
@@ -81,9 +84,10 @@ def worker(rank: int, world: int, store: str, tmp: str, names: list[str], restor
     from repro_torch.training import batch_specs, jit_serve_step, jit_train_step, train_state_specs
 
     torch.set_num_threads(1)
+    world = shape[0] * shape[1]
     dist.init_process_group("gloo", store=dist.FileStore(store, world), rank=rank,
                             world_size=world)
-    mesh = make_debug_mesh(2, 2, device_type="cpu")
+    mesh = make_debug_mesh(*shape, device_type="cpu")
     out: dict = {}
 
     def numpy(t):
@@ -296,9 +300,11 @@ def _reference(ref_cfg, cfg, state, batch, tokens) -> dict:
             "m": by_name(new.opt.m), "v": by_name(new.opt.v), "logits": logits}
 
 
-def run(names: tuple[str, ...], tmp: str, restore: bool = False) -> dict:
-    """Every case prepared, the 4 ranks started on them, the reference's
-    steps meanwhile; the ranks' readings beside the reference's."""
+def run(names: tuple[str, ...], tmp: str, restore: bool = False,
+        shape: tuple[int, int] = MESH) -> dict:
+    """Every case prepared, a rank a device of the ``shape`` mesh started on
+    them, the reference's steps meanwhile; the ranks' readings beside the
+    reference's."""
     import torch
 
     prepared = {name: _prepare(name, tmp) for name in names}
@@ -306,9 +312,10 @@ def run(names: tuple[str, ...], tmp: str, restore: bool = False) -> dict:
         "GLOO_SOCKET_IFNAME", "lo"), "OMP_NUM_THREADS": "1"}
     store = os.path.join(tmp, "store")
     procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "worker", str(r),
-                               str(WORLD), store, tmp, ",".join(names), str(int(restore))],
+                               "x".join(map(str, shape)), store, tmp, ",".join(names),
+                               str(int(restore))],
                               env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-             for r in range(WORLD)]
+             for r in range(shape[0] * shape[1])]
     outs = []
     try:
         ref = {name: _reference(*prepared[name]) for name in names}
@@ -403,5 +410,5 @@ def check_decode(run: dict, name: str) -> None:
 
 if __name__ == "__main__":
     if sys.argv[1] == "worker":
-        worker(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4], sys.argv[5],
-               sys.argv[6].split(","), bool(int(sys.argv[7])))
+        worker(int(sys.argv[2]), tuple(map(int, sys.argv[3].split("x"))), sys.argv[4],
+               sys.argv[5], sys.argv[6].split(","), bool(int(sys.argv[7])))

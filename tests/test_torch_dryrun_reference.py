@@ -1,4 +1,4 @@
-"""The dry run's costs of eight cells against the reference's own dry run
+"""The dry run's costs of nine cells against the reference's own dry run
 of the same cells, at one layer on the 16x16 mesh.
 
 The reference (``repro.launch.dryrun.run_cell``) lowers and compiles each
@@ -37,11 +37,20 @@ reference's (a test case each):
   the attention output projection's weight gathered and its output's
   gradient summed; before, 2.57 times), the peak at 1.25 times (before,
   1.36 times) and FLOPs at 1.25 times (before, 1.33 times: the output
-  projection's backward computed every head's gradient on every rank).
+  projection's backward computed every head's gradient on every rank);
+* ``mamba2-2.7b train_4k`` (8 microbatches): FLOPs, ring bytes and the
+  peak at 1.25 times (the SSM's output projection with its output's
+  gradient summed once and laid out as the output, and the gate's
+  gradient laid out as the gate is; before, the backward computed every
+  channel of both products on every rank, 1.73 times the reference's
+  FLOPs).
 
 The factor of 2 on a train step's or a prefill's memory leaves room for
 the two ways of counting a peak: the port's ``MemTracker`` counts live
 bytes, the reference takes XLA's arguments plus temporaries.
+
+``_start`` is also the reference's side of a whole comparison:
+``scripts/dryrun_layers.py sweep --reference`` runs it on every cell.
 """
 
 import json
@@ -69,7 +78,9 @@ CELLS = {("qwen2-1.5b", "decode_32k"): (("flops", 1.25), ("ring_bytes", 1.25),
          ("qwen2-vl-72b", "train_4k"): (("ring_bytes", 2.0), ("peak_bytes_est", 1.25)),
          ("mamba2-2.7b", "prefill_32k"): (("peak_bytes_est", 1.25), ("flops", 1.25)),
          ("nemotron-4-340b", "train_4k"): (("ring_bytes", 1.75), ("peak_bytes_est", 1.25),
-                                           ("flops", 1.25))}
+                                           ("flops", 1.25)),
+         ("mamba2-2.7b", "train_4k"): (("flops", 1.25), ("ring_bytes", 1.25),
+                                       ("peak_bytes_est", 1.25))}
 CHECKS = [(arch, shape, key, limit) for (arch, shape), checks in CELLS.items()
           for key, limit in checks]
 TIMEOUT = 240
@@ -86,18 +97,19 @@ print(json.dumps(dryrun.run_cell(sys.argv[1], sys.argv[2], False, sys.argv[4])))
 """
 
 
+def _start(arch: str, shape: str, layers: int, out: str) -> subprocess.Popen:
+    """The reference's cell at ``layers``, in a subprocess of its own."""
+    env = {**os.environ, "PYTHONPATH": SRC, "JAX_PLATFORMS": "cpu",
+           "XLA_FLAGS": "--xla_force_host_platform_device_count=512"}
+    return subprocess.Popen([sys.executable, "-c", REF_CHILD, arch, shape, str(layers), out],
+                            env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+
+
 @pytest.fixture(scope="module")
 def reference(tmp_path_factory):
     """Each cell's reference run, all started at once: ``(arch, shape)`` ->
     a function that waits for its record."""
-    env = {**os.environ, "PYTHONPATH": SRC, "JAX_PLATFORMS": "cpu",
-           "XLA_FLAGS": "--xla_force_host_platform_device_count=512"}
-    procs = {}
-    for arch, shape in CELLS:
-        out = tmp_path_factory.mktemp("ref")
-        procs[arch, shape] = subprocess.Popen(
-            [sys.executable, "-c", REF_CHILD, arch, shape, str(LAYERS), str(out)], env=env,
-            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    procs = {cell: _start(*cell, LAYERS, str(tmp_path_factory.mktemp("ref"))) for cell in CELLS}
 
     def record(cell):
         proc = procs[cell]
