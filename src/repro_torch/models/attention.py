@@ -227,7 +227,13 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, positions
     blocks of (B, H, q_chunk, kv_chunk) instead of (B, H, S, S). q: (B, Sq,
     H, hd); k/v: (B, Sk, n_kv, hd). Every block is computed, as the
     reference's scans compute it: a fully masked one adds exactly zero.
-    Query head ``h`` reads kv head ``h // (H / k's heads)``."""
+    Query head ``h`` reads kv head ``h // (H / k's heads)``.
+
+    A serving path (no autograd): each score block is scaled, masked and
+    exponentiated in place, one fp32 block at a time where each step would
+    make another, and each q block's result is written into one output,
+    with no list to join; the same ops in the same order as out of
+    place."""
     b, sq, h, hd = q.shape
     sk = k.shape[1]
     groups = h // k.shape[2]
@@ -237,7 +243,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, positions
         raise ValueError(f"flash_attention: lengths {sq} and {sk} are not multiples of the "
                          f"chunks {q_chunk} and {kv_chunk}")
     kv_pos = torch.arange(sk, device=q.device)
-    outs = []
+    out = torch.empty_like(q)
     for qs in range(0, sq, q_chunk):
         q_blk, posq = q[:, qs:qs + q_chunk], positions[:, qs:qs + q_chunk]
         m = torch.full((b, h, q_chunk), -torch.inf, dtype=torch.float32, device=q.device)
@@ -248,23 +254,23 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, positions
             if groups > 1:
                 k_blk = k_blk.repeat_interleave(groups, dim=2)
                 v_blk = v_blk.repeat_interleave(groups, dim=2)
-            s = (torch.einsum("bqhk,bshk->bhqs", q_blk, k_blk) * scale).float()
+            s = torch.einsum("bqhk,bshk->bhqs", q_blk, k_blk).mul_(scale).float()
             if causal:
                 mask = posq[:, None, :, None] >= kv_pos[ks:ks + kv_chunk]
-                s = torch.where(mask, s, MASKED)
+                s.masked_fill_(~mask, MASKED)
             m_new = torch.maximum(m, s.amax(dim=-1))
-            pr = torch.exp(s - m_new[..., None])
+            pr = s.sub_(m_new[..., None]).exp_()
             if causal:
                 # a fully masked row (a kv block after the q block) adds
                 # exactly zero: exp(-1e30 - (-1e30)) would give 1
-                pr = pr * mask
+                pr.mul_(mask)
             corr = torch.exp(m - m_new)
             denom = corr * denom + pr.sum(dim=-1)
             pv = torch.einsum("bhqs,bshk->bqhk", pr.to(v_blk.dtype), v_blk).float()
             acc = corr.transpose(1, 2)[..., None] * acc + pv
             m = m_new
-        outs.append((acc / denom.clamp_min(1e-30).transpose(1, 2)[..., None]).to(q.dtype))
-    return torch.cat(outs, dim=1)
+        out[:, qs:qs + q_chunk] = acc / denom.clamp_min(1e-30).transpose(1, 2)[..., None]
+    return out
 
 
 def attention_prefill(p: Attention, x: torch.Tensor, cfg: ArchConfig, positions: torch.Tensor,

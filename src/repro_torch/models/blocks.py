@@ -117,6 +117,19 @@ def _normed(norm: Norm, x: torch.Tensor, sh: Sharding) -> torch.Tensor:
     return grad_as_input(sh.constrain(apply_norm(norm, x), "dp", None, None))
 
 
+def _apply_mixer(p: Layer, x: torch.Tensor, cfg: ArchConfig, positions: torch.Tensor,
+                 mode: str, causal: bool, sh: Sharding) -> torch.Tensor:
+    """x plus the layer's mixer (attention, or the SSM) on ``norm1(x)``.
+    The normed input and the mixer's output are dead once it returns, as
+    in XLA's program: the FFN's temporaries do not sit beside them."""
+    h = _normed(p.norm1, x, sh)
+    if p.attn is None:
+        return x + apply_ssm(p.ssm, h, cfg, sh=sh)
+    if mode == "prefill":
+        return x + attention_prefill(p.attn, h, cfg, positions, sh=sh)[0]
+    return x + attention(p.attn, h, cfg, positions, causal=causal, sh=sh)
+
+
 def _apply_ffn(p: Layer, x: torch.Tensor, cfg: ArchConfig, layer: int, sh: Sharding
                ) -> tuple[torch.Tensor, torch.Tensor | None]:
     """x plus the layer's FFN on ``norm2(x)``, and the MoE's aux loss (None
@@ -158,15 +171,7 @@ def apply_layer(p: Layer, x: torch.Tensor, cfg: ArchConfig, layer: int, position
     the mixer."""
     if cross_kv is not None:
         check_cross(p, cfg, layer)
-    h = _normed(p.norm1, x, sh)
-    if p.attn is not None:
-        if mode == "prefill":
-            a, _ = attention_prefill(p.attn, h, cfg, positions, sh=sh)
-        else:
-            a = attention(p.attn, h, cfg, positions, causal=causal, sh=sh)
-    else:
-        a = apply_ssm(p.ssm, h, cfg, sh=sh)
-    x = x + a
+    x = _apply_mixer(p, x, cfg, positions, mode, causal, sh)
     if cross_kv is not None:
         x = _apply_cross(p, x, cfg, cross_kv, sh)
     x, aux = _apply_ffn(p, x, cfg, layer, sh)

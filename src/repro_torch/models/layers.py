@@ -132,16 +132,29 @@ def init_norm(cfg: ArchConfig, dtype, device="cuda") -> Norm:
 
 
 def apply_norm(p: Norm, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+    """rmsnorm or layernorm over the last dim, in fp32. Without autograd
+    (serving) the fp32 copy of ``x`` is normed in place, the same ops in the
+    same order: one fp32 temporary the size of ``x`` where each step would
+    make another, as XLA fuses them."""
     dtype = x.dtype
     xf = x.float()
+    # in place only on a copy of x, and only where no backward reads a step
+    in_place = xf is not x and not torch.is_grad_enabled()
     if "bias" in p:  # layernorm
         mu = xf.mean(dim=-1, keepdim=True)
         var = xf.var(dim=-1, keepdim=True, unbiased=False)
-        out = (xf - mu) * torch.rsqrt(var + eps)
-        out = out * p.scale.float() + p.bias.float()
+        if in_place:
+            out = xf.sub_(mu).mul_(torch.rsqrt(var + eps)).mul_(p.scale.float()).add_(
+                p.bias.float())
+        else:
+            out = (xf - mu) * torch.rsqrt(var + eps)
+            out = out * p.scale.float() + p.bias.float()
     else:  # rmsnorm
         ms = xf.square().mean(dim=-1, keepdim=True)
-        out = xf * torch.rsqrt(ms + eps) * p.scale.float()
+        if in_place:
+            out = xf.mul_(torch.rsqrt(ms + eps)).mul_(p.scale.float())
+        else:
+            out = xf * torch.rsqrt(ms + eps) * p.scale.float()
     return out.to(dtype)
 
 

@@ -190,13 +190,16 @@ def _forward_body(params: LM, cfg: ArchConfig, batch: dict, mode: str, logits_po
     elif tuple(positions.shape) != (b, s):
         raise ValueError(f"{cfg.name}: positions of shape {tuple(positions.shape)}, the "
                          f"forward takes ({b}, {s})")
+    # each rank's batch rows, as x's: RoPE's tables then cover only them
+    positions = sh.constrain(positions, "dp", None)
     if cfg.is_encdec:
         enc, aux = apply_stack(params.encoder, x, cfg, positions, mode=mode, causal=False, sh=sh)
         enc = apply_norm(params.enc_norm, enc)
         _keeps_dtype(cfg, params.embed.table.dtype, "the encoder's states", enc.dtype)
         y = embed_tokens(params.embed, batch["dec_tokens"], sh=sh)
         db, ds = y.shape[:2]
-        dpos = torch.arange(ds, dtype=torch.int32, device=y.device).expand(db, ds)
+        dpos = sh.constrain(torch.arange(ds, dtype=torch.int32, device=y.device).expand(db, ds),
+                            "dp", None)
         x, aux2 = apply_stack(params.decoder, y, cfg, dpos, mode="train", causal=True,
                               cross_kv=_encoder_kv(cfg, enc), sh=sh)
         aux = aux + aux2

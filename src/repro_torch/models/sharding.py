@@ -321,6 +321,27 @@ def reduce_local(sh: Sharding, x: torch.Tensor, op: str, dims: tuple[int, ...]) 
         sh.mesh, replicated).to_local()
 
 
+class _SumLocal(torch.autograd.Function):
+    """:func:`reduce_local`'s sum; its gradient the same sum of each rank's
+    gradient (every rank's summand reaches every rank's result)."""
+
+    @staticmethod
+    def forward(ctx, x, sh: Sharding, dims: tuple[int, ...]):
+        ctx.sh, ctx.dims = sh, dims
+        return reduce_local(sh, x, "sum", dims)
+
+    @staticmethod
+    def backward(ctx, g):
+        return reduce_local(ctx.sh, g, "sum", ctx.dims), None, None
+
+
+def sum_local(sh: Sharding, x: torch.Tensor, dims: tuple[int, ...]) -> torch.Tensor:
+    """:func:`reduce_local` by ``"sum"``, differentiable: in the backward
+    the gradient is summed over the same mesh dims (one all-reduce each
+    way). ``x`` itself over no dim."""
+    return _SumLocal.apply(x, sh, dims) if dims else x
+
+
 def gather_local(sh: Sharding, x: torch.Tensor, dims: tuple[int, ...]) -> torch.Tensor:
     """In a function :func:`local_map` runs: every rank's ``x`` over the
     mesh dims ``dims``, stacked on a new leading dim in the order of

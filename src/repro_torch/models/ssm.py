@@ -33,7 +33,9 @@ chunk states, the scan over chunks and the inter-chunk term) runs through
 C and B split over dp, the log decay, Δ and X over dp and (heads) over tp, the
 output as X. The scan is independent across batch rows and heads, so
 this is exact, and each rank launches the kernel once a layer on its
-shard.
+shard. The gated norm after it runs on each rank's rows and tp share of
+``d_inner`` as well (:func:`_gated_norm`): the one collective each way is
+the sum of the (rows, 1) statistic over tp.
 """
 
 from __future__ import annotations
@@ -49,7 +51,7 @@ import torch.nn.functional as F
 from ..kernels.ssd_intra import ssd_intra
 from .config import ArchConfig
 from .layers import Params, dense_init, row_parallel_out
-from .sharding import NULL, Sharding, grad_as_input, local_map
+from .sharding import NULL, Sharding, local_map, sum_local
 
 #: The reference's ``_LEAN`` (``repro/models/ssm.py:34``): off by default.
 _LEAN = os.environ.get("REPRO_SSD_LEAN") == "1"
@@ -97,10 +99,36 @@ def _causal_conv(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 
 
 def _gated_norm(y: torch.Tensor, z: torch.Tensor, scale: torch.Tensor,
-                eps: float = 1e-5) -> torch.Tensor:
+                eps: float = 1e-5, *, sh: Sharding = NULL) -> torch.Tensor:
+    """The RMS norm of ``y * silu(z)`` over the channels (the last dim,
+    ``d_inner``), scaled by ``scale``. Under a mesh it runs on each rank's
+    own rows and tp share of the channels (y and z as ``wx`` and ``wz``
+    leave them), with the channels of ``scale`` that match: each rank sums
+    its channels' squares, and the one collective is the sum of that
+    (rows, 1) fp32 statistic over tp (and of its gradient in the
+    backward); ``scale``'s gradient is each rank's share, pending a sum."""
+    spec = sh.spec("dp", *(None,) * (y.ndim - 2), "tp")
+    tp_dims = sh.split_dims(tuple(y.shape), spec, y.ndim - 1)
+    width = y.shape[-1]
+    first = sh.shard_index(tp_dims) * (width // math.prod(sh.mesh.size(d) for d in tp_dims))
+    norm = functools.partial(_gated_norm_local, width=width, first=first, eps=eps,
+                             total=functools.partial(sum_local, sh, dims=tp_dims))
+    return local_map(sh, norm, (spec, spec, (None,)), 0)(y, z, scale)
+
+
+def _gated_norm_local(y: torch.Tensor, z: torch.Tensor, scale: torch.Tensor, *, width: int,
+                      first: int, eps: float, total) -> torch.Tensor:
+    """:func:`_gated_norm` on channels ``[first, first + y's)`` of
+    ``width``, ``total`` summing the squares' sums over the ranks that
+    hold the others (the identity where one holds them all). Each rank
+    sums its channels' fp32 squares in fp64 and rounds the sum to fp32
+    once, so that a split of the channels moves the statistic by no more
+    than the ranks' fp32 sum of those sums; the mean is that sum divided
+    by the width, on every path."""
     dtype = y.dtype
     yf = y.float() * F.silu(z.float())
-    ms = yf.square().mean(dim=-1, keepdim=True)
+    ms = total(yf.square().double().sum(dim=-1, keepdim=True).float()) / width
+    scale = scale[first: first + y.shape[-1]]
     return (yf * torch.rsqrt(ms + eps) * scale.float()).to(dtype)
 
 
@@ -211,11 +239,10 @@ def apply_ssm(p: SSM, x: torch.Tensor, cfg: ArchConfig, *, sh: Sharding = NULL) 
         raise ValueError(f"apply_ssm: sequence length {s} is not a multiple of the chunk {q}")
     nc = s // q
 
-    # the gate's gradient leaves the gated norm at the whole width: laid out
-    # as z is (and summed, where a sum is pending), so that wz's weight
-    # gradient runs on each rank's columns, as wx's does
-    z = grad_as_input(sh.constrain(x @ sh.constrain(p.wz, "fsdp", "tp"), "dp", None, "tp"),
-                      summed=True)
+    # the gated norm hands z's gradient back laid out as z (each rank's rows
+    # and channels), so that wz's weight gradient runs on each rank's
+    # columns, as wx's does
+    z = sh.constrain(x @ sh.constrain(p.wz, "fsdp", "tp"), "dp", None, "tp")
     xin = x @ sh.constrain(p.wx, "fsdp", "tp")
     bmat = x @ p.wB
     cmat = x @ p.wC
@@ -237,13 +264,9 @@ def apply_ssm(p: SSM, x: torch.Tensor, cfg: ArchConfig, *, sh: Sharding = NULL) 
     scan = local_map(sh, _chunk_scan, (cb, cb, hc, hc, sh.spec("dp", None, None, "tp", None)), 4)
     y = sh.constrain(scan(cc, bc, ld, dtc, xc), "dp", None, None, "tp", None)
 
-    # the gated norm's backward may hand y's gradient back split on the
-    # sequence, which the chunk views cannot take where tp does not divide
-    # the chunks: laid out as y is first
-    y = grad_as_input(y.reshape(b, s, h, pd))
-    y = y + xh * p.D[None, None, :, None].to(x.dtype)
+    y = y.reshape(b, s, h, pd) + xh * p.D[None, None, :, None].to(x.dtype)
     y = y.reshape(b, s, cfg.d_inner)
-    y = _gated_norm(y, z, p.norm_scale)
+    y = _gated_norm(y, z, p.norm_scale, sh=sh)
     wo = sh.constrain(sh.constrain(p.wo, "tp", "fsdp"), "tp", None)
     return row_parallel_out(sh.constrain(y, "dp", None, "tp"), wo, sh)
 
@@ -287,6 +310,6 @@ def apply_ssm_decode(p: SSM, x: torch.Tensor, cache: SSMCache, cfg: ArchConfig, 
     y = torch.einsum("bn,bhnp->bhp", cvec, state)
     y = y + xh * p.D[None, :, None]
     y = y.reshape(b, cfg.d_inner).to(x.dtype)
-    y = _gated_norm(y, z, p.norm_scale)
+    y = _gated_norm(y, z, p.norm_scale, sh=sh)
     out = sh.constrain((y @ p.wo)[:, None, :], "dp", None, None)
     return out, SSMCache(window[:, 1:, :], state, cache.length + 1)

@@ -1,11 +1,12 @@
-"""The dry run's costs of nine cells against the reference's own dry run
-of the same cells, at one layer on the 16x16 mesh.
+"""The dry run's costs of fifteen cells against the reference's own dry
+run of the same cells, at one layer on the 16x16 mesh.
 
 The reference (``repro.launch.dryrun.run_cell``) lowers and compiles each
 cell for 256 fake XLA host devices, in a subprocess of its own with its
 512-device ``XLA_FLAGS``; there, and only there, ``repro.configs.get_config``
 is wrapped to cut the config to one layer (``dataclasses.replace(cfg,
-n_layers=1)``). The port's ``run_cell(layers=1)`` runs the same cell, once
+n_layers=1)``, the encoder-decoder model's decoder too, as the port's
+``run_cell(layers=1)`` cuts it). The port's ``run_cell(layers=1)`` runs the same cell, once
 for all of its checks. Each pair must count the same parameters, and the
 port must keep the reference's sharding where it costs the most. Each
 cell checks a tuple of numbers, each at most a multiple of the
@@ -43,7 +44,15 @@ reference's (a test case each):
   gradient summed once and laid out as the output, and the gate's
   gradient laid out as the gate is; before, the backward computed every
   channel of both products on every rank, 1.73 times the reference's
-  FLOPs).
+  FLOPs); its ring bytes also at 0.25 times (the gated norm on each
+  rank's own channels, one all-reduce of its (rows, 1) statistic each
+  way; before, its backward gathered (B, S, d_inner) operands, 0.879
+  times);
+* ``qwen2-vl-72b``, ``whisper-tiny``, ``nemotron-4-340b``, ``qwen2-1.5b``,
+  ``deepseek-coder-33b`` and ``yi-34b`` ``prefill_32k``: the peak at 1.25
+  times (serving's norms in place on one fp32 copy, the normed input and
+  the mixer's output dead before the FFN, RoPE's tables on each rank's own
+  batch rows; before, 1.35-1.84 times).
 
 The factor of 2 on a train step's or a prefill's memory leaves room for
 the two ways of counting a peak: the port's ``MemTracker`` counts live
@@ -80,7 +89,13 @@ CELLS = {("qwen2-1.5b", "decode_32k"): (("flops", 1.25), ("ring_bytes", 1.25),
          ("nemotron-4-340b", "train_4k"): (("ring_bytes", 1.75), ("peak_bytes_est", 1.25),
                                            ("flops", 1.25)),
          ("mamba2-2.7b", "train_4k"): (("flops", 1.25), ("ring_bytes", 1.25),
-                                       ("peak_bytes_est", 1.25))}
+                                       ("peak_bytes_est", 1.25), ("ring_bytes", 0.25)),
+         ("qwen2-vl-72b", "prefill_32k"): (("peak_bytes_est", 1.25),),
+         ("whisper-tiny", "prefill_32k"): (("peak_bytes_est", 1.25),),
+         ("nemotron-4-340b", "prefill_32k"): (("peak_bytes_est", 1.25),),
+         ("qwen2-1.5b", "prefill_32k"): (("peak_bytes_est", 1.25),),
+         ("deepseek-coder-33b", "prefill_32k"): (("peak_bytes_est", 1.25),),
+         ("yi-34b", "prefill_32k"): (("peak_bytes_est", 1.25),)}
 CHECKS = [(arch, shape, key, limit) for (arch, shape), checks in CELLS.items()
           for key, limit in checks]
 TIMEOUT = 240
@@ -91,8 +106,9 @@ import dataclasses, json, sys
 import repro.configs as configs
 from repro.launch import dryrun
 
-own = configs.get_config
-configs.get_config = lambda name: dataclasses.replace(own(name), n_layers=int(sys.argv[3]))
+own, n = configs.get_config, int(sys.argv[3])
+configs.get_config = lambda name: dataclasses.replace(
+    own(name), n_layers=n, dec_layers=min(own(name).dec_layers, n))
 print(json.dumps(dryrun.run_cell(sys.argv[1], sys.argv[2], False, sys.argv[4])))
 """
 
