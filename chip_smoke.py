@@ -316,7 +316,9 @@ Phases (any failure raises, and the script exits non-zero):
     ``train_4k``, all at full depth), on this machine's torch, whose
     DTensor rules differ from other releases'; each exits 0 with
     ``status: "ok"``, its seconds and headline numbers printed (mem/dev,
-    FLOPs/dev, collectives), ``mamba2-2.7b``'s ``argument_bytes``
+    FLOPs/dev, collectives), then its count and ring bytes of each
+    collective kind, a Shard-to-Shard redistribution counted as the
+    all-to-all the card sends, ``mamba2-2.7b``'s ``argument_bytes``
     equal to the reference's record, ``MAMBA_ARGUMENT_BYTES``,
     ``qwen2-1.5b``'s and ``qwen2-vl-72b``'s FLOPs a device at most
     ``DECODE_FLOPS_LIMIT`` 1.25 times the reference's,
@@ -326,16 +328,18 @@ Phases (any failure raises, and the script exits non-zero):
     the numbers before the vocabulary-parallel lookup; the one-layer cells
     of ``LAYER_REF`` (``run_cell(layers=1)``, a process each):
     ``mamba2-2.7b prefill_32k``'s peak and FLOPs, ``nemotron-4-340b
-    train_4k``'s ring bytes, peak and FLOPs, ``mamba2-2.7b
+    train_4k``'s ring bytes (at most the reference's), peak and FLOPs,
+    ``mamba2-2.7b
     train_4k``'s FLOPs, ring bytes (at most 0.25 times: the gated norm on
     each rank's own channels) and peak, and ``qwen2-vl-72b
     prefill_32k``'s peak, each at most its ``LAYER_LIMITS`` multiple of
     the reference's at one layer, printed beside the parent's
-    (``LAYER_BEFORE``), ``mamba2-2.7b train_4k``'s ring bytes also beside
-    torch 2.13's count (``MAMBA_TRAIN_RING_213``); and that
-    cell once more beside ``CommDebugMode`` (``COMM_CHECK``), whose count
-    of each collective kind must equal the dry run's counter's and the
-    CLI's record's; no GPU is used;
+    (``LAYER_BEFORE``) and with each collective kind's count and ring
+    bytes, ``mamba2-2.7b train_4k``'s ring bytes also beside torch 2.13's
+    count (``MAMBA_TRAIN_RING_213``); and that cell once more beside
+    ``CommDebugMode`` (``COMM_CHECK``), whose count of each collective
+    kind must equal the dry run's counter's and the CLI's record's, kind by
+    kind, with all-to-alls among them; no GPU is used;
 17. the seconds each phase took, one JSON line per kernel and shape (times
     from CUDA events), the ``nvidia-smi`` line, and one ``{"kernels":
     [...]}`` line, its launches summed over the main paths and phase 14's
@@ -445,9 +449,10 @@ MAMBA_BEFORE = {"peak_bytes_est": 664_316_192, "ring_bytes": 560_186_880}
 #: reference's numbers at one layer (``repro.launch.dryrun.run_cell`` with
 #: the config cut to one layer, as ``tests/test_torch_dryrun_reference.py``
 #: cuts it; jax 0.9.0 on the CPU), the multiple of each the port may count,
-#: and the port's at commit ca7ed3e, before the gated norm ran on each
-#: rank's own channels and before the prefill's norms worked in place
-#: (``python3 scripts/dryrun_layers.py sweep``, torch 2.13 on a host CPU).
+#: and the port's at commit dda618d, before the dry run counted a
+#: Shard-to-Shard redistribution as the all-to-all the card sends (it
+#: counted the CPU mesh's gather of the whole dimension: ``python3
+#: scripts/dryrun_layers.py sweep``, torch 2.13 on a host CPU).
 LAYER_REF = {("mamba2-2.7b", "prefill_32k"): {"peak_bytes_est": 2_068_277_120,
                                               "flops": 350_944_526_336},
              ("nemotron-4-340b", "train_4k"): {"ring_bytes": 234_624_581_848,
@@ -458,20 +463,20 @@ LAYER_REF = {("mamba2-2.7b", "prefill_32k"): {"peak_bytes_est": 2_068_277_120,
                                            "peak_bytes_est": 1_253_303_904},
              ("qwen2-vl-72b", "prefill_32k"): {"peak_bytes_est": 6_012_716_672}}
 LAYER_LIMITS = {("mamba2-2.7b", "prefill_32k"): {"peak_bytes_est": 1.25, "flops": 1.25},
-                ("nemotron-4-340b", "train_4k"): {"ring_bytes": 1.75, "peak_bytes_est": 1.25,
+                ("nemotron-4-340b", "train_4k"): {"ring_bytes": 1.0, "peak_bytes_est": 1.25,
                                                   "flops": 1.25},
                 ("mamba2-2.7b", "train_4k"): {"flops": 1.25, "ring_bytes": 0.25,
                                               "peak_bytes_est": 1.25},
                 ("qwen2-vl-72b", "prefill_32k"): {"peak_bytes_est": 1.25}}
-LAYER_BEFORE = {("mamba2-2.7b", "prefill_32k"): {"peak_bytes_est": 2_351_225_800,
+LAYER_BEFORE = {("mamba2-2.7b", "prefill_32k"): {"peak_bytes_est": 1_935_586_248,
                                                  "flops": 354_971_058_176},
                 ("nemotron-4-340b", "train_4k"): {"ring_bytes": 337_540_792_355,
-                                                  "peak_bytes_est": 10_502_721_568,
+                                                  "peak_bytes_est": 10_408_349_728,
                                                   "flops": 222_960_342_269_952},
                 ("mamba2-2.7b", "train_4k"): {"flops": 4_489_750_773_760,
-                                              "ring_bytes": 12_739_800_035,
-                                              "peak_bytes_est": 830_847_720},
-                ("qwen2-vl-72b", "prefill_32k"): {"peak_bytes_est": 11_032_932_360}}
+                                              "ring_bytes": 3_302_690_435,
+                                              "peak_bytes_est": 666_934_620},
+                ("qwen2-vl-72b", "prefill_32k"): {"peak_bytes_est": 6_469_627_912}}
 #: ``mamba2-2.7b train_4k``'s ring bytes at one layer as torch 2.13 counts
 #: them on a host CPU (``python3 scripts/dryrun_layers.py sweep``, this
 #: tree), printed beside this machine's count: DTensor's rules differ
@@ -487,12 +492,14 @@ from repro_torch.launch import dryrun
 rec = dryrun.run_cell(sys.argv[1], sys.argv[2], False, sys.argv[3], layers=1)
 print(json.dumps({"status": rec["status"], "torch": rec["torch"], "trace_s": rec["trace_s"],
                   "flops": rec["cost"]["flops"], "ring_bytes": rec["collectives"]["ring_bytes"],
-                  "peak_bytes_est": rec["memory"]["peak_bytes_est"]}))
+                  "peak_bytes_est": rec["memory"]["peak_bytes_est"],
+                  "by_kind": rec["collectives"]["by_kind"]}))
 """
 #: Phase 16's check of the dry run's collective counter on this machine's
 #: torch: the cell ``argv[1:3]`` dry-run again (records in ``argv[3]``),
 #: ``CommDebugMode`` entered around its step beside the counter; prints
-#: both counts by kind as one JSON line.
+#: both counts by kind as one JSON line. Its Shard-to-Shard redistributions
+#: reach both as ``_dtensor::shard_dim_alltoall``, the card's all-to-all.
 COMM_CHECK = r"""
 import contextlib, json, sys
 from torch.distributed.tensor.debug import CommDebugMode
@@ -4419,7 +4426,11 @@ def dryrun_phase(smi: str) -> dict:
                               text=True, timeout=600)
         return cell, time.perf_counter() - t, proc
 
-    cells, layer = [], {}
+    def kinds(by_kind: dict) -> str:
+        return ", ".join(f"{k} {v['count']} ({v['ring_bytes']:,} ring bytes)"
+                         for k, v in sorted(by_kind.items()))
+
+    cells, layer, layer_kinds = [], {}, {}
     try:
         with ThreadPoolExecutor(DRYRUN_AT_ONCE) as pool:
             done = list(pool.map(run, ((*DRYRUN_CELLS[0], "comm"),
@@ -4438,6 +4449,7 @@ def dryrun_phase(smi: str) -> dict:
                        "limit": LAYER_LIMITS[arch, shape][k],
                        "before": LAYER_BEFORE[arch, shape][k]}
                    for k, want in LAYER_REF[arch, shape].items()}}
+            layer_kinds[f"{arch} {shape}"] = got["by_kind"]
         del done[1:1 + len(LAYER_REF)]
         (arch, shape, _), comm_secs, proc = done.pop(0)
         if proc.returncode != 0:
@@ -4464,9 +4476,12 @@ def dryrun_phase(smi: str) -> dict:
                           "ring_bytes": rec["collectives"]["ring_bytes"],
                           "flops": rec["cost"]["flops"],
                           "collectives": {k: v["count"]
-                                          for k, v in rec["collectives"]["by_kind"].items()}})
+                                          for k, v in rec["collectives"]["by_kind"].items()},
+                          "ring_by_kind": {k: v["ring_bytes"]
+                                           for k, v in rec["collectives"]["by_kind"].items()}})
             print(f"16: {arch} {shape} 16x16 ok in {secs:.1f} s: "
-                  f"{proc.stdout.strip().splitlines()[-1]}", flush=True)
+                  f"{proc.stdout.strip().splitlines()[-1]}; "
+                  f"{kinds(rec['collectives']['by_kind'])}", flush=True)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     mamba = next(c for c in cells if c["arch"] == "mamba2-2.7b")
@@ -4483,7 +4498,8 @@ def dryrun_phase(smi: str) -> dict:
     if train:
         train["ring_bytes_torch_2.13"] = MAMBA_TRAIN_RING_213
     rec = {"dryrun": cells, "comm_check": comm, "at_once": DRYRUN_AT_ONCE,
-           "decode_flops": vs_ref, "mamba_decode": mamba_vs, "one_layer": layer, "gpu": smi}
+           "decode_flops": vs_ref, "mamba_decode": mamba_vs, "one_layer": layer,
+           "one_layer_collectives": layer_kinds, "gpu": smi}
     emit(rec)
     print("16: mamba2-2.7b decode_32k 16x16 "
           + "; ".join(f"{k} {v['port']:,} (before {v['before']:,}), {v['ratio']:.3f}x the "
@@ -4494,6 +4510,7 @@ def dryrun_phase(smi: str) -> dict:
               + "; ".join(f"{k} {v['port']:,} (before {v['before']:,}), {v['ratio']:.3f}x the "
                           f"reference's {v['reference']:,}, limit {v['limit']}x"
                           for k, v in got.items() if isinstance(v, dict)), flush=True)
+        print(f"16: {cell} 16x16 1L collectives: {kinds(layer_kinds[cell])}", flush=True)
     if train:
         ring = train["ring_bytes"]["port"]
         print(f"16: mamba2-2.7b train_4k 16x16 1L ring bytes: {ring:,} on this machine's torch "
@@ -4514,9 +4531,11 @@ def dryrun_phase(smi: str) -> dict:
     if mamba["argument_bytes"] != MAMBA_ARGUMENT_BYTES:
         raise AssertionError(f"16: mamba2-2.7b decode_32k 16x16 holds {mamba['argument_bytes']} "
                              f"argument bytes; the reference's record {MAMBA_ARGUMENT_BYTES}")
-    if not comm["counter"] == comm["comm_debug_mode"] == mamba["collectives"]:
-        raise AssertionError(f"16: mamba2-2.7b decode_32k 16x16's collectives by kind: the "
-                             f"counter {comm['counter']}, CommDebugMode "
+    if not comm["counter"].get("all-to-all") or not (
+            comm["counter"] == comm["comm_debug_mode"] == mamba["collectives"]):
+        raise AssertionError(f"16: mamba2-2.7b decode_32k 16x16's collectives by kind, "
+                             f"all-to-all among them: the counter {comm['counter']}, "
+                             f"CommDebugMode "
                              f"{comm['comm_debug_mode']}, the CLI's record "
                              f"{mamba['collectives']}")
     return rec

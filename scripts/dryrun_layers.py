@@ -2,14 +2,15 @@
 """The dry run's costs at a cut depth, on the host CPU (no card needed).
 
     python3 scripts/dryrun_layers.py sweep [ARCH SHAPE ...] [--src TREE/src] [--reference]
-        [--layers 1] [--procs 4] [--out F]
+        [--multipod] [--layers 1] [--procs 4] [--out F]
     python3 scripts/dryrun_layers.py compare OLD NEW
     python3 scripts/dryrun_layers.py sites ARCH SHAPE [--src TREE/src] [--layers 1] [--min-gb 0.1]
         [--flops | --peak]
 
 ``sweep`` runs ``repro_torch.launch.dryrun.run_cell(arch, shape, False,
 layers=N)`` for each (arch, shape) cell given, or every cell of the 16x16
-mesh, each in a subprocess of its own, ``--procs`` at once, on the
+mesh (``--multipod``: of the 2x16x16 mesh, whose cells take several times
+as long), each in a subprocess of its own, ``--procs`` at once, on the
 ``repro_torch`` of ``--src`` (default this checkout's; an unpacked earlier
 commit's for a comparison), and prints one JSON line a cell: its status,
 FLOPs, ring bytes, peak and collectives by kind. With ``--reference`` it
@@ -66,7 +67,8 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CELL = r"""
 import json, sys
 from repro_torch.launch import dryrun
-rec = dryrun.run_cell(sys.argv[1], sys.argv[2], False, sys.argv[3], layers=int(sys.argv[4]))
+rec = dryrun.run_cell(sys.argv[1], sys.argv[2], sys.argv[5] == "1", sys.argv[3],
+                      layers=int(sys.argv[4]))
 out = {"arch": sys.argv[1], "shape": sys.argv[2], "status": rec["status"]}
 if rec["status"] == "ok":
     out.update(flops=rec["cost"]["flops"], ring_bytes=rec["collectives"]["ring_bytes"],
@@ -87,10 +89,11 @@ def _cells() -> list[tuple[str, str]]:
 MIN_FLOPS = 100e9
 
 
-def _run(src: str, arch: str, shape: str, layers: int) -> dict:
+def _run(src: str, multi_pod: bool, arch: str, shape: str, layers: int) -> dict:
     env = {**os.environ, "PYTHONPATH": src}
     with tempfile.TemporaryDirectory() as out:
-        proc = subprocess.run([sys.executable, "-c", CELL, arch, shape, out, str(layers)],
+        proc = subprocess.run([sys.executable, "-c", CELL, arch, shape, out, str(layers),
+                               str(int(multi_pod))],
                               env=env, capture_output=True, text=True, timeout=1800)
     if proc.returncode:
         return {"arch": arch, "shape": shape, "status": "error", "stderr": proc.stderr[-2000:]}
@@ -122,12 +125,14 @@ def _run_reference(ref, arch: str, shape: str, layers: int) -> dict:
 
 
 def sweep(src: str, cells: list[tuple[str, str]], layers: int, procs: int, out: str | None,
-          reference: bool = False) -> None:
+          reference: bool = False, multi_pod: bool = False) -> None:
     if reference:
+        if multi_pod:
+            raise ValueError("sweep: the reference's cells run on the 16x16 mesh only")
         ref = _reference()
         run = functools.partial(_run_reference, ref)
     else:
-        run = functools.partial(_run, src)
+        run = functools.partial(_run, src, multi_pod)
     lines = []
     with ThreadPoolExecutor(procs) as pool:
         for rec in pool.map(lambda c: run(*c, layers), cells or _cells()):
@@ -359,11 +364,12 @@ def main(argv=None) -> int:
     ap.add_argument("--peak", action="store_true",
                     help="sites: attribute the live bytes at the peak, not bytes sent")
     ap.add_argument("--reference", action="store_true", help="sweep: the JAX reference's cells")
+    ap.add_argument("--multipod", action="store_true", help="sweep: the 2x16x16 mesh's cells")
     args = ap.parse_args(argv)
     src = os.path.abspath(args.src)
     if args.what == "sweep":
         cells = list(zip(args.args[::2], args.args[1::2]))
-        sweep(src, cells, args.layers, args.procs, args.out, args.reference)
+        sweep(src, cells, args.layers, args.procs, args.out, args.reference, args.multipod)
     elif args.what == "compare":
         return compare(*args.args)
     else:

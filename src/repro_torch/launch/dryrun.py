@@ -94,10 +94,11 @@ def pick_microbatches(arch: str, global_batch: int, dp_size: int) -> int:
 # counting one device's work
 # ---------------------------------------------------------------------------
 
-#: The functional collectives DTensor issues (``_c10d_functional``), by op
-#: name, under the reference's kind names. On a CPU mesh DTensor runs a
-#: Shard-to-Shard redistribution (an all-to-all on a CUDA mesh) as an
-#: all-gather and a chunk, so it counts as an all-gather here.
+#: The collectives DTensor issues, by op name, under the reference's kind
+#: names: the functional collectives (``_c10d_functional``) and the
+#: all-to-all of a Shard-to-Shard redistribution
+#: (``_dtensor::shard_dim_alltoall``, which :func:`alltoall_as_on_card`
+#: makes the dry run's CPU mesh run as a CUDA mesh does).
 COLLECTIVE_KINDS = {
     "all_gather_into_tensor": "all-gather",
     "all_gather_into_tensor_coalesced": "all-gather",
@@ -106,7 +107,10 @@ COLLECTIVE_KINDS = {
     "all_reduce": "all-reduce",
     "all_reduce_coalesced": "all-reduce",
     "all_to_all_single": "all-to-all",
+    "shard_dim_alltoall": "all-to-all",
 }
+#: The op a CUDA mesh runs for a Shard-to-Shard redistribution.
+ALLTOALL = ("_dtensor", "shard_dim_alltoall")
 
 NOTES = {
     "cost.flops": "torch.utils.flop_counter's formulas over the aten ops one device runs on "
@@ -114,8 +118,8 @@ NOTES = {
     "cost.bytes_accessed": "each counted op's local operand bytes plus its output bytes, views "
                            "excluded: an unfused upper bound, not a compiler's count",
     "collectives": "every functional collective the step issued, DTensor's implicit "
-                   "redistributions included; a Shard-to-Shard redistribution, an all-to-all on "
-                   "a CUDA mesh, runs as an all-gather and a chunk on this CPU mesh",
+                   "redistributions included; a Shard-to-Shard redistribution runs as the "
+                   "all-to-all a CUDA mesh runs (_dtensor::shard_dim_alltoall)",
     "memory": "argument_bytes: the local shards of the state and inputs the step takes; "
               "alias_bytes: those the step updates in place; peak_bytes_est: MemTracker's peak "
               "of live local bytes",
@@ -175,7 +179,7 @@ class StepCost(TorchDispatchMode):
         if not isinstance(func, torch._ops.OpOverload):
             return out
         namespace, name = func._schema.name.split("::")
-        if namespace == "_c10d_functional":
+        if namespace == "_c10d_functional" or (namespace, name) == ALLTOALL:
             if name != "wait_tensor":
                 self._collective(name, args, out)
             return out
@@ -197,6 +201,7 @@ class StepCost(TorchDispatchMode):
         from torch.distributed.distributed_c10d import _resolve_process_group
 
         # the group's size is an argument of these two; the others name the group
+        # (shard_dim_alltoall's args[3], as all_to_all_single's)
         if kind in ("all-gather", "reduce-scatter"):
             q = int(args[1] if kind == "all-gather" else args[2])
         else:
@@ -270,6 +275,51 @@ def propagation_apart():
     finally:
         for owner, attr, own in patched:
             setattr(owner, attr, own)
+
+
+@contextlib.contextmanager
+def alltoall_as_on_card():
+    """A Shard-to-Shard redistribution runs as the all-to-all the card sends.
+
+    DTensor's ``Shard`` placement moves a shard to another dimension with
+    ``shard_dim_alltoall``, which on a mesh whose device type is ``"cpu"``
+    gathers the whole dimension and keeps a chunk (gloo has no all-to-all)
+    and on a CUDA mesh calls the op ``_dtensor::shard_dim_alltoall``. The dry
+    run's mesh is a CPU mesh over the ``fake`` group: here it takes the CUDA
+    branch, so :class:`StepCost` counts an all-to-all and ``MemTracker``
+    sees no gathered temporary. DTensor's padding of uneven shards around
+    the call stays as it is. For the ``fake`` group only; a torch without
+    the op or without the name replaced is refused, never counted as the
+    gather."""
+    import torch.distributed as dist
+    from torch.distributed.tensor import _collective_utils, placement_types
+
+    if not dist.is_initialized() or dist.get_backend() != "fake":
+        raise RuntimeError("alltoall_as_on_card: the dry run's all-to-all stands in for the "
+                           "card's on a process group of the fake backend only")
+    namespace, name = ALLTOALL
+    op = getattr(getattr(torch.ops, namespace), name, None)
+    if op is None:
+        raise RuntimeError(f"this torch has no op {namespace}::{name}: the dry run cannot count "
+                           f"a Shard-to-Shard redistribution as the card's all-to-all")
+    if name not in placement_types.__dict__:
+        raise RuntimeError(f"this torch's torch.distributed.tensor.placement_types has no "
+                           f"{name}: the dry run cannot route a Shard-to-Shard redistribution "
+                           f"to the card's all-to-all")
+
+    def on_card(input, gather_dim, shard_dim, mesh, mesh_dim):
+        return op(input, gather_dim, shard_dim, mesh.get_group(mesh_dim).group_name)
+
+    # the name Shard calls, and the one it was imported from
+    own = [(m, m.__dict__[name]) for m in (placement_types, _collective_utils)
+           if name in m.__dict__]
+    try:
+        for m, _ in own:
+            setattr(m, name, on_card)
+        yield
+    finally:
+        for m, fn in own:
+            setattr(m, name, fn)
 
 
 def _local(x: torch.Tensor) -> torch.Tensor:
@@ -453,7 +503,7 @@ def _measure(cfg, shape, sh, microbatches: int, bf16_opt: bool) -> dict:
         tracker.track_external(*_leaves(args))
         cost = StepCost()
         t0 = time.time()
-        with propagation_apart(), tracker, cost:
+        with propagation_apart(), alltoall_as_on_card(), tracker, cost:
             outputs = step(*args)
         trace_s = round(time.time() - t0, 2)
         memory = {

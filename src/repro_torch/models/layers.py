@@ -325,8 +325,9 @@ def logits(p: Embedding, x: torch.Tensor, vocab_size: int | None = None, *,
     out = matmul(x, head)
     v_pad = head.shape[-1]
     if vocab_size is not None and vocab_size < v_pad:
-        # mask padded vocab rows so softmax/argmax never see them
-        mask = torch.arange(v_pad, device=out.device) < vocab_size
+        # mask padded vocab rows so softmax/argmax never see them (int32
+        # indices: the mask is the whole vocabulary's on every rank)
+        mask = torch.arange(v_pad, device=out.device, dtype=torch.int32) < vocab_size
         out = torch.where(mask, out, torch.tensor(-1e30, dtype=out.dtype, device=out.device))
     return sh.constrain(out, "dp", None, "tp")
 

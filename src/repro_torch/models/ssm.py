@@ -291,7 +291,9 @@ def apply_ssm_decode(p: SSM, x: torch.Tensor, cache: SSMCache, cfg: ArchConfig, 
     xin = x0 @ p.wx
     bvec = x0 @ p.wB
     cvec = x0 @ p.wC
-    dt = (x0 @ p.wdt).float()
+    # the step sizes of each rank's own heads, laid out as the cache's state:
+    # the state's update then runs on those heads alone
+    dt = (x0 @ sh.constrain(p.wdt, "fsdp", "tp")).float()
 
     conv_in = torch.cat([xin, bvec, cvec], dim=-1)  # (B, C)
     window = torch.cat([cache.conv, conv_in[:, None, :]], dim=1)

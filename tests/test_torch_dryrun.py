@@ -45,7 +45,8 @@ REF_RECORD = os.path.join(HERE, "..", "results", "dryrun", "mamba2-2.7b__decode_
 ABSENT = {"lower_s", "compile_s", "cost_raw", "memory.temp_bytes", "memory.code_bytes"}
 #: CommDebugMode's op names by the reference's kind names.
 COMM_KINDS = {"all_gather_into_tensor": "all-gather", "reduce_scatter_tensor": "reduce-scatter",
-              "all_reduce": "all-reduce", "all_to_all_single": "all-to-all"}
+              "all_reduce": "all-reduce", "all_to_all_single": "all-to-all",
+              "shard_dim_alltoall": "all-to-all"}
 
 
 def _ref_dryrun():
@@ -196,6 +197,10 @@ def test_mamba_decode_ring_bytes_follow_the_formulas(mamba):
     assert ag["ring_bytes"] == (q - 1) * ag["operand_bytes"]
     assert rs["ring_bytes"] == (q - 1) * rs["operand_bytes"] // q
     assert abs(ar["ring_bytes"] - 2 * (q - 1) / q * ar["operand_bytes"]) <= ar["count"]
+    # a Shard-to-Shard redistribution, as the card sends it
+    a2a = by_kind["all-to-all"]
+    assert a2a["count"] > 0
+    assert abs(a2a["ring_bytes"] - (q - 1) / q * a2a["operand_bytes"]) <= a2a["count"]
 
 
 # --------------------------------------------------------------------------
